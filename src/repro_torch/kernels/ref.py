@@ -1,0 +1,71 @@
+"""Plain PyTorch oracles of the slice's kernels (mirrors ``repro/kernels/ref.py``).
+
+They run on any device, repeat the JAX oracles' arithmetic, and serve as
+the plain versions the kernel wrappers take for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.packing import (LANE, lane_shifts, lane_weights,
+                                      words_to_int32)
+
+
+def _unpack(words: torch.Tensor, n_last: int) -> torch.Tensor:
+    """[..., W] int32 words -> [..., W*32] int32 in {0, 1}, cut to n_last."""
+    bits = (words.unsqueeze(-1) >> lane_shifts(words.device)) & 1
+    return bits.reshape(words.shape[:-1] + (-1,))[..., :n_last]
+
+
+def dense_of_planes(pos: torch.Tensor, neg: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """[..., W] planes -> [..., n] f32 ternary matrix."""
+    return (_unpack(pos, n) - _unpack(neg, n)).to(torch.float32)
+
+
+def ternary_matmul_grouped_ref(x, pos, neg, scales, expert_idx,
+                               transpose_rhs: bool = False):
+    """Per-row-expert delta: y[m] = scales[e(m)] * (x[m] @ T_{e(m)}).
+
+    pos/neg: [E, K, N/32] ([E, N, ceil(K/32)] when ``transpose_rhs``);
+    rows with expert_idx == -1 get a zero delta.  Per-expert masked
+    matmuls with the scale applied last, as the JAX oracle does.
+    """
+    E = pos.shape[0]
+    x32 = x.to(torch.float32)
+    M, K = x32.shape
+    N = pos.shape[1] if transpose_rhs else pos.shape[2] * LANE
+    acc = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+    eid = expert_idx.to(torch.int32)[:, None]
+    srow = torch.zeros((M, 1), dtype=torch.float32, device=x.device)
+    for e in range(E):
+        if transpose_rhs:
+            w = dense_of_planes(pos[e], neg[e], K).T        # [K, N]
+        else:
+            w = dense_of_planes(pos[e], neg[e], N)          # [K, N]
+        sel = (eid == e).to(torch.float32)
+        acc += (x32 * sel) @ w
+        srow += torch.where(eid == e, scales[e].to(torch.float32), 0.0)
+    return acc * srow
+
+
+ROW_CHUNK = 4096    # rows packed per step (bounds the int64 temporaries)
+
+
+def pack_ternary_planes_segmented_ref(tau: torch.Tensor,
+                                      thr_rows: torch.Tensor):
+    """tau [R, C] (C % 32 == 0), thr_rows [R] -> (pos, neg) int32
+    [R, C/32]; rows are packed in chunks to bound the int64 temporaries."""
+    R, C = tau.shape
+    weights = lane_weights(tau.device)
+    pos = torch.empty((R, C // LANE), dtype=torch.int32, device=tau.device)
+    neg = torch.empty_like(pos)
+    for r0 in range(0, R, ROW_CHUNK):
+        t = tau[r0:r0 + ROW_CHUNK].to(torch.float32)
+        keep = t.abs() >= thr_rows[r0:r0 + ROW_CHUNK].to(torch.float32)[:, None]
+        rows = t.shape[0]
+        for out, m in ((pos, keep & (t > 0)), (neg, keep & (t < 0))):
+            lanes = m.reshape(rows, C // LANE, LANE).to(torch.int64)
+            out[r0:r0 + rows] = words_to_int32((lanes * weights).sum(-1))
+    return pos, neg

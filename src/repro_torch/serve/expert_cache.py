@@ -1,0 +1,203 @@
+"""Expert storage tiers of the port: a local store and the device cache.
+
+Port of the local tiers of ``repro/serve/expert_cache.py``:
+
+  ExpertStore    (cold tier)     name -> :class:`~repro_torch.expert.Expert`
+  DeviceCache    (device tier)   packed bitplane trees on the card under one
+                                 byte budget (LRU), plus stacked per-path
+                                 plane buffers for mixed-expert waves
+  ExpertRegistry                 the front door over both
+
+Experts stay in the 2-bit bitplane form end to end.  Stack bytes count
+against the same budget as the packed trees; an over-budget build evicts
+other stacks first, then least-recently-used non-member trees, and never
+the expert set being served.  The remote tiers (transports, prefetch
+workers, quarantine) come with ROADMAP queue 1, item 8.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import OrderedDict
+from typing import Optional
+
+import torch
+
+from repro_torch.core.packing import (stack_packed, stacked_bytes,
+                                      tree_packed_bytes)
+from repro_torch.device import resolve_device
+from repro_torch.expert import PACKED, Expert
+
+BASE = "__base__"   # pseudo-expert: serve the unmodified base weights
+
+DEFAULT_DEVICE_BYTES = 1 << 28
+
+
+@dataclasses.dataclass
+class SwapStats:
+    store_to_host_bytes: int = 0
+    host_to_device_bytes: int = 0
+    promotions: int = 0
+    evictions: int = 0
+    hits: int = 0
+    misses: int = 0
+    seconds: float = 0.0
+    stack_builds: int = 0
+    stack_hits: int = 0
+    stack_bytes: int = 0
+    stack_evictions: int = 0
+
+    def as_dict(self):
+        return dataclasses.asdict(self)
+
+
+class ExpertStore:
+    """Cold tier: name -> Expert (its packed planes wherever they were
+    compressed)."""
+
+    def __init__(self):
+        self._store: dict[str, Expert] = {}
+
+    def put(self, ex: Expert) -> Expert:
+        if not isinstance(ex, Expert):
+            raise TypeError(f"expected an Expert, got {type(ex).__name__}")
+        self._store[ex.name] = ex
+        return ex
+
+    def get(self, name: str) -> Expert:
+        return self._store[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._store
+
+    def names(self) -> list[str]:
+        return list(self._store)
+
+    def nbytes(self, name: str) -> int:
+        return self._store[name].nbytes(PACKED)
+
+
+class DeviceCache:
+    """LRU cache of packed bitplane trees on one device under a byte
+    budget, plus stacked plane buffers for mixed-expert batches."""
+
+    MAX_STACKS = 4       # LRU bound on distinct expert-set stacks
+
+    def __init__(self, store: ExpertStore, capacity_bytes: int, device):
+        self.store = store
+        self.capacity = capacity_bytes
+        self.dev = torch.device(device)
+        self._cache: OrderedDict[str, dict] = OrderedDict()
+        self._sizes: dict[str, int] = {}
+        self._stacks: OrderedDict[tuple, dict] = OrderedDict()
+        self.stats = SwapStats()
+
+    def resident_bytes(self) -> int:
+        """Packed trees + stacked buffers: everything under the budget."""
+        return sum(self._sizes.values()) + self.stats.stack_bytes
+
+    def _drop_stack(self, key: tuple) -> None:
+        self.stats.stack_bytes -= stacked_bytes(self._stacks.pop(key))
+        self.stats.stack_evictions += 1
+
+    def _drop_tree(self, name: str) -> None:
+        self._cache.pop(name)
+        self._sizes.pop(name)
+        self.stats.evictions += 1
+        for key in [k for k in self._stacks if name in k]:
+            self._drop_stack(key)
+
+    def _enforce_budget(self, protect: tuple = ()) -> None:
+        """Evict until within budget: other stacks first, then LRU trees
+        outside ``protect`` (which may overshoot alone)."""
+        while self.resident_bytes() > self.capacity:
+            others = [k for k in self._stacks if k != tuple(protect)]
+            if others:
+                self._drop_stack(others[0])
+                continue
+            victims = [n for n in self._cache if n not in protect]
+            if not victims:
+                break
+            self._drop_tree(victims[0])
+
+    def fetch(self, name: str) -> dict:
+        """-> {path: PackedTernary} resident on the cache's device."""
+        if name in self._cache:
+            self._cache.move_to_end(name)
+            self.stats.hits += 1
+            return self._cache[name]
+        self.stats.misses += 1
+        t0 = time.monotonic()
+        packed = {p: dataclasses.replace(pt, pos=pt.pos.to(self.dev),
+                                         neg=pt.neg.to(self.dev),
+                                         scale=pt.scale.to(self.dev))
+                  for p, pt in self.store.get(name).packed.items()}
+        size = tree_packed_bytes(packed)
+        while self._cache and self.resident_bytes() + size > self.capacity:
+            self._drop_tree(next(iter(self._cache)))
+        self._cache[name] = packed
+        self._sizes[name] = size
+        self.stats.store_to_host_bytes += self.store.nbytes(name)
+        self.stats.host_to_device_bytes += size
+        self.stats.promotions += 1
+        self.stats.seconds += time.monotonic() - t0
+        return packed
+
+    def stacked(self, names: tuple) -> dict:
+        """Stacked plane buffers for an ordered expert set (slot e =
+        names[e]): {path: (pos [E, W], neg [E, W], scales [E], shape)}.
+        ``BASE`` contributes an all-zero slot; unknown names raise."""
+        key = tuple(names)
+        hit = self._stacks.get(key)
+        if hit is not None:
+            self._stacks.move_to_end(key)
+            self.stats.stack_hits += 1
+            return hit
+        stacks = stack_packed([{} if n == BASE else self.fetch(n)
+                               for n in key])
+        while len(self._stacks) >= self.MAX_STACKS:
+            self._drop_stack(next(iter(self._stacks)))
+        self._stacks[key] = stacks
+        self.stats.stack_builds += 1
+        self.stats.stack_bytes += stacked_bytes(stacks)
+        self._enforce_budget(protect=key)
+        return stacks
+
+    def has_stack(self, names: tuple) -> bool:
+        return tuple(names) in self._stacks
+
+
+class ExpertRegistry:
+    """One expert library over the cold store and the device cache."""
+
+    def __init__(self, store: Optional[ExpertStore] = None, *,
+                 device_cache_bytes: int = DEFAULT_DEVICE_BYTES,
+                 device="cuda"):
+        self.store = store if store is not None else ExpertStore()
+        self.device_cache_bytes = device_cache_bytes
+        self.dev = resolve_device(device)
+        self._device: Optional[DeviceCache] = None
+
+    def add(self, expert, *experts) -> Expert:
+        out = [self.store.put(e) for e in (expert,) + experts]
+        return out[0]
+
+    def get(self, name: str) -> Expert:
+        return self.store.get(name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.store
+
+    def device(self, capacity_bytes: Optional[int] = None) -> DeviceCache:
+        """The device tier (created on first call); an explicit
+        ``capacity_bytes`` sets or retargets its budget."""
+        if self._device is None:
+            self._device = DeviceCache(
+                self.store, capacity_bytes or self.device_cache_bytes,
+                self.dev)
+        elif (capacity_bytes is not None
+              and capacity_bytes != self._device.capacity):
+            self._device.capacity = capacity_bytes
+            self._device._enforce_budget()
+        return self._device

@@ -1,0 +1,117 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: they skip where torch finds no CUDA device.  On a machine
+with a card and nvcc: ``PYTHONPATH=src python -m pytest -m cuda
+tests/test_torch_cuda.py`` (the kernels are built at first use).
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels import histogram_quantile as hq
+from repro_torch.kernels import ops
+from repro_torch.kernels.pack import (pack_ternary_planes_segmented,
+                                      pack_ternary_planes_segmented_plain)
+from repro_torch.kernels.ternary_matmul import (ternary_matmul_grouped,
+                                                ternary_matmul_grouped_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
+    return torch.device("cuda")
+
+
+def _planes(shape, gen, dev):
+    def rnd():
+        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                             generator=gen, device=dev)
+    pos = rnd() & rnd()
+    return pos, rnd() & rnd() & ~pos
+
+
+@pytest.mark.parametrize("M,K,N,tr", [(1, 64, 96, False), (9, 300, 64, False),
+                                      (33, 2048, 256, False),
+                                      (5, 48, 70, True), (17, 2048, 300, True)])
+def test_grouped_kernel_matches_plain_and_rows_are_independent(dev, M, K, N,
+                                                               tr):
+    """f32 tolerance: |kernel - plain| <= 1e-4 * max |plain| (both f32,
+    summed in other orders).  Each row bitwise equals itself alone."""
+    gen = torch.Generator(device=dev).manual_seed(M + K)
+    E = 3
+    shape = (E, N, -(-K // 32)) if tr else (E, K, N // 32 if N % 32 == 0
+                                            else N // 32 + 1)
+    pos, neg = _planes(shape, gen, dev)
+    if tr and K % 32:
+        mask = (1 << (K % 32)) - 1
+        pos[..., -1] &= mask
+        neg[..., -1] &= mask
+    x = torch.randn((M, K), generator=gen, device=dev)
+    scales = torch.tensor([0.5, -0.25, 0.0], device=dev)
+    eid = torch.randint(-1, E, (M,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    before = ternary_matmul_grouped.launches
+    got = ternary_matmul_grouped(x, pos, neg, scales, eid, transpose_rhs=tr)
+    assert ternary_matmul_grouped.launches == before + 1
+    want = ternary_matmul_grouped_plain(x, pos, neg, scales, eid,
+                                        transpose_rhs=tr)
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max()) + 1e-30
+    for m in range(M):
+        alone = ternary_matmul_grouped(x[m:m + 1], pos, neg, scales,
+                                       eid[m:m + 1], transpose_rhs=tr)
+        assert torch.equal(alone[0], got[m])
+
+
+def test_grouped_kernel_rejects_bad_inputs(dev):
+    x = torch.randn((2, 64), device=dev)
+    pos = torch.zeros((1, 64, 2), dtype=torch.int32, device=dev)
+    s = torch.ones(1, device=dev)
+    eid = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        ternary_matmul_grouped(x.to(torch.bfloat16), pos, pos, s, eid)
+    with pytest.raises(ValueError):
+        ternary_matmul_grouped(x[:, :32], pos, pos, s, eid)
+
+
+@pytest.mark.parametrize("R,C", [(3, 32), (37, 1024), (100, 8192)])
+def test_pack_kernel_bitwise_equals_plain(dev, R, C):
+    gen = torch.Generator(device=dev).manual_seed(R)
+    tau = torch.randn((R, C), generator=gen, device=dev)
+    tau[:, ::5] = 0.0
+    thr = torch.rand((R,), generator=gen, device=dev)
+    got = pack_ternary_planes_segmented(tau, thr)
+    want = pack_ternary_planes_segmented_plain(tau, thr)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("nbins", [256, 2048])
+def test_hist_kernel_counts_bitwise_and_deterministic(dev, nbins):
+    gen = torch.Generator(device=dev).manual_seed(nbins)
+    R, C, S = 45, 512, 3
+    buf = torch.randn((R, C), generator=gen, device=dev) * 3
+    seg = torch.repeat_interleave(torch.arange(S, device=dev),
+                                  torch.tensor([20, 1, 24], device=dev)
+                                  ).to(torch.int32)
+    valid = torch.full((R,), C, dtype=torch.int32, device=dev)
+    valid[19], valid[20], valid[44] = 100, 7, 0
+    lo = torch.tensor([0.0, 0.5, 1.0], device=dev)
+    width = torch.tensor([10.0, 2.0, 0.25], device=dev)
+    got = hq.segment_hist_moments(buf, seg, valid, lo, width, n_seg=S,
+                                  nbins=nbins)
+    again = hq.segment_hist_moments(buf, seg, valid, lo, width, n_seg=S,
+                                    nbins=nbins)
+    want = hq.segment_hist_moments_plain(buf, seg, valid, lo, width,
+                                         n_seg=S, nbins=nbins)
+    assert torch.equal(got[0], want[0])
+    for g, a, w in zip(got[1:], again[1:], want[1:]):
+        assert torch.equal(g, a)                     # no float atomics
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
+
+
+def test_launch_counts_reset(dev):
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts().values()) == {0}

@@ -1,0 +1,115 @@
+"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package, and CUDA entry points never fall back to
+the CPU."""
+
+import ast
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "src", "repro_torch")
+
+
+def _modules():
+    import repro_torch
+    return ["repro_torch"] + [
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")      # repro_torch is allowed
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = _modules()
+    assert "repro_torch.serve.engine" in mods
+    code = ("import importlib, json, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print(json.dumps(sorted(m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'jaxlib', 'repro'))))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_repro_import_statements(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_cuda_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch import api
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.registry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(get_smoke_config("qwen2_5_3b", n_units=1)).init()
+
+
+def test_cuda_tensor_never_takes_the_plain_version():
+    """A wrapper given a CUDA tensor must launch its kernel or raise; the
+    dispatch reads the device, so a meta tensor (neither CPU nor CUDA) is
+    refused rather than computed."""
+    from repro_torch.kernels.histogram_quantile import segment_hist_moments
+    from repro_torch.kernels.pack import pack_ternary_planes_segmented
+    from repro_torch.kernels.ternary_matmul import ternary_matmul_grouped
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ternary_matmul_grouped(torch.empty(2, 32, **meta),
+                               torch.empty(1, 32, 1, dtype=torch.int32,
+                                           **meta),
+                               torch.empty(1, 32, 1, dtype=torch.int32,
+                                           **meta),
+                               torch.empty(1, **meta),
+                               torch.empty(2, dtype=torch.int32, **meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        pack_ternary_planes_segmented(torch.empty(2, 32, **meta),
+                                      torch.empty(2, **meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        segment_hist_moments(torch.empty(2, 32, **meta),
+                             torch.empty(2, dtype=torch.int32, **meta),
+                             torch.empty(2, dtype=torch.int32, **meta),
+                             torch.empty(1, **meta), torch.empty(1, **meta),
+                             n_seg=1)
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """chip_smoke.py in a directory with nothing else of the repository
+    (or on a machine without CUDA) exits non-zero and prints no result."""
+    import shutil
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,214 @@
+"""The port's kernels on the CPU: each plain version held against the JAX
+package's oracle and its Pallas kernel in interpret mode, on the same
+numpy inputs.  (The CUDA kernels themselves are held against these plain
+versions on the card: tests/test_torch_cuda.py and chip_smoke.py.)"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.packing import pack_bits as j_pack_bits
+from repro.kernels import ref as jref
+from repro.kernels.histogram_quantile import (_segment_hist_moments_jnp,
+                                              segment_hist_moments_pallas,
+                                              segmented_quantile_moments as
+                                              j_sqm)
+from repro.kernels.pack import (pack_ternary_planes_segmented as j_pack_seg,
+                                pack_ternary_planes_segmented_ref as
+                                j_pack_seg_ref)
+from repro.kernels.ternary_matmul import ternary_matmul_grouped as j_grouped
+from repro_torch.core.compeft import _build_segment_buffer
+from repro_torch.core.packing import pack_bits, stack_packed, unpack_bits
+from repro_torch.kernels import histogram_quantile as hq
+from repro_torch.kernels import ops
+from repro_torch.kernels.pack import (pack_ternary_planes_segmented,
+                                      pack_ternary_planes_segmented_plain)
+from repro_torch.kernels.ternary_matmul import (ternary_matmul_grouped,
+                                                ternary_matmul_grouped_plain)
+
+LANE = 32
+
+
+def _planes(rng, shape, k_valid=None):
+    """Disjoint random uint32 planes (numpy); bits past k_valid cleared."""
+    pos = rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+    neg = rng.integers(0, 2 ** 32, shape, dtype=np.uint32) & ~pos
+    if k_valid is not None and k_valid % LANE:
+        mask = np.uint32((1 << (k_valid % LANE)) - 1)
+        pos[..., -1] &= mask
+        neg[..., -1] &= mask
+    return pos, neg
+
+
+def _t(a):
+    a = np.asarray(a)
+    return torch.from_numpy((a.view(np.int32) if a.dtype == np.uint32
+                             else a).copy())
+
+
+GROUPED_CASES = [  # M, K, N, E, transpose_rhs
+    (8, 32, 32, 1, False), (13, 96, 64, 3, False), (33, 64, 128, 4, False),
+    (7, 48, 64, 3, True), (16, 64, 96, 2, True)]
+
+
+@pytest.mark.parametrize("M,K,N,E,tr", GROUPED_CASES)
+def test_grouped_plain_matches_jax(M, K, N, E, tr):
+    """Plain grouped matmul vs the JAX oracle and the Pallas kernel in
+    interpret mode, -1 rows included.  Tolerance: f32, both sum K terms
+    (different orders): rtol = atol = 1e-5."""
+    rng = np.random.default_rng(M * 7 + K)
+    shape = (E, N, -(-K // LANE)) if tr else (E, K, N // LANE)
+    pos, neg = _planes(rng, shape, K if tr else None)
+    x = rng.normal(0, 1, (M, K)).astype(np.float32)
+    scales = rng.normal(0, 0.5, E).astype(np.float32)
+    eid = rng.integers(-1, E, M).astype(np.int32)
+    eid[0] = -1
+    got = ternary_matmul_grouped_plain(_t(x), _t(pos), _t(neg), _t(scales),
+                                       _t(eid), transpose_rhs=tr).numpy()
+    args = (jnp.asarray(x), jnp.asarray(pos), jnp.asarray(neg),
+            jnp.asarray(scales), jnp.asarray(eid))
+    want = np.asarray(jref.ternary_matmul_grouped_ref(*args,
+                                                      transpose_rhs=tr))
+    pallas = np.asarray(j_grouped(*args, transpose_rhs=tr, bm=8, bk=32,
+                                  bn=32, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+    assert np.all(got[eid < 0] == 0.0)
+
+
+@pytest.mark.parametrize("tr", [False, True])
+def test_grouped_wrapper_on_cpu_is_plain_and_rows_independent(tr):
+    """On CPU tensors the wrapper is the plain version, launches nothing,
+    and a mixed batch is row-wise what each row gives alone, within
+    rtol = atol = 1e-5 (the CPU matmul may block rows differently by M;
+    the bitwise row independence is the CUDA kernel's, checked on the
+    card)."""
+    rng = np.random.default_rng(5)
+    M, K, N, E = 12, 64, 96, 3
+    shape = (E, N, K // LANE) if tr else (E, K, N // LANE)
+    pos, neg = map(_t, _planes(rng, shape))
+    x = _t(rng.normal(0, 1, (M, K)).astype(np.float32))
+    scales = _t(np.asarray([0.3, -0.7, 1.1], np.float32))
+    eid = _t(rng.integers(-1, E, M).astype(np.int32))
+    ops.reset_launch_counts()
+    mixed = ternary_matmul_grouped(x, pos, neg, scales, eid,
+                                   transpose_rhs=tr)
+    assert ops.launch_counts()["ternary_matmul_grouped"] == 0
+    plain = ternary_matmul_grouped_plain(x, pos, neg, scales, eid,
+                                         transpose_rhs=tr)
+    assert torch.equal(mixed, plain)
+    for m in range(M):
+        alone = ternary_matmul_grouped(x[m:m + 1], pos, neg, scales,
+                                       eid[m:m + 1], transpose_rhs=tr)
+        torch.testing.assert_close(alone[0], mixed[m], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("R,C", [(5, 64), (17, 512), (3, 8192)])
+def test_pack_plain_bitwise_equals_jax(R, C):
+    rng = np.random.default_rng(R + C)
+    tau = rng.normal(0, 1, (R, C)).astype(np.float32)
+    tau[:, ::7] = 0.0
+    thr = np.abs(rng.normal(0, 1, R)).astype(np.float32)
+    got = pack_ternary_planes_segmented(_t(tau), _t(thr))
+    want_ref = j_pack_seg_ref(jnp.asarray(tau), jnp.asarray(thr))
+    want_pl = j_pack_seg(jnp.asarray(tau), jnp.asarray(thr), bm=8, bn=64,
+                         interpret=True)
+    for g, w, p in zip(got, want_ref, want_pl):
+        np.testing.assert_array_equal(g.numpy(),
+                                      np.asarray(w).view(np.int32))
+        np.testing.assert_array_equal(g.numpy(),
+                                      np.asarray(p).view(np.int32))
+    plain = pack_ternary_planes_segmented_plain(_t(tau), _t(thr))
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+def test_pack_bits_roundtrip_matches_jax():
+    rng = np.random.default_rng(9)
+    mask = rng.random(1000) < 0.3
+    words = pack_bits(torch.from_numpy(mask))
+    np.testing.assert_array_equal(
+        words.numpy(), np.asarray(j_pack_bits(jnp.asarray(mask))).view(
+            np.int32))
+    assert torch.equal(unpack_bits(words, 1000),
+                       torch.from_numpy(mask.astype(np.int32)))
+
+
+def test_stack_packed_zero_slot():
+    from repro_torch.core.packing import PackedTernary
+    pt = PackedTernary(pos=torch.tensor([5], dtype=torch.int32),
+                       neg=torch.tensor([2], dtype=torch.int32),
+                       scale=torch.tensor(0.5), shape=(32,))
+    st = stack_packed([{}, {"w": pt}])["w"]
+    assert st[0].tolist() == [[0], [5]] and st[1].tolist() == [[0], [2]]
+    assert st[2].tolist() == [0.0, 0.5] and st[3] == (32,)
+
+
+def _segbuf(rng, sizes, cols):
+    arrays = [rng.standard_t(3, n).astype(np.float32) for n in sizes]
+    arrays[0][:50] = 0.0
+    leaves = [torch.from_numpy(a) for a in arrays]
+    return arrays, _build_segment_buffer(leaves, cols, "cpu")
+
+
+@pytest.mark.parametrize("sizes,cols", [((4321, 777), 512),
+                                        ((20000, 9000, 31), 2048)])
+def test_hist_plain_matches_jnp_2048_bins(sizes, cols):
+    """Counts bitwise equal to the reference's jnp sweep at 2048 bins, in
+    both the coarse and a refine-like window; moments within rtol 1e-5,
+    atol 1e-3 (f32 sums in different orders), as the reference's own
+    Pallas-vs-jnp test states."""
+    rng = np.random.default_rng(len(sizes))
+    arrays, (buf, seg, valid, _, _) = _segbuf(rng, sizes, cols)
+    S = len(sizes)
+    jargs = [jnp.asarray(t.numpy()) for t in (buf, seg, valid)]
+    width = np.asarray([np.abs(a).max() for a in arrays], np.float32)
+    for lo, w in ((np.zeros(S, np.float32), width),
+                  (width * 0.01, width * 0.05)):
+        got = hq.segment_hist_moments(buf, seg, valid, _t(lo), _t(w),
+                                      n_seg=S)
+        want = _segment_hist_moments_jnp(*jargs, jnp.asarray(lo),
+                                         jnp.asarray(w), n_seg=S,
+                                         nbins=hq.NBINS)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        for g, wv in zip(got[1:], want[1:]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(wv),
+                                       rtol=1e-5, atol=1e-3)
+
+
+def test_hist_plain_matches_pallas_256_bins():
+    rng = np.random.default_rng(3)
+    arrays, (buf, seg, valid, _, _) = _segbuf(rng, (4100, 1500), 256)
+    assert buf.shape[0] % 8 != 0       # the Pallas kernel pads rows
+    S = 2
+    lo = np.zeros(S, np.float32)
+    width = np.asarray([np.abs(a).max() for a in arrays], np.float32)
+    got = hq.segment_hist_moments_plain(buf, seg, valid, _t(lo), _t(width),
+                                        n_seg=S, nbins=256)
+    want = segment_hist_moments_pallas(
+        *[jnp.asarray(t.numpy()) for t in (buf, seg, valid)],
+        jnp.asarray(lo), jnp.asarray(width), n_seg=S, nbins=256,
+        interpret=True)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-3)
+
+
+@pytest.mark.parametrize("density", [0.05, 0.1, 0.5])
+def test_threshold_matches_jax_jnp_backend(density):
+    """The whole two-pass selection: thresholds bitwise equal to the
+    reference's jnp backend (same binning), scales within rtol 1e-5."""
+    rng = np.random.default_rng(11)
+    _, (buf, seg, valid, count, _) = _segbuf(rng, (6000, 3333), 512)
+    got = hq.segmented_quantile_moments(buf, seg, valid, count, density,
+                                        n_seg=2)
+    want = j_sqm(*[jnp.asarray(t.numpy()) for t in (buf, seg, valid, count)],
+                 density, n_seg=2, backend="jnp")
+    np.testing.assert_array_equal(got["threshold"].numpy(),
+                                  np.asarray(want["threshold"]))
+    np.testing.assert_array_equal(got["keep"].numpy(),
+                                  np.asarray(want["keep"]))
+    for k in ("std", "mean_abs", "max"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-7)
