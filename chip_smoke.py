@@ -22,10 +22,11 @@ failure with a non-zero exit:
      to the plain compression of its tau; every row's tokens bitwise
      unchanged when the other rows of its wave carry other experts; every
      request's tokens equal to the same request served alone, or parting
-     from them first at a near-tie of the top logits (alone, a row has no
-     padding and other batch shapes, so its bf16 logits are not bitwise
-     the wave row's); the first decode step's logits through the kernels
-     within a stated tolerance of the plain versions;
+     from them first where the two candidates lie within about one bf16
+     ulp of the top logit (alone, a row has no padding and other batch
+     shapes, so its bf16 logits are not bitwise the wave row's); the first
+     decode step's logits through the kernels within about one bf16 ulp
+     of each logit's value from the plain versions;
   5. time the kernels and a warm re-run (which must repeat its tokens),
      profile one wave with ``torch.profiler``, and print the ``kernels``
      JSON line and the end-to-end numbers, each tagged with the card's
@@ -121,7 +122,8 @@ def rand_planes(torch, shape, gen, dev):
 
 def check_grouped_matmul(torch, cfg, gen, dev, report):
     """Kernel vs plain at the wq, wg, ffn-wo and tied-head shapes for
-    M in {1, 4, 256}, E = 4 with a zero (BASE) slot and -1 rows.
+    M in {1, 4, 256}, E = 4 with a zero (BASE) slot and -1 rows; every
+    launch has rows on experts with a nonzero scale.
 
     Tolerance: the kernel sums K terms in order, the plain version through
     cuBLAS f32 (TF32 off); both are f32, so |kernel - plain| <= 1e-4 *
@@ -137,7 +139,7 @@ def check_grouped_matmul(torch, cfg, gen, dev, report):
               "tied_head": (d, V, True)}
     E = 4
     worst = 0.0
-    for name, (K, N, tr) in shapes.items():
+    for i, (name, (K, N, tr)) in enumerate(shapes.items()):
         if tr:
             pos, neg = rand_planes(torch, (E, N, -(-K // 32)), gen, dev)
         else:
@@ -149,8 +151,11 @@ def check_grouped_matmul(torch, cfg, gen, dev, report):
             x = torch.randn((M, K), generator=gen, device=dev)
             eid = torch.randint(-1, E, (M,), generator=gen, device=dev,
                                 dtype=torch.int32)
-            if M > 1:
-                eid[0], eid[1] = -1, 0
+            # the first rows cover -1, BASE and two experts at every M;
+            # the single row of M = 1 carries an expert
+            lead = [-1, 0, 1 + i % 3, 1 + (i + 1) % 3] if M > 1 else [
+                1 + i % 3]
+            eid[:len(lead)] = torch.tensor(lead, dtype=torch.int32)
             got = ternary_matmul_grouped(x, pos, neg, scales, eid,
                                          transpose_rhs=tr)
             want = ternary_matmul_grouped_plain(x, pos, neg, scales, eid,
@@ -324,11 +329,13 @@ def solo_check(torch, engine, reqs):
     batch shapes (other cuBLAS and reduction configurations) and other
     attention lengths, so its bf16 logits are not bitwise those of its
     wave row.  The gate: the tokens are equal, or the first token that
-    differs is a near-tie in the solo context -- both candidates within 4
-    bf16 ulps of the top logit (4 * 2**-7 * max |logit|), recomputed by a
-    prefill over the prompt and the solo tokens before the divergence.
+    differs is a near-tie in the solo context -- both candidates within
+    about one bf16 ulp of the top logit's own value (2**-7 * |top|, one
+    ulp at least and under two), recomputed by a prefill over the prompt
+    and the solo tokens before the divergence.  The primary gate of the
+    mixed-wave contract is :func:`row_independence_check`, which is
+    bitwise.
     """
-    from repro_torch.models import Runtime
     from repro_torch.serve import Request
     out = {"exact": 0, "near_tie": []}
     for r in reqs:
@@ -345,19 +352,20 @@ def solo_check(torch, engine, reqs):
                                          dtype=torch.int64)])
         ov = engine._overlay_for((r.expert,))
         logits, _ = engine.api.prefill(
-            engine.base, {"tokens": ctx[None].to(engine.dev)}, Runtime(), 128,
+            engine.base, {"tokens": ctx[None].to(engine.dev)}, 128,
             delta=ov, eid=torch.zeros(1, dtype=torch.int32,
                                       device=engine.dev))
         lg = logits[0, -1].float()
         top = float(lg.max())
-        tol = 4 * 2.0 ** -7 * float(lg.abs().max())
+        tol = 2.0 ** -7 * abs(top)
         gaps = (top - float(lg[solo.out_tokens[s]]),
                 top - float(lg[r.out_tokens[s]]))
         entry = {"uid": r.uid, "step": s, "solo_token": solo.out_tokens[s],
-                 "mixed_token": r.out_tokens[s], "gaps": gaps, "tol": tol}
+                 "mixed_token": r.out_tokens[s], "gaps": gaps, "top": top,
+                 "tol": tol}
         out["near_tie"].append(entry)
         log(f"  request {r.uid}: solo and mixed first differ at step {s}; "
-            f"gaps to the top logit {gaps[0]:.4f} / {gaps[1]:.4f} "
+            f"gaps to the top logit {top:.4f}: {gaps[0]:.4f} / {gaps[1]:.4f} "
             f"(tol {tol:.4f})")
         check(max(gaps) <= tol, f"request {r.uid}: solo and mixed tokens "
               f"differ at step {s} beyond a near-tie: {entry}")
@@ -415,34 +423,46 @@ def logits_check(torch, engine, wave):
     """First decode step of a wave through the kernels vs the plain
     versions, both on the card from the same prefill cache.
 
-    Tolerance (bf16-aware): the base path is bf16, and the kernel's f32
-    delta sums differ from the plain sums in the last bits, which can flip
-    a bf16 rounding of a hidden value; so |kernel - plain| <= 8 bf16 ulps
-    of the largest logit, 8 * 2**-7 * max |logit|."""
-    from repro_torch.models import Runtime
+    Tolerance (bf16-aware): every logit within about one bf16 ulp of its
+    own value, |kernel - plain| <= 2**-7 * max(|kernel|, |plain|).  The
+    kernel's f32 delta sums differ from the plain sums only in the last
+    f32 bits, which a bf16 rounding of the sum nearly always absorbs.  The
+    overlay's own effect on the logits (the same step without it) is
+    logged beside the error, to show what the check can see."""
+    from repro_torch.kernels import ops
     experts = list(dict.fromkeys(r.expert for r in wave))
     ov = engine._overlay_for(tuple(experts))
     eid = torch.as_tensor([experts.index(r.expert) for r in wave],
                           dtype=torch.int32, device=engine.dev)
     toks, start = engine._pad_prompts(wave)
     api = engine.api
-    logits, cache = api.prefill(engine.base, {"tokens": toks}, Runtime(),
-                                128, delta=ov, eid=eid, start=start)
+    logits, cache = api.prefill(engine.base, {"tokens": toks}, 128,
+                                delta=ov, eid=eid, start=start)
     tok = torch.argmax(logits[:, -1].float(), dim=-1).to(torch.int32)[:, None]
     lk, _ = api.decode_step(engine.base, tok, copy.deepcopy(cache),
-                            Runtime(), delta=ov, eid=eid)
-    lp, _ = api.decode_step(engine.base, tok, copy.deepcopy(cache),
-                            Runtime(plain=True), delta=ov, eid=eid)
+                            delta=ov, eid=eid)
+    with ops.plain_versions():
+        lp, _ = api.decode_step(engine.base, tok, copy.deepcopy(cache),
+                                delta=ov, eid=eid)
+    lb, _ = api.decode_step(engine.base, tok, copy.deepcopy(cache))
     torch.cuda.synchronize()
-    err = float((lk.float() - lp.float()).abs().max())
-    scale = float(lp.float().abs().max())
-    tol = 8 * 2.0 ** -7 * scale
+    lk, lp, lb = lk.float(), lp.float(), lb.float()
+    diff = (lk - lp).abs()
+    tol = 2.0 ** -7 * torch.maximum(lk.abs(), lp.abs())
+    err = float(diff.max())
+    over = int((diff > tol).sum())
+    effect = float((lk - lb).abs().max())
     check(bool(torch.isfinite(lk).all()), "non-finite logits")
-    check(err <= tol, f"decode logits: kernel vs plain err {err} > {tol}")
-    same = bool(torch.equal(lk.float().argmax(-1), lp.float().argmax(-1)))
+    check(over == 0, f"decode logits: {over} logits differ from the plain "
+          f"versions' by more than 2**-7 of their value (max err {err})")
+    same = bool(torch.equal(lk.argmax(-1), lp.argmax(-1)))
+    check(same, "decode logits: argmax differs from the plain versions'")
     log(f"  first decode step logits: max|kernel - plain| {err:.4e} "
-        f"(tol {tol:.4e}, max|logit| {scale:.3f}), argmax equal: {same}")
-    return {"max_abs_err": err, "tol": tol, "argmax_equal": same}
+        f"(tol 2**-7 * |logit| each, at most {float(tol.max()):.4e}); "
+        f"the overlay moves them by up to {effect:.4e}")
+    return {"max_abs_err": err, "tol": "2**-7 * max(|kernel|, |plain|)",
+            "tol_max": float(tol.max()), "overlay_effect": effect,
+            "argmax_equal": same}
 
 
 def main(argv=None) -> int:
@@ -467,7 +487,7 @@ def main(argv=None) -> int:
     from repro_torch.core.compeft import CompressionConfig, compress_packed
     from repro_torch.expert import DENSE, PACKED
     from repro_torch.kernels import build, ops
-    from repro_torch.models import Runtime, build as build_model
+    from repro_torch.models import build as build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -529,7 +549,7 @@ def main(argv=None) -> int:
     del ft0
     reg = api.registry(device=dev, device_cache_bytes=16 << 30,
                        experts=experts)
-    engine = api.serve(model, Runtime(), base, reg, max_batch=4,
+    engine = api.serve(model, base, reg, max_batch=4,
                        cache_len=128, decode_chunk=8)
     reqs = make_requests(torch, cfg, args.seed)
     engine.run(reqs)
@@ -545,7 +565,8 @@ def main(argv=None) -> int:
               and all(0 <= t < cfg.vocab for t in r.out_tokens),
               f"request {r.uid}: bad tokens {r.out_tokens}")
     tau = experts[0].as_(DENSE)
-    want = compress_packed(tau, CompressionConfig(density=0.1), plain=True)
+    with ops.plain_versions():
+        want = compress_packed(tau, CompressionConfig(density=0.1))
     got = experts[0].as_(PACKED)
     n_leaves, worst_scale = 0, 0.0
     for (path, w), (_, g) in zip(

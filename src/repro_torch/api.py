@@ -1,11 +1,11 @@
 """repro_torch.api — the front door of the port (mirrors ``repro.api``).
 
     from repro_torch import api
-    from repro_torch.models import Runtime, build
+    from repro_torch.models import build
 
     ex = api.compress(theta_init, theta_ft, name="math", density=0.1)
     reg = api.registry(experts=[ex])
-    engine = api.serve(model, Runtime(), base_params, reg,
+    engine = api.serve(model, base_params, reg,
                        max_batch=4, cache_len=128, decode_chunk=8)
     engine.run(requests)
 
@@ -57,7 +57,7 @@ def registry(store=None, *, device_cache_bytes: Optional[int] = None,
     return reg
 
 
-def serve(model, rt, base_params: dict, reg, cfg=None, **engine_kw):
+def serve(model, base_params: dict, reg, cfg=None, **engine_kw):
     """A :class:`~repro_torch.serve.engine.ServeEngine` over a registry,
     on the registry's device.  Pass an ``EngineConfig`` or its fields
     (``max_batch``, ``cache_len``, ``decode_chunk``, ...); ``temperature``,
@@ -73,4 +73,4 @@ def serve(model, rt, base_params: dict, reg, cfg=None, **engine_kw):
         cfg = EngineConfig(**engine_kw)
     elif engine_kw:
         cfg = dataclasses.replace(cfg, **engine_kw)
-    return ServeEngine(model, rt, base_params, reg, cfg)
+    return ServeEngine(model, base_params, reg, cfg)

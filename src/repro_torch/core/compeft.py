@@ -76,20 +76,16 @@ def _build_segment_buffer(leaves, cols: int, device):
 
 
 def compress_packed(tau: dict, cfg: CompressionConfig | None = None, *,
-                    cols: int = STREAM_COLS, return_stats: bool = False,
-                    plain: bool = False):
+                    cols: int = STREAM_COLS, return_stats: bool = False):
     """Algorithm 1 on a nested-dict task vector, straight to bitplanes.
 
     Runs on the device the leaves are on.  Returns a tree of
     :class:`PackedTernary` with the structure of ``tau`` (and the threshold
-    statistics with ``return_stats``).  ``plain=True`` runs the plain
-    versions of the histogram and pack kernels on any device, the
-    reference the kernels are held against.
+    statistics with ``return_stats``).
     """
+    from repro_torch.kernels import ops
     from repro_torch.kernels.histogram_quantile import \
         segmented_quantile_moments
-    from repro_torch.kernels.pack import (pack_ternary_planes_segmented,
-                                          pack_ternary_planes_segmented_plain)
 
     cfg = cfg or CompressionConfig()
     flat = tree_util.flatten_with_paths(tau)
@@ -105,7 +101,7 @@ def compress_packed(tau: dict, cfg: CompressionConfig | None = None, *,
         n_seg, seg_ids = 1, torch.zeros_like(row_seg)
         seg_count = seg_count.sum(dtype=torch.int32, dim=0, keepdim=True)
     stats = segmented_quantile_moments(buf, seg_ids, row_valid, seg_count,
-                                       cfg.density, n_seg=n_seg, plain=plain)
+                                       cfg.density, n_seg=n_seg)
     if cfg.scale_mode == "std":
         sigma = stats["std"]
     elif cfg.scale_mode == "mean_abs":
@@ -116,9 +112,7 @@ def compress_packed(tau: dict, cfg: CompressionConfig | None = None, *,
                           device=device) * sigma
 
     thr_rows = stats["threshold"][seg_ids.to(torch.int64)].contiguous()
-    pack = (pack_ternary_planes_segmented_plain if plain
-            else pack_ternary_planes_segmented)
-    pos, neg = pack(buf, thr_rows)
+    pos, neg = ops.kernel("pack_ternary_planes_segmented")(buf, thr_rows)
     del buf
 
     out = {}

@@ -144,18 +144,17 @@ def _select_bin(hist, keep):
 
 
 def segmented_quantile_moments(buf, row_seg, row_valid, seg_count, density,
-                               *, n_seg: int, nbins: int = NBINS,
-                               plain: bool = False):
+                               *, n_seg: int, nbins: int = NBINS):
     """Two-pass histogram threshold + moments over a segment buffer.
 
     buf [R, C] f32 (padding zeroed); row_seg / row_valid [R] int32;
     seg_count [S] int32 elements per segment; density the kept fraction.
-    ``plain=True`` runs the plain sweep on any device (the reference the
-    kernel is held against).  Returns per-segment f32 ``threshold``,
-    ``mean``, ``std``, ``mean_abs``, ``max``, ``sum``, ``sumsq`` and int32
-    ``keep``; nothing is read back to the host.
+    Returns per-segment f32 ``threshold``, ``mean``, ``std``,
+    ``mean_abs``, ``max``, ``sum``, ``sumsq`` and int32 ``keep``; nothing
+    is read back to the host.
     """
-    sweep = segment_hist_moments_plain if plain else segment_hist_moments
+    from repro_torch.kernels import ops
+    sweep = ops.kernel("segment_hist_moments")
     n = seg_count.to(torch.float32)
     keep = torch.clamp_min(torch.round(n * density), 1.0).to(torch.int32)
     zeros = torch.zeros((n_seg,), dtype=torch.float32, device=buf.device)

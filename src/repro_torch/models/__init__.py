@@ -1,4 +1,3 @@
 from repro_torch.models.model import ModelApi, build
-from repro_torch.models.transformer import Runtime
 
-__all__ = ["ModelApi", "Runtime", "build"]
+__all__ = ["ModelApi", "build"]

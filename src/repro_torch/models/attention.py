@@ -104,7 +104,7 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def qkv_project(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor,
-                rms_eps: float = 1e-6, dp=None, eid=None, plain=False):
+                rms_eps: float = 1e-6, dp=None, eid=None):
     """x [B, T, Dm] -> q, k, v with rope (and optional bias / qk-norm).
 
     ``dp``/``eid`` carry the zero-merge overlay: each projection adds the
@@ -112,9 +112,9 @@ def qkv_project(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor,
     dp = dp or {}
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if dp:
-        q = add_delta(q, delta_proj(x, dp.get("wq"), eid, plain))
-        k = add_delta(k, delta_proj(x, dp.get("wk"), eid, plain))
-        v = add_delta(v, delta_proj(x, dp.get("wv"), eid, plain))
+        q = add_delta(q, delta_proj(x, dp.get("wq"), eid))
+        k = add_delta(k, delta_proj(x, dp.get("wk"), eid))
+        v = add_delta(v, delta_proj(x, dp.get("wv"), eid))
     if cfg.qkv_bias:
         q = q + eff_param(p["bq"], dp.get("bq"), eid)
         k = k + eff_param(p["bk"], dp.get("bk"), eid)
@@ -129,12 +129,12 @@ def qkv_project(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor,
     return q, k, v
 
 
-def out_project(attn_out: torch.Tensor, p: dict, dp=None, eid=None,
-                plain=False) -> torch.Tensor:
+def out_project(attn_out: torch.Tensor, p: dict, dp=None,
+                eid=None) -> torch.Tensor:
     """[B, T, Hq, D] @ wo[Hq, D, Dm] -> [B, T, Dm]."""
     B, T, H, D = attn_out.shape
     flat = attn_out.reshape(B, T, H * D)
     out = _proj(flat, p["wo"].reshape(H * D, -1))
     if dp and dp.get("wo") is not None:
-        out = add_delta(out, delta_proj(flat, dp["wo"], eid, plain))
+        out = add_delta(out, delta_proj(flat, dp["wo"], eid))
     return out

@@ -13,16 +13,13 @@ def dtype_of(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
-             gemma_style: bool = False) -> torch.Tensor:
-    """RMSNorm in f32, cast back.  gemma_style uses (1 + scale)."""
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in f32, cast back."""
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    s = scale.to(torch.float32)
-    if gemma_style:
-        s = 1.0 + s
-    return (y * s).to(x.dtype)
+    return (y * scale.to(torch.float32)).to(x.dtype)
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:

@@ -81,9 +81,8 @@ def slice_unit(node, u: int):
 
 
 def delta_proj(x: torch.Tensor, md: Optional[MatmulDelta],
-               eid: Optional[torch.Tensor], plain: bool = False):
-    """f32 delta of a projection: x [B, T, K] -> [B, T, n_out] or None.
-    ``plain`` routes the grouped matmul to its plain version."""
+               eid: Optional[torch.Tensor]):
+    """f32 delta of a projection: x [B, T, K] -> [B, T, n_out] or None."""
     if md is None or eid is None:
         return None
     from repro_torch.kernels.ops import grouped_delta_matmul
@@ -91,8 +90,7 @@ def delta_proj(x: torch.Tensor, md: Optional[MatmulDelta],
     rows = x.reshape(B * T, K)
     eid_rows = torch.repeat_interleave(eid.to(torch.int32), T)
     d = grouped_delta_matmul(rows, md.pos, md.neg, md.scales, eid_rows,
-                             transpose_rhs=md.transpose, n_out=md.n_out,
-                             plain=plain)
+                             transpose_rhs=md.transpose, n_out=md.n_out)
     return d.reshape(B, T, md.n_out)
 
 
@@ -131,8 +129,7 @@ def embed_delta_rows(ed: Optional[EmbedDelta], tokens: torch.Tensor,
 
 
 def tied_logits_delta(x: torch.Tensor, ed: Optional[EmbedDelta],
-                      eid: Optional[torch.Tensor], vocab: int,
-                      plain: bool = False):
+                      eid: Optional[torch.Tensor], vocab: int):
     """f32 delta of the tied LM head: x [B, T, d] -> [B, T, V] or None.
     The embedding planes are packed along d, the head's contraction dim,
     so the grouped kernel runs in its transposed form on them."""
@@ -140,7 +137,7 @@ def tied_logits_delta(x: torch.Tensor, ed: Optional[EmbedDelta],
         return None
     md = MatmulDelta(pos=ed.pos, neg=ed.neg, scales=ed.scales, n_out=vocab,
                      transpose=True)
-    return delta_proj(x, md, eid, plain=plain)
+    return delta_proj(x, md, eid)
 
 
 # ---------------------------------------------------------------------------

@@ -19,21 +19,18 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
-def dense_ffn(x: torch.Tensor, p: dict, cfg, dp=None, eid=None,
-              plain=False) -> torch.Tensor:
+def dense_ffn(x: torch.Tensor, p: dict, cfg, dp=None,
+              eid=None) -> torch.Tensor:
     """x [B, T, D].  Gated: out = (act(x @ wg) * (x @ wu)) @ wo, each
     projection plus the row's grouped ternary delta under an overlay."""
     if cfg.moe is not None:
         raise NotImplementedError("MoE FFNs are served by merge-on-swap "
                                   "(ROADMAP queue 1, item 12)")
     dp = dp or {}
-    g_lin = add_delta(_proj(x, p["wg"]), delta_proj(x, dp.get("wg"), eid,
-                                                    plain))
+    g_lin = add_delta(_proj(x, p["wg"]), delta_proj(x, dp.get("wg"), eid))
     if cfg.activation in ("swiglu", "geglu"):
-        u = add_delta(_proj(x, p["wu"]), delta_proj(x, dp.get("wu"), eid,
-                                                    plain))
+        u = add_delta(_proj(x, p["wu"]), delta_proj(x, dp.get("wu"), eid))
         h = _act(g_lin, cfg.activation) * u
     else:
         h = _act(g_lin, cfg.activation)
-    return add_delta(_proj(h, p["wo"]), delta_proj(h, dp.get("wo"), eid,
-                                                   plain))
+    return add_delta(_proj(h, p["wo"]), delta_proj(h, dp.get("wo"), eid))

@@ -18,8 +18,8 @@ from repro_torch.models import transformer as tf
 class ModelApi:
     cfg: object
     init: Callable            # (seed=, device=) -> params
-    prefill: Callable         # (params, batch, rt, cache_len, delta=, eid=, start=)
-    decode_step: Callable     # (params, token, cache, rt, delta=, eid=)
+    prefill: Callable         # (params, batch, cache_len, delta=, eid=, start=)
+    decode_step: Callable     # (params, token, cache, delta=, eid=)
     init_decode_cache: Callable   # (batch, cache_len, device=) -> cache
 
 
@@ -27,13 +27,13 @@ def build(cfg) -> ModelApi:
     def init(seed: int = 0, device="cuda"):
         return tf.init_params(cfg, seed=seed, device=device)
 
-    def prefill_fn(params, batch, rt, cache_len: int, delta=None, eid=None,
+    def prefill_fn(params, batch, cache_len: int, delta=None, eid=None,
                    start=None):
-        return tf.prefill(params, batch["tokens"], cfg, rt, cache_len,
+        return tf.prefill(params, batch["tokens"], cfg, cache_len,
                           delta=delta, eid=eid, start=start)
 
-    def decode_fn(params, token, cache, rt, delta=None, eid=None):
-        return tf.decode_step(params, token, cache, cfg, rt, delta=delta,
+    def decode_fn(params, token, cache, delta=None, eid=None):
+        return tf.decode_step(params, token, cache, cfg, delta=delta,
                               eid=eid)
 
     def init_cache(batch: int, cache_len: int, device="cuda"):

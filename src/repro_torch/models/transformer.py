@@ -11,7 +11,6 @@ the reference donates it to a functional update.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -29,21 +28,6 @@ from repro_torch.models.delta import (add_delta, delta_proj,
 from repro_torch.models.ffn import dense_ffn
 
 
-@dataclasses.dataclass(frozen=True)
-class Runtime:
-    """Execution knobs threaded through the model code.
-
-    ``plain=True`` routes every kernel call to its plain PyTorch version
-    on any device: the reference a run on the card holds the kernels
-    against.
-    """
-    plain: bool = False
-
-
-def _gemma(cfg) -> bool:
-    return cfg.name.startswith("gemma")
-
-
 def _check_attention_only(cfg) -> None:
     if (cfg.enc_n_units or cfg.cross_attn or cfg.frontend is not None
             or any(b.kind != "attn" for b in cfg.pattern)):
@@ -51,6 +35,10 @@ def _check_attention_only(cfg) -> None:
             f"{cfg.name}: the port serves attention-only decoder patterns; "
             "recurrent, enc-dec, cross-attention and frontend families come "
             "with ROADMAP queue 1, item 12")
+    if any(b.sandwich_norm for b in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: sandwich norms and the (1 + scale) RMSNorm they "
+            "go with come with ROADMAP queue 1, item 12")
 
 
 # ---------------------------------------------------------------------------
@@ -70,10 +58,9 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = dtype_of(cfg)
     d, U = cfg.d_model, cfg.n_units
-    norm = (torch.zeros if _gemma(cfg) else torch.ones)
     params: dict = {
         "embed": embed_init(cfg.vocab, d, dt, gen, dev),
-        "final_norm": norm((d,), dtype=dt, device=dev),
+        "final_norm": torch.ones((d,), dtype=dt, device=dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init((d, cfg.vocab), d, dt, gen, dev)
@@ -94,18 +81,14 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
         if a.qk_norm:
             attn["q_norm"] = torch.ones((U, a.head_dim), dtype=dt, device=dev)
             attn["k_norm"] = torch.ones((U, a.head_dim), dtype=dt, device=dev)
-        bp = {"pre_norm": norm((U, d), dtype=dt, device=dev), "attn": attn}
+        bp = {"pre_norm": torch.ones((U, d), dtype=dt, device=dev),
+              "attn": attn}
         if b.ffn is not None:
             f = b.ffn.d_ff
-            bp["ffn_norm"] = norm((U, d), dtype=dt, device=dev)
+            bp["ffn_norm"] = torch.ones((U, d), dtype=dt, device=dev)
             bp["ffn"] = {"wg": dense_init((U, d, f), d, dt, gen, dev),
                          "wu": dense_init((U, d, f), d, dt, gen, dev),
                          "wo": dense_init((U, f, d), f, dt, gen, dev)}
-        if b.sandwich_norm:
-            bp["post_attn_norm"] = torch.zeros((U, d), dtype=dt, device=dev)
-            if b.ffn is not None:
-                bp["post_ffn_norm"] = torch.zeros((U, d), dtype=dt,
-                                                  device=dev)
         blocks[f"block{i}"] = bp
     params["blocks"] = blocks
     return params
@@ -120,52 +103,36 @@ def _unit(tree: dict, u: int) -> dict:
     return tree_util.tree_map(lambda t: t[u], tree)
 
 
-def _apply_ffn(x, bp, b, cfg, rt: Runtime, dp, eid):
+def _apply_ffn(x, bp, b, cfg, dp, eid):
     if b.ffn is None:
         return x
     h = rms_norm(x, eff_param(bp["ffn_norm"], dp.get("ffn_norm"), eid),
-                 cfg.rms_eps, _gemma(cfg))
-    out = dense_ffn(h, bp["ffn"], b.ffn, dp=dp.get("ffn"), eid=eid,
-                    plain=rt.plain)
-    if b.sandwich_norm:
-        out = rms_norm(out, eff_param(bp["post_ffn_norm"],
-                                      dp.get("post_ffn_norm"), eid),
-                       cfg.rms_eps, _gemma(cfg))
-    return x + out
+                 cfg.rms_eps)
+    return x + dense_ffn(h, bp["ffn"], b.ffn, dp=dp.get("ffn"), eid=eid)
 
 
-def _attn_out(o, x, bp, b, cfg, rt, dp, eid):
-    o = out_project(o, bp["attn"], dp=dp.get("attn"), eid=eid,
-                    plain=rt.plain)
-    if b.sandwich_norm:
-        o = rms_norm(o, eff_param(bp["post_attn_norm"],
-                                  dp.get("post_attn_norm"), eid),
-                     cfg.rms_eps, _gemma(cfg))
-    return x + o
-
-
-def _prefill_block(x, bp, b, cfg, rt, positions, dp, eid, kv_start):
+def _prefill_block(x, bp, b, cfg, positions, dp, eid, kv_start):
     h = rms_norm(x, eff_param(bp["pre_norm"], dp.get("pre_norm"), eid),
-                 cfg.rms_eps, _gemma(cfg))
+                 cfg.rms_eps)
     q, k, v = qkv_project(h, bp["attn"], b.attn, positions, cfg.rms_eps,
-                          dp=dp.get("attn"), eid=eid, plain=rt.plain)
+                          dp=dp.get("attn"), eid=eid)
     o = flash_attention(q, k, v, b.attn, causal=b.attn.causal,
                         kv_start=kv_start)
-    x = _attn_out(o, x, bp, b, cfg, rt, dp, eid)
-    return _apply_ffn(x, bp, b, cfg, rt, dp, eid), (k, v)
+    x = x + out_project(o, bp["attn"], dp=dp.get("attn"), eid=eid)
+    return _apply_ffn(x, bp, b, cfg, dp, eid), (k, v)
 
 
-def _decode_block(x, bp, b, cfg, rt, st, cur: int, dp, eid, start):
+def _decode_block(x, bp, b, cfg, st, cur: int, dp, eid, start):
     h = rms_norm(x, eff_param(bp["pre_norm"], dp.get("pre_norm"), eid),
-                 cfg.rms_eps, _gemma(cfg))
+                 cfg.rms_eps)
     positions = torch.full((1, 1), cur, dtype=torch.int32, device=x.device)
     q, k, v = qkv_project(h, bp["attn"], b.attn, positions, cfg.rms_eps,
-                          dp=dp.get("attn"), eid=eid, plain=rt.plain)
+                          dp=dp.get("attn"), eid=eid)
     cache_write(st["k"], st["v"], st["pos"], k, v, cur)
     o = decode_attention(q, st["k"], st["v"], st["pos"], cur, b.attn,
                          start=start).to(q.dtype)
-    x = _attn_out(o, x, bp, b, cfg, rt, dp, eid)
-    return _apply_ffn(x, bp, b, cfg, rt, dp, eid)
+    x = x + out_project(o, bp["attn"], dp=dp.get("attn"), eid=eid)
+    return _apply_ffn(x, bp, b, cfg, dp, eid)
 
 
 # ---------------------------------------------------------------------------
@@ -184,18 +151,17 @@ def embed_tokens(params, tokens, cfg, delta=None, eid=None):
     return x
 
 
-def logits_of(params, x, cfg, rt: Runtime, delta=None, eid=None):
+def logits_of(params, x, cfg, delta=None, eid=None):
     delta = delta or {}
     x = rms_norm(x, eff_param(params["final_norm"], delta.get("final_norm"),
-                              eid), cfg.rms_eps, _gemma(cfg))
+                              eid), cfg.rms_eps)
     B, T, d = x.shape
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = (x.reshape(B * T, d) @ head).reshape(B, T, -1)
     if cfg.tie_embeddings:
-        dl = tied_logits_delta(x, delta.get("embed"), eid, cfg.vocab,
-                               plain=rt.plain)
+        dl = tied_logits_delta(x, delta.get("embed"), eid, cfg.vocab)
     else:
-        dl = delta_proj(x, delta.get("lm_head"), eid, plain=rt.plain)
+        dl = delta_proj(x, delta.get("lm_head"), eid)
     return softcap(add_delta(logits, dl), cfg.logit_softcap)
 
 
@@ -223,8 +189,7 @@ def init_decode_cache(cfg, batch: int, cache_len: int, dtype=None,
     return {"layers": layers, "cur": 0}
 
 
-def decode_step(params, token, cache, cfg, rt: Runtime, delta=None,
-                eid=None):
+def decode_step(params, token, cache, cfg, delta=None, eid=None):
     """token [B, 1] -> (logits [B, 1, V], cache).
 
     ``cache["cur"]`` is the host-side position of this token; the cache
@@ -241,9 +206,9 @@ def decode_step(params, token, cache, cfg, rt: Runtime, delta=None,
         for i, b in enumerate(cfg.pattern):
             name = f"block{i}"
             st = {k: t[u] for k, t in cache["layers"][name].items()}
-            x = _decode_block(x, unit_params[name], b, cfg, rt, st, cur,
+            x = _decode_block(x, unit_params[name], b, cfg, st, cur,
                               unit_delta.get(name) or {}, eid, start)
-    logits = logits_of(params, x, cfg, rt, delta=delta, eid=eid)
+    logits = logits_of(params, x, cfg, delta=delta, eid=eid)
     cache["cur"] = cur + 1
     return logits, cache
 
@@ -266,7 +231,7 @@ def _ring_fill(full: torch.Tensor, S: int):
     return cache, pos.to(torch.int32)
 
 
-def prefill(params, tokens, cfg, rt: Runtime, cache_len: int, delta=None,
+def prefill(params, tokens, cfg, cache_len: int, delta=None,
             eid=None, start: Optional[torch.Tensor] = None):
     """Run the whole prompt; returns (last-token logits [B, 1, V], cache).
 
@@ -286,7 +251,7 @@ def prefill(params, tokens, cfg, rt: Runtime, cache_len: int, delta=None,
         unit_delta = slice_unit(dblocks, u) if dblocks is not None else {}
         for i, b in enumerate(cfg.pattern):
             name = f"block{i}"
-            x, (k, v) = _prefill_block(x, unit_params[name], b, cfg, rt,
+            x, (k, v) = _prefill_block(x, unit_params[name], b, cfg,
                                        positions, unit_delta.get(name) or {},
                                        eid, start)
             layer = cache["layers"][name]
@@ -296,4 +261,4 @@ def prefill(params, tokens, cfg, rt: Runtime, cache_len: int, delta=None,
     cache["cur"] = T
     if start is not None:
         cache["start"] = start.to(torch.int32)
-    return logits_of(params, x[:, -1:], cfg, rt, delta=delta, eid=eid), cache
+    return logits_of(params, x[:, -1:], cfg, delta=delta, eid=eid), cache

@@ -53,7 +53,7 @@ def host_decode_steps(max_remaining: int, chunk: int) -> int:
     return min(chunk, max(max_remaining - 1, 0))
 
 
-def make_decode_chunk(api, rt, chunk: int, sampling: SamplingConfig):
+def make_decode_chunk(api, chunk: int, sampling: SamplingConfig):
     """The K-step wave loop body for one engine.
 
     Returns ``run(params, overlay, eid, tok, cache, remaining) -> (tok,
@@ -71,7 +71,7 @@ def make_decode_chunk(api, rt, chunk: int, sampling: SamplingConfig):
             emitted.append(torch.where(active, tok[:, 0], PAD_TOKEN))
             rem = torch.where(active, rem - 1, rem)
             if i < steps:
-                logits, cache = api.decode_step(params, tok, cache, rt,
+                logits, cache = api.decode_step(params, tok, cache,
                                                 delta=overlay, eid=eid)
                 tok = select_tokens(logits[:, -1], sampling)[:, None]
         return tok, cache, torch.stack(emitted, dim=1)

@@ -97,7 +97,7 @@ def _unsupported(cfg: EngineConfig) -> Optional[str]:
 class ServeEngine:
     """Single-device engine over an :class:`ExpertRegistry`."""
 
-    def __init__(self, api, rt, base_params: dict,
+    def __init__(self, api, base_params: dict,
                  registry: ExpertRegistry, ecfg: EngineConfig):
         why = _unsupported(ecfg)
         if why is not None:
@@ -107,7 +107,6 @@ class ServeEngine:
         if ecfg.degrade not in ("request", "raise"):
             raise ValueError('degrade must be "request" or "raise"')
         self.api = api
-        self.rt = rt
         self.base = base_params
         self.registry = registry
         self.cfg = ecfg
@@ -123,7 +122,7 @@ class ServeEngine:
                 "served by merge-on-swap, ROADMAP queue 1, item 12")
         self._overlays: dict[tuple, Any] = {}
         self._chunk_fn = decode_loop.make_decode_chunk(
-            api, rt, ecfg.decode_chunk, ecfg.sampling)
+            api, ecfg.decode_chunk, ecfg.sampling)
         self.wave_log: list[dict] = []
 
     # ---------------- expert overlays ----------------
@@ -208,7 +207,7 @@ class ServeEngine:
         eid = torch.as_tensor([slot[r.expert] for r in wave],
                               dtype=torch.int32).to(self.dev)
         toks, start = self._pad_prompts(wave)
-        logits, cache = self.api.prefill(self.base, {"tokens": toks}, self.rt,
+        logits, cache = self.api.prefill(self.base, {"tokens": toks},
                                          self.cfg.cache_len, delta=overlay,
                                          eid=eid, start=start)
         tok = select_tokens(logits[:, -1], self.cfg.sampling)[:, None]

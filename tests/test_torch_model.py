@@ -18,7 +18,6 @@ from repro_torch import api as tapi
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.convert import params_from_jax
 from repro_torch.core.packing import stack_packed
-from repro_torch.models import Runtime as TRuntime
 from repro_torch.models import build as t_build
 from repro_torch.models.delta import build_overlay, plan_overlay
 
@@ -61,14 +60,14 @@ def test_prefill_and_decode_logits_match_reference(setup, overlay):
     jl, jc = api.prefill(base, {"tokens": jnp.asarray(toks)}, RT, 24,
                          start=jnp.asarray(start), **jkw)
     tl, tc = tapi_m.prefill(tbase, {"tokens": torch.from_numpy(toks)},
-                            TRuntime(), 24, start=torch.from_numpy(start),
+                            24, start=torch.from_numpy(start),
                             **tkw)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     for i in range(3):     # a few decode steps on the argmax token
         tok = np.argmax(np.asarray(jl)[:, -1], -1).astype(np.int32)[:, None]
         jl, jc = api.decode_step(base, jnp.asarray(tok), jc, RT, **jkw)
         tl, tc = tapi_m.decode_step(tbase, torch.from_numpy(tok), tc,
-                                    TRuntime(), **tkw)
+                                    **tkw)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     layer = jc["layers"]["block0"]
     np.testing.assert_allclose(tc["layers"]["block0"]["k"].numpy(),
@@ -78,17 +77,26 @@ def test_prefill_and_decode_logits_match_reference(setup, overlay):
 
 
 def test_plain_runtime_is_the_cpu_path(setup):
-    """On CPU tensors ``Runtime(plain=True)`` and the default runtime run
-    the same plain versions: bitwise equal logits."""
+    """On CPU tensors the wrappers and ``ops.plain_versions()`` run the
+    same plain versions: bitwise equal logits.  The switch is scoped: it
+    is undone on leaving the block, an exception included."""
+    from repro_torch.kernels import ops
     cfg, _, _, _, tapi_m, tbase, tov = setup
     toks = torch.randint(1, cfg.vocab, (2, 6),
                          generator=torch.Generator().manual_seed(0))
     eid = torch.tensor([2, 1], dtype=torch.int32)
-    a, _ = tapi_m.prefill(tbase, {"tokens": toks}, TRuntime(), 16,
+    a, _ = tapi_m.prefill(tbase, {"tokens": toks}, 16,
                           delta=tov, eid=eid)
-    b, _ = tapi_m.prefill(tbase, {"tokens": toks}, TRuntime(plain=True), 16,
-                          delta=tov, eid=eid)
+    with ops.plain_versions():
+        assert ops.kernel("ternary_matmul_grouped") is ops.PLAIN[
+            "ternary_matmul_grouped"]
+        b, _ = tapi_m.prefill(tbase, {"tokens": toks}, 16,
+                              delta=tov, eid=eid)
     assert torch.equal(a, b)
+    with pytest.raises(KeyError):
+        with ops.plain_versions():
+            raise KeyError
+    assert all(ops.kernel(n) is fn for n, fn in ops.KERNELS.items())
 
 
 def test_ring_fill_wraps_like_reference():

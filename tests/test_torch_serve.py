@@ -15,7 +15,6 @@ from repro.serve import Request as JRequest
 from repro_torch import api as tapi
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.convert import params_from_jax
-from repro_torch.models import Runtime as TRuntime
 from repro_torch.models import build as t_build
 from repro_torch.serve import BASE, Request
 
@@ -59,7 +58,7 @@ def test_greedy_tokens_identical_to_reference_engine(setup, chunk):
                continuous=False, decode_chunk=chunk).run(jr)
     tr = [Request(uid=i, expert=n, prompt=p, max_new_tokens=3 + i)
           for i, (n, p) in enumerate(zip(names, prompts))]
-    eng = tapi.serve(model, TRuntime(), tbase, treg, max_batch=4,
+    eng = tapi.serve(model, tbase, treg, max_batch=4,
                      cache_len=48, decode_chunk=chunk)
     eng.run(tr)
     for a, b in zip(jr, tr):
@@ -79,7 +78,7 @@ def test_mixed_wave_equals_sequential_and_solo(setup):
         return [Request(uid=i, expert=n, prompt=p, max_new_tokens=4)
                 for i, (n, p) in enumerate(zip(names, prompts))]
 
-    eng = tapi.serve(model, TRuntime(), tbase, treg, max_batch=6,
+    eng = tapi.serve(model, tbase, treg, max_batch=6,
                      cache_len=32, decode_chunk=3)
     mixed = mk()
     eng.run(mixed)
@@ -104,13 +103,13 @@ def test_unknown_expert_fails_only_its_requests(setup):
     prompts = _prompts(cfg, 4, (6, 6, 6))
     reqs = [Request(uid=i, expert=n, prompt=p, max_new_tokens=2)
             for i, (n, p) in enumerate(zip(["e0", "nope", "e1"], prompts))]
-    tapi.serve(model, TRuntime(), tbase, treg, max_batch=4,
+    tapi.serve(model, tbase, treg, max_batch=4,
                cache_len=16).run(reqs)
     assert [r.status for r in reqs] == ["done", "failed", "done"]
     assert "nope" in reqs[1].error and reqs[1].out_tokens == []
     assert all(len(r.out_tokens) == 2 for r in (reqs[0], reqs[2]))
     with pytest.raises(KeyError):
-        tapi.serve(model, TRuntime(), tbase, treg, degrade="raise").run(
+        tapi.serve(model, tbase, treg, degrade="raise").run(
             [Request(uid=9, expert="nope", prompt=prompts[0])])
 
 
@@ -121,4 +120,4 @@ def test_unknown_expert_fails_only_its_requests(setup):
 def test_unported_options_raise(setup, option):
     _, _, _, _, model, tbase, treg = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.serve(model, TRuntime(), tbase, treg, **option)
+        tapi.serve(model, tbase, treg, **option)
