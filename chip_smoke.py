@@ -9,15 +9,19 @@ QKV bias, swiglu d_ff 11008, vocab 151936, tied embeddings, rope theta
 random weights from ``--seed``, it runs, in order, stopping at the first
 failure with a non-zero exit:
 
-  1. require CUDA; print the card's name and power limit; build the three
-     kernels (one nvcc per source, in parallel) and print the build time;
+  1. require CUDA; print the card's name and power limit; build the four
+     kernel sources (one nvcc per source, in parallel) and print the
+     build time;
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (grouped matmul: row independence too);
-  3. the main path, with every launch count set to 0 just before it and
-     read just after: compress 4 experts (base + seeded noise on every
+     main path's shapes (grouped matmul: row independence too; the merge
+     kernels bitwise at the tied embedding, E = 1 and 3);
+  3. the main paths, each with every launch count set to 0 just before it
+     and read just after: compress 4 experts (base + seeded noise on every
      leaf, density 0.1) through ``api.compress(...).as_(PACKED)``, then
      serve 8 greedy requests over them and ``BASE`` in FIFO mixed waves
-     (``api.serve(max_batch=4, cache_len=128, decode_chunk=8)``);
+     (``api.serve(max_batch=4, cache_len=128, decode_chunk=8)``); then the
+     same requests by merge-on-swap (``scheduling="grouped"``), and a
+     merged ensemble of three experts with its loop check;
   4. check the result: tokens in range; one expert's planes bitwise equal
      to the plain compression of its tau; every row's tokens bitwise
      unchanged when the other rows of its wave carry other experts; every
@@ -26,11 +30,15 @@ failure with a non-zero exit:
      ulp of the top logit (alone, a row has no padding and other batch
      shapes, so its bf16 logits are not bitwise the wave row's); the first
      decode step's logits through the kernels within about one bf16 ulp
-     of each logit's value from the plain versions;
-  5. time the kernels and a warm re-run (which must repeat its tokens),
-     profile one wave with ``torch.profiler``, and print the ``kernels``
-     JSON line and the end-to-end numbers, each tagged with the card's
-     name and power limit.
+     of each logit's value from the plain versions; on the merge path,
+     4 swaps, every merged expert and the ensemble bitwise equal to their
+     plain and loop oracles, tokens bitwise those of the same run on the
+     plain versions, and merged logits within a tenth of the overlay's
+     effect of the base-plus-overlay logits;
+  5. time the kernels and warm re-runs of both paths (which must repeat
+     their tokens), profile one wave with ``torch.profiler``, and print
+     the ``kernels`` JSON line and the end-to-end numbers, each tagged
+     with the card's name and power limit.
 
 The last line of standard output is ``{"ok": true, "device": ...}``; a
 run that fails prints no such line.  Details go to
@@ -246,6 +254,79 @@ def check_compression_kernels(torch, tau, dev, report):
         shape=f"tau [{R}, {C}]")
 
 
+def bits(torch, t):
+    """The bit patterns of a bf16 or f32 tensor (so -0.0 != +0.0)."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def check_merge_kernels(torch, leaf, gen, dev, report):
+    """unpack_add and unpack_add_many against their plain versions,
+    bitwise, at the path's largest leaf (the tied embedding, viewed flat as
+    [1, n] as ``ops.apply_ternary_delta*_flat`` pass it), with -0.0
+    planted in the base, a plane word with both bits set, E = 1 and E = 3
+    with weights [0.5, 1.0, 0.25] and [0.5, -1.0, 0.25] multiplied into
+    the scales in f32; the fused form also equals a loop of unpack_add on
+    the card.  Then their CUDA-event times beside their bounds."""
+    from repro_torch.kernels.unpack_add import (
+        unpack_add, unpack_add_many, unpack_add_many_plain, unpack_add_plain)
+    n = leaf.numel()
+    base = leaf.reshape(1, n).clone()
+    base[0, :4096:7] = -0.0
+    W = -(-n // 32)
+    pos, neg = rand_planes(torch, (3, 1, W), gen, dev)
+    pos[0, 0, 0], neg[0, 0, 0] = -1, 0xFFFF
+    raw = torch.tensor([0.013, 0.021, 0.008], device=dev)
+    runs = {}
+    for E, w in ((1, [1.0]), (3, [0.5, 1.0, 0.25]), (3, [0.5, -1.0, 0.25])):
+        s = raw[:E] * torch.tensor(w, device=dev)
+        got = unpack_add_many(base, pos[:E], neg[:E], s)
+        want = unpack_add_many_plain(base, pos[:E], neg[:E], s)
+        loop = base
+        for e in range(E):
+            loop = unpack_add(loop, pos[e], neg[e], s[e])
+        torch.cuda.synchronize()
+        check(torch.equal(bits(torch, got), bits(torch, want)),
+              f"unpack_add_many E={E} weights {w}: differs from plain")
+        check(torch.equal(bits(torch, got), bits(torch, loop)),
+              f"unpack_add_many E={E} weights {w}: differs from a loop of "
+              "unpack_add")
+        if E == 1:
+            single = unpack_add_plain(base, pos[0], neg[0], s[0])
+            check(torch.equal(bits(torch, loop), bits(torch, single)),
+                  "unpack_add: differs from plain")
+        runs[E] = s
+        del got, want, loop
+    log(f"  unpack_add / unpack_add_many over [1, {n}] bf16 (E = 1, 3; a "
+        "negative weight; -0.0 planted): bitwise equal to the plain "
+        "versions and to a loop of unpack_add")
+    el = base.element_size()
+
+    def bound(E):
+        return bound_ms(2 * n * el + E * 2 * n / 8, 2.0 * E * n)
+
+    t1 = cuda_ms(torch, lambda: unpack_add(base, pos[0], neg[0],
+                                           runs[1][0]), 20)
+    t1p = cuda_ms(torch, lambda: unpack_add_plain(base, pos[0], neg[0],
+                                                  runs[1][0]), 3)
+    b1, by1 = bound(1)
+    tm = {E: cuda_ms(torch, lambda: unpack_add_many(  # noqa: B023
+        base, pos[:E], neg[:E], runs[E]), 20) for E in (1, 3)}
+    tmp = {E: cuda_ms(torch, lambda: unpack_add_many_plain(  # noqa: B023
+        base, pos[:E], neg[:E], runs[E]), 3) for E in (1, 3)}
+    b3, by3 = bound(3)
+    shape = f"tied embedding viewed flat: base [1, {n}] bf16, planes "
+    report["unpack_add"] = {
+        "max_abs_err": 0.0, "ms": t1, "plain_ms": t1p, "bound_ms": b1,
+        "bound_by": by1, "library_ms": None, "shape": shape + f"[1, {W}]"}
+    report["unpack_add_many"] = {
+        "max_abs_err": 0.0, "ms": tm[1], "plain_ms": tmp[1], "bound_ms": b1,
+        "bound_by": by1, "library_ms": None, "shape": shape + f"[1, 1, {W}]",
+        "e3": {"ms": tm[3], "plain_ms": tmp[3], "bound_ms": b3,
+               "bound_by": by3}}
+    log(f"  unpack_add {t1:.3f} ms, unpack_add_many E=1 {tm[1]:.3f} ms, "
+        f"E=3 {tm[3]:.3f} ms (bounds {b1:.3f} / {b1:.3f} / {b3:.3f} ms)")
+
+
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
@@ -379,8 +460,7 @@ def profile_wave(torch, engine, wave, out_dir):
     device time by kernel family and the device's idle share of the wall
     time.  The full table goes to chiprun_out/profile_wave.txt."""
     from torch.profiler import ProfilerActivity, profile
-    reqs = [dataclasses.replace(r, uid=300 + r.uid, out_tokens=[],
-                                status="pending") for r in wave]
+    reqs = fresh(wave, 300)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -465,6 +545,79 @@ def logits_check(torch, engine, wave):
             "argmax_equal": same}
 
 
+def ensemble_loop(torch, reg, base, names, weights):
+    """The reference's ensemble oracle: every leaf merged one weight-scaled
+    expert at a time with ``ops.apply_ternary_delta_flat``."""
+    from repro_torch import tree as tree_util
+    from repro_torch.core.packing import PackedTernary
+    from repro_torch.kernels import ops
+    packs = [reg.fetch_packed(n) for n in names]
+    out = {}
+    for path, leaf in tree_util.flatten_with_paths(base):
+        acc = leaf
+        for pk, w in zip(packs, weights):
+            if path in pk:
+                pt = pk[path]
+                acc = ops.apply_ternary_delta_flat(acc, PackedTernary(
+                    pos=pt.pos, neg=pt.neg, scale=pt.scale * w,
+                    shape=pt.shape, orig_dtype=pt.orig_dtype))
+        out[path] = acc
+    return tree_util.unflatten_paths(out)
+
+
+def merged_params_check(torch, reg, base, names):
+    """Every expert's merged params through the kernel bitwise equal to
+    those through the plain version."""
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels import ops
+    for name in names:
+        got = reg.merged_params(base, [name])
+        with ops.plain_versions():
+            want = reg.merged_params(base, [name])
+        torch.cuda.synchronize()
+        for (path, g), (_, w) in zip(tree_util.flatten_with_paths(got),
+                                     tree_util.flatten_with_paths(want)):
+            check(torch.equal(bits(torch, g), bits(torch, w)),
+                  f"merged {name} {path}: kernel differs from plain")
+        del got, want
+    log(f"  merged params of {', '.join(names)}: every leaf bitwise equal "
+        "to the plain versions'")
+
+
+def merge_effect_check(torch, engine, gengine, reqs):
+    """The merge carries the expert: each request alone at batch 1, the
+    prefill's last logits on the merged params against those on the base
+    plus the expert's overlay.  The gate: their largest difference is
+    below a tenth of the overlay's own effect (the largest |overlay -
+    base alone|); rounding the merged weights to bf16 moves the logits
+    far less than the delta does."""
+    api, dev = engine.api, engine.dev
+    out = []
+    for r in reqs:
+        toks = {"tokens": torch.as_tensor(r.prompt, dtype=torch.int64
+                                          )[None].to(dev)}
+        merged = gengine.registry.merged_params(gengine.base, [r.expert])
+        lm, _ = api.prefill(merged, toks, 128)
+        lo, _ = api.prefill(engine.base, toks, 128,
+                            delta=engine._overlay_for((r.expert,)),
+                            eid=torch.zeros(1, dtype=torch.int32, device=dev))
+        lb, _ = api.prefill(engine.base, toks, 128)
+        lm, lo, lb = lm.float(), lo.float(), lb.float()
+        diff = float((lm - lo).abs().max())
+        effect = float((lo - lb).abs().max())
+        check(bool(torch.isfinite(lm).all()), "non-finite merged logits")
+        check(diff < 0.1 * effect, f"request {r.uid} ({r.expert}): merged "
+              f"vs overlay logits differ by {diff}, not below a tenth of "
+              f"the overlay's effect {effect}")
+        log(f"  request {r.uid} ({r.expert}) alone: max|merged - overlay| "
+            f"{diff:.4e}, overlay effect {effect:.4e} (gate: diff < "
+            f"{0.1 * effect:.4e})")
+        out.append({"uid": r.uid, "expert": r.expert, "max_abs_diff": diff,
+                    "overlay_effect": effect})
+        del merged
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--units", type=int, default=4,
@@ -526,11 +679,15 @@ def main(argv=None) -> int:
     tau0 = tree_util.tree_map(lambda a, b: b.float() - a.float(), base, ft0)
     check_compression_kernels(torch, tau0, dev, report)
     del tau0
+    # its own generator: the experts below draw from ``gen`` exactly as
+    # before the merge kernels were checked here
+    check_merge_kernels(torch, base["embed"], torch.Generator(
+        device=dev).manual_seed(args.seed + 1), dev, report)
     if args.stop_after == "kernels":
         log(json.dumps({"kernels_checked": report}))
         return 0
 
-    log("phase 3: main path (compress 4 experts, serve 8 requests)")
+    log("phase 3: mixed path (compress 4 experts, serve 8 requests)")
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     experts, compress_s = [], []
@@ -555,9 +712,34 @@ def main(argv=None) -> int:
     engine.run(reqs)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"  launches on the main path: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    log(f"  launches on the mixed path: {launches}")
+    for name in MIXED_PATH_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the mixed path")
+
+    log("phase 3b: merge path (the same 8 requests by merge-on-swap, then "
+        "a merged ensemble of e0-e2)")
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    gengine = api.serve(model, base, reg, scheduling="grouped", max_batch=4,
+                        cache_len=128, decode_chunk=8)
+    greqs = fresh(reqs, 400)
+    gengine.run(greqs)
+    merge_launches = ops.launch_counts()
+    log(f"  launches on the merge path: {merge_launches}")
+    check(merge_launches["unpack_add_many"] > 0,
+          "unpack_add_many was not launched on the merge path")
+    ops.reset_launch_counts()
+    ens_names, ens_w = ["e0", "e1", "e2"], [0.5, 1.0, 0.25]
+    ens = gengine.merged_ensemble_params(ens_names, ens_w)
+    ens_loop = ensemble_loop(torch, reg, base, ens_names, ens_w)
+    ens_launches = ops.launch_counts()
+    gpeak = torch.cuda.max_memory_allocated()
+    log(f"  launches by the ensemble and its loop check: {ens_launches}")
+    check(ens_launches["unpack_add_many"] > 0,
+          "unpack_add_many was not launched by the merged ensemble")
+    check(ens_launches["unpack_add"] > 0,
+          "unpack_add was not launched by the ensemble's loop check")
 
     log("phase 4: checks")
     for r in reqs:
@@ -591,11 +773,39 @@ def main(argv=None) -> int:
     details["solo"] = solo_check(torch, engine, reqs)
     details["logits"] = logits_check(torch, engine, reqs[:4])
 
+    # the merge path
+    for r in greqs:
+        check(len(r.out_tokens) == r.max_new_tokens
+              and all(0 <= t < cfg.vocab for t in r.out_tokens),
+              f"merge path request {r.uid}: bad tokens {r.out_tokens}")
+    gsum = gengine.swap_summary()
+    check(gsum["n_swaps"] == 4 and gsum["n_waves"] == 0,
+          f"merge path: {gsum['n_swaps']} swaps and {gsum['n_waves']} mixed "
+          "waves, expected 4 and 0")
+    merged_params_check(torch, reg, base, [f"e{i}" for i in range(4)])
+    for (path, g), (_, w) in zip(tree_util.flatten_with_paths(ens),
+                                 tree_util.flatten_with_paths(ens_loop)):
+        check(torch.equal(bits(torch, g), bits(torch, w)),
+              f"ensemble {path}: differs from the loop of single merges")
+    del ens, ens_loop
+    log("  merged ensemble of e0-e2 (weights 0.5, 1.0, 0.25) bitwise equal "
+        "to a loop of apply_ternary_delta_flat over the scaled experts")
+    preqs = fresh(reqs, 600)
+    with ops.plain_versions():
+        api.serve(model, base, reg, scheduling="grouped", max_batch=4,
+                  cache_len=128, decode_chunk=8).run(preqs)
+    check([r.out_tokens for r in preqs] == [r.out_tokens for r in greqs],
+          "merge path: tokens differ from the same run on the plain "
+          "versions")
+    log("  merge path: 4 swaps, 0 mixed waves; tokens bitwise equal to the "
+        "same run on the plain versions")
+    details["merge_effect"] = merge_effect_check(torch, engine, gengine,
+                                                 [reqs[0], reqs[1]])
+
     log("phase 5: numbers")
     # a second, warm run of the same requests: the timed one (the first
     # paid one-time setup such as cuBLAS handles); it must repeat exactly
-    timed = [dataclasses.replace(r, uid=200 + r.uid, out_tokens=[],
-                                 status="pending") for r in reqs]
+    timed = fresh(reqs, 200)
     n0 = len(engine.wave_log)
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -605,6 +815,16 @@ def main(argv=None) -> int:
     check([r.out_tokens for r in timed] == [r.out_tokens for r in reqs],
           "a second run of the same requests gave other tokens")
     grouped_timing(torch, engine, reqs[:4], report)
+    gtimed = fresh(reqs, 700)
+    b0, s0 = len(gengine.batch_log), len(gengine.swap_log)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    gengine.run(gtimed)
+    gserve_s = time.monotonic() - t0
+    check([r.out_tokens for r in gtimed] == [r.out_tokens for r in greqs],
+          "a second merge-path run of the same requests gave other tokens")
+    batches = gengine.batch_log[b0:]
+    swaps = list(gengine.swap_log)[s0:]
     details["profile"] = profile_wave(torch, engine, reqs[:4], out_dir)
     kernels = []
     for name, src, replaces in (
@@ -613,10 +833,18 @@ def main(argv=None) -> int:
             ("pack_ternary_planes_segmented", "src/repro_torch/kernels/"
              "csrc/pack.cu", "src/repro/kernels/pack.py:102"),
             ("segment_hist_moments", "src/repro_torch/kernels/csrc/"
-             "histogram.cu", "src/repro/kernels/histogram_quantile.py:151")):
+             "histogram.cu", "src/repro/kernels/histogram_quantile.py:151"),
+            ("unpack_add_many", "src/repro_torch/kernels/csrc/unpack_add.cu",
+             "src/repro/kernels/unpack_add.py:112"),
+            ("unpack_add", "src/repro_torch/kernels/csrc/unpack_add.cu",
+             "src/repro/kernels/unpack_add.py:65")):
         r = report[name]
+        # each kernel's launches on the paths that run it: the mixed path,
+        # the merge path and the merged ensemble with its loop check
+        n_launch = (launches[name] + merge_launches[name]
+                    + ens_launches[name])
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": n_launch,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -624,13 +852,25 @@ def main(argv=None) -> int:
     prefill_ms = [w["prefill_s"] * 1e3 for w in waves]
     dec_tok = sum(w["tokens"] - w["rows"] for w in waves)
     dec_s = sum(w["seconds"] - w["prefill_s"] for w in waves)
+    g_prefill_ms = [b["prefill_s"] * 1e3 for b in batches]
+    g_dec_tok = sum(b["tokens"] - b["rows"] for b in batches)
+    g_dec_s = sum(b["seconds"] - b["prefill_s"] for b in batches)
     numbers = {"compress_s_per_expert": compress_s,
                "prefill_ms_per_wave": prefill_ms,
                "decode_tokens_per_s": dec_tok / dec_s,
                "serve_s_8_requests": serve_s,
                "peak_memory_gib": peak / 2 ** 30,
+               "merge_swap_s_per_expert": {x["expert"]: x["seconds"]
+                                           for x in swaps},
+               "merge_prefill_ms_per_batch": g_prefill_ms,
+               "merge_batch_rows": [b["rows"] for b in batches],
+               "merge_decode_tokens_per_s": g_dec_tok / g_dec_s,
+               "merge_serve_s_8_requests": gserve_s,
+               "merge_peak_memory_gib": gpeak / 2 ** 30,
                "params_m": n_params / 1e6}
-    details.update(kernels=kernels, numbers=numbers, launches=launches)
+    details.update(kernels=kernels, numbers=numbers, launches={
+        "mixed_path": launches, "merge_path": merge_launches,
+        "ensemble": ens_launches})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1)
     log(f"compress seconds per expert {tag}: "
@@ -639,7 +879,24 @@ def main(argv=None) -> int:
         + ", ".join(f"{t:.1f}" for t in prefill_ms))
     log(f"decode tokens/s (4 rows, chunk 8) {tag}: "
         f"{numbers['decode_tokens_per_s']:.1f}")
-    log(f"peak memory {tag}: {numbers['peak_memory_gib']:.2f} GiB")
+    log(f"merge path: swap seconds per expert {tag}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in numbers["merge_swap_s_per_expert"].items()))
+    log(f"merge path: prefill ms per batch (rows "
+        f"{numbers['merge_batch_rows']}) {tag}: "
+        + ", ".join(f"{t:.1f}" for t in g_prefill_ms))
+    log(f"merge path: decode tokens/s (batches of 1-2 rows, chunk 8) {tag}: "
+        f"{numbers['merge_decode_tokens_per_s']:.1f}")
+    for name in ("unpack_add", "unpack_add_many"):
+        r = report[name]
+        log(f"{name} ms at the tied embedding, E = 1 {tag}: {r['ms']:.4f} "
+            f"(bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.3f})")
+    e3 = report["unpack_add_many"]["e3"]
+    log(f"unpack_add_many ms at the tied embedding, E = 3 {tag}: "
+        f"{e3['ms']:.4f} (bound {e3['bound_ms']:.4f}, plain "
+        f"{e3['plain_ms']:.3f})")
+    log(f"peak memory {tag}: mixed path {numbers['peak_memory_gib']:.2f} "
+        f"GiB, merge path and ensemble "
+        f"{numbers['merge_peak_memory_gib']:.2f} GiB")
     if details["profile"]["idle_share"] is not None:
         log(f"device idle share of one profiled wave {tag}: "
             f"{details['profile']['idle_share']:.3f}")
@@ -649,6 +906,16 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+MIXED_PATH_KERNELS = ("ternary_matmul_grouped", "pack_ternary_planes_segmented",
+                      "segment_hist_moments")
+
+
+def fresh(reqs, uid0):
+    """Unserved copies of requests (same experts, prompts and budgets)."""
+    return [dataclasses.replace(r, uid=uid0 + r.uid, out_tokens=[],
+                                status="pending") for r in reqs]
 
 
 def _is_pt(x) -> bool:

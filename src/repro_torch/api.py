@@ -9,6 +9,12 @@
                        max_batch=4, cache_len=128, decode_chunk=8)
     engine.run(requests)
 
+``serve(..., scheduling="grouped")`` serves by merge-on-swap instead of
+mixed waves: each expert is merged into a copy of the base once (the
+``unpack_add_many`` kernel) and its requests are batched on the merged
+params; ``engine.merged_ensemble_params(names, weights)`` merges several
+weighted experts the same way.
+
 Every entry point takes ``device=`` (default ``"cuda"``) and raises when
 the card is absent; pass ``device="cpu"`` for the plain PyTorch versions.
 """
@@ -60,7 +66,8 @@ def registry(store=None, *, device_cache_bytes: Optional[int] = None,
 def serve(model, base_params: dict, reg, cfg=None, **engine_kw):
     """A :class:`~repro_torch.serve.engine.ServeEngine` over a registry,
     on the registry's device.  Pass an ``EngineConfig`` or its fields
-    (``max_batch``, ``cache_len``, ``decode_chunk``, ...); ``temperature``,
+    (``max_batch``, ``cache_len``, ``decode_chunk``, ``scheduling`` =
+    ``"mixed"`` or ``"grouped"`` for merge-on-swap, ...); ``temperature``,
     ``top_k`` and ``seed`` build its ``SamplingConfig``."""
     from repro_torch.serve.decode_loop import SamplingConfig
     from repro_torch.serve.engine import EngineConfig, ServeEngine

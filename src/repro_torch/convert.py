@@ -4,7 +4,9 @@ The port's ``init_params`` draws from a torch generator and cannot
 reproduce JAX's threefry draws, so anything that compares the two packages
 converts the reference's arrays instead.  Inputs are duck-typed (numpy
 arrays, or anything ``np.asarray`` accepts, in nested dicts), so this
-module imports neither JAX nor the JAX package.
+module imports neither JAX nor the JAX package.  Like every entry point of
+the port, the converters place their tensors on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -12,14 +14,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     """numpy (or array-like) -> torch tensor with the same dtype and bits.
 
     bf16 arrive as ``ml_dtypes.bfloat16``, which torch cannot read; they
     go through their 16-bit patterns.  uint32 words (bit planes) become
     int32 with the same bits.
     """
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
@@ -29,8 +34,9 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, device="cuda"):
     """Nested dict of arrays (a JAX param tree) -> nested dict of tensors."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
@@ -42,10 +48,11 @@ def torch_dtype_of(dtype) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def packed_from_jax(tree, device="cpu"):
+def packed_from_jax(tree, device="cuda"):
     """A tree of the JAX package's ``PackedTernary`` (anything with
     ``pos``/``neg``/``scale``/``shape``/``orig_dtype``) -> the port's."""
     from repro_torch.core.packing import PackedTernary
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: packed_from_jax(v, device) for k, v in tree.items()}
     return PackedTernary(

@@ -75,6 +75,16 @@ class Expert:
             theta_init, theta_ft)
         return cls.from_task_vector(tau, **kw)
 
+    @classmethod
+    def from_packed(cls, name: str, kind: str, packed: dict, *,
+                    density: float = 0.0, alpha: float = 1.0,
+                    meta: Optional[dict] = None) -> "Expert":
+        """Adopt an existing tree of PackedTernary (for instance one
+        carried across by :func:`repro_torch.convert.packed_from_jax`)."""
+        ex = cls(name, kind, density=density, alpha=alpha, meta=meta)
+        ex._reps[PACKED] = packed
+        return ex
+
     def available(self) -> tuple[str, ...]:
         return tuple(r for r in REPRESENTATIONS if r in self._reps)
 

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("ternary_matmul", "pack", "histogram")
+SOURCES = ("ternary_matmul", "pack", "histogram", "unpack_add")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -36,6 +36,10 @@ SIGNATURES = {
     "pack": {"pack_ternary_planes_segmented": [_P, _P, _P, _P, _L, _I, _P]},
     "histogram": {"segment_hist_moments":
                   [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]},
+    "unpack_add": {
+        "unpack_add": [_P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _P],
+        "unpack_add_many": [_P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _L, _I,
+                            _P]},
 }
 
 _lock = threading.Lock()

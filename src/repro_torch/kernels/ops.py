@@ -25,16 +25,23 @@ from repro_torch.kernels.pack import (pack_ternary_planes_segmented,
                                       pack_ternary_planes_segmented_plain)
 from repro_torch.kernels.ternary_matmul import (ternary_matmul_grouped,
                                                 ternary_matmul_grouped_plain)
+from repro_torch.kernels.unpack_add import (unpack_add, unpack_add_many,
+                                            unpack_add_many_plain,
+                                            unpack_add_plain)
 
 KERNELS = {
     "ternary_matmul_grouped": ternary_matmul_grouped,
     "pack_ternary_planes_segmented": pack_ternary_planes_segmented,
     "segment_hist_moments": segment_hist_moments,
+    "unpack_add_many": unpack_add_many,
+    "unpack_add": unpack_add,
 }
 PLAIN = {
     "ternary_matmul_grouped": ternary_matmul_grouped_plain,
     "pack_ternary_planes_segmented": pack_ternary_planes_segmented_plain,
     "segment_hist_moments": segment_hist_moments_plain,
+    "unpack_add_many": unpack_add_many_plain,
+    "unpack_add": unpack_add_plain,
 }
 _table = KERNELS
 
@@ -83,3 +90,62 @@ def grouped_delta_matmul(x: torch.Tensor, pos: torch.Tensor,
     y = kernel("ternary_matmul_grouped")(x, pos, neg, scales, expert_idx,
                                          transpose_rhs=transpose_rhs)
     return y if n_out is None else y[:, :n_out]
+
+
+# ---------------------------------------------------------------------------
+# Expert merges (merge-on-swap and merged ensembles)
+# ---------------------------------------------------------------------------
+
+# The reference's flat-view row width (``repro/kernels/ops.py``); it pads
+# each leaf to rows of this many elements.  The port views a leaf as one
+# row [1, n] instead: the planes are packed over the flat C-order leaf, so
+# ceil(n/32) words cover it and the kernel masks the ragged tail, giving
+# the same bits without a padded copy of the base.
+MERGE_COLS = 4096
+
+
+def apply_ternary_delta(base: torch.Tensor, pt) -> torch.Tensor:
+    """Expert loading of a 2-D leaf whose planes are padded per row:
+    base [M, N] + scale * (pos - neg), fused."""
+    M = base.shape[0]
+    return kernel("unpack_add")(base, pt.pos.reshape(M, -1),
+                                pt.neg.reshape(M, -1),
+                                pt.scale.to(torch.float32))
+
+
+def apply_ternary_delta_flat(base: torch.Tensor, pt) -> torch.Tensor:
+    """Rank-agnostic fused merge: base (any shape) + scale * (pos - neg),
+    over the [1, n] view of the leaf.  Traffic is the base read and
+    written once plus 2 bits per element; no dense delta exists."""
+    n = base.numel()
+    out = kernel("unpack_add")(base.reshape(1, n), pt.pos.reshape(1, -1),
+                               pt.neg.reshape(1, -1),
+                               pt.scale.to(torch.float32))
+    return out.reshape(base.shape)
+
+
+def apply_ternary_delta_many_flat(base: torch.Tensor, pts,
+                                  weights=None) -> torch.Tensor:
+    """Fused multi-expert merge of one leaf: base + sum_e w_e * scale_e *
+    Delta_e in one sweep, bitwise a loop of :func:`apply_ternary_delta_flat`
+    over the weight-scaled experts.
+
+    ``pts``: PackedTernary over the leaf's shape; ``weights`` (len E) the
+    ensemble coefficients, multiplied into the scales in f32 here, as the
+    reference does, never inside the kernel.  One expert's planes pass as
+    a view; several are stacked into one [E, 1, W] buffer.
+    """
+    n = base.numel()
+    if len(pts) == 1:
+        pos = pts[0].pos.reshape(1, 1, -1)
+        neg = pts[0].neg.reshape(1, 1, -1)
+    else:
+        pos = torch.stack([pt.pos.reshape(1, -1) for pt in pts])
+        neg = torch.stack([pt.neg.reshape(1, -1) for pt in pts])
+    scales = torch.stack([pt.scale.to(torch.float32).reshape(())
+                          for pt in pts])
+    if weights is not None:
+        scales = scales * torch.as_tensor(weights, dtype=torch.float32,
+                                          device=scales.device)
+    out = kernel("unpack_add_many")(base.reshape(1, n), pos, neg, scales)
+    return out.reshape(base.shape)

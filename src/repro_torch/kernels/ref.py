@@ -20,7 +20,8 @@ def _unpack(words: torch.Tensor, n_last: int) -> torch.Tensor:
 
 def dense_of_planes(pos: torch.Tensor, neg: torch.Tensor,
                     n: int) -> torch.Tensor:
-    """[..., W] planes -> [..., n] f32 ternary matrix."""
+    """[..., W] planes -> [..., n] f32 ternary matrix (+0.0 where both
+    bits are equal)."""
     return (_unpack(pos, n) - _unpack(neg, n)).to(torch.float32)
 
 
@@ -48,6 +49,24 @@ def ternary_matmul_grouped_ref(x, pos, neg, scales, expert_idx,
         acc += (x32 * sel) @ w
         srow += torch.where(eid == e, scales[e].to(torch.float32), 0.0)
     return acc * srow
+
+
+def unpack_add_ref(base, pos, neg, scale):
+    """base [M, N] + scale * (pos - neg) in base's dtype: the sum in f32,
+    rounded once.  pos/neg [M, ceil(N/32)]; bits at or beyond N are
+    ignored."""
+    delta = dense_of_planes(pos, neg, base.shape[1])
+    return (base.to(torch.float32) + scale * delta).to(base.dtype)
+
+
+def unpack_add_many_ref(base, pos, neg, scales):
+    """Loop of :func:`unpack_add_ref` over pos/neg [E, M, ceil(N/32)] and
+    scales [E]: rounded through base's dtype after every expert, the
+    bitwise oracle of the fused multi-expert merge."""
+    out = base
+    for e in range(pos.shape[0]):
+        out = unpack_add_ref(out, pos[e], neg[e], scales[e])
+    return out
 
 
 ROW_CHUNK = 4096    # rows packed per step (bounds the int64 temporaries)

@@ -42,7 +42,7 @@ def select_tokens(logits: torch.Tensor,
     if not sampling.greedy:
         raise NotImplementedError(
             "temperature > 0: sampled decoding comes with ROADMAP queue 1, "
-            "item 5 (slice 2)")
+            "item 5")
     return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
 
 

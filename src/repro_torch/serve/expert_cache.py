@@ -6,7 +6,9 @@ Port of the local tiers of ``repro/serve/expert_cache.py``:
   DeviceCache    (device tier)   packed bitplane trees on the card under one
                                  byte budget (LRU), plus stacked per-path
                                  plane buffers for mixed-expert waves
-  ExpertRegistry                 the front door over both
+  ExpertRegistry                 the front door over both, and the
+                                 fused merge of named experts into the
+                                 base (merge-on-swap, merged ensembles)
 
 Experts stay in the 2-bit bitplane form end to end.  Stack bytes count
 against the same budget as the packed trees; an over-budget build evicts
@@ -24,10 +26,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tree as tree_util
 from repro_torch.core.packing import (stack_packed, stacked_bytes,
                                       tree_packed_bytes)
 from repro_torch.device import resolve_device
 from repro_torch.expert import PACKED, Expert
+from repro_torch.kernels.ops import apply_ternary_delta_many_flat
 
 BASE = "__base__"   # pseudo-expert: serve the unmodified base weights
 
@@ -201,3 +205,28 @@ class ExpertRegistry:
             self._device.capacity = capacity_bytes
             self._device._enforce_budget()
         return self._device
+
+    def fetch_packed(self, name: str) -> dict:
+        """Device-resident ``{path: PackedTernary}`` of one expert
+        (``{}`` for ``BASE``)."""
+        return {} if name == BASE else self.device().fetch(name)
+
+    def merged_params(self, base: dict, names, weights=None) -> dict:
+        """``W_base + sum_e w_e * Delta_e`` with ONE fused sweep per leaf.
+
+        Each leaf that any named expert carries goes through
+        ``unpack_add_many`` once, over the experts that carry it, bitwise
+        equal to applying the weight-scaled experts one at a time; a leaf
+        no expert carries is returned as it is (not copied).  With one
+        name this is the merge-on-swap promotion."""
+        names = [names] if isinstance(names, str) else list(names)
+        w = list(weights) if weights is not None else [1.0] * len(names)
+        if len(w) != len(names):
+            raise ValueError(f"{len(w)} weights for {len(names)} experts")
+        packs = [self.fetch_packed(n) for n in names]
+        out = {}
+        for path, leaf in tree_util.flatten_with_paths(base):
+            pts = [(pk[path], wi) for pk, wi in zip(packs, w) if path in pk]
+            out[path] = leaf if not pts else apply_ternary_delta_many_flat(
+                leaf, [pt for pt, _ in pts], [wi for _, wi in pts])
+        return tree_util.unflatten_paths(out)

@@ -47,7 +47,7 @@ def test_planes_bitwise_equal_to_reference(tau_np, per_tensor, density):
         jax.tree_util.tree_map(jnp.asarray, tau_np),
         JConfig(density=density, per_tensor=per_tensor)))
     got = dict(tree_util.flatten_with_paths(compress_packed(
-        params_from_jax(tau_np),
+        params_from_jax(tau_np, device="cpu"),
         CompressionConfig(density=density, per_tensor=per_tensor))))
     assert got.keys() == want.keys()
     for path, w in want.items():
@@ -66,9 +66,9 @@ def test_expert_facade_matches_reference(tau_np):
     and the DENSE reconstruction is signs * scale of those planes."""
     jex = rapi.compress(jax.tree_util.tree_map(jnp.asarray, tau_np),
                         name="x", density=0.2)
-    tex = tapi.compress(params_from_jax(tau_np), name="x", density=0.2,
-                        device="cpu")
-    want = packed_from_jax(jex.as_path_dict(rapi.PACKED))
+    tex = tapi.compress(params_from_jax(tau_np, device="cpu"), name="x",
+                        density=0.2, device="cpu")
+    want = packed_from_jax(jex.as_path_dict(rapi.PACKED), device="cpu")
     got = tex.as_path_dict(PACKED)
     for path, w in want.items():
         assert torch.equal(got[path].pos, w.pos), path

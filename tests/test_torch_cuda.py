@@ -14,6 +14,9 @@ from repro_torch.kernels.pack import (pack_ternary_planes_segmented,
                                       pack_ternary_planes_segmented_plain)
 from repro_torch.kernels.ternary_matmul import (ternary_matmul_grouped,
                                                 ternary_matmul_grouped_plain)
+from repro_torch.kernels.unpack_add import (unpack_add, unpack_add_many,
+                                            unpack_add_many_plain,
+                                            unpack_add_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -110,6 +113,61 @@ def test_hist_kernel_counts_bitwise_and_deterministic(dev, nbins):
     for g, a, w in zip(got[1:], again[1:], want[1:]):
         assert torch.equal(g, a)                     # no float atomics
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _merge_inputs(dev, M, N, dtype, seed):
+    """A base with -0.0 entries, and planes with overlapping bits and
+    padding bits beyond N set."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.randn((M, N), generator=gen, device=dev).to(dtype)
+    base[0, :5] = -0.0
+    pos, neg = _planes((3, M, -(-N // 32)), gen, dev)
+    pos[0, 0, 0], neg[0, 0, 0] = -1, 0xFFFF
+    pos[..., -1] |= -2 ** 31
+    return base, pos, neg
+
+
+@pytest.mark.parametrize("M,N,dtype", [(1, 4096, torch.bfloat16),
+                                       (7, 100, torch.bfloat16),
+                                       (5, 70, torch.float32),
+                                       (64, 2048, torch.float32)])
+def test_unpack_add_kernel_bitwise_equals_plain(dev, M, N, dtype):
+    """Vector (N % 8 == 0) and element-wise paths, positive and negative
+    scales, one expert of a stack, and transposed plane strides."""
+    base, pos, neg = _merge_inputs(dev, M, N, dtype, M + N)
+    # the same planes with a word stride of M and a row stride of 1
+    p_t, n_t = (p[1].t().contiguous().t() for p in (pos, neg))
+    for s in (0.37, -0.21):
+        scale = torch.tensor(s, device=dev)
+        before = unpack_add.launches
+        got = unpack_add(base, pos[1], neg[1], scale)
+        assert unpack_add.launches == before + 1
+        want = unpack_add_plain(base, pos[1], neg[1], scale)
+        assert torch.equal(_bits(got), _bits(want))
+        assert torch.equal(_bits(unpack_add(base, p_t, n_t, scale)),
+                           _bits(want))
+
+
+@pytest.mark.parametrize("M,N,dtype", [(1, 4096, torch.bfloat16),
+                                       (9, 100, torch.bfloat16),
+                                       (33, 96, torch.float32)])
+def test_unpack_add_many_kernel_bitwise_equals_plain_and_loop(dev, M, N,
+                                                              dtype):
+    base, pos, neg = _merge_inputs(dev, M, N, dtype, 7 * M + N)
+    scales = torch.tensor([0.5, -0.25, 0.125], device=dev)
+    got = unpack_add_many(base, pos, neg, scales)
+    want = unpack_add_many_plain(base, pos, neg, scales)
+    assert torch.equal(_bits(got), _bits(want))
+    loop = base
+    for e in range(3):
+        loop = unpack_add(loop, pos[e], neg[e], scales[e])
+    assert torch.equal(_bits(got), _bits(loop))
+    with pytest.raises(ValueError):
+        unpack_add_many(base.to(torch.float16), pos, neg, scales)
 
 
 def test_launch_counts_reset(dev):

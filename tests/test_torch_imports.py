@@ -102,6 +102,38 @@ def test_cuda_tensor_never_takes_the_plain_version():
                              n_seg=1)
 
 
+def test_converters_default_to_the_card():
+    """convert.* place tensors on the card by default, so without one they
+    raise unless the caller passes device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import numpy as np
+    from repro_torch import convert
+    tree = {"w": np.ones((2, 3), np.float32)}
+    for fn in (convert.tensor_from_numpy, convert.params_from_jax):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(tree["w"] if fn is convert.tensor_from_numpy else tree)
+    assert convert.params_from_jax(tree, device="cpu")["w"].device.type == \
+        "cpu"
+
+
+def test_merges_never_take_the_plain_version_off_the_cpu():
+    """The merge entry points dispatch on the base's device: a meta tensor
+    is refused by both unpack_add wrappers, never computed plainly."""
+    from repro_torch.core.packing import PackedTernary
+    from repro_torch.kernels import ops
+    meta = dict(device="meta")
+    base = torch.empty(2, 64, **meta)
+    pt = PackedTernary(pos=torch.empty(4, dtype=torch.int32, **meta),
+                       neg=torch.empty(4, dtype=torch.int32, **meta),
+                       scale=torch.empty((), **meta), shape=(2, 64))
+    for fn in (ops.apply_ternary_delta, ops.apply_ternary_delta_flat,
+               lambda b, p: ops.apply_ternary_delta_many_flat(b, [p, p],
+                                                              [0.5, 1.0])):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(base, pt)
+
+
 def test_chip_smoke_alone_fails(tmp_path):
     """chip_smoke.py in a directory with nothing else of the repository
     (or on a machine without CUDA) exits non-zero and prints no result."""

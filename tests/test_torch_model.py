@@ -36,10 +36,12 @@ def setup():
         for _ in range(2)]
     jex = [rapi.compress(jax.tree_util.tree_map(jnp.asarray, t), density=0.2)
            for t in taus]
-    tex = [tapi.compress(params_from_jax(t), density=0.2, device="cpu")
+    tex = [tapi.compress(params_from_jax(t, device="cpu"), density=0.2,
+                         device="cpu")
            for t in taus]
     tcfg = t_smoke("qwen2_5_3b", n_units=2)
-    tbase = params_from_jax(jax.tree_util.tree_map(np.asarray, base))
+    tbase = params_from_jax(jax.tree_util.tree_map(np.asarray, base),
+                            device="cpu")
     # slot 0 is the BASE zero slot, as DeviceCache.stacked builds it
     jov = j_build_overlay(j_plan_overlay(base, cfg),
                           j_stack([{}] + [e.packed for e in jex]))

@@ -34,9 +34,10 @@ def setup():
         rapi.compress(jax.tree_util.tree_map(jnp.asarray, t), name=f"e{i}",
                       density=0.2) for i, t in enumerate(taus)])
     treg = tapi.registry(device="cpu", experts=[
-        tapi.compress(params_from_jax(t), name=f"e{i}", density=0.2,
-                      device="cpu") for i, t in enumerate(taus)])
-    tbase = params_from_jax(jax.tree_util.tree_map(np.asarray, base))
+        tapi.compress(params_from_jax(t, device="cpu"), name=f"e{i}",
+                      density=0.2, device="cpu") for i, t in enumerate(taus)])
+    tbase = params_from_jax(jax.tree_util.tree_map(np.asarray, base),
+                            device="cpu")
     model = t_build(t_smoke("qwen2_5_3b", n_units=1))
     return cfg, api, base, jreg, model, tbase, treg
 
@@ -115,7 +116,7 @@ def test_unknown_expert_fails_only_its_requests(setup):
 
 @pytest.mark.parametrize("option", [
     {"kv_layout": "paged"}, {"scheduler": "affinity"}, {"mesh": object()},
-    {"snapshot_dir": "snapshots"}, {"scheduling": "grouped"},
+    {"snapshot_dir": "snapshots"},
     {"temperature": 0.7}, {"continuous": True}, {"decode_chunk": 0}])
 def test_unported_options_raise(setup, option):
     _, _, _, _, model, tbase, treg = setup
