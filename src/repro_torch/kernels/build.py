@@ -36,10 +36,8 @@ SIGNATURES = {
     "pack": {"pack_ternary_planes_segmented": [_P, _P, _P, _P, _L, _I, _P]},
     "histogram": {"segment_hist_moments":
                   [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]},
-    "unpack_add": {
-        "unpack_add": [_P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _P],
-        "unpack_add_many": [_P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _L, _I,
-                            _P]},
+    "unpack_add": {"unpack_add_many":
+                   [_P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _L, _I, _P]},
 }
 
 _lock = threading.Lock()

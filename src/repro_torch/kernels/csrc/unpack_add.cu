@@ -13,7 +13,8 @@
 // is computed as a float even where both bits are 0 (so -0.0 + 0.0 gives
 // +0.0, as the reference does) and is 0 where both are set.  Bits at or
 // beyond N are never applied and nothing beyond N is written.  Scales
-// (ensemble weights included) arrive ready-made in f32.
+// (ensemble weights included) arrive ready-made in f32.  One entry point,
+// unpack_add_many; the single-expert wrapper launches it with E = 1.
 //
 // What bounds it on the H100: bytes, 2 * sizeof(base) + E / 4 per element
 // (base read once, out written once, two bits per expert); the arithmetic
@@ -152,12 +153,4 @@ extern "C" int unpack_add_many(const void* base, const uint32_t* pos,
     return launch<__nv_bfloat16>(base, pos, neg, scales, out, E, M, N, es,
                                  rs, ws, s);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int unpack_add(const void* base, const uint32_t* pos,
-                          const uint32_t* neg, const float* scale, void* out,
-                          long long M, long long N, long long rs,
-                          long long ws, int dtype, void* stream) {
-  return unpack_add_many(base, pos, neg, scale, out, 1, M, N, 0, rs, ws,
-                         dtype, stream);
 }

@@ -96,14 +96,6 @@ def grouped_delta_matmul(x: torch.Tensor, pos: torch.Tensor,
 # Expert merges (merge-on-swap and merged ensembles)
 # ---------------------------------------------------------------------------
 
-# The reference's flat-view row width (``repro/kernels/ops.py``); it pads
-# each leaf to rows of this many elements.  The port views a leaf as one
-# row [1, n] instead: the planes are packed over the flat C-order leaf, so
-# ceil(n/32) words cover it and the kernel masks the ragged tail, giving
-# the same bits without a padded copy of the base.
-MERGE_COLS = 4096
-
-
 def apply_ternary_delta(base: torch.Tensor, pt) -> torch.Tensor:
     """Expert loading of a 2-D leaf whose planes are padded per row:
     base [M, N] + scale * (pos - neg), fused."""
@@ -116,7 +108,12 @@ def apply_ternary_delta(base: torch.Tensor, pt) -> torch.Tensor:
 def apply_ternary_delta_flat(base: torch.Tensor, pt) -> torch.Tensor:
     """Rank-agnostic fused merge: base (any shape) + scale * (pos - neg),
     over the [1, n] view of the leaf.  Traffic is the base read and
-    written once plus 2 bits per element; no dense delta exists."""
+    written once plus 2 bits per element; no dense delta exists.
+
+    The reference pads each leaf to rows of 4096 elements; the planes are
+    packed over the flat C-order leaf, so ceil(n/32) words of one [1, n]
+    row cover it and the kernel masks the ragged tail, giving the same
+    bits without a padded copy of the base."""
     n = base.numel()
     out = kernel("unpack_add")(base.reshape(1, n), pt.pos.reshape(1, -1),
                                pt.neg.reshape(1, -1),

@@ -1,11 +1,13 @@
 """Fused ternary decompress + add (expert merge): CUDA kernel wrappers +
 plain versions.
 
-Port of ``repro/kernels/unpack_add.py``.  Single-expert form (the swap):
+Port of ``repro/kernels/unpack_add.py``.  Single-expert form (the oracle
+of the fused form, through ``ops.apply_ternary_delta(_flat)``; no serving
+path calls it):
 
     out[M, N] = base[M, N] + scale * (pos - neg)[M, N]
 
-and multi-expert form (merged ensembles, and merge-on-swap through
+and multi-expert form (merge-on-swap and merged ensembles, through
 ``ops.apply_ternary_delta_many_flat``):
 
     out = base;  out = to_dtype(f32(out) + scales[e] * (pos_e - neg_e))  per e
@@ -13,8 +15,9 @@ and multi-expert form (merged ensembles, and merge-on-swap through
 rounded through the base dtype after every expert, so the fused form is
 bitwise a loop of the single-expert form.  Planes are int32 words packed
 along the last axis, ``ceil(N/32)`` per row; bits at or beyond N are never
-applied.  The kernels are ``csrc/unpack_add.cu``; bases in float32 and
-bfloat16 are served, any other dtype raises on the card.
+applied.  Both wrappers launch the one kernel of ``csrc/unpack_add.cu``
+(the single-expert form with E = 1); bases in float32 and bfloat16 are
+served, any other dtype raises on the card.
 """
 
 from __future__ import annotations
@@ -31,15 +34,18 @@ unpack_add_many_plain = unpack_add_many_ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check(base, pos, neg, scales, n_lead: int):
-    """Device, dtype and shape checks for a launch; returns the dtype code."""
+def _launch(base, pos, neg, scales, what: str) -> torch.Tensor:
+    """Check and launch the kernel on a CUDA base [M, N] with planes
+    [E, M, ceil(N/32)] (any strides) and f32 scales [E]."""
+    if base.device.type != "cuda":
+        raise ValueError(f"unsupported device {base.device}")
     if base.dtype not in _DTYPES:
         raise ValueError(f"base dtype {base.dtype} is not served by the "
                          "kernel (float32 or bfloat16)")
     if base.dim() != 2 or not base.is_contiguous():
         raise ValueError("base must be a contiguous [M, N] tensor")
     M, N = base.shape
-    want = (*pos.shape[:n_lead], M, -(-N // LANE))
+    want = (pos.shape[0], M, -(-N // LANE))
     for p in (pos, neg):
         if p.dtype != torch.int32 or tuple(p.shape) != want:
             raise ValueError(f"planes must be int32 {want}; got "
@@ -48,12 +54,18 @@ def _check(base, pos, neg, scales, n_lead: int):
             raise ValueError("planes and base must share a device")
     if pos.stride() != neg.stride():
         raise ValueError("pos and neg must share their strides")
-    n_scales = pos.shape[0] if n_lead else 1
-    if (scales.dtype != torch.float32 or scales.numel() != n_scales
+    if (scales.dtype != torch.float32 or scales.numel() != pos.shape[0]
             or not scales.is_contiguous() or scales.device != base.device):
         raise ValueError("scales must be a contiguous float32 tensor with "
                          "one value per expert, on base's device")
-    return _DTYPES[base.dtype]
+    out = torch.empty_like(base)
+    lib = build.library("unpack_add")
+    stream = torch.cuda.current_stream(base.device).cuda_stream
+    rc = lib.unpack_add_many(base.data_ptr(), pos.data_ptr(), neg.data_ptr(),
+                             scales.data_ptr(), out.data_ptr(), pos.shape[0],
+                             M, N, *pos.stride(), _DTYPES[base.dtype], stream)
+    build.check(rc, what)
+    return out
 
 
 def unpack_add(base: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
@@ -62,20 +74,10 @@ def unpack_add(base: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
     (one value).  Returns base + scale * (pos - neg) in base's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (built at first use) or raises."""
+    kernel (built at first use; the fused form with E = 1) or raises."""
     if base.device.type == "cpu":
         return unpack_add_plain(base, pos, neg, scale)
-    if base.device.type != "cuda":
-        raise ValueError(f"unsupported device {base.device}")
-    code = _check(base, pos, neg, scale, 0)
-    M, N = base.shape
-    out = torch.empty_like(base)
-    lib = build.library("unpack_add")
-    stream = torch.cuda.current_stream(base.device).cuda_stream
-    rc = lib.unpack_add(base.data_ptr(), pos.data_ptr(), neg.data_ptr(),
-                        scale.data_ptr(), out.data_ptr(), M, N,
-                        pos.stride(0), pos.stride(1), code, stream)
-    build.check(rc, "unpack_add")
+    out = _launch(base, pos[None], neg[None], scale.reshape(1), "unpack_add")
     unpack_add.launches += 1
     return out
 
@@ -91,19 +93,7 @@ def unpack_add_many(base: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
     kernel (built at first use) or raises."""
     if base.device.type == "cpu":
         return unpack_add_many_plain(base, pos, neg, scales)
-    if base.device.type != "cuda":
-        raise ValueError(f"unsupported device {base.device}")
-    code = _check(base, pos, neg, scales, 1)
-    E = pos.shape[0]
-    M, N = base.shape
-    out = torch.empty_like(base)
-    lib = build.library("unpack_add")
-    stream = torch.cuda.current_stream(base.device).cuda_stream
-    rc = lib.unpack_add_many(base.data_ptr(), pos.data_ptr(), neg.data_ptr(),
-                             scales.data_ptr(), out.data_ptr(), E, M, N,
-                             pos.stride(0), pos.stride(1), pos.stride(2),
-                             code, stream)
-    build.check(rc, "unpack_add_many")
+    out = _launch(base, pos, neg, scales, "unpack_add_many")
     unpack_add_many.launches += 1
     return out
 

@@ -151,7 +151,7 @@ def _packed(rng, shape, scale):
 @pytest.mark.parametrize("shape,dtype", [
     ((5, 7), jnp.float32),                 # 35 elements: a ragged word
     ((3, 4, 11), jnp.bfloat16),            # rank 3, 132 elements
-    ((70, 61), jnp.bfloat16),              # 4270 > MERGE_COLS, ragged
+    ((70, 61), jnp.bfloat16),              # 4270 > 4096 (reference rows), ragged
 ])
 def test_flat_merges_bitwise_equal_reference_ops(shape, dtype):
     assert int(np.prod(shape)) % 32
