@@ -9,12 +9,16 @@ QKV bias, swiglu d_ff 11008, vocab 151936, tied embeddings, rope theta
 random weights from ``--seed``, it runs, in order, stopping at the first
 failure with a non-zero exit:
 
-  1. require CUDA; print the card's name and power limit; build the four
+  1. require CUDA; print the card's name and power limit; build the five
      kernel sources (one nvcc per source, in parallel) and print the
      build time;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (grouped matmul: row independence too; the merge
-     kernels bitwise at the tied embedding, E = 1 and 3);
+     kernels bitwise at the tied embedding, E = 1 and 3; the scalar pack
+     bitwise at the tied embedding's size with -0.0 and +-threshold
+     planted; popcount_dot bitwise over two such plane pairs; the
+     single-expert matmul on FFN-down planes, bitwise each row of a
+     grouped launch on the same expert);
   3. the main paths, each with every launch count set to 0 just before it
      and read just after: compress 4 experts (base + seeded noise on every
      leaf, density 0.1) through ``api.compress(...).as_(PACKED)``, then
@@ -24,6 +28,15 @@ failure with a non-zero exit:
      merged ensemble of three experts; then, counted apart as a check and
      not a path, the ensemble's oracle, a loop of single-expert merges
      (``unpack_add``, which no path of the port calls);
+  3c. the artifact path on the same experts (``artifact_path``): e0
+     compressed again with ``method="exact"`` (bitwise
+     ``pack_tree(compress(.))``), the experts saved as ``.cpft`` and
+     ``.npz`` and loaded back bitwise, the same 8 requests served from a
+     cold-Golomb registry over the loaded experts (tokens exactly phase
+     3's), the similarity matrix and ``scaled_dot`` by popcount (equal to
+     the plain versions'), ``api.merge`` by packed, task arithmetic and
+     TIES (packed bitwise task arithmetic), and, counted apart as a
+     check, ``ops.ternary_matvec`` over unit 0's projections;
   4. check the result: tokens in range; one expert's planes bitwise equal
      to the plain compression of its tau; every row's tokens bitwise
      unchanged when the other rows of its wave carry other experts; every
@@ -37,10 +50,10 @@ failure with a non-zero exit:
      plain and loop oracles, tokens bitwise those of the same run on the
      plain versions, and merged logits within a tenth of the overlay's
      effect of the base-plus-overlay logits;
-  5. time the kernels and warm re-runs of both paths (which must repeat
-     their tokens), profile one wave with ``torch.profiler``, and print
-     the ``kernels`` JSON line and the end-to-end numbers, each tagged
-     with the card's name and power limit.
+  5. time the kernels and warm re-runs of both serving paths (which must
+     repeat their tokens), profile one wave with ``torch.profiler``, and
+     print the ``kernels`` JSON line (eight kernels) and the end-to-end
+     numbers, each tagged with the card's name and power limit.
 
 The last line of standard output is ``{"ok": true, "device": ...}``; a
 run that fails prints no such line.  Details go to
@@ -53,8 +66,10 @@ import argparse
 import copy
 import dataclasses
 import json
+import math
 import os
 import subprocess
+import tempfile
 import sys
 import time
 import traceback
@@ -89,20 +104,21 @@ def gpu_line() -> str:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs, CUDA events."""
+    """Milliseconds per call of ``fn()``: after a warm-up call, ``reps``
+    calls launched back to back between two CUDA events, their elapsed
+    time over ``reps``.  The host's launch work overlaps the device's
+    execution, so a kernel shorter than its wrapper's host work reads as
+    the host's time per call."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -327,6 +343,138 @@ def check_merge_kernels(torch, leaf, gen, dev, report):
                "bound_by": by3}}
     log(f"  unpack_add {t1:.3f} ms, unpack_add_many E=1 {tm[1]:.3f} ms, "
         f"E=3 {tm[3]:.3f} ms (bounds {b1:.3f} / {b1:.3f} / {b3:.3f} ms)")
+
+
+def check_artifact_kernels(torch, cfg, gen, dev, report):
+    """The artifact path's kernels against their plain versions at full
+    width, on inputs from ``gen`` (a generator of their own: the experts
+    drawn later stay the ones of the earlier slices):
+
+    * pack_ternary_planes over a tau of the tied embedding's size viewed
+      flat, [1, V * d] f32, with -0.0, 0.0 and values at +-the exact
+      density-0.1 threshold planted: bitwise its plain version and
+      pack_ternary(compress_leaf(.)) at that threshold;
+    * popcount_dot over the planes of two such taus: bitwise its plain
+      version, and dot(a, a) == nnz(a);
+    * ternary_matmul on FFN-down planes [d_ff, d / 32] with x [4, d_ff]:
+      within 1e-4 * max |plain| of its plain version (f32 sums in other
+      orders), and bitwise every row of a grouped launch whose rows all
+      carry that expert (the same summation order in two kernels).
+
+    Then CUDA-event times beside the bounds, and cuBLAS ``x @ W`` on the
+    dense f32 ternary matrix as a yardstick for the grouped redesign (a
+    different input: the unpacked matrix, not the planes)."""
+    from repro_torch.core.compeft import (CompressionConfig, _topk_threshold,
+                                          compress_leaf)
+    from repro_torch.core.packing import pack_ternary, popcount
+    from repro_torch.kernels.pack import (pack_ternary_planes,
+                                          pack_ternary_planes_plain)
+    from repro_torch.kernels.popcount_dot import (popcount_dot,
+                                                  popcount_dot_plain)
+    from repro_torch.kernels.ref import dense_of_planes
+    from repro_torch.kernels.ternary_matmul import (
+        ternary_matmul, ternary_matmul_grouped, ternary_matmul_plain)
+    n = cfg.vocab * cfg.d_model
+    W = -(-n // 32)
+
+    def tau_and_threshold():
+        tau = 0.01 * torch.randn((1, n), generator=gen, device=dev)
+        flat = tau.view(-1)
+        flat[::4099] = -0.0
+        flat[1::8191] = 0.0
+        thr = _topk_threshold(flat.abs(), 0.1)
+        flat[2::6151] = thr
+        flat[3::6151] = -thr
+        return tau, thr
+
+    tau, thr = tau_and_threshold()
+    a = pack_ternary_planes(tau, thr)
+    want = pack_ternary_planes_plain(tau, thr)
+    torch.cuda.synchronize()
+    check(torch.equal(a[0], want[0]) and torch.equal(a[1], want[1]),
+          "pack_ternary_planes: planes differ from the plain version")
+    del want
+    pt = pack_ternary(compress_leaf(tau[0], CompressionConfig(density=0.1),
+                                    threshold=thr))
+    check(torch.equal(a[0][0], pt.pos) and torch.equal(a[1][0], pt.neg),
+          "pack_ternary_planes: planes differ from "
+          "pack_ternary(compress_leaf(.))")
+    del pt
+    t7 = cuda_ms(torch, lambda: pack_ternary_planes(tau, thr), 20)
+    t7p = cuda_ms(torch, lambda: pack_ternary_planes_plain(tau, thr), 3)
+    b7, by7 = bound_ms(n * 4 + 4 + 2 * W * 4, 4.0 * n)
+    log(f"  pack_ternary_planes over [1, {n}] f32 (-0.0, 0.0 and +-thr "
+        "planted): bitwise equal to the plain version and to "
+        "pack_ternary(compress_leaf(.))")
+    del tau
+    tau_b, thr_b = tau_and_threshold()
+    b = pack_ternary_planes(tau_b, thr_b)
+    del tau_b
+    ap, an, bp, bn = a[0][0], a[1][0], b[0][0], b[1][0]
+    dot = popcount_dot(ap, an, bp, bn)
+    dot_plain = popcount_dot_plain(ap, an, bp, bn)
+    self_dot = popcount_dot(ap, an, ap, an)
+    nnz_a = int(popcount(ap).sum() + popcount(an).sum())
+    torch.cuda.synchronize()
+    check(torch.equal(dot, dot_plain),
+          f"popcount_dot: {int(dot)} != plain {int(dot_plain)}")
+    check(int(self_dot) == nnz_a,
+          f"popcount_dot: dot(a, a) {int(self_dot)} != nnz(a) {nnz_a}")
+    t8 = cuda_ms(torch, lambda: popcount_dot(ap, an, bp, bn), 50)
+    t8p = cuda_ms(torch, lambda: popcount_dot_plain(ap, an, bp, bn), 3)
+    b8, by8 = bound_ms(4 * W * 4 + 4, 11.0 * W)
+    log(f"  popcount_dot over two [{W}]-word plane pairs: {int(dot)} "
+        f"bitwise equal to the plain version; dot(a, a) = nnz(a) = {nnz_a}")
+    del a, b, ap, an, bp, bn
+
+    K, N = cfg.pattern[0].ffn.d_ff, cfg.d_model
+    pos, neg = rand_planes(torch, (3, K, N // 32), gen, dev)
+    x = torch.randn((4, K), generator=gen, device=dev)
+    scales = torch.tensor([0.021, 0.013, 0.008], device=dev)
+    got = ternary_matmul(x, pos[1], neg[1], scales[1])
+    plain = ternary_matmul_plain(x, pos[1], neg[1], scales[1])
+    grouped = ternary_matmul_grouped(
+        x, pos, neg, scales, torch.ones(4, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    err = float((got - plain).abs().max())
+    tol = 1e-4 * float(plain.abs().max())
+    check(err <= tol, f"ternary_matmul: err {err} > tol {tol}")
+    check(torch.equal(got, grouped), "ternary_matmul: rows differ from the "
+          "grouped kernel's rows on the same expert")
+    t6 = cuda_ms(torch, lambda: ternary_matmul(x, pos[1], neg[1],
+                                               scales[1]), 50)
+    t6p = cuda_ms(torch, lambda: ternary_matmul_plain(x, pos[1], neg[1],
+                                                      scales[1]), 5)
+    dense = dense_of_planes(pos[1], neg[1], N)
+    t_cublas = cuda_ms(torch, lambda: x @ dense, 50)
+    nnz6 = float(dense.abs().sum())
+    b6, by6 = bound_ms(4 * K * 4 + 2 * K * (N // 32) * 4 + 4 + 4 * N * 4,
+                       2.0 * nnz6 * 4)
+    log(f"  ternary_matmul x [4, {K}] @ planes [{K}, {N // 32}]: max|err| "
+        f"{err:.3e} (tol {tol:.3e}); every row bitwise equal to the grouped "
+        "kernel's")
+    report["pack_ternary_planes"] = {
+        "max_abs_err": 0.0, "ms": t7, "plain_ms": t7p, "bound_ms": b7,
+        "bound_by": by7, "library_ms": None,
+        "library_note": "null: no PyTorch call packs bits",
+        "shape": f"tied embedding's size viewed flat: tau [1, {n}] f32"}
+    report["popcount_dot"] = {
+        "max_abs_err": 0.0, "ms": t8, "plain_ms": t8p, "bound_ms": b8,
+        "bound_by": by8, "library_ms": None,
+        "library_note": "null: no PyTorch call counts bits",
+        "shape": f"two plane pairs of the tied embedding's size, 4 x [{W}] "
+                 "int32"}
+    report["ternary_matmul"] = {
+        "max_abs_err": err, "ms": t6, "plain_ms": t6p, "bound_ms": b6,
+        "bound_by": by6, "library_ms": None,
+        "library_note": "null: no PyTorch call unpacks bit planes",
+        "cublas_dense_ms": t_cublas,
+        "cublas_dense_note": "x @ W on the unpacked f32 ternary matrix "
+                             f"[{K}, {N}]: another input, a yardstick",
+        "shape": f"FFN down: x [4, {K}], planes [{K}, {N // 32}]"}
+    log(f"  pack_ternary_planes {t7:.4f} ms (bound {b7:.4f}), popcount_dot "
+        f"{t8:.4f} ms (bound {b8:.4f}), ternary_matmul {t6:.4f} ms (bound "
+        f"{b6:.5f}; cuBLAS on the dense matrix {t_cublas:.4f} ms)")
 
 
 # ---------------------------------------------------------------------------
@@ -620,6 +768,224 @@ def merge_effect_check(torch, engine, gengine, reqs):
     return out
 
 
+def artifact_path(torch, api, model, base, experts, reqs, cfg, dev, tmp):
+    """Phase 3c: the rest of the artifact loop on the same experts, each
+    step driven with the launch counts set to 0 just before it and read
+    just after, its checks between the steps (they launch nothing):
+
+    1. e0's tau compressed again with ``method="exact"`` (the scalar pack
+       kernel once per leaf): its planes bitwise ``pack_tree(compress(.))``
+       and ``unpack(PACKED)`` bitwise ``compress``'s signs;
+    2. the 4 experts saved as ``.cpft`` (Golomb) and e0 also as ``.npz``,
+       all loaded back with ``api.load``: e0's two files carry the same
+       streams byte for byte;
+    3. a cold-Golomb registry over the loaded ``.cpft`` experts serves
+       the 8 requests mixed: tokens exactly the mixed path's, and every
+       expert's planes, decoded on promotion, bitwise the originals (the
+       one decode of each stream: the host codec takes tens of seconds
+       per 619 M-parameter expert);
+    4. ``pairwise_similarity_matrix`` over the 4 experts and
+       ``scaled_dot`` of e0 and e1 per leaf (popcount_dot per pair and
+       leaf): equal to the plain versions';
+    5. ``api.merge`` of e0-e2 by ``packed``, ``task_arithmetic`` and
+       ``ties``: seconds and peak memory; packed bitwise task arithmetic;
+    6. ``ops.ternary_matvec`` over unit 0's 2-D projections of each
+       expert, a check (no path calls it): within 1e-4 * max |plain| of
+       the plain version.
+
+    Returns (numbers, path launches, check launches)."""
+    from repro_torch import tree as tree_util
+    from repro_torch.core.compeft import CompressionConfig, compress
+    from repro_torch.core.merging import pairwise_similarity_matrix
+    from repro_torch.core.packing import (PackedTernary, pack_tree,
+                                          unpack_tree)
+    from repro_torch.core.ternary_ops import scaled_dot
+    from repro_torch.expert import DENSE, GOLOMB, PACKED, TERNARY
+    from repro_torch.kernels import ops
+    out, launches = {}, {}
+
+    def counted(step, fn):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        result = fn()
+        torch.cuda.synchronize()
+        out[f"{step}_s"] = time.monotonic() - t0
+        for k, v in ops.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        return result
+
+    # 1. the exact compression
+    tau = experts[0].as_(DENSE)
+    exact = api.compress(tau, name="e0x", density=0.1, method="exact",
+                         device=dev)
+    counted("exact_compress", lambda: exact.as_(PACKED))
+    n_leaves = len(exact.packed)
+    check(launches["pack_ternary_planes"] == n_leaves,
+          f"exact compression: {launches['pack_ternary_planes']} launches of "
+          f"pack_ternary_planes for {n_leaves} leaves")
+    tern = compress(tau, CompressionConfig(density=0.1))
+    want = dict(tree_util.flatten_with_paths(pack_tree(tern),
+                                             is_leaf=_is_pt))
+    back = dict(tree_util.flatten_with_paths(unpack_tree(exact.as_(PACKED)),
+                                             is_leaf=_is_ct))
+    signs = dict(tree_util.flatten_with_paths(tern, is_leaf=_is_ct))
+    for path, pt in exact.packed.items():
+        check(torch.equal(pt.pos, want[path].pos)
+              and torch.equal(pt.neg, want[path].neg)
+              and torch.equal(pt.scale, want[path].scale),
+              f"exact {path}: planes differ from pack_tree(compress(.))")
+        check(torch.equal(back[path].signs, signs[path].signs),
+              f"exact {path}: unpack(PACKED) differs from compress's signs")
+    del tern, want, back, signs, exact
+    log(f"  exact compression of e0: {launches['pack_ternary_planes']} "
+        "launches of "
+        f"pack_ternary_planes in {out['exact_compress_s']:.3f} s; planes "
+        "bitwise pack_tree(compress(.)), unpack(PACKED) bitwise its signs")
+
+    # 2. save and load (host codecs: no kernel).  Loading is lazy: the
+    # streams are decoded once, by the cold tier's promotions in step 3,
+    # where the decoded planes are held against the originals.
+    saved, encode_s, load_s, loaded = {}, {}, {}, {}
+    files = [(e, os.path.join(tmp, f"{e.name}.cpft")) for e in experts]
+    files.append((experts[0], os.path.join(tmp, "e0.npz")))
+    for ex, path in files:
+        t0 = time.monotonic()
+        saved[path] = api.save(ex, path)
+        encode_s[os.path.basename(path)] = time.monotonic() - t0
+    for ex, path in files:
+        t0 = time.monotonic()
+        loaded[os.path.basename(path)] = api.load(path, device=dev)
+        load_s[os.path.basename(path)] = time.monotonic() - t0
+    npz, cpft = loaded.pop("e0.npz"), loaded["e0.cpft"]
+    check(npz.as_(GOLOMB) == cpft.as_(GOLOMB),
+          "e0.npz and e0.cpft carry different Golomb streams")
+    out.update(
+        file_bytes={os.path.basename(p): st["compressed_bytes"]
+                    for p, st in saved.items()},
+        ratio_vs_bf16={os.path.basename(p): st["ratio"]
+                       for p, st in saved.items()},
+        golomb_encode_s=encode_s, load_s=load_s)
+    log("  saved and loaded: " + ", ".join(
+        f"{os.path.basename(p)} {st['compressed_bytes'] / 2 ** 20:.1f} MiB "
+        f"(x{st['ratio']:.1f} vs bf16)" for p, st in saved.items())
+        + "; e0.npz holds e0.cpft's streams byte for byte")
+
+    # 3. the cold-Golomb tier serving the mixed path's requests
+    creg = api.registry(cold_golomb=True, device=dev,
+                        device_cache_bytes=16 << 30,
+                        experts=list(loaded.values()))
+    del loaded, npz, cpft
+    ceng = api.serve(model, base, creg, max_batch=4, cache_len=128,
+                     decode_chunk=8)
+    creqs = fresh(reqs, 800)
+    counted("cold_serve", lambda: ceng.run(creqs))
+    check([r.out_tokens for r in creqs] == [r.out_tokens for r in reqs],
+          "cold-Golomb serve: tokens differ from the mixed path's")
+    for ex in experts:
+        got = creg.fetch_packed(ex.name)
+        for path, pt in ex.packed.items():
+            check(torch.equal(got[path].pos, pt.pos)
+                  and torch.equal(got[path].neg, pt.neg)
+                  and torch.equal(got[path].scale, pt.scale),
+                  f"{ex.name}.cpft {path}: planes differ after save, load "
+                  "and decode")
+    stats = creg.device().stats
+    check(stats.promotions == len(experts),
+          f"cold tier: {stats.promotions} promotions, expected "
+          f"{len(experts)}")
+    waves = ceng.wave_log
+    out.update(cold_golomb_decode_s=stats.golomb_decode_seconds,
+               cold_promotions=stats.promotions,
+               cold_decode_tokens_per_s=(
+                   sum(w["tokens"] - w["rows"] for w in waves)
+                   / sum(w["seconds"] - w["prefill_s"] for w in waves)),
+               cold_prefill_ms_per_wave=[w["prefill_s"] * 1e3
+                                         for w in waves])
+    log(f"  cold-Golomb registry: {stats.promotions} promotions, Golomb "
+        f"decode {stats.golomb_decode_seconds:.2f} s; every expert's planes "
+        "bitwise the originals; tokens equal the mixed path's")
+    del creg, ceng
+
+    # 4. similarity by popcount
+    packs = [e.as_(PACKED) for e in experts]
+    e0, e1 = experts[0].packed, experts[1].packed
+    sim = counted("similarity", lambda: (
+        pairwise_similarity_matrix(packs),
+        {p: scaled_dot(e0[p], e1[p]) for p in e0}))
+    with ops.plain_versions():
+        sim_plain = (pairwise_similarity_matrix(packs),
+                     {p: scaled_dot(e0[p], e1[p]) for p in e0})
+    check(bool((sim[0] == sim_plain[0]).all()),
+          f"similarity matrix differs from the plain versions': {sim[0]} "
+          f"vs {sim_plain[0]}")
+    for p in e0:
+        check(torch.equal(sim[1][p], sim_plain[1][p]),
+              f"scaled_dot {p}: differs from the plain version's")
+    out["similarity"] = sim[0].tolist()
+    log(f"  pairwise similarity of e0-e3 by popcount ({launches['popcount_dot']}"
+        " launches) and scaled_dot of e0, e1 per leaf: equal to the plain "
+        f"versions'; off-diagonal {sim[0][0, 1]:.6f} .. {sim[0][2, 3]:.6f}")
+
+    # 5. merges
+    merged, peak, held = {}, {}, {}
+    for method in ("packed", "task_arithmetic", "ties"):
+        torch.cuda.reset_peak_memory_stats()
+        held[method] = torch.cuda.memory_allocated() / 2 ** 30
+        merged[method] = counted(f"merge_{method}", lambda: api.merge(
+            experts[:3], method=method))   # noqa: B023
+        peak[method] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if method == "ties":
+            del merged[method]
+    for (path, a), (_, b) in zip(
+            tree_util.flatten_with_paths(merged["packed"]),
+            tree_util.flatten_with_paths(merged["task_arithmetic"])):
+        check(torch.equal(bits(torch, a), bits(torch, b)),
+              f"merge {path}: packed differs from task arithmetic")
+    del merged
+    for e in experts[:3]:
+        e.drop(TERNARY)
+    out["merge_peak_gib"], out["merge_held_before_gib"] = peak, held
+    log("  api.merge of e0-e2: " + ", ".join(
+        f"{m} {out[f'merge_{m}_s']:.2f} s (peak {peak[m]:.2f} GiB, "
+        f"{held[m]:.2f} held before)" for m in peak)
+        + "; packed bitwise task arithmetic")
+
+    # 6. the single-expert matmul, a check (no path calls it)
+    ops.reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = 0.0
+    for ex in experts:
+        for path, pt in ex.packed.items():
+            leaf, name = pt.shape, path.rsplit("/", 1)[-1]
+            if not path.startswith("blocks/"):
+                continue
+            if name in ("wq", "wk", "wv", "wg", "wu"):     # [U, d, ...]
+                K, N = leaf[1], math.prod(leaf[2:])
+            elif name == "wo":                           # [U, ..., d]
+                K, N = math.prod(leaf[1:-1]), leaf[-1]
+            else:                                        # biases, norms
+                continue
+            nw = K * N // 32
+            unit0 = PackedTernary(pos=pt.pos[:nw], neg=pt.neg[:nw],
+                                  scale=pt.scale, shape=(K, N),
+                                  orig_dtype=pt.orig_dtype)
+            x = torch.randn((4, K), generator=gen, device=dev)
+            y = ops.ternary_matvec(x, unit0)
+            with ops.plain_versions():
+                yp = ops.ternary_matvec(x, unit0)
+            err = float((y - yp).abs().max())
+            check(err <= 1e-4 * float(yp.abs().max()) + 1e-30,
+                  f"ternary_matvec {ex.name} {path}: err {err}")
+            worst = max(worst, err)
+    check_launches = ops.launch_counts()
+    out["ternary_matvec_max_abs_err"] = worst
+    log(f"  ternary_matvec over unit 0's projections of e0-e3 "
+        f"({check_launches['ternary_matmul']} launches, a check): max|err| "
+        f"{worst:.3e} against the plain version")
+    return out, launches, check_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--units", type=int, default=4,
@@ -685,6 +1051,8 @@ def main(argv=None) -> int:
     # before the merge kernels were checked here
     check_merge_kernels(torch, base["embed"], torch.Generator(
         device=dev).manual_seed(args.seed + 1), dev, report)
+    check_artifact_kernels(torch, cfg, torch.Generator(
+        device=dev).manual_seed(args.seed + 2), dev, report)
     if args.stop_after == "kernels":
         log(json.dumps({"kernels_checked": report}))
         return 0
@@ -747,6 +1115,18 @@ def main(argv=None) -> int:
     log(f"  launches by the ensemble's loop check: {check_launches}")
     check(check_launches["unpack_add"] > 0,
           "unpack_add was not launched by the ensemble's loop check")
+
+    log("phase 3c: artifact path (exact compression, save / load, "
+        "cold-Golomb serve, similarity, merges)")
+    with tempfile.TemporaryDirectory(prefix="_artifacts_", dir=ROOT) as tmp:
+        art, art_launches, matvec_launches = artifact_path(
+            torch, api, model, base, experts, reqs, cfg, dev, tmp)
+    log(f"  launches on the artifact path: {art_launches}")
+    for name in ARTIFACT_PATH_KERNELS:
+        check(art_launches[name] > 0,
+              f"kernel {name} was not launched on the artifact path")
+    check(matvec_launches["ternary_matmul"] > 0,
+          "ternary_matmul was not launched by the ternary_matvec check")
 
     log("phase 4: checks")
     for r in reqs:
@@ -844,12 +1224,18 @@ def main(argv=None) -> int:
             ("unpack_add_many", "src/repro_torch/kernels/csrc/unpack_add.cu",
              "src/repro/kernels/unpack_add.py:112"),
             ("unpack_add", "src/repro_torch/kernels/csrc/unpack_add.cu",
-             "src/repro/kernels/unpack_add.py:65")):
+             "src/repro/kernels/unpack_add.py:65"),
+            ("ternary_matmul", "src/repro_torch/kernels/csrc/"
+             "ternary_matmul.cu", "src/repro/kernels/ternary_matmul.py:76"),
+            ("pack_ternary_planes", "src/repro_torch/kernels/csrc/pack.cu",
+             "src/repro/kernels/pack.py:64"),
+            ("popcount_dot", "src/repro_torch/kernels/csrc/popcount_dot.cu",
+             "src/repro/kernels/popcount_dot.py:32")):
         r = report[name]
         # each kernel's launches on the paths that run it: the mixed path,
-        # the merge path and the merged ensemble
+        # the merge path, the merged ensemble and the artifact path
         n_launch = (launches[name] + merge_launches[name]
-                    + ens_launches[name])
+                    + ens_launches[name] + art_launches[name])
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": n_launch,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -858,6 +1244,10 @@ def main(argv=None) -> int:
                  "shape": r["shape"]}
         if name == "unpack_add":
             entry["check_launches"] = check_launches[name]
+        if name == "ternary_matmul":
+            entry["check_launches"] = matvec_launches[name]
+        if "library_note" in r:
+            entry["library_note"] = r["library_note"]
         kernels.append(entry)
     prefill_ms = [w["prefill_s"] * 1e3 for w in waves]
     dec_tok = sum(w["tokens"] - w["rows"] for w in waves)
@@ -877,10 +1267,12 @@ def main(argv=None) -> int:
                "merge_decode_tokens_per_s": g_dec_tok / g_dec_s,
                "merge_serve_s_8_requests": gserve_s,
                "merge_peak_memory_gib": gpeak / 2 ** 30,
+               "artifact_path": art,
                "params_m": n_params / 1e6}
     details.update(kernels=kernels, numbers=numbers, launches={
         "mixed_path": launches, "merge_path": merge_launches,
-        "ensemble": ens_launches, "ensemble_loop_check": check_launches})
+        "ensemble": ens_launches, "ensemble_loop_check": check_launches,
+        "artifact_path": art_launches, "ternary_matvec_check": matvec_launches})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1)
     log(f"compress seconds per expert {tag}: "
@@ -907,6 +1299,26 @@ def main(argv=None) -> int:
     log(f"peak memory {tag}: mixed path {numbers['peak_memory_gib']:.2f} "
         f"GiB, merge path and ensemble "
         f"{numbers['merge_peak_memory_gib']:.2f} GiB")
+    log(f"artifact path {tag}: exact compression of e0 "
+        f"{art['exact_compress_s']:.3f} s (streaming {compress_s[0]:.3f} s); "
+        "Golomb encode s " + ", ".join(
+            f"{k} {v:.2f}" for k, v in art["golomb_encode_s"].items())
+        + "; load s (lazy) " + ", ".join(
+            f"{k} {v:.3f}" for k, v in art["load_s"].items()))
+    log(f"artifact path {tag}: cold-Golomb serve {art['cold_serve_s']:.2f} s "
+        f"(Golomb decode of the 4 experts {art['cold_golomb_decode_s']:.2f} "
+        "s), decode tokens/s "
+        f"{art['cold_decode_tokens_per_s']:.1f}; similarity "
+        f"{art['similarity_s']:.3f} s; merges " + ", ".join(
+            f"{m} {art[f'merge_{m}_s']:.2f} s / peak {g:.2f} GiB"
+            for m, g in art["merge_peak_gib"].items()))
+    for name in ("pack_ternary_planes", "popcount_dot", "ternary_matmul"):
+        r = report[name]
+        log(f"{name} ms {tag}: {r['ms']:.4f} (bound {r['bound_ms']:.5f}, "
+            f"plain {r['plain_ms']:.3f}; {r['shape']})")
+    log(f"cuBLAS x @ W on the dense f32 ternary FFN-down matrix {tag}: "
+        f"{report['ternary_matmul']['cublas_dense_ms']:.4f} ms (another "
+        "input, a yardstick)")
     if details["profile"]["idle_share"] is not None:
         log(f"device idle share of one profiled wave {tag}: "
             f"{details['profile']['idle_share']:.3f}")
@@ -920,6 +1332,8 @@ def main(argv=None) -> int:
 
 MIXED_PATH_KERNELS = ("ternary_matmul_grouped", "pack_ternary_planes_segmented",
                       "segment_hist_moments")
+ARTIFACT_PATH_KERNELS = ("pack_ternary_planes", "popcount_dot",
+                         "ternary_matmul_grouped")
 
 
 def fresh(reqs, uid0):
@@ -930,6 +1344,10 @@ def fresh(reqs, uid0):
 
 def _is_pt(x) -> bool:
     return hasattr(x, "pos") and hasattr(x, "neg")
+
+
+def _is_ct(x) -> bool:
+    return hasattr(x, "signs")
 
 
 if __name__ == "__main__":

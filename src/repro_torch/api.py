@@ -4,7 +4,10 @@
     from repro_torch.models import build
 
     ex = api.compress(theta_init, theta_ft, name="math", density=0.1)
-    reg = api.registry(experts=[ex])
+    ex.save("math.cpft")                   # Golomb wire artifact
+    ex = api.load("math.cpft")             # planes decoded onto the card
+    merged_tau = api.merge([ex_a, ex_b], method="ties", lam=0.7)
+    reg = api.registry(experts=[ex])       # cold_golomb=True: keep streams
     engine = api.serve(model, base_params, reg,
                        max_batch=4, cache_len=128, decode_chunk=8)
     engine.run(requests)
@@ -26,10 +29,12 @@ from typing import Optional, Sequence
 
 from repro_torch import tree as tree_util
 from repro_torch.device import resolve_device
-from repro_torch.expert import DENSE, PACKED, REPRESENTATIONS, Expert
+from repro_torch.expert import (DENSE, GOLOMB, PACKED, REPRESENTATIONS,
+                                TERNARY, Expert)
 
-__all__ = ["Expert", "DENSE", "PACKED", "REPRESENTATIONS", "compress",
-           "registry", "serve"]
+__all__ = ["Expert", "DENSE", "TERNARY", "PACKED", "GOLOMB",
+           "REPRESENTATIONS", "compress", "merge", "registry", "serve",
+           "load", "save"]
 
 
 def compress(tau_or_init: dict, theta_ft: Optional[dict] = None, *,
@@ -39,7 +44,9 @@ def compress(tau_or_init: dict, theta_ft: Optional[dict] = None, *,
              device="cuda") -> Expert:
     """Algorithm 1 as an artifact.  Call with a task vector or with a
     fine-tune pair (``tau = theta_ft - theta_init``).  The leaves are
-    placed on ``device``; compression runs there on first ``as_``."""
+    placed on ``device``; compression runs there on first ``as_``.
+    ``method="streaming"`` is the histogram-threshold pipeline,
+    ``method="exact"`` the sort-based per-leaf quantile."""
     dev = resolve_device(device)
     place = lambda t: tree_util.tree_map(lambda l: l.to(dev), t)  # noqa: E731
     kw = dict(name=name, kind=kind, density=density, alpha=alpha,
@@ -49,13 +56,31 @@ def compress(tau_or_init: dict, theta_ft: Optional[dict] = None, *,
     return Expert.from_task_vector(place(tau_or_init), **kw)
 
 
-def registry(store=None, *, device_cache_bytes: Optional[int] = None,
+def merge(experts: Sequence, method: str = "auto", lam: float = 1.0,
+          density: float = 0.2, *, name: Optional[str] = None,
+          as_expert: bool = False, **compress_kw):
+    """Merge experts (Task Arithmetic / TIES / packed-plane TA), dispatched
+    by representation (:func:`repro_torch.core.merging.merge_experts`).
+    Returns the merged dense task-vector tree, on the experts' device, or
+    with ``as_expert=True`` an Expert of it named ``name`` (``compress_kw``
+    go to :func:`compress`)."""
+    from repro_torch.core.merging import merge_experts
+    tau = merge_experts(experts, method=method, lam=lam, density=density)
+    if not as_expert:
+        return tau
+    compress_kw.setdefault("density", density)
+    return compress(tau, name=name or "merged", **compress_kw)
+
+
+def registry(store=None, *, cold_golomb: bool = False,
+             device_cache_bytes: Optional[int] = None,
              device="cuda", experts: Sequence[Expert] = ()):
     """A fresh :class:`~repro_torch.serve.expert_cache.ExpertRegistry`
-    whose device tier lives on ``device``."""
+    whose device tier lives on ``device``.  ``cold_golomb=True`` keeps only
+    Golomb streams in the cold tier and decodes them on promotion."""
     from repro_torch.serve.expert_cache import (DEFAULT_DEVICE_BYTES,
                                                 ExpertRegistry)
-    reg = ExpertRegistry(store, device=device,
+    reg = ExpertRegistry(store, cold_golomb=cold_golomb, device=device,
                          device_cache_bytes=(device_cache_bytes
                                              or DEFAULT_DEVICE_BYTES))
     for e in experts:
@@ -81,3 +106,14 @@ def serve(model, base_params: dict, reg, cfg=None, **engine_kw):
     elif engine_kw:
         cfg = dataclasses.replace(cfg, **engine_kw)
     return ServeEngine(model, base_params, reg, cfg)
+
+
+def load(path: str, name: Optional[str] = None, device="cuda") -> Expert:
+    """Read an expert file (npz, legacy ``export_expert`` npz, or
+    ``.cpft``); its planes are decoded onto ``device`` on first use."""
+    return Expert.load(path, name=name, device=device)
+
+
+def save(expert: Expert, path: str) -> dict:
+    """Write ``expert`` as the Golomb artifact; returns size stats."""
+    return expert.save(path)

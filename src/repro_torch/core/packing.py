@@ -12,12 +12,48 @@ Torch on the CPU cannot shift ``uint32``, so the planes are held as
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_util
+from repro_torch.core.compeft import CompressedTensor, _is_ct
+
 LANE = 32  # bits per plane word
+
+
+def entropy_bits(d: int, k: float) -> float:
+    """Paper §2.2: entropy of a d-dim ternary vector with density k, +16 for
+    the scalar."""
+    if k <= 0.0:
+        return 16.0
+    if k >= 1.0:
+        return float(d) + 16.0  # signs only: 1 bit each
+    h = -((1.0 - k) * math.log2(1.0 - k) + k * math.log2(k / 2.0))
+    return h * d + 16.0
+
+
+def golomb_bits_per_position(k: float) -> float:
+    """Paper footnote 2: average Golomb bits per *non-zero* position.
+
+    b* = 1 + floor(log2(log(phi - 1)/log(1 - p)));  phi = golden ratio.
+    bbar = b* + 1 / (1 - (1-p)^(2^b*)).
+    """
+    p = min(max(k, 1e-12), 1 - 1e-12)
+    phi = (math.sqrt(5.0) + 1.0) / 2.0
+    b_star = 1 + int(math.floor(math.log2(math.log(phi - 1.0)
+                                          / math.log(1.0 - p))))
+    b_star = max(b_star, 1)
+    return b_star + 1.0 / (1.0 - (1.0 - p) ** (2 ** b_star))
+
+
+def golomb_total_bits(d: int, k: float) -> float:
+    """Total Golomb-coded size: positions + 1 sign bit per nnz + 16-bit
+    scale."""
+    nnz = k * d
+    return nnz * (golomb_bits_per_position(k) + 1.0) + 16.0
 
 
 @dataclasses.dataclass
@@ -76,6 +112,16 @@ def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
     return bits.reshape(-1)[:n]
 
 
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word, as int64 (SWAR over int64, since torch
+    on the CPU can neither shift uint32 nor count bits)."""
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
 def signs_of(pt: PackedTernary) -> torch.Tensor:
     """int8 {-1, 0, 1} signs of a PackedTernary, in the leaf's shape."""
     n = pt.n_elements
@@ -83,9 +129,57 @@ def signs_of(pt: PackedTernary) -> torch.Tensor:
     return s.to(torch.int8).reshape(pt.shape)
 
 
-def decompress_packed(pt: PackedTernary) -> torch.Tensor:
-    """Dense reconstruction ``signs * scale`` in the leaf's dtype."""
-    return (signs_of(pt).to(torch.float32) * pt.scale).to(pt.orig_dtype)
+def pack_ternary(ct: CompressedTensor) -> PackedTernary:
+    flat = ct.signs.reshape(-1)
+    return PackedTernary(pos=pack_bits(flat == 1), neg=pack_bits(flat == -1),
+                         scale=ct.scale, shape=tuple(ct.signs.shape),
+                         orig_dtype=ct.orig_dtype)
+
+
+def unpack_ternary(pt: PackedTernary) -> CompressedTensor:
+    return CompressedTensor(signs=signs_of(pt), scale=pt.scale,
+                            orig_dtype=pt.orig_dtype)
+
+
+def _is_pt(x) -> bool:
+    return isinstance(x, PackedTernary)
+
+
+def pack_tree(compressed: Any) -> Any:
+    return tree_util.tree_map(pack_ternary, compressed, is_leaf=_is_ct)
+
+
+def unpack_tree(packed: Any) -> Any:
+    return tree_util.tree_map(unpack_ternary, packed, is_leaf=_is_pt)
+
+
+def signs_np(pt: PackedTernary) -> np.ndarray:
+    """Host int8 {-1, 0, 1} signs of a PackedTernary, flat C-order: the
+    bridge from the planes to the host codecs.  The int32 words' bytes are
+    the reference's little-endian uint32 bytes."""
+    n = pt.n_elements
+    pos = pt.pos.detach().cpu().numpy().view(np.uint8)
+    neg = pt.neg.detach().cpu().numpy().view(np.uint8)
+    pb = np.unpackbits(pos, bitorder="little")[:n]
+    nb = np.unpackbits(neg, bitorder="little")[:n]
+    return pb.astype(np.int8) - nb.astype(np.int8)
+
+
+def planes_from_signs(signs: np.ndarray, scale: float, shape: tuple,
+                      orig_dtype, device="cpu") -> PackedTernary:
+    """Host int8 {-1, 0, 1} signs -> PackedTernary on ``device`` (numpy
+    packbits, little-endian words, as the reference builds them)."""
+    signs = np.asarray(signs).reshape(-1)
+    pad = (-signs.size) % LANE
+    if pad:
+        signs = np.concatenate([signs, np.zeros((pad,), np.int8)])
+    pos = np.packbits(signs == 1, bitorder="little").view(np.int32)
+    neg = np.packbits(signs == -1, bitorder="little").view(np.int32)
+    return PackedTernary(
+        pos=torch.from_numpy(pos.copy()).to(device),
+        neg=torch.from_numpy(neg.copy()).to(device),
+        scale=torch.tensor(scale, dtype=torch.float32, device=device),
+        shape=tuple(shape), orig_dtype=orig_dtype)
 
 
 def stack_packed(experts: list[dict]) -> dict:

@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("ternary_matmul", "pack", "histogram", "unpack_add")
+SOURCES = ("ternary_matmul", "pack", "histogram", "unpack_add",
+           "popcount_dot")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -32,12 +33,16 @@ _L = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p
 SIGNATURES = {
     "ternary_matmul": {"ternary_matmul_grouped":
-                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P]},
-    "pack": {"pack_ternary_planes_segmented": [_P, _P, _P, _P, _L, _I, _P]},
+                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P],
+                       "ternary_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                          _P]},
+    "pack": {"pack_ternary_planes_segmented": [_P, _P, _P, _P, _L, _I, _P],
+             "pack_ternary_planes": [_P, _P, _P, _P, _L, _L, _P]},
     "histogram": {"segment_hist_moments":
                   [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]},
     "unpack_add": {"unpack_add_many":
                    [_P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _L, _I, _P]},
+    "popcount_dot": {"popcount_dot": [_P, _P, _P, _P, _L, _P, _P]},
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-// Grouped dense x packed-ternary matmul for Hopper (sm_90a).
+// Dense x packed-ternary matmul for Hopper (sm_90a): the grouped form
+// and the single-expert form.
 //
 // Replaces the TPU kernel repro/kernels/ternary_matmul.py::
 // ternary_matmul_grouped (body _kernel_grouped).  Per row m with expert
@@ -26,6 +27,24 @@
 // per tile.  Left on the table: tensor cores (wgmma on a +-1 tile unpacked
 // into shared memory), reuse of a plane word across the rows that share an
 // expert, TMA loads, and coalesced plane reads in the transposed form.
+//
+// single_kernel replaces the TPU kernel repro/kernels/ternary_matmul.py::
+// ternary_matmul (body _kernel): one expert, planes [K, N/32],
+//
+//     y[m, n] = scale * sum_k x[m, k] * T[k, n].
+//
+// It is its own kernel, not the grouped one launched with E = 1, and it
+// sums in the grouped kernel's order (acc = 0, k ascending, every term
+// added with __fadd_rn, the zero terms too, the scale last with
+// __fmul_rn).  So a row of a grouped launch equals ternary_matmul of that
+// row on its expert bitwise: the reference's contract of
+// tests/test_kernels.py::test_grouped_matmul_bit_identical_to_single,
+// held on the card between two independent kernels.  Bounded by bytes
+// (the planes, 2 bits per weight, read once); at decode sizes (M = 4) a
+// few dozen blocks each walk K sequentially, so it runs at the latency of
+// that loop, far from the bound.  Left on the table: split-K over a warp
+// with a fixed-order reduction, and reading each plane word once for all
+// rows.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -117,7 +136,48 @@ __global__ void grouped_t_kernel(const float* __restrict__ x,
   if (n < N) out[(long long)m * N + n] = __fmul_rn(acc, scales[e]);
 }
 
+// planes [K, W] of one expert, N = 32 W
+__global__ void single_kernel(const float* __restrict__ x,
+                              const uint32_t* __restrict__ pos,
+                              const uint32_t* __restrict__ neg,
+                              const float* __restrict__ scale,
+                              float* __restrict__ out, int K, int N, int W) {
+  const int m = blockIdx.x;
+  const int n = blockIdx.y * kThreads + threadIdx.x;
+  __shared__ float xs[kChunk];
+  const int w = n >> 5;
+  const int b = n & 31;
+  float acc = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += kChunk) {
+    const int kn = min(kChunk, K - k0);
+    __syncthreads();
+    if (threadIdx.x < kn) xs[threadIdx.x] = x[(long long)m * K + k0 + threadIdx.x];
+    __syncthreads();
+    if (n < N) {
+      const uint32_t* Pk = pos + (long long)k0 * W + w;
+      const uint32_t* Qk = neg + (long long)k0 * W + w;
+      for (int kk = 0; kk < kn; ++kk) {
+        acc = __fadd_rn(acc, ternary_term(__ldg(Pk + (long long)kk * W),
+                                          __ldg(Qk + (long long)kk * W), b,
+                                          xs[kk]));
+      }
+    }
+  }
+  if (n < N) out[(long long)m * N + n] = __fmul_rn(acc, scale[0]);
+}
+
 }  // namespace
+
+extern "C" int ternary_matmul(const float* x, const uint32_t* pos,
+                              const uint32_t* neg, const float* scale,
+                              float* out, int M, int K, int N, int W,
+                              void* stream) {
+  if (M == 0 || N == 0) return 0;
+  dim3 grid(M, (N + kThreads - 1) / kThreads);
+  single_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, pos, neg, scale, out, K, N, W);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int ternary_matmul_grouped(const float* x, const uint32_t* pos,
                                       const uint32_t* neg,

@@ -21,10 +21,15 @@ import torch
 
 from repro_torch.kernels.histogram_quantile import (segment_hist_moments,
                                                     segment_hist_moments_plain)
-from repro_torch.kernels.pack import (pack_ternary_planes_segmented,
+from repro_torch.kernels.pack import (pack_ternary_planes,
+                                      pack_ternary_planes_plain,
+                                      pack_ternary_planes_segmented,
                                       pack_ternary_planes_segmented_plain)
-from repro_torch.kernels.ternary_matmul import (ternary_matmul_grouped,
-                                                ternary_matmul_grouped_plain)
+from repro_torch.kernels.popcount_dot import popcount_dot, popcount_dot_plain
+from repro_torch.kernels.ternary_matmul import (ternary_matmul,
+                                                ternary_matmul_grouped,
+                                                ternary_matmul_grouped_plain,
+                                                ternary_matmul_plain)
 from repro_torch.kernels.unpack_add import (unpack_add, unpack_add_many,
                                             unpack_add_many_plain,
                                             unpack_add_plain)
@@ -35,6 +40,9 @@ KERNELS = {
     "segment_hist_moments": segment_hist_moments,
     "unpack_add_many": unpack_add_many,
     "unpack_add": unpack_add,
+    "ternary_matmul": ternary_matmul,
+    "pack_ternary_planes": pack_ternary_planes,
+    "popcount_dot": popcount_dot,
 }
 PLAIN = {
     "ternary_matmul_grouped": ternary_matmul_grouped_plain,
@@ -42,6 +50,9 @@ PLAIN = {
     "segment_hist_moments": segment_hist_moments_plain,
     "unpack_add_many": unpack_add_many_plain,
     "unpack_add": unpack_add_plain,
+    "ternary_matmul": ternary_matmul_plain,
+    "pack_ternary_planes": pack_ternary_planes_plain,
+    "popcount_dot": popcount_dot_plain,
 }
 _table = KERNELS
 
@@ -146,3 +157,39 @@ def apply_ternary_delta_many_flat(base: torch.Tensor, pts,
                                           device=scales.device)
     out = kernel("unpack_add_many")(base.reshape(1, n), pos, neg, scales)
     return out.reshape(base.shape)
+
+
+# ---------------------------------------------------------------------------
+# Single-expert entry points (the reference's ``benchmarks/run.py`` drives
+# them; the artifact path and the ternary algebra reach the last two)
+# ---------------------------------------------------------------------------
+
+def ternary_matvec(x: torch.Tensor, pt) -> torch.Tensor:
+    """y = x @ (scale * ternary[K, N]) without materialising the matrix.
+
+    x: [K] or [M, K]; pt: PackedTernary of a [K, N] leaf with N % 32 == 0
+    (its flat planes are then [K, N/32] row by row).  x is cast to f32."""
+    K, N = pt.shape
+    if N % 32:
+        raise ValueError(f"leaf {pt.shape}: the flat planes split into "
+                         "[K, N/32] rows only when N % 32 == 0")
+    squeeze = x.dim() == 1
+    x2 = (x[None] if squeeze else x).to(torch.float32).contiguous()
+    y = kernel("ternary_matmul")(x2, pt.pos.reshape(K, -1),
+                                 pt.neg.reshape(K, -1),
+                                 pt.scale.to(torch.float32))[:, :N]
+    return y[0] if squeeze else y
+
+
+def compress_to_planes(tau: torch.Tensor, thr):
+    """Fused threshold + sign + pack of a [M, N] task-vector leaf against
+    one threshold: (pos, neg) int32 [M, ceil(N/32)]."""
+    thr = torch.as_tensor(thr, dtype=torch.float32, device=tau.device)
+    return kernel("pack_ternary_planes")(tau, thr)
+
+
+def expert_dot(a, b) -> torch.Tensor:
+    """Scaled ternary dot of two PackedTernary via AND + POPCNT (f32)."""
+    d = kernel("popcount_dot")(a.pos.reshape(-1), a.neg.reshape(-1),
+                               b.pos.reshape(-1), b.neg.reshape(-1))
+    return d.to(torch.float32) * a.scale * b.scale

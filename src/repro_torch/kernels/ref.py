@@ -1,4 +1,4 @@
-"""Plain PyTorch oracles of the slice's kernels (mirrors ``repro/kernels/ref.py``).
+"""Plain PyTorch oracles of the port's kernels (mirrors ``repro/kernels/ref.py``).
 
 They run on any device, repeat the JAX oracles' arithmetic, and serve as
 the plain versions the kernel wrappers take for CPU tensors.
@@ -8,8 +8,10 @@ from __future__ import annotations
 
 import torch
 
+import torch.nn.functional as F
+
 from repro_torch.core.packing import (LANE, lane_shifts, lane_weights,
-                                      words_to_int32)
+                                      popcount, words_to_int32)
 
 
 def _unpack(words: torch.Tensor, n_last: int) -> torch.Tensor:
@@ -23,6 +25,14 @@ def dense_of_planes(pos: torch.Tensor, neg: torch.Tensor,
     """[..., W] planes -> [..., n] f32 ternary matrix (+0.0 where both
     bits are equal)."""
     return (_unpack(pos, n) - _unpack(neg, n)).to(torch.float32)
+
+
+def ternary_matmul_ref(x, pos, neg, scale):
+    """One expert: scale * (x [M, K] @ T [K, N]) with T from planes
+    [K, N/32] packed along n; the product in f32, the scale last, as the
+    JAX oracle does."""
+    w = dense_of_planes(pos, neg, pos.shape[1] * LANE)       # [K, N]
+    return (x.to(torch.float32) @ w) * scale.to(torch.float32)
 
 
 def ternary_matmul_grouped_ref(x, pos, neg, scales, expert_idx,
@@ -70,6 +80,7 @@ def unpack_add_many_ref(base, pos, neg, scales):
 
 
 ROW_CHUNK = 4096    # rows packed per step (bounds the int64 temporaries)
+CHUNK_ELEMS = 1 << 24   # elements packed per step by the scalar form
 
 
 def pack_ternary_planes_segmented_ref(tau: torch.Tensor,
@@ -88,3 +99,39 @@ def pack_ternary_planes_segmented_ref(tau: torch.Tensor,
             lanes = m.reshape(rows, C // LANE, LANE).to(torch.int64)
             out[r0:r0 + rows] = words_to_int32((lanes * weights).sum(-1))
     return pos, neg
+
+
+def pack_ternary_planes_ref(tau: torch.Tensor, thr: torch.Tensor):
+    """tau [M, N] (any N), one threshold -> (pos, neg) int32
+    [M, ceil(N/32)], zero bits past N in each row's last word.  Packed in
+    blocks of rows and words to bound the int64 temporaries."""
+    M, N = tau.shape
+    W = -(-N // LANE)
+    thr = thr.to(torch.float32).reshape(())
+    weights = lane_weights(tau.device)
+    pos = torch.empty((M, W), dtype=torch.int32, device=tau.device)
+    neg = torch.empty_like(pos)
+    rows = max(1, min(M, ROW_CHUNK))
+    step = max(1, CHUNK_ELEMS // (rows * LANE))          # words per block
+    for r0 in range(0, M, rows):
+        for w0 in range(0, W, step):
+            w1 = min(W, w0 + step)
+            t = tau[r0:r0 + rows, w0 * LANE:min(w1 * LANE, N)].to(
+                torch.float32)
+            t = F.pad(t, (0, (w1 - w0) * LANE - t.shape[1]))
+            keep = t.abs() >= thr
+            for out, m in ((pos, keep & (t > 0)), (neg, keep & (t < 0))):
+                lanes = m.reshape(t.shape[0], w1 - w0, LANE).to(torch.int64)
+                out[r0:r0 + rows, w0:w1] = words_to_int32(
+                    (lanes * weights).sum(-1))
+    return pos, neg
+
+
+def popcount_dot_ref(a_pos, a_neg, b_pos, b_neg) -> torch.Tensor:
+    """Integer ternary dot of two flat plane pairs:
+    popc(a+ & b+) + popc(a- & b-) - popc(a+ & b-) - popc(a- & b+), as a
+    0-d int32 tensor (summed in int64, exact)."""
+    def pc(x):
+        return popcount(x).sum()
+    return (pc(a_pos & b_pos) + pc(a_neg & b_neg) - pc(a_pos & b_neg)
+            - pc(a_neg & b_pos)).to(torch.int32)

@@ -1,14 +1,18 @@
-"""Grouped dense x packed-ternary matmul: CUDA kernel wrapper + plain version.
+"""Dense x packed-ternary matmul: CUDA kernel wrappers + plain versions.
 
-Port of ``repro/kernels/ternary_matmul.py::ternary_matmul_grouped``, the
-zero-merge serving hot path: one launch contracts a batch whose rows carry
-different experts against the experts' stacked bit planes,
+Port of ``repro/kernels/ternary_matmul.py``.  The grouped form
+(``ternary_matmul_grouped``) is the zero-merge serving hot path: one
+launch contracts a batch whose rows carry different experts against the
+experts' stacked bit planes,
 
     y[m, :] = scales[e(m)] * (x[m, :] @ T_{e(m)})     (e(m) = -1 -> 0)
 
-The kernel is ``csrc/ternary_matmul.cu`` (see its header for the design
-and what bounds it).  A row's result never depends on the other rows or on
-which experts they carry.
+and a row's result never depends on the other rows or on which experts
+they carry.  The single-expert form (``ternary_matmul``, through
+``ops.ternary_matvec``) computes ``scale * (x @ T)`` in the grouped
+kernel's summation order, so a grouped row equals it bitwise.  Both
+kernels are in ``csrc/ternary_matmul.cu`` (see its header for the design
+and what bounds them).
 """
 
 from __future__ import annotations
@@ -17,10 +21,12 @@ import torch
 
 from repro_torch.core.packing import LANE
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import ternary_matmul_grouped_ref
+from repro_torch.kernels.ref import (ternary_matmul_grouped_ref,
+                                     ternary_matmul_ref)
 
-# the plain version: the oracle of the JAX package, in PyTorch
+# the plain versions: the oracles of the JAX package, in PyTorch
 ternary_matmul_grouped_plain = ternary_matmul_grouped_ref
+ternary_matmul_plain = ternary_matmul_ref
 
 
 def _check_planes(pos, neg, device):
@@ -93,3 +99,42 @@ def ternary_matmul_grouped(x: torch.Tensor, pos: torch.Tensor,
 
 
 ternary_matmul_grouped.launches = 0
+
+
+def ternary_matmul(x: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """x [M, K] f32; pos/neg int32 [K, N/32] (contiguous); scale one f32
+    value.  Returns ``scale * (x @ T)``, f32 [M, N].
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (built at first use) or raises."""
+    if x.device.type == "cpu":
+        return ternary_matmul_plain(x, pos, neg, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous [M, K] float32 tensor")
+    M, K = x.shape
+    for p in (pos, neg):
+        if (p.dtype != torch.int32 or p.dim() != 2 or p.shape[0] != K
+                or p.shape != pos.shape or not p.is_contiguous()
+                or p.device != x.device):
+            raise ValueError(f"planes must be contiguous int32 [K={K}, W] "
+                             "tensors on x's device")
+    if (scale.dtype != torch.float32 or scale.numel() != 1
+            or scale.device != x.device):
+        raise ValueError("scale must be one float32 value on x's device")
+    W = pos.shape[1]
+    out = torch.empty((M, W * LANE), dtype=torch.float32, device=x.device)
+    scale = scale.reshape(1).contiguous()
+    lib = build.library("ternary_matmul")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.ternary_matmul(x.data_ptr(), pos.data_ptr(), neg.data_ptr(),
+                            scale.data_ptr(), out.data_ptr(), M, K, W * LANE,
+                            W, stream)
+    build.check(rc, "ternary_matmul")
+    ternary_matmul.launches += 1
+    return out
+
+
+ternary_matmul.launches = 0

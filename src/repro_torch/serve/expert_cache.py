@@ -2,7 +2,10 @@
 
 Port of the local tiers of ``repro/serve/expert_cache.py``:
 
-  ExpertStore    (cold tier)     name -> :class:`~repro_torch.expert.Expert`
+  ExpertStore    (cold tier)     name -> :class:`~repro_torch.expert.Expert`,
+                                 or only its Golomb-Rice streams
+                                 (``cold_golomb=True``), decoded to
+                                 planes on promotion
   DeviceCache    (device tier)   packed bitplane trees on the card under one
                                  byte budget (LRU), plus stacked per-path
                                  plane buffers for mixed-expert waves
@@ -30,7 +33,7 @@ from repro_torch import tree as tree_util
 from repro_torch.core.packing import (stack_packed, stacked_bytes,
                                       tree_packed_bytes)
 from repro_torch.device import resolve_device
-from repro_torch.expert import PACKED, Expert
+from repro_torch.expert import GOLOMB, PACKED, Expert, as_expert
 from repro_torch.kernels.ops import apply_ternary_delta_many_flat
 
 BASE = "__base__"   # pseudo-expert: serve the unmodified base weights
@@ -51,6 +54,7 @@ class SwapStats:
     stack_hits: int = 0
     stack_bytes: int = 0
     stack_evictions: int = 0
+    golomb_decode_seconds: float = 0.0
 
     def as_dict(self):
         return dataclasses.asdict(self)
@@ -58,27 +62,50 @@ class SwapStats:
 
 class ExpertStore:
     """Cold tier: name -> Expert (its packed planes wherever they were
-    compressed)."""
+    compressed).
 
-    def __init__(self):
+    ``cold_golomb=True`` keeps only each expert's Golomb-Rice streams (the
+    storage-optimal form) and the leaf geometry; :meth:`get` then builds a
+    fresh Expert from them and pays one host decode over all its leaves,
+    with the planes on the host, for the device tier to move.
+    """
+
+    def __init__(self, cold_golomb: bool = False):
+        self.cold_golomb = cold_golomb
         self._store: dict[str, Expert] = {}
+        self._blobs: dict[str, dict] = {}
+        self._meta: dict[str, dict] = {}
 
-    def put(self, ex: Expert) -> Expert:
-        if not isinstance(ex, Expert):
-            raise TypeError(f"expected an Expert, got {type(ex).__name__}")
-        self._store[ex.name] = ex
+    def put(self, art) -> Expert:
+        ex = as_expert(art)
+        if not self.cold_golomb:
+            self._store[ex.name] = ex
+            return ex
+        self._blobs[ex.name] = dict(ex.as_(GOLOMB))
+        self._meta[ex.name] = {
+            "leaf": {p: dict(m) for p, m in ex._leaf_meta.items()},
+            "kind": ex.kind, "density": ex.density, "alpha": ex.alpha}
         return ex
 
     def get(self, name: str) -> Expert:
-        return self._store[name]
+        if not self.cold_golomb:
+            return self._store[name]
+        m = self._meta[name]
+        ex = Expert(name, m["kind"], density=m["density"], alpha=m["alpha"])
+        ex._leaf_meta = {p: dict(v) for p, v in m["leaf"].items()}
+        ex._reps[GOLOMB] = self._blobs[name]
+        ex.as_(PACKED)     # one decode now, so promotion timing is the
+        return ex          # store tier's
 
     def __contains__(self, name: str) -> bool:
-        return name in self._store
+        return name in (self._blobs if self.cold_golomb else self._store)
 
     def names(self) -> list[str]:
-        return list(self._store)
+        return list(self._blobs if self.cold_golomb else self._store)
 
     def nbytes(self, name: str) -> int:
+        if self.cold_golomb:
+            return sum(len(b) for b in self._blobs[name].values())
         return self._store[name].nbytes(PACKED)
 
 
@@ -133,10 +160,13 @@ class DeviceCache:
             return self._cache[name]
         self.stats.misses += 1
         t0 = time.monotonic()
+        art = self.store.get(name)
+        if self.store.cold_golomb:
+            self.stats.golomb_decode_seconds += time.monotonic() - t0
         packed = {p: dataclasses.replace(pt, pos=pt.pos.to(self.dev),
                                          neg=pt.neg.to(self.dev),
                                          scale=pt.scale.to(self.dev))
-                  for p, pt in self.store.get(name).packed.items()}
+                  for p, pt in art.packed.items()}
         size = tree_packed_bytes(packed)
         while self._cache and self.resident_bytes() + size > self.capacity:
             self._drop_tree(next(iter(self._cache)))
@@ -176,9 +206,11 @@ class ExpertRegistry:
     """One expert library over the cold store and the device cache."""
 
     def __init__(self, store: Optional[ExpertStore] = None, *,
+                 cold_golomb: bool = False,
                  device_cache_bytes: int = DEFAULT_DEVICE_BYTES,
                  device="cuda"):
-        self.store = store if store is not None else ExpertStore()
+        self.store = (store if store is not None
+                      else ExpertStore(cold_golomb=cold_golomb))
         self.device_cache_bytes = device_cache_bytes
         self.dev = resolve_device(device)
         self._device: Optional[DeviceCache] = None

@@ -10,10 +10,15 @@ import torch
 
 from repro_torch.kernels import histogram_quantile as hq
 from repro_torch.kernels import ops
-from repro_torch.kernels.pack import (pack_ternary_planes_segmented,
+from repro_torch.kernels.pack import (pack_ternary_planes,
+                                      pack_ternary_planes_plain,
+                                      pack_ternary_planes_segmented,
                                       pack_ternary_planes_segmented_plain)
-from repro_torch.kernels.ternary_matmul import (ternary_matmul_grouped,
-                                                ternary_matmul_grouped_plain)
+from repro_torch.kernels.popcount_dot import popcount_dot, popcount_dot_plain
+from repro_torch.kernels.ternary_matmul import (ternary_matmul,
+                                                ternary_matmul_grouped,
+                                                ternary_matmul_grouped_plain,
+                                                ternary_matmul_plain)
 from repro_torch.kernels.unpack_add import (unpack_add, unpack_add_many,
                                             unpack_add_many_plain,
                                             unpack_add_plain)
@@ -168,6 +173,67 @@ def test_unpack_add_many_kernel_bitwise_equals_plain_and_loop(dev, M, N,
     assert torch.equal(_bits(got), _bits(loop))
     with pytest.raises(ValueError):
         unpack_add_many(base.to(torch.float16), pos, neg, scales)
+
+
+@pytest.mark.parametrize("M,N", [(1, 1), (3, 31), (1, 100003), (17, 2048),
+                                 (5, 4133)])
+def test_pack_scalar_kernel_bitwise_equals_plain(dev, M, N):
+    """Ragged rows, -0.0 and 0.0, elements at the threshold; the [1, n]
+    view of the same tensor too."""
+    gen = torch.Generator(device=dev).manual_seed(M + N)
+    tau = torch.randn((M, N), generator=gen, device=dev)
+    flat = tau.view(-1)
+    flat[::5], flat[1::7] = -0.0, 0.0
+    thr = flat.abs().quantile(0.7) if flat.numel() < 2 ** 24 else \
+        torch.tensor(0.5, device=dev)
+    flat[2::11], flat[3::13] = -thr, thr
+    for t in (tau, tau.reshape(1, -1)):
+        before = pack_ternary_planes.launches
+        got = pack_ternary_planes(t, thr)
+        assert pack_ternary_planes.launches == before + 1
+        want = pack_ternary_planes_plain(t, thr)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = pack_ternary_planes(tau.to(torch.bfloat16), thr)
+    want = pack_ternary_planes_plain(tau.to(torch.bfloat16), thr)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("W,offset", [(1, 0), (7, 0), (4096, 0),
+                                      (300001, 0), (4099, 1)])
+def test_popcount_dot_kernel_bitwise_equals_plain(dev, W, offset):
+    """16-byte loads when aligned, scalar loads at an offset of one word;
+    dot(a, a) is nnz(a)."""
+    gen = torch.Generator(device=dev).manual_seed(W)
+    a = _planes((2, W + offset), gen, dev)
+    b = _planes((2, W + offset), gen, dev)
+    ap, an, bp, bn = (p[0, offset:] for p in a + b)
+    before = popcount_dot.launches
+    got = popcount_dot(ap, an, bp, bn)
+    assert popcount_dot.launches == before + 1
+    assert torch.equal(got, popcount_dot_plain(ap, an, bp, bn))
+    assert torch.equal(popcount_dot(ap, an, ap, an),
+                       popcount_dot_plain(ap, an, ap, an))
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 64, 32), (4, 300, 96),
+                                   (4, 11008, 2048)])
+def test_ternary_matmul_kernel_matches_plain_and_grouped_rows(dev, M, K, N):
+    """Within |kernel - plain| <= 1e-4 * max |plain| (f32, other
+    summation orders); each row bitwise equal to the grouped kernel's row
+    on the same expert (the same summation order, two kernels)."""
+    gen = torch.Generator(device=dev).manual_seed(K)
+    E = 3
+    pos, neg = _planes((E, K, N // 32), gen, dev)
+    x = torch.randn((M, K), generator=gen, device=dev)
+    scales = torch.tensor([0.5, -0.25, 0.013], device=dev)
+    for e in range(E):
+        got = ternary_matmul(x, pos[e], neg[e], scales[e])
+        want = ternary_matmul_plain(x, pos[e], neg[e], scales[e])
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max()) + 1e-30
+        eid = torch.full((M,), e, dtype=torch.int32, device=dev)
+        grouped = ternary_matmul_grouped(x, pos, neg, scales, eid)
+        assert torch.equal(got, grouped)
 
 
 def test_launch_counts_reset(dev):

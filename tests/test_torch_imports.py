@@ -94,6 +94,18 @@ def test_cuda_tensor_never_takes_the_plain_version():
     with pytest.raises(ValueError, match="unsupported device"):
         pack_ternary_planes_segmented(torch.empty(2, 32, **meta),
                                       torch.empty(2, **meta))
+    from repro_torch.kernels.pack import pack_ternary_planes
+    from repro_torch.kernels.popcount_dot import popcount_dot
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    words = torch.empty(4, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ternary_matmul(torch.empty(2, 4, **meta), words.reshape(4, 1),
+                       words.reshape(4, 1), torch.empty((), **meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        pack_ternary_planes(torch.empty(2, 40, **meta),
+                            torch.empty((), **meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        popcount_dot(words, words, words, words)
     with pytest.raises(ValueError, match="unsupported device"):
         segment_hist_moments(torch.empty(2, 32, **meta),
                              torch.empty(2, dtype=torch.int32, **meta),
@@ -132,6 +144,23 @@ def test_merges_never_take_the_plain_version_off_the_cpu():
                                                               [0.5, 1.0])):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(base, pt)
+
+
+def test_artifact_entry_points_default_to_the_card(tmp_path):
+    """api.load and the wire decoder place planes on the card by default,
+    so without one they raise unless the caller passes device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch import api
+    from repro_torch.transport import wire
+    ex = api.compress({"w": torch.ones(64)}, density=0.5, device="cpu")
+    path = str(tmp_path / "w.cpft")
+    api.save(ex, path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.load(path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wire.decode_expert(open(path, "rb").read())
+    assert api.load(path, device="cpu").packed["w"].pos.device.type == "cpu"
 
 
 def test_chip_smoke_alone_fails(tmp_path):

@@ -17,15 +17,24 @@ from repro.kernels.histogram_quantile import (_segment_hist_moments_jnp,
 from repro.kernels.pack import (pack_ternary_planes_segmented as j_pack_seg,
                                 pack_ternary_planes_segmented_ref as
                                 j_pack_seg_ref)
+from repro.kernels import ops as jops
+from repro.kernels.pack import pack_ternary_planes as j_pack
+from repro.kernels.popcount_dot import popcount_dot as j_popcount_dot
+from repro.kernels.ternary_matmul import ternary_matmul as j_matmul
 from repro.kernels.ternary_matmul import ternary_matmul_grouped as j_grouped
 from repro_torch.core.compeft import _build_segment_buffer
 from repro_torch.core.packing import pack_bits, stack_packed, unpack_bits
 from repro_torch.kernels import histogram_quantile as hq
 from repro_torch.kernels import ops
-from repro_torch.kernels.pack import (pack_ternary_planes_segmented,
+from repro_torch.kernels.pack import (pack_ternary_planes,
+                                      pack_ternary_planes_plain,
+                                      pack_ternary_planes_segmented,
                                       pack_ternary_planes_segmented_plain)
-from repro_torch.kernels.ternary_matmul import (ternary_matmul_grouped,
-                                                ternary_matmul_grouped_plain)
+from repro_torch.kernels.popcount_dot import popcount_dot, popcount_dot_plain
+from repro_torch.kernels.ternary_matmul import (ternary_matmul,
+                                                ternary_matmul_grouped,
+                                                ternary_matmul_grouped_plain,
+                                                ternary_matmul_plain)
 
 LANE = 32
 
@@ -212,3 +221,139 @@ def test_threshold_matches_jax_jnp_backend(density):
     for k in ("std", "mean_abs", "max"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=1e-5, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# Single-expert matmul, scalar pack, popcount dot (kernels 6-8)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 32, 32), (4, 100, 64), (9, 64, 160)])
+def test_ternary_matmul_plain_matches_jax(M, K, N):
+    """Plain single-expert matmul vs the JAX oracle and the Pallas kernel
+    in interpret mode.  Tolerance: f32, both sum K terms (different
+    orders): rtol = atol = 1e-5."""
+    rng = np.random.default_rng(M + K + N)
+    pos, neg = _planes(rng, (K, N // LANE))
+    x = rng.normal(0, 1, (M, K)).astype(np.float32)
+    scale = np.float32(-0.37)
+    got = ternary_matmul(_t(x), _t(pos), _t(neg), torch.tensor(scale))
+    assert torch.equal(got, ternary_matmul_plain(_t(x), _t(pos), _t(neg),
+                                                 torch.tensor(scale)))
+    args = (jnp.asarray(x), jnp.asarray(pos), jnp.asarray(neg),
+            jnp.asarray(scale))
+    want = np.asarray(jref.ternary_matmul_ref(*args))
+    pallas = np.asarray(j_matmul(*args, bm=8, bn=32, bk=32, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-5, atol=1e-5)
+
+
+def test_grouped_rows_match_single_expert_plain():
+    """The grouped contract on the CPU: each row of a grouped product
+    equals the single-expert product of that row on its expert, within
+    rtol = atol = 1e-5 (the plain versions use the CPU matmul; bitwise
+    equality between the two CUDA kernels is checked on the card)."""
+    rng = np.random.default_rng(4)
+    M, K, N, E = 6, 96, 64, 3
+    pos, neg = map(_t, _planes(rng, (E, K, N // LANE)))
+    x = _t(rng.normal(0, 1, (M, K)).astype(np.float32))
+    scales = _t(np.asarray([0.5, -1.25, 0.75], np.float32))
+    eid = _t(np.asarray([2, 0, 1, 1, 0, 2], np.int32))
+    grouped = ternary_matmul_grouped(x, pos, neg, scales, eid)
+    for m in range(M):
+        e = int(eid[m])
+        single = ternary_matmul(x[m:m + 1], pos[e], neg[e], scales[e])
+        torch.testing.assert_close(single[0], grouped[m], rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("M,N", [(1, 1), (3, 31), (5, 64), (2, 100),
+                                 (1, 4133), (7, 513)])
+def test_pack_scalar_plain_bitwise_equals_jax(M, N):
+    """Any N (a ragged last word per row), -0.0 and 0.0, and elements equal
+    to the threshold: bitwise the JAX oracle's and the Pallas kernel's
+    planes, and pack_ternary(compress_leaf(.)) of the reference."""
+    from repro.core.compeft import CompressionConfig as JConfig
+    from repro.core.compeft import compress_leaf as j_compress_leaf
+    from repro.core.packing import pack_ternary as j_pack_ternary
+    rng = np.random.default_rng(M * N)
+    tau = rng.normal(0, 1, (M, N)).astype(np.float32)
+    tau.reshape(-1)[::5] = -0.0
+    tau.reshape(-1)[1::7] = 0.0
+    thr = np.float32(np.quantile(np.abs(tau), 0.7))
+    tau.reshape(-1)[2::11] = -thr
+    tau.reshape(-1)[3::13] = thr
+    got = pack_ternary_planes(_t(tau), torch.tensor(thr))
+    plain = pack_ternary_planes_plain(_t(tau), torch.tensor(thr))
+    want = jref.pack_ternary_planes_ref(jnp.asarray(tau), jnp.asarray(thr))
+    pallas = j_pack(jnp.asarray(tau), jnp.asarray(thr), bm=8, bn=64,
+                    interpret=True)
+    for g, p, w, pl in zip(got, plain, want, pallas):
+        assert g.shape == (M, -(-N // LANE))
+        assert torch.equal(g, p)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w).view(np.int32))
+        np.testing.assert_array_equal(g.numpy(),
+                                      np.asarray(pl).view(np.int32))
+    # a leaf's flat packing is its [1, n] view
+    flat = pack_ternary_planes(_t(tau).reshape(1, -1), torch.tensor(thr))
+    ct = j_compress_leaf(jnp.asarray(tau), JConfig(density=0.3),
+                         threshold=jnp.asarray(thr))
+    pt = j_pack_ternary(ct)
+    np.testing.assert_array_equal(flat[0].numpy()[0],
+                                  np.asarray(pt.pos).view(np.int32))
+    np.testing.assert_array_equal(flat[1].numpy()[0],
+                                  np.asarray(pt.neg).view(np.int32))
+
+
+@pytest.mark.parametrize("W", [1, 5, 2048, 3000])
+def test_popcount_dot_plain_bitwise_equals_jax(W):
+    """Integer dots: bitwise the Pallas kernel's (interpret mode, blocks
+    of 512 words, a padded last block) and the JAX oracle's."""
+    rng = np.random.default_rng(W)
+    ap, an = _planes(rng, (W,))
+    bp, bn = _planes(rng, (W,))
+    got = popcount_dot(*map(_t, (ap, an, bp, bn)))
+    assert got.dtype == torch.int32 and got.dim() == 0
+    assert torch.equal(got, popcount_dot_plain(*map(_t, (ap, an, bp, bn))))
+    jargs = [jnp.asarray(a) for a in (ap, an, bp, bn)]
+    assert int(got) == int(j_popcount_dot(*jargs, bw=512, interpret=True))
+    assert int(got) == int(jref.popcount_dot_ref(*jargs))
+    self_dot = popcount_dot(*map(_t, (ap, an, ap, an)))
+    assert int(self_dot) == int(np.unpackbits(ap.view(np.uint8)).sum()
+                                + np.unpackbits(an.view(np.uint8)).sum())
+
+
+def test_single_expert_entry_points_match_jax_ops():
+    """ops.ternary_matvec / compress_to_planes / expert_dot against the
+    reference's ops (its jnp mirrors off the TPU), on the CPU: the planes
+    and the integer dot bitwise, the f32 products within 1e-5."""
+    from repro.core.packing import PackedTernary as JPacked
+    from repro_torch.convert import packed_from_jax
+    rng = np.random.default_rng(12)
+    K, N = 40, 96
+    pos, neg = _planes(rng, (K * N // LANE,))
+    jpt = JPacked(pos=jnp.asarray(pos), neg=jnp.asarray(neg),
+                  scale=jnp.float32(0.3), shape=(K, N),
+                  orig_dtype=jnp.float32)
+    tpt = packed_from_jax(jpt, device="cpu")
+    for x in (rng.normal(0, 1, (K,)), rng.normal(0, 1, (3, K))):
+        x = x.astype(np.float32)
+        np.testing.assert_allclose(
+            ops.ternary_matvec(torch.from_numpy(x), tpt).numpy(),
+            np.asarray(jops.ternary_matvec(jnp.asarray(x), jpt)), rtol=1e-5,
+            atol=1e-5)
+    tau = rng.normal(0, 1, (7, 45)).astype(np.float32)
+    for g, w in zip(ops.compress_to_planes(torch.from_numpy(tau), 0.5),
+                    jops.compress_to_planes(jnp.asarray(tau),
+                                            jnp.float32(0.5))):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w).view(np.int32))
+    np.testing.assert_allclose(float(ops.expert_dot(tpt, tpt)),
+                               float(jops.expert_dot(jpt, jpt)), rtol=1e-6)
+    with pytest.raises(ValueError, match="N % 32"):
+        ops.ternary_matvec(torch.zeros(3), _zero_packed(3, 40))
+
+
+def _zero_packed(K, N):
+    from repro_torch.core.packing import PackedTernary
+    w = torch.zeros(-(-K * N // LANE), dtype=torch.int32)
+    return PackedTernary(pos=w, neg=w, scale=torch.tensor(1.0), shape=(K, N))
