@@ -17,8 +17,8 @@ failure with a non-zero exit:
      kernels bitwise at the tied embedding, E = 1 and 3; the scalar pack
      bitwise at the tied embedding's size with -0.0 and +-threshold
      planted; popcount_dot bitwise over two such plane pairs; the
-     single-expert matmul on FFN-down planes, bitwise each row of a
-     grouped launch on the same expert);
+     single-expert matmul on FFN-down, wq and wg planes, bitwise each row
+     of a grouped launch on the same expert);
   3. the main paths, each with every launch count set to 0 just before it
      and read just after: compress 4 experts (base + seeded noise on every
      leaf, density 0.1) through ``api.compress(...).as_(PACKED)``, then
@@ -51,9 +51,14 @@ failure with a non-zero exit:
      plain versions, and merged logits within a tenth of the overlay's
      effect of the base-plus-overlay logits;
   5. time the kernels and warm re-runs of both serving paths (which must
-     repeat their tokens), profile one wave with ``torch.profiler``, and
-     print the ``kernels`` JSON line (eight kernels) and the end-to-end
-     numbers, each tagged with the card's name and power limit.
+     repeat their tokens): the grouped matmul at every shape the wave
+     launches it with (decode and prefill, on the wave's own planes), with
+     its launches per wave, and the short kernels by CUDA graph (device
+     time); profile one wave with ``torch.profiler`` (device time by
+     kernel family, split into prefill and decode, and the idle share),
+     and print the ``kernels`` JSON line (eight kernels) and the
+     end-to-end numbers, each tagged with the card's name and power
+     limit.
 
 The last line of standard output is ``{"ok": true, "device": ...}``; a
 run that fails prints no such line.  Details go to
@@ -119,6 +124,35 @@ def cuda_ms(torch, fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_ms(torch, fn, n: int = 50, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn()``: ``n`` calls captured into
+    one CUDA graph, replayed ``replays`` times between two CUDA events.
+    A replay launches no Python, so a kernel shorter than its wrapper's
+    host work reads as its own device time (``cuda_ms`` would read the
+    host's)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                             # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    return a.elapsed_time(b) / (n * replays)
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -356,14 +390,15 @@ def check_artifact_kernels(torch, cfg, gen, dev, report):
       pack_ternary(compress_leaf(.)) at that threshold;
     * popcount_dot over the planes of two such taus: bitwise its plain
       version, and dot(a, a) == nnz(a);
-    * ternary_matmul on FFN-down planes [d_ff, d / 32] with x [4, d_ff]:
-      within 1e-4 * max |plain| of its plain version (f32 sums in other
-      orders), and bitwise every row of a grouped launch whose rows all
-      carry that expert (the same summation order in two kernels).
+    * ternary_matmul at the FFN-down, wq and wg shapes (planes [K, N / 32],
+      x [4, K]): within 1e-4 * max |plain| of its plain version (f32 sums
+      in other orders), and bitwise every row of a grouped launch whose
+      rows all carry that expert (one routine in two kernels).
 
-    Then CUDA-event times beside the bounds, and cuBLAS ``x @ W`` on the
-    dense f32 ternary matrix as a yardstick for the grouped redesign (a
-    different input: the unpacked matrix, not the planes)."""
+    Then CUDA-event times beside the bounds (kernel 6 by CUDA graph:
+    device time), and cuBLAS ``x @ W`` on the dense f32 ternary matrix as
+    a yardstick (a different input: the unpacked matrix, not the
+    planes)."""
     from repro_torch.core.compeft import (CompressionConfig, _topk_threshold,
                                           compress_leaf)
     from repro_torch.core.packing import pack_ternary, popcount
@@ -427,32 +462,44 @@ def check_artifact_kernels(torch, cfg, gen, dev, report):
         f"bitwise equal to the plain version; dot(a, a) = nnz(a) = {nnz_a}")
     del a, b, ap, an, bp, bn
 
-    K, N = cfg.pattern[0].ffn.d_ff, cfg.d_model
-    pos, neg = rand_planes(torch, (3, K, N // 32), gen, dev)
-    x = torch.randn((4, K), generator=gen, device=dev)
-    scales = torch.tensor([0.021, 0.013, 0.008], device=dev)
-    got = ternary_matmul(x, pos[1], neg[1], scales[1])
-    plain = ternary_matmul_plain(x, pos[1], neg[1], scales[1])
-    grouped = ternary_matmul_grouped(
-        x, pos, neg, scales, torch.ones(4, dtype=torch.int32, device=dev))
-    torch.cuda.synchronize()
-    err = float((got - plain).abs().max())
-    tol = 1e-4 * float(plain.abs().max())
-    check(err <= tol, f"ternary_matmul: err {err} > tol {tol}")
-    check(torch.equal(got, grouped), "ternary_matmul: rows differ from the "
-          "grouped kernel's rows on the same expert")
-    t6 = cuda_ms(torch, lambda: ternary_matmul(x, pos[1], neg[1],
-                                               scales[1]), 50)
-    t6p = cuda_ms(torch, lambda: ternary_matmul_plain(x, pos[1], neg[1],
-                                                      scales[1]), 5)
-    dense = dense_of_planes(pos[1], neg[1], N)
-    t_cublas = cuda_ms(torch, lambda: x @ dense, 50)
-    nnz6 = float(dense.abs().sum())
-    b6, by6 = bound_ms(4 * K * 4 + 2 * K * (N // 32) * 4 + 4 + 4 * N * 4,
-                       2.0 * nnz6 * 4)
-    log(f"  ternary_matmul x [4, {K}] @ planes [{K}, {N // 32}]: max|err| "
-        f"{err:.3e} (tol {tol:.3e}); every row bitwise equal to the grouped "
-        "kernel's")
+    d, f = cfg.d_model, cfg.pattern[0].ffn.d_ff
+    k6 = []
+    for name, (K, N) in (("ffn_down", (f, d)), ("wq", (d, d)),
+                         ("wg", (d, f))):
+        pos, neg = rand_planes(torch, (3, K, N // 32), gen, dev)
+        x = torch.randn((4, K), generator=gen, device=dev)
+        scales = torch.tensor([0.021, 0.013, 0.008], device=dev)
+        got = ternary_matmul(x, pos[1], neg[1], scales[1])
+        plain = ternary_matmul_plain(x, pos[1], neg[1], scales[1])
+        grouped = ternary_matmul_grouped(
+            x, pos, neg, scales, torch.ones(4, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        tol = 1e-4 * float(plain.abs().max())
+        check(err <= tol, f"ternary_matmul {name}: err {err} > tol {tol}")
+        check(torch.equal(got, grouped), f"ternary_matmul {name}: rows "
+              "differ from the grouped kernel's rows on the same expert")
+        t6 = graph_ms(torch, lambda: ternary_matmul(  # noqa: B023
+            x, pos[1], neg[1], scales[1]))
+        t6p = cuda_ms(torch, lambda: ternary_matmul_plain(  # noqa: B023
+            x, pos[1], neg[1], scales[1]), 5)
+        dense = dense_of_planes(pos[1], neg[1], N)
+        t_cublas = cuda_ms(torch, lambda: x @ dense, 50)  # noqa: B023
+        nnz6 = float(dense.abs().sum())
+        b6, by6 = bound_ms(4 * K * 4 + 2 * K * (N // 32) * 4 + 4 + 4 * N * 4,
+                           2.0 * nnz6 * 4)
+        k6.append({"name": name, "max_abs_err": err, "ms": t6,
+                   "plain_ms": t6p, "bound_ms": b6, "bound_by": by6,
+                   "cublas_dense_ms": t_cublas,
+                   "shape": f"x [4, {K}], planes [{K}, {N // 32}]"})
+        log(f"  ternary_matmul {name} x [4, {K}] @ planes [{K}, {N // 32}]: "
+            f"max|err| {err:.3e} (tol {tol:.3e}); every row bitwise equal "
+            f"to the grouped kernel's; {t6:.4f} ms by CUDA graph (bound "
+            f"{b6:.5f}, plain {t6p:.3f}, cuBLAS on the dense matrix "
+            f"{t_cublas:.4f})")
+        del pos, neg, dense
+    err = max(r["max_abs_err"] for r in k6)
+    main6 = k6[0]
     report["pack_ternary_planes"] = {
         "max_abs_err": 0.0, "ms": t7, "plain_ms": t7p, "bound_ms": b7,
         "bound_by": by7, "library_ms": None,
@@ -465,16 +512,17 @@ def check_artifact_kernels(torch, cfg, gen, dev, report):
         "shape": f"two plane pairs of the tied embedding's size, 4 x [{W}] "
                  "int32"}
     report["ternary_matmul"] = {
-        "max_abs_err": err, "ms": t6, "plain_ms": t6p, "bound_ms": b6,
-        "bound_by": by6, "library_ms": None,
+        "max_abs_err": err, "ms": main6["ms"], "plain_ms": main6["plain_ms"],
+        "bound_ms": main6["bound_ms"], "bound_by": main6["bound_by"],
+        "library_ms": None,
         "library_note": "null: no PyTorch call unpacks bit planes",
-        "cublas_dense_ms": t_cublas,
-        "cublas_dense_note": "x @ W on the unpacked f32 ternary matrix "
-                             f"[{K}, {N}]: another input, a yardstick",
-        "shape": f"FFN down: x [4, {K}], planes [{K}, {N // 32}]"}
+        "cublas_dense_ms": main6["cublas_dense_ms"],
+        "cublas_dense_note": "x @ W on the unpacked f32 ternary matrix: "
+                             "another input, a yardstick",
+        "timing": "CUDA graph of 50 launches (device time)",
+        "shape": f"FFN down: {main6['shape']}", "shapes": k6}
     log(f"  pack_ternary_planes {t7:.4f} ms (bound {b7:.4f}), popcount_dot "
-        f"{t8:.4f} ms (bound {b8:.4f}), ternary_matmul {t6:.4f} ms (bound "
-        f"{b6:.5f}; cuBLAS on the dense matrix {t_cublas:.4f} ms)")
+        f"{t8:.4f} ms (bound {b8:.4f})")
 
 
 # ---------------------------------------------------------------------------
@@ -503,38 +551,105 @@ def make_requests(torch, cfg, seed):
     return out
 
 
+def grouped_launch_shapes(torch, engine, wave) -> dict:
+    """Every launch of the grouped kernel in one warm serve of ``wave``,
+    counted by (M, K, N, transposed) through a counting stand-in in the
+    dispatch table the model reads (``ops.kernel``); it calls the real
+    wrapper, so the tokens are the path's own."""
+    from repro_torch.kernels import ops
+    real, counts = ops.KERNELS["ternary_matmul_grouped"], {}
+
+    def counting(x, pos, neg, scales, eid, *, transpose_rhs=False):
+        N = pos.shape[1] if transpose_rhs else pos.shape[2] * 32
+        key = (x.shape[0], x.shape[1], N, transpose_rhs)
+        counts[key] = counts.get(key, 0) + 1
+        return real(x, pos, neg, scales, eid, transpose_rhs=transpose_rhs)
+
+    prev = ops._table
+    ops._table = dict(prev, ternary_matmul_grouped=counting)
+    try:
+        reqs = fresh(wave, 900)
+        engine.run(reqs)
+    finally:
+        ops._table = prev
+    check([r.out_tokens for r in reqs] == [r.out_tokens for r in wave],
+          "the wave counted by shape gave other tokens")
+    return counts
+
+
 def grouped_timing(torch, engine, wave, report):
-    """Time the grouped kernel at the largest launch of the main path: the
-    tied head in its transposed form over the wave's embedding planes."""
-    from repro_torch.kernels.ref import dense_of_planes
+    """The grouped kernel at every shape the main path launches it with in
+    one warm wave (decode M = 4, prefill M = 4 T over the padded prompt
+    length T), on the wave's own expert planes (unit 0 of each
+    projection, the embedding for the tied head) and its own expert
+    indices: device ms by CUDA graph, the bound (bytes read once per
+    distinct expert, or 2 ops per nonzero weight per row), and launches
+    per wave.  The tied head at decode is the kernel's headline row; its
+    plain version is timed there too."""
+    from repro_torch import tree as tree_util
+    from repro_torch.core.packing import popcount
     from repro_torch.kernels.ternary_matmul import (
-        ternary_matmul_grouped, ternary_matmul_grouped_plain)
+        launch_cols, ternary_matmul_grouped, ternary_matmul_grouped_plain)
+    from repro_torch.models.delta import MatmulDelta, slice_unit
     experts = list(dict.fromkeys(r.expert for r in wave))
     ov = engine._overlay_for(tuple(experts))
-    ed = ov["embed"]
     eid = torch.as_tensor([experts.index(r.expert) for r in wave],
-                          dtype=torch.int32, device=ed.pos.device)
-    M, (E, N, W) = len(wave), ed.pos.shape
-    K = engine.api.cfg.d_model
-    g = torch.Generator(device=ed.pos.device).manual_seed(3)
-    x = torch.randn((M, K), generator=g, device=ed.pos.device)
-    run = lambda: ternary_matmul_grouped(x, ed.pos, ed.neg, ed.scales,  # noqa
-                                         eid, transpose_rhs=True)
-    plain = lambda: ternary_matmul_grouped_plain(  # noqa: E731
-        x, ed.pos, ed.neg, ed.scales, eid, transpose_rhs=True)
-    t = cuda_ms(torch, run, 20)
-    tp = cuda_ms(torch, plain, 3)
-    # data-dependent work: one add per nonzero weight of each row's expert
-    nnz = [float(dense_of_planes(ed.pos[e], ed.neg[e], K).abs().sum())
-           for e in range(E)]
-    used = sorted({int(e) for e in eid.tolist() if e >= 0})
-    ops = sum(2 * nnz[int(e)] for e in eid.tolist() if e >= 0)
-    nbytes = M * K * 4 + len(used) * 2 * N * W * 4 + E * 4 + M * 4 + M * N * 4
-    b, by = bound_ms(nbytes, ops)
+                          dtype=torch.int32, device=engine.dev)
+    planes = {}                   # (K, N, transposed) -> (names, pos, neg, s)
+    for path, md in tree_util.flatten_with_paths(slice_unit(ov["blocks"],
+                                                            0)):
+        if not isinstance(md, MatmulDelta):
+            continue
+        key = (md.pos.shape[1], 32 * md.pos.shape[2], False)
+        names = planes[key][0] if key in planes else []
+        planes[key] = (names + ["/".join(path.split("/")[-2:])], md.pos,
+                       md.neg, md.scales)
+    ed = ov["embed"]
+    planes[(engine.api.cfg.d_model, ed.pos.shape[1], True)] = (
+        ["tied_head"], ed.pos, ed.neg, ed.scales)
+    counts = grouped_launch_shapes(torch, engine, wave)
+    g = torch.Generator(device=engine.dev).manual_seed(3)
+    rows, head = [], None
+    for (M, K, N, tr), n_launch in sorted(counts.items()):
+        names, pos, neg, scales = planes[(K, N, tr)]
+        E, _, W = pos.shape
+        x = torch.randn((M, K), generator=g, device=engine.dev)
+        ids = torch.repeat_interleave(eid, M // len(wave))
+        run = lambda: ternary_matmul_grouped(  # noqa: E731, B023
+            x, pos, neg, scales, ids, transpose_rhs=tr)
+        t = graph_ms(torch, run, 20 if M > len(wave) else 50)
+        nnz = [int(popcount(pos[e] ^ neg[e]).sum()) for e in range(E)]
+        used = {int(e) for e in ids.tolist() if e >= 0}
+        ops = sum(2 * nnz[int(e)] for e in ids.tolist() if e >= 0)
+        nbytes = (M * K * 4 + len(used) * 2 * W * pos.shape[1] * 4 + E * 4
+                  + M * 4 + M * N * 4)
+        b, by = bound_ms(nbytes, ops)
+        row = {"names": names, "phase": "decode" if M == len(wave) else
+               "prefill", "M": M, "K": K, "N": N, "transpose_rhs": tr,
+               "cols": launch_cols(N, tr),
+               "launches_per_wave": n_launch, "ms": t, "bound_ms": b,
+               "bound_by": by, "distinct_experts": len(used)}
+        rows.append(row)
+        log(f"  grouped {', '.join(names):20s} M={M:3d} K={K:5d} N={N:6d}: "
+            f"{t:.4f} ms by CUDA graph (bound {b:.5f}, {by}), "
+            f"{n_launch} launches per wave")
+        if tr and M == len(wave):
+            head = (row, x, pos, neg, scales, ids)
+    check(head is not None, "no tied-head launch in the wave")
+    row, x, pos, neg, scales, ids = head
+    tp = cuda_ms(torch, lambda: ternary_matmul_grouped_plain(
+        x, pos, neg, scales, ids, transpose_rhs=True), 3)
+    est = sum(r["ms"] * r["launches_per_wave"] for r in rows)
     report["ternary_matmul_grouped"].update(
-        ms=t, plain_ms=tp, bound_ms=b, bound_by=by, library_ms=None,
-        shape=f"tied head, transpose_rhs: x [{M}, {K}], planes "
-              f"[{E}, {N}, {W}], {len(used)} distinct experts")
+        ms=row["ms"], plain_ms=tp, bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=None,
+        timing="CUDA graph of 50 launches (device time)",
+        shape=f"tied head, transpose_rhs: x [{row['M']}, {row['K']}], "
+              f"planes {list(pos.shape)}, {row['distinct_experts']} "
+              "distinct experts",
+        shapes=rows, wave_ms_from_shapes=est)
+    log(f"  grouped kernel per wave from these times: {est:.2f} ms over "
+        f"{sum(r['launches_per_wave'] for r in rows)} launches")
 
 
 def row_independence_check(torch, engine, wave):
@@ -607,33 +722,64 @@ def solo_check(torch, engine, reqs):
 
 def profile_wave(torch, engine, wave, out_dir):
     """torch.profiler over one warm serve of a wave (prefill + 16 tokens):
-    device time by kernel family and the device's idle share of the wall
-    time.  The full table goes to chiprun_out/profile_wave.txt."""
-    from torch.profiler import ProfilerActivity, profile
+    device time by kernel family, split into prefill and decode, and the
+    device's idle share of the wall time.  The engine synchronises after
+    the prefill, so every kernel that starts before the first decode
+    chunk (marked with ``record_function``) belongs to the prefill.  The
+    full table goes to chiprun_out/profile_wave.txt."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     reqs = fresh(wave, 300)
+    chunk_fn = engine._chunk_fn
+
+    def marked_chunk(*args, **kwargs):
+        with record_function("decode_chunk"):
+            return chunk_fn(*args, **kwargs)
+
+    engine._chunk_fn = marked_chunk
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        engine.run(reqs)
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            engine.run(reqs)
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        engine._chunk_fn = chunk_fn
+
+    def family(name):
+        name = name.lower()
+        return ("grouped ternary kernel" if "grouped" in name else
+                "cuBLAS GEMM" if any(s in name for s in (
+                    "gemm", "cutlass", "xmma", "sm90", "nvjet")) else
+                "other PyTorch kernels")
+
     families = {"grouped ternary kernel": 0.0, "cuBLAS GEMM": 0.0,
                 "other PyTorch kernels": 0.0}
     launches = {k: 0 for k in families}
+    # the marker's own device-side range is an annotation, not a kernel
     kernels = sorted((ev for ev in prof.key_averages()
-                      if ev.device_type.name == "CUDA"),
+                      if ev.device_type.name == "CUDA"
+                      and ev.key != "decode_chunk"),
                      key=lambda ev: -ev.self_device_time_total)
     for ev in kernels:
-        us = ev.self_device_time_total
-        name = ev.key.lower()
-        fam = ("grouped ternary kernel" if "grouped" in name else
-               "cuBLAS GEMM" if any(s in name for s in (
-                   "gemm", "cutlass", "xmma", "sm90", "nvjet")) else
-               "other PyTorch kernels")
-        families[fam] += us / 1e3
+        fam = family(ev.key)
+        families[fam] += ev.self_device_time_total / 1e3
         launches[fam] += ev.count
     busy = sum(families.values())
+    # prefill / decode split on the trace's own timeline
+    events = prof.events()
+    marks = [ev.time_range.start for ev in events if ev.name == "decode_chunk"]
+    split = None
+    if marks:
+        t_dec = min(marks)
+        split = {ph: {k: 0.0 for k in families} for ph in ("prefill",
+                                                           "decode")}
+        for ev in events:
+            if ev.device_type.name != "CUDA" or ev.name == "decode_chunk":
+                continue
+            ph = "prefill" if ev.time_range.start < t_dec else "decode"
+            split[ph][family(ev.name)] += ev.time_range.elapsed_us() / 1e3
     with open(os.path.join(out_dir, "profile_wave.txt"), "w") as f:
         f.write("device_ms\tlaunches\tkernel\n")
         for ev in kernels:
@@ -641,11 +787,16 @@ def profile_wave(torch, engine, wave, out_dir):
                     f"{ev.key}\n")
     out = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": (1 - busy / wall_ms) if busy else None,
-           "device_ms_by_family": families, "launches_by_family": launches}
+           "device_ms_by_family": families, "launches_by_family": launches,
+           "device_ms_by_phase": split}
     log("  profile of one warm wave: wall {:.1f} ms, device busy {:.1f} ms"
         " ({})".format(wall_ms, busy, ", ".join(
             f"{k} {v:.1f} ms / {launches[k]} launches"
             for k, v in families.items())))
+    if split:
+        for ph, fams in split.items():
+            log(f"  {ph}: device {sum(fams.values()):.2f} ms (" + ", ".join(
+                f"{k} {v:.2f}" for k, v in fams.items()) + ")")
     return out
 
 
@@ -1319,6 +1470,14 @@ def main(argv=None) -> int:
     log(f"cuBLAS x @ W on the dense f32 ternary FFN-down matrix {tag}: "
         f"{report['ternary_matmul']['cublas_dense_ms']:.4f} ms (another "
         "input, a yardstick)")
+    for r in report["ternary_matmul"]["shapes"]:
+        log(f"ternary_matmul {r['name']} ms by CUDA graph {tag}: "
+            f"{r['ms']:.4f} (bound {r['bound_ms']:.5f}; {r['shape']})")
+    for r in report["ternary_matmul_grouped"]["shapes"]:
+        log(f"ternary_matmul_grouped {', '.join(r['names'])} {r['phase']} ms "
+            f"by CUDA graph {tag}: {r['ms']:.4f} (bound {r['bound_ms']:.5f}, "
+            f"M={r['M']} K={r['K']} N={r['N']}, {r['launches_per_wave']} "
+            "launches per wave)")
     if details["profile"]["idle_share"] is not None:
         log(f"device idle share of one profiled wave {tag}: "
             f"{details['profile']['idle_share']:.3f}")

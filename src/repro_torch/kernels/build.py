@@ -33,9 +33,10 @@ _L = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p
 SIGNATURES = {
     "ternary_matmul": {"ternary_matmul_grouped":
-                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P],
+                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I,
+                        _I, _P],
                        "ternary_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                          _P]},
+                                          _I, _P]},
     "pack": {"pack_ternary_planes_segmented": [_P, _P, _P, _P, _L, _I, _P],
              "pack_ternary_planes": [_P, _P, _P, _P, _L, _L, _P]},
     "histogram": {"segment_hist_moments":

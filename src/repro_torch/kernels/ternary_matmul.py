@@ -11,8 +11,8 @@ and a row's result never depends on the other rows or on which experts
 they carry.  The single-expert form (``ternary_matmul``, through
 ``ops.ternary_matvec``) computes ``scale * (x @ T)`` in the grouped
 kernel's summation order, so a grouped row equals it bitwise.  Both
-kernels are in ``csrc/ternary_matmul.cu`` (see its header for the design
-and what bounds them).
+kernels are in ``csrc/ternary_matmul.cu`` (see its header for the design,
+its summation order and what bounds them).
 """
 
 from __future__ import annotations
@@ -27,6 +27,21 @@ from repro_torch.kernels.ref import (ternary_matmul_grouped_ref,
 # the plain versions: the oracles of the JAX package, in PyTorch
 ternary_matmul_grouped_plain = ternary_matmul_grouped_ref
 ternary_matmul_plain = ternary_matmul_ref
+
+H100_SMS = 132          # streaming multiprocessors of the target card
+
+
+def launch_cols(N: int, transpose_rhs: bool) -> int:
+    """Plane-word columns per block of the normal form (1 or 2): 2 where
+    that still gives a launch one block per SM (1 in the transposed form,
+    where a warp takes one output row).  It
+    decides which block computes an output, never the order of its sum:
+    the K partition is fixed in ``csrc/ternary_matmul.cu`` by K alone.
+    It takes no M, so the launch geometry cannot follow the batch."""
+    if transpose_rhs:
+        return 1
+    W = -(-N // LANE)
+    return 2 if -(-W // 2) >= H100_SMS else 1
 
 
 def _check_planes(pos, neg, device):
@@ -91,8 +106,8 @@ def ternary_matmul_grouped(x: torch.Tensor, pos: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.ternary_matmul_grouped(
         x.data_ptr(), pos.data_ptr(), neg.data_ptr(), scales.data_ptr(),
-        expert_idx.data_ptr(), out.data_ptr(), M, K, N, W, pos.stride(0),
-        int(transpose_rhs), stream)
+        expert_idx.data_ptr(), out.data_ptr(), M, K, N, W, E, pos.stride(0),
+        int(transpose_rhs), launch_cols(N, transpose_rhs), stream)
     build.check(rc, "ternary_matmul_grouped")
     ternary_matmul_grouped.launches += 1
     return out
@@ -131,7 +146,7 @@ def ternary_matmul(x: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.ternary_matmul(x.data_ptr(), pos.data_ptr(), neg.data_ptr(),
                             scale.data_ptr(), out.data_ptr(), M, K, W * LANE,
-                            W, stream)
+                            W, launch_cols(W * LANE, False), stream)
     build.check(rc, "ternary_matmul")
     ternary_matmul.launches += 1
     return out

@@ -41,26 +41,27 @@ def _planes(shape, gen, dev):
     return pos, rnd() & rnd() & ~pos
 
 
-@pytest.mark.parametrize("M,K,N,tr", [(1, 64, 96, False), (9, 300, 64, False),
-                                      (33, 2048, 256, False),
-                                      (5, 48, 70, True), (17, 2048, 300, True)])
-def test_grouped_kernel_matches_plain_and_rows_are_independent(dev, M, K, N,
-                                                               tr):
-    """f32 tolerance: |kernel - plain| <= 1e-4 * max |plain| (both f32,
-    summed in other orders).  Each row bitwise equals itself alone."""
-    gen = torch.Generator(device=dev).manual_seed(M + K)
-    E = 3
-    shape = (E, N, -(-K // 32)) if tr else (E, K, N // 32 if N % 32 == 0
-                                            else N // 32 + 1)
+def _grouped_inputs(dev, M, K, N, tr, E, seed):
+    """Planes [E, K, ceil(N/32)] ([E, N, ceil(K/32)] transposed, the bits
+    past K of the last word cleared), x [M, K] and scales with a zero
+    slot (the last)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (E, N, -(-K // 32)) if tr else (E, K, -(-N // 32))
     pos, neg = _planes(shape, gen, dev)
     if tr and K % 32:
         mask = (1 << (K % 32)) - 1
         pos[..., -1] &= mask
         neg[..., -1] &= mask
     x = torch.randn((M, K), generator=gen, device=dev)
-    scales = torch.tensor([0.5, -0.25, 0.0], device=dev)
-    eid = torch.randint(-1, E, (M,), generator=gen, device=dev,
-                        dtype=torch.int32)
+    scales = torch.tensor(([0.5, -0.25, 0.013][:E - 1] + [0.0]) if E > 1
+                          else [0.5], device=dev)
+    return gen, x, pos, neg, scales
+
+
+def _check_grouped(x, pos, neg, scales, eid, tr):
+    """f32 tolerance: |kernel - plain| <= 1e-4 * max |plain| (both f32,
+    summed in other orders); -1 rows exactly 0; each row bitwise equals
+    itself launched alone."""
     before = ternary_matmul_grouped.launches
     got = ternary_matmul_grouped(x, pos, neg, scales, eid, transpose_rhs=tr)
     assert ternary_matmul_grouped.launches == before + 1
@@ -68,10 +69,59 @@ def test_grouped_kernel_matches_plain_and_rows_are_independent(dev, M, K, N,
                                         transpose_rhs=tr)
     assert float((got - want).abs().max()) <= 1e-4 * float(
         want.abs().max()) + 1e-30
-    for m in range(M):
+    assert bool((got[eid < 0] == 0).all())
+    for m in range(x.shape[0]):
         alone = ternary_matmul_grouped(x[m:m + 1], pos, neg, scales,
                                        eid[m:m + 1], transpose_rhs=tr)
         assert torch.equal(alone[0], got[m])
+
+
+@pytest.mark.parametrize("M,K,N,tr", [
+    (1, 64, 96, False), (9, 300, 64, False), (33, 2048, 256, False),
+    (5, 48, 70, True), (17, 2048, 300, True),
+    # K below, at and just above one 32-k subtile and one round of the
+    # 16 phases (512 k), and K not a multiple of either
+    (6, 31, 64, False), (6, 32, 64, False), (6, 33, 64, False),
+    (5, 511, 128, False), (5, 513, 128, False), (5, 2047, 128, False),
+    (5, 2049, 128, False), (4, 4133, 96, False),
+    # plane-word columns: 2 per block with a ragged last pair (scalar
+    # loads), and with aligned vector loads
+    (4, 100, 265 * 32, False), (4, 100, 528 * 32, False),
+    # transposed: K % 32 != 0 (ragged last word), N % 32 != 0
+    (6, 31, 33, True), (6, 33, 65, True), (3, 1000, 1001, True)])
+def test_grouped_kernel_matches_plain_and_rows_are_independent(dev, M, K, N,
+                                                               tr):
+    gen, x, pos, neg, scales = _grouped_inputs(dev, M, K, N, tr, 3, M + K)
+    eid = torch.randint(-1, 3, (M,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    _check_grouped(x, pos, neg, scales, eid, tr)
+
+
+@pytest.mark.parametrize("case", ["all_minus_one", "one_expert",
+                                  "zero_scale_slot", "m300_four_experts"])
+@pytest.mark.parametrize("tr", [False, True])
+def test_grouped_kernel_special_batches(dev, case, tr):
+    """An all -1 batch (every row exactly 0), E = 1, a row on a slot whose
+    scale is 0 (like BASE), and M = 300 rows over 4 distinct experts
+    (tiles of 8 rows holding several groups, and a ragged last tile)."""
+    M, K, N = (300, 2048, 512) if case == "m300_four_experts" else (
+        12, 2048, 2048)
+    E = {"one_expert": 1, "m300_four_experts": 4}.get(case, 3)
+    gen, x, pos, neg, scales = _grouped_inputs(dev, M, K, N, tr, E, 11)
+    if case == "all_minus_one":
+        eid = torch.full((M,), -1, dtype=torch.int32, device=dev)
+    elif case == "zero_scale_slot":
+        eid = torch.tensor([2, 0, 2, 1, -1, 2] * 2, dtype=torch.int32,
+                           device=dev)
+    else:
+        eid = torch.randint(-1, E, (M,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        eid[:E] = torch.arange(E, dtype=torch.int32, device=dev)
+    _check_grouped(x, pos, neg, scales, eid, tr)
+    if case == "zero_scale_slot":
+        got = ternary_matmul_grouped(x, pos, neg, scales, eid,
+                                     transpose_rhs=tr)
+        assert bool((got[eid == 2] == 0).all())
 
 
 def test_grouped_kernel_rejects_bad_inputs(dev):
@@ -216,7 +266,8 @@ def test_popcount_dot_kernel_bitwise_equals_plain(dev, W, offset):
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 64, 32), (4, 300, 96),
-                                   (4, 11008, 2048)])
+                                   (4, 11008, 2048), (4, 2048, 2048),
+                                   (4, 2048, 11008), (9, 33, 265 * 32)])
 def test_ternary_matmul_kernel_matches_plain_and_grouped_rows(dev, M, K, N):
     """Within |kernel - plain| <= 1e-4 * max |plain| (f32, other
     summation orders); each row bitwise equal to the grouped kernel's row

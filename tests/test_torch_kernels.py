@@ -31,7 +31,8 @@ from repro_torch.kernels.pack import (pack_ternary_planes,
                                       pack_ternary_planes_segmented,
                                       pack_ternary_planes_segmented_plain)
 from repro_torch.kernels.popcount_dot import popcount_dot, popcount_dot_plain
-from repro_torch.kernels.ternary_matmul import (ternary_matmul,
+from repro_torch.kernels.ternary_matmul import (H100_SMS, launch_cols,
+                                                ternary_matmul,
                                                 ternary_matmul_grouped,
                                                 ternary_matmul_grouped_plain,
                                                 ternary_matmul_plain)
@@ -357,3 +358,23 @@ def _zero_packed(K, N):
     from repro_torch.core.packing import PackedTernary
     w = torch.zeros(-(-K * N // LANE), dtype=torch.int32)
     return PackedTernary(pos=w, neg=w, scale=torch.tensor(1.0), shape=(K, N))
+
+
+def test_matmul_geometry_takes_no_m():
+    """The launch geometry that kernels 1 and 6 take from Python (the
+    plane-word columns per block) is a pure function of N and the form:
+    no M, so it cannot follow the batch, and it never moves the K
+    partition, which the CUDA source fixes by K alone.  The normal form
+    gives a launch one block per SM where the width allows it."""
+    import inspect
+    assert list(inspect.signature(launch_cols).parameters) == [
+        "N", "transpose_rhs"]
+    widths = [2048, 256, 11008, 151936, 33, 262 * 32, 263 * 32]
+    for N in widths:
+        assert launch_cols(N, True) == 1
+        cols = launch_cols(N, False)
+        assert cols == launch_cols(N, False) and cols in (1, 2)
+        W = -(-N // LANE)
+        if W >= H100_SMS:
+            assert -(-W // cols) >= H100_SMS
+    assert [launch_cols(N, False) for N in widths] == [1, 1, 2, 2, 1, 1, 2]
