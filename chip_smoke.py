@@ -13,7 +13,10 @@ failure with a non-zero exit:
      kernel sources (one nvcc per source, in parallel) and print the
      build time;
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (grouped matmul: row independence too; the merge
+     main path's shapes (segment absmax bitwise, and the coarse, refine
+     and skewed coarse histogram sweeps with bitwise counts and moments
+     equal across two launches, over one expert's segment buffer; grouped
+     matmul: row independence too; the merge
      kernels bitwise at the tied embedding, E = 1 and 3; the scalar pack
      bitwise at the tied embedding's size with -0.0 and +-threshold
      planted; popcount_dot bitwise over two such plane pairs; the
@@ -38,7 +41,9 @@ failure with a non-zero exit:
      TIES (packed bitwise task arithmetic), and, counted apart as a
      check, ``ops.ternary_matvec`` over unit 0's projections;
   4. check the result: tokens in range; one expert's planes bitwise equal
-     to the plain compression of its tau; every row's tokens bitwise
+     to the plain compression of its tau (and one warm compression of it
+     profiled: device ms by pass and the host share); every row's tokens
+     bitwise
      unchanged when the other rows of its wave carry other experts; every
      request's tokens equal to the same request served alone, or parting
      from them first where the two candidates lie within about one bf16
@@ -56,7 +61,7 @@ failure with a non-zero exit:
      its launches per wave, and the short kernels by CUDA graph (device
      time); profile one wave with ``torch.profiler`` (device time by
      kernel family, split into prefill and decode, and the idle share),
-     and print the ``kernels`` JSON line (eight kernels) and the
+     and print the ``kernels`` JSON line (nine kernels) and the
      end-to-end numbers, each tagged with the card's name and power
      limit.
 
@@ -240,10 +245,77 @@ def check_grouped_matmul(torch, cfg, gen, dev, report):
     report["ternary_matmul_grouped"] = {"max_abs_err": worst}
 
 
+def skewed_buffer(torch, buf, row_seg, row_valid, seg_count, gen):
+    """A copy of the segment buffer with its largest segment at 90% equal
+    magnitudes (+-0.01, random signs; the rest Gaussian, as bf16-upcast
+    deltas repeat exact values) and its second largest all zeros (a
+    frozen leaf); padding stays zero."""
+    out = buf.clone()
+    order = torch.argsort(seg_count.to(torch.int64), descending=True)
+    big, zero = int(order[0]), int(order[1])
+    C = buf.shape[1]
+    cols = torch.arange(C, device=buf.device)[None, :]
+    rows = torch.nonzero(row_seg == big)[:, 0]
+    for r0 in range(0, rows.numel(), 4096):
+        rr = rows[r0:r0 + 4096]
+        n = rr.numel()
+        sign = torch.where(torch.rand((n, C), generator=gen,
+                                      device=buf.device) < 0.5, -0.01, 0.01)
+        other = 0.01 * torch.randn((n, C), generator=gen, device=buf.device)
+        v = torch.where(torch.rand((n, C), generator=gen, device=buf.device)
+                        < 0.9, sign, other)
+        out[rr] = torch.where(cols < row_valid[rr][:, None], v, 0.0)
+    out[row_seg == zero] = 0.0
+    return out, big, zero
+
+
+def moment_errors(got, want):
+    """Max abs and max relative error of the sweep's moments (sum,
+    sumsq, max, sum |x|) against the plain version's; the signed sum,
+    near 0, relative to sum |x|."""
+    err = rel = 0.0
+    for i, (g, w) in enumerate(zip(got[1:], want[1:])):
+        den = want[4] if i == 0 else w.abs()
+        rel = max(rel, float(((g - w).abs() / den.clamp_min(1e-30)).max()))
+        err = max(err, float((g - w).abs().max()))
+    return err, rel
+
+
+def sweep_times(torch, hq, row_seg, row_valid, sweeps, n_el, reps=10):
+    """Times of the histogram sweeps ``{name: (x, lo, width,
+    with_moments)}`` of the package ``hq`` (back-to-back launches between
+    CUDA events; the buffer is 50x the L2 cache), each beside its bound:
+    the bytes read once over 3.35 TB/s, against 3 operations per element
+    (6 with moments)."""
+    times = {}
+    for name, (x, lo, w, mom) in sweeps.items():
+        R, C = x.shape
+        S = lo.numel()
+        t = cuda_ms(torch, lambda: hq.segment_hist_moments(  # noqa: B023
+            x, row_seg, row_valid, lo, w, n_seg=S, with_moments=mom), reps)
+        nb = (R * C * 4 + R * 8 + S * 8 + S * hq.NBINS * 4
+              + (S * 16 if mom else 0))
+        b, by = bound_ms(nb, (6.0 if mom else 3.0) * n_el)
+        times[name] = {"ms": t, "bound_ms": b, "bound_by": by}
+    return times
+
+
+def absmax_bound(R, C, S, n_el):
+    """The segment absmax's bound: the buffer and the row vectors read
+    once, the maxima written once, against 2 operations per element."""
+    return bound_ms(R * C * 4 + R * 8 + S * 4, 2.0 * n_el)
+
+
 def check_compression_kernels(torch, tau, dev, report):
-    """Histogram (coarse sweep) and pack over one expert's full segment
-    buffer: counts and planes bitwise equal; moments within a relative
-    1e-4 (both sum in f32, in different orders)."""
+    """The compression kernels over one expert's full segment buffer, each
+    against its plain version on the same inputs: segment_absmax bitwise;
+    the coarse sweep (lo = 0, width = max), the refine sweep at the window
+    that ``segmented_quantile_moments`` computes for density 0.1, and the
+    coarse sweep over ``skewed_buffer``'s copy, each with counts bitwise
+    equal, moments bitwise equal across two launches and within a
+    relative 1e-4 of the plain version (both sum in f32, in different
+    orders); the pack's planes bitwise.  Then the times of all five, each
+    beside its bound (as :func:`sweep_times` takes them)."""
     from repro_torch import tree as tree_util
     from repro_torch.core.compeft import STREAM_COLS, _build_segment_buffer
     from repro_torch.kernels import histogram_quantile as hq
@@ -253,50 +325,89 @@ def check_compression_kernels(torch, tau, dev, report):
     buf, row_seg, row_valid, seg_count, _ = _build_segment_buffer(
         leaves, STREAM_COLS, dev)
     S = len(leaves)
-    smax = hq._segment_absmax(buf, row_seg, row_valid, n_seg=S)
-    lo = torch.zeros_like(smax)
-    got = hq.segment_hist_moments(buf, row_seg, row_valid, lo, smax, n_seg=S)
-    want = hq.segment_hist_moments_plain(buf, row_seg, row_valid, lo, smax,
-                                         n_seg=S)
-    torch.cuda.synchronize()
-    check(torch.equal(got[0], want[0]), "histogram counts differ")
-    mom_err = mom_rel = 0.0
-    for g, w, name in zip(got[1:], want[1:], ("sum", "sumsq", "max",
-                                              "sum_abs")):
-        rel = float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())
-        tol = 1e-4 if name in ("sumsq", "max", "sum_abs") else None
-        if name == "sum":    # a signed sum near 0: relative to sum |x|
-            rel = float(((g - w).abs() / want[4].clamp_min(1e-30)).max())
-            tol = 1e-4
-        check(rel <= tol, f"histogram {name}: rel err {rel} > {tol}")
-        mom_err = max(mom_err, float((g - w).abs().max()))
-        mom_rel = max(mom_rel, rel)
+    R, C = buf.shape
+    n_el = float(seg_count.sum())
+    skew, big, zero = skewed_buffer(torch, buf, row_seg, row_valid,
+                                    seg_count, torch.Generator(
+                                        device=dev).manual_seed(5))
+    smax = hq.segment_absmax(buf, row_seg, row_valid, n_seg=S)
+    smax_k = hq.segment_absmax(skew, row_seg, row_valid, n_seg=S)
+    for name, x, got in (("buffer", buf, smax), ("skewed buffer", skew,
+                                                  smax_k)):
+        want = hq._segment_absmax(x, row_seg, row_valid, n_seg=S)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(torch, got), bits(torch, want)),
+              f"segment_absmax over the {name} differs from the plain "
+              "version")
+    log(f"  segment_absmax over [{R}, {C}] and its skewed copy: bitwise "
+        "equal to the plain version")
     stats = hq.segmented_quantile_moments(buf, row_seg, row_valid, seg_count,
                                           0.1, n_seg=S)
+    lo0 = torch.zeros_like(smax)
+    sweeps = {"coarse": (buf, lo0, smax, True),
+              "refine": (buf, stats["refine_lo"], stats["refine_width"],
+                         False),
+              "skewed_coarse": (skew, lo0, smax_k, True)}
+    mom_err = mom_rel = 0.0
+    for name, (x, lo, w, mom) in sweeps.items():
+        kw = dict(n_seg=S, with_moments=mom)
+        got = hq.segment_hist_moments(x, row_seg, row_valid, lo, w, **kw)
+        again = hq.segment_hist_moments(x, row_seg, row_valid, lo, w, **kw)
+        want = hq.segment_hist_moments_plain(x, row_seg, row_valid, lo, w,
+                                             **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(again[0],
+                                                           want[0]),
+              f"histogram {name}: counts differ from the plain version")
+        msg = ""
+        if mom:
+            check(all(torch.equal(g, a) for g, a in zip(got[1:], again[1:])),
+                  f"histogram {name}: moments differ between two launches")
+            err, rel = moment_errors(got, want)
+            check(rel <= 1e-4, f"histogram {name}: moments rel err {rel} > "
+                  "1e-4")
+            mom_err, mom_rel = max(mom_err, err), max(mom_rel, rel)
+            msg = (f", moments equal across two launches, max|err| "
+                   f"{err:.3e} (max rel {rel:.2e})")
+        log(f"  histogram {name} sweep: {int(got[0].sum())} in range, counts "
+            f"bitwise equal{msg}")
+    report["segment_hist_moments"] = {"max_abs_err": mom_err,
+                                      "moments_max_rel_err": mom_rel}
     thr = stats["threshold"][row_seg.to(torch.int64)].contiguous()
     p_got = pack_ternary_planes_segmented(buf, thr)
     p_want = pack_ternary_planes_segmented_plain(buf, thr)
     check(torch.equal(p_got[0], p_want[0]) and torch.equal(p_got[1],
                                                            p_want[1]),
           "pack planes differ")
-    log(f"  histogram over [{buf.shape[0]}, {buf.shape[1]}]: counts bitwise "
-        f"equal, moments max|err| {mom_err:.3e} (max rel {mom_rel:.2e})")
-    log(f"  pack over [{buf.shape[0]}, {buf.shape[1]}]: planes bitwise equal")
-    report["segment_hist_moments"] = {"max_abs_err": mom_err,
-                                      "moments_max_rel_err": mom_rel}
+    log(f"  pack over [{R}, {C}]: planes bitwise equal")
     report["pack_ternary_planes_segmented"] = {"max_abs_err": 0.0}
+    del p_got, p_want, want
 
     # times at these shapes
-    R, C = buf.shape
-    t = cuda_ms(torch, lambda: hq.segment_hist_moments(
-        buf, row_seg, row_valid, lo, smax, n_seg=S), 10)
+    times = sweep_times(torch, hq, row_seg, row_valid, sweeps, n_el)
+    times["skewed_coarse"]["segments"] = {"equal_90pct": big, "zero": zero}
     tp = cuda_ms(torch, lambda: hq.segment_hist_moments_plain(
-        buf, row_seg, row_valid, lo, smax, n_seg=S), 3)
-    nb = R * C * 4 + R * 8 + S * 8 + S * hq.NBINS * 4 + S * 16
-    b, by = bound_ms(nb, 6 * float(seg_count.sum()))
+        buf, row_seg, row_valid, lo0, smax, n_seg=S), 3)
+    coarse = times["coarse"]
     report["segment_hist_moments"].update(
-        ms=t, plain_ms=tp, bound_ms=b, bound_by=by, library_ms=None,
-        shape=f"buf [{R}, {C}], {S} segments, 2048 bins, coarse sweep")
+        ms=coarse["ms"], plain_ms=tp, bound_ms=coarse["bound_ms"],
+        bound_by=coarse["bound_by"], library_ms=None,
+        library_note="null: torch.histc has no segments, padding or "
+                     "moments",
+        shape=f"buf [{R}, {C}], {S} segments, {hq.NBINS} bins, coarse sweep",
+        sweeps=times)
+    t = cuda_ms(torch, lambda: hq.segment_absmax(buf, row_seg, row_valid,
+                                                 n_seg=S), 10)
+    tp = cuda_ms(torch, lambda: hq._segment_absmax(buf, row_seg, row_valid,
+                                                   n_seg=S), 3)
+    b, by = absmax_bound(R, C, S, n_el)
+    report["segment_absmax"] = {
+        "max_abs_err": 0.0, "ms": t, "plain_ms": tp, "bound_ms": b,
+        "bound_by": by, "library_ms": None,
+        "library_note": "null: no PyTorch call takes a segmented max over "
+                        "the valid columns of each row",
+        "shape": f"buf [{R}, {C}], {S} segments"}
+    del skew
     t = cuda_ms(torch, lambda: pack_ternary_planes_segmented(buf, thr), 10)
     tp = cuda_ms(torch, lambda: pack_ternary_planes_segmented_plain(
         buf, thr), 3)
@@ -304,6 +415,12 @@ def check_compression_kernels(torch, tau, dev, report):
     report["pack_ternary_planes_segmented"].update(
         ms=t, plain_ms=tp, bound_ms=b, bound_by=by, library_ms=None,
         shape=f"tau [{R}, {C}]")
+    for name, e in times.items():
+        log(f"  histogram {name} sweep {e['ms']:.4f} ms (bound "
+            f"{e['bound_ms']:.4f})")
+    am = report["segment_absmax"]
+    log(f"  segment_absmax {am['ms']:.4f} ms (bound {am['bound_ms']:.4f}, "
+        f"plain {am['plain_ms']:.3f})")
 
 
 def bits(torch, t):
@@ -797,6 +914,81 @@ def profile_wave(torch, engine, wave, out_dir):
         for ph, fams in split.items():
             log(f"  {ph}: device {sum(fams.values()):.2f} ms (" + ", ".join(
                 f"{k} {v:.2f}" for k, v in fams.items()) + ")")
+    return out
+
+
+def profile_compress(torch, tau, out_dir):
+    """torch.profiler over one warm ``compress_packed`` of a full-width
+    expert (density 0.1): device ms by pass, and the host share (the part
+    of the wall time in which the device is idle).  Each pass is marked
+    with ``record_function`` around its call: the segment buffer's build,
+    the absmax, the coarse sweep (with its segment-moment reduction), the
+    refine sweep and the pack.  One stream runs the kernels in launch
+    order, so a pass's device range holds its kernels (memsets and copies
+    included) and nothing else; every other kernel (keep counts, bin
+    selection, thresholds, scales) is counted as bin selection.  The full
+    list goes to chiprun_out/profile_compress.txt."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core import compeft
+    from repro_torch.kernels import ops
+    cfg = compeft.CompressionConfig(density=0.1)
+    compeft.compress_packed(tau, cfg)
+    torch.cuda.synchronize()
+
+    def marked(name, fn):
+        def call(*args, **kwargs):
+            with record_function(name(kwargs) if callable(name) else name):
+                return fn(*args, **kwargs)
+        return call
+
+    marks = ("buffer build", "absmax", "coarse", "refine", "pack")
+    build_buf, prev = compeft._build_segment_buffer, ops._table
+    compeft._build_segment_buffer = marked("buffer build", build_buf)
+    ops._table = dict(
+        prev, segment_absmax=marked("absmax", prev["segment_absmax"]),
+        segment_hist_moments=marked(
+            lambda kw: "coarse" if kw.get("with_moments", True) else "refine",
+            prev["segment_hist_moments"]),
+        pack_ternary_planes_segmented=marked(
+            "pack", prev["pack_ternary_planes_segmented"]))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            compeft.compress_packed(tau, cfg)
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        compeft._build_segment_buffer, ops._table = build_buf, prev
+
+    cuda = [ev for ev in prof.events() if ev.device_type.name == "CUDA"]
+    spans = [(ev.time_range.start, ev.time_range.end, ev.name) for ev in cuda
+             if ev.name in marks]
+    passes = dict.fromkeys(("buffer build", "absmax", "coarse", "refine",
+                            "bin selection", "pack"), 0.0)
+    rows = []
+    for ev in sorted((ev for ev in cuda if ev.name not in marks),
+                     key=lambda ev: ev.time_range.start):
+        t = ev.time_range.start
+        k = next((n for t0_, t1_, n in spans if t0_ <= t < t1_),
+                 "bin selection")
+        ms = ev.time_range.elapsed_us() / 1e3
+        passes[k] += ms
+        rows.append((k, ms, ev.name))
+    with open(os.path.join(out_dir, "profile_compress.txt"), "w") as f:
+        f.write("pass\tdevice_ms\tkernel\n")
+        for k, m, name in rows:
+            f.write(f"{k}\t{m:.4f}\t{name}\n")
+    check(len(spans) == len(marks), "profile_compress: the device ranges of "
+          f"the marked passes were not all traced ({len(spans)} of "
+          f"{len(marks)})")
+    busy = sum(passes.values())
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "host_share": 1 - busy / wall_ms, "device_ms_by_pass": passes,
+           "device_launches": len(rows)}
+    log(f"  profile of one compress_packed: wall {wall_ms:.2f} ms, device "
+        f"busy {busy:.2f} ms (host share {out['host_share']:.3f}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     return out
 
 
@@ -1299,6 +1491,7 @@ def main(argv=None) -> int:
         check(rel <= 1e-4, f"expert e0 {path}: scale rel err {rel}")
         worst_scale = max(worst_scale, rel)
         n_leaves += 1
+    details["compress_profile"] = profile_compress(torch, tau, out_dir)
     experts[0].drop(DENSE)
     del tau, want
     log(f"  e0: planes of {n_leaves} leaves bitwise equal to the plain "
@@ -1372,6 +1565,8 @@ def main(argv=None) -> int:
              "csrc/pack.cu", "src/repro/kernels/pack.py:102"),
             ("segment_hist_moments", "src/repro_torch/kernels/csrc/"
              "histogram.cu", "src/repro/kernels/histogram_quantile.py:151"),
+            ("segment_absmax", "src/repro_torch/kernels/csrc/histogram.cu",
+             "src/repro/kernels/histogram_quantile.py:283"),
             ("unpack_add_many", "src/repro_torch/kernels/csrc/unpack_add.cu",
              "src/repro/kernels/unpack_add.py:112"),
             ("unpack_add", "src/repro_torch/kernels/csrc/unpack_add.cu",
@@ -1428,6 +1623,14 @@ def main(argv=None) -> int:
         json.dump(details, f, indent=1)
     log(f"compress seconds per expert {tag}: "
         + ", ".join(f"{s:.3f}" for s in compress_s))
+    cp = details["compress_profile"]
+    log(f"compress_packed device ms by pass {tag}: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in cp["device_ms_by_pass"].items())
+        + f"; busy {cp['device_busy_ms']:.2f} of {cp['wall_ms']:.2f} ms wall"
+        f" (host share {cp['host_share']:.3f})")
+    for name, e in report["segment_hist_moments"]["sweeps"].items():
+        log(f"segment_hist_moments {name} sweep ms {tag}: {e['ms']:.4f} "
+            f"(bound {e['bound_ms']:.4f})")
     log(f"prefill ms per wave (4 rows) {tag}: "
         + ", ".join(f"{t:.1f}" for t in prefill_ms))
     log(f"decode tokens/s (4 rows, chunk 8) {tag}: "
@@ -1463,7 +1666,8 @@ def main(argv=None) -> int:
         f"{art['similarity_s']:.3f} s; merges " + ", ".join(
             f"{m} {art[f'merge_{m}_s']:.2f} s / peak {g:.2f} GiB"
             for m, g in art["merge_peak_gib"].items()))
-    for name in ("pack_ternary_planes", "popcount_dot", "ternary_matmul"):
+    for name in ("segment_absmax", "pack_ternary_planes", "popcount_dot",
+                 "ternary_matmul"):
         r = report[name]
         log(f"{name} ms {tag}: {r['ms']:.4f} (bound {r['bound_ms']:.5f}, "
             f"plain {r['plain_ms']:.3f}; {r['shape']})")
@@ -1490,7 +1694,7 @@ def main(argv=None) -> int:
 
 
 MIXED_PATH_KERNELS = ("ternary_matmul_grouped", "pack_ternary_planes_segmented",
-                      "segment_hist_moments")
+                      "segment_hist_moments", "segment_absmax")
 ARTIFACT_PATH_KERNELS = ("pack_ternary_planes", "popcount_dot",
                          "ternary_matmul_grouped")
 

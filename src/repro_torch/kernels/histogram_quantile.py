@@ -13,7 +13,10 @@ k-th largest magnitude:
 ``|x| >= threshold`` then keeps the same top-k set as the exact quantile.
 Each sweep is :func:`segment_hist_moments`, the CUDA kernel
 ``csrc/histogram.cu`` on the card and :func:`segment_hist_moments_plain`
-(the JAX package's jnp path, in PyTorch) on the CPU.  Both bin with the
+(the JAX package's jnp path, in PyTorch) on the CPU; the pre-pass that
+finds each segment's max, the coarse sweep's range, is
+:func:`segment_absmax`, a kernel of the same source, and
+:func:`_segment_absmax` on the CPU.  Both versions of a sweep bin with the
 Pallas/jnp formula ``(|x| - lo) / w * nbins``, so their counts are
 bitwise those of the reference's jnp and Pallas paths.  (The reference's
 host numpy path, its default off the TPU, bins as ``(|x| - lo) * (nbins /
@@ -73,6 +76,22 @@ def segment_hist_moments_plain(buf, row_seg, row_valid, lo, width, *,
     return hist, ssum, ssq, smax, sabs
 
 
+def _check_sweep_inputs(buf, tensors):
+    """Raise unless the kernels can take ``buf`` [R, C] f32 and the
+    per-row / per-segment vectors ``(name, t, dtype, n)``."""
+    if buf.device.type != "cuda":
+        raise ValueError(f"unsupported device {buf.device}")
+    if buf.dtype != torch.float32 or buf.dim() != 2 or not buf.is_contiguous():
+        raise ValueError("buf must be a contiguous [R, C] float32 tensor")
+    if buf.shape[0] >= 2 ** 31 or buf.shape[1] >= 2 ** 31:
+        raise ValueError("buf must have fewer than 2**31 rows and columns")
+    for name, t, dt, n in tensors:
+        if (t.dtype != dt or t.shape != (n,) or not t.is_contiguous()
+                or t.device != buf.device):
+            raise ValueError(f"{name} must be a contiguous [{n}] {dt} tensor "
+                             "on buf's device")
+
+
 def segment_hist_moments(buf, row_seg, row_valid, lo, width, *, n_seg: int,
                          nbins: int = NBINS, with_moments: bool = True):
     """The sweep of :func:`segment_hist_moments_plain`: CPU tensors take
@@ -81,32 +100,28 @@ def segment_hist_moments(buf, row_seg, row_valid, lo, width, *, n_seg: int,
         return segment_hist_moments_plain(buf, row_seg, row_valid, lo, width,
                                           n_seg=n_seg, nbins=nbins,
                                           with_moments=with_moments)
-    if buf.device.type != "cuda":
-        raise ValueError(f"unsupported device {buf.device}")
-    if buf.dtype != torch.float32 or buf.dim() != 2 or not buf.is_contiguous():
-        raise ValueError("buf must be a contiguous [R, C] float32 tensor")
     R, C = buf.shape
-    for name, t, dt, n in (("row_seg", row_seg, torch.int32, R),
-                           ("row_valid", row_valid, torch.int32, R),
-                           ("lo", lo, torch.float32, n_seg),
-                           ("width", width, torch.float32, n_seg)):
-        if (t.dtype != dt or t.shape != (n,) or not t.is_contiguous()
-                or t.device != buf.device):
-            raise ValueError(f"{name} must be a contiguous [{n}] {dt} tensor "
-                             "on buf's device")
+    _check_sweep_inputs(buf, (("row_seg", row_seg, torch.int32, R),
+                              ("row_valid", row_valid, torch.int32, R),
+                              ("lo", lo, torch.float32, n_seg),
+                              ("width", width, torch.float32, n_seg)))
     if not 1 <= nbins <= MAX_NBINS:
         raise ValueError(f"nbins must be in [1, {MAX_NBINS}]")
     dev = buf.device
     hist = torch.empty((n_seg, nbins), dtype=torch.int32, device=dev)
     mom = torch.empty((n_seg, 4), dtype=torch.float32, device=dev)
-    row_mom = torch.empty((R if with_moments else 1, 4), dtype=torch.float32,
-                          device=dev)
+    # scratch: each segment run's moment partial at its first row, and
+    # per segment its first and end row
+    part = torch.empty((R if with_moments else 1, 4), dtype=torch.float32,
+                       device=dev)
+    info = torch.empty((2 * max(n_seg, 1),), dtype=torch.int32, device=dev)
     lib = build.library("histogram")
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.segment_hist_moments(
         buf.data_ptr(), row_seg.data_ptr(), row_valid.data_ptr(),
-        lo.data_ptr(), width.data_ptr(), hist.data_ptr(), row_mom.data_ptr(),
-        mom.data_ptr(), R, C, n_seg, nbins, int(with_moments), stream)
+        lo.data_ptr(), width.data_ptr(), hist.data_ptr(), part.data_ptr(),
+        info.data_ptr(), mom.data_ptr(), R, C, n_seg, nbins,
+        int(with_moments), stream)
     build.check(rc, "segment_hist_moments")
     segment_hist_moments.launches += 1
     return hist, mom[:, 0], mom[:, 1], mom[:, 2], mom[:, 3]
@@ -116,8 +131,8 @@ segment_hist_moments.launches = 0
 
 
 def _segment_absmax(buf, row_seg, row_valid, *, n_seg: int):
-    """Per-segment max |x| over valid elements (plain PyTorch; max is
-    order-independent, so it is exact on any device)."""
+    """Per-segment max |x| over valid elements, at least 0 (plain
+    PyTorch; max is order-independent, so it is exact on any device)."""
     R, C = buf.shape
     smax = torch.zeros(n_seg, dtype=torch.float32, device=buf.device)
     cols = torch.arange(C, dtype=torch.int32, device=buf.device)[None, :]
@@ -128,6 +143,29 @@ def _segment_absmax(buf, row_seg, row_valid, *, n_seg: int):
         smax.scatter_reduce_(0, row_seg[r0:r0 + ROW_CHUNK].to(torch.int64),
                              mag.amax(dim=1), reduce="amax")
     return smax
+
+
+def segment_absmax(buf, row_seg, row_valid, *, n_seg: int):
+    """The pre-pass of :func:`_segment_absmax`: CPU tensors take the plain
+    version, CUDA tensors launch the kernel (an integer max over the bit
+    patterns of |x|, bitwise the plain version's) or raise."""
+    if buf.device.type == "cpu":
+        return _segment_absmax(buf, row_seg, row_valid, n_seg=n_seg)
+    R, C = buf.shape
+    _check_sweep_inputs(buf, (("row_seg", row_seg, torch.int32, R),
+                              ("row_valid", row_valid, torch.int32, R)))
+    smax = torch.empty((n_seg,), dtype=torch.float32, device=buf.device)
+    lib = build.library("histogram")
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    rc = lib.segment_absmax(buf.data_ptr(), row_seg.data_ptr(),
+                            row_valid.data_ptr(), smax.data_ptr(), R, C,
+                            n_seg, stream)
+    build.check(rc, "segment_absmax")
+    segment_absmax.launches += 1
+    return smax
+
+
+segment_absmax.launches = 0
 
 
 def _suffix(hist: torch.Tensor) -> torch.Tensor:
@@ -150,15 +188,17 @@ def segmented_quantile_moments(buf, row_seg, row_valid, seg_count, density,
     buf [R, C] f32 (padding zeroed); row_seg / row_valid [R] int32;
     seg_count [S] int32 elements per segment; density the kept fraction.
     Returns per-segment f32 ``threshold``, ``mean``, ``std``,
-    ``mean_abs``, ``max``, ``sum``, ``sumsq`` and int32 ``keep``; nothing
-    is read back to the host.
+    ``mean_abs``, ``max``, ``sum``, ``sumsq``, int32 ``keep``, and the
+    refine sweep's window ``refine_lo`` / ``refine_width``; nothing is
+    read back to the host.
     """
     from repro_torch.kernels import ops
     sweep = ops.kernel("segment_hist_moments")
+    absmax = ops.kernel("segment_absmax")
     n = seg_count.to(torch.float32)
     keep = torch.clamp_min(torch.round(n * density), 1.0).to(torch.int32)
     zeros = torch.zeros((n_seg,), dtype=torch.float32, device=buf.device)
-    smax = _segment_absmax(buf, row_seg, row_valid, n_seg=n_seg)
+    smax = absmax(buf, row_seg, row_valid, n_seg=n_seg)
     coarse, ssum, ssq, _, sabs = sweep(buf, row_seg, row_valid, zeros, smax,
                                        n_seg=n_seg, nbins=nbins)
     cb = _select_bin(coarse, keep)
@@ -178,4 +218,4 @@ def segmented_quantile_moments(buf, row_seg, row_valid, seg_count, density,
     var = torch.clamp_min(ssq / nmax - mean * mean, 0.0)
     return {"threshold": thr, "mean": mean, "std": torch.sqrt(var),
             "mean_abs": sabs / nmax, "max": smax, "sum": ssum,
-            "sumsq": ssq, "keep": keep}
+            "sumsq": ssq, "keep": keep, "refine_lo": lo1, "refine_width": cw}

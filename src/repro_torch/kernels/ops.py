@@ -19,7 +19,9 @@ import contextlib
 
 import torch
 
-from repro_torch.kernels.histogram_quantile import (segment_hist_moments,
+from repro_torch.kernels.histogram_quantile import (_segment_absmax,
+                                                    segment_absmax,
+                                                    segment_hist_moments,
                                                     segment_hist_moments_plain)
 from repro_torch.kernels.pack import (pack_ternary_planes,
                                       pack_ternary_planes_plain,
@@ -38,6 +40,7 @@ KERNELS = {
     "ternary_matmul_grouped": ternary_matmul_grouped,
     "pack_ternary_planes_segmented": pack_ternary_planes_segmented,
     "segment_hist_moments": segment_hist_moments,
+    "segment_absmax": segment_absmax,
     "unpack_add_many": unpack_add_many,
     "unpack_add": unpack_add,
     "ternary_matmul": ternary_matmul,
@@ -48,6 +51,7 @@ PLAIN = {
     "ternary_matmul_grouped": ternary_matmul_grouped_plain,
     "pack_ternary_planes_segmented": pack_ternary_planes_segmented_plain,
     "segment_hist_moments": segment_hist_moments_plain,
+    "segment_absmax": _segment_absmax,
     "unpack_add_many": unpack_add_many_plain,
     "unpack_add": unpack_add_plain,
     "ternary_matmul": ternary_matmul_plain,

@@ -8,6 +8,7 @@ tests/test_torch_cuda.py`` (the kernels are built at first use).
 import pytest
 import torch
 
+from hist_cases import edge_case
 from repro_torch.kernels import histogram_quantile as hq
 from repro_torch.kernels import ops
 from repro_torch.kernels.pack import (pack_ternary_planes,
@@ -168,6 +169,115 @@ def test_hist_kernel_counts_bitwise_and_deterministic(dev, nbins):
     for g, a, w in zip(got[1:], again[1:], want[1:]):
         assert torch.equal(g, a)                     # no float atomics
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
+
+
+def _edge_on(dev, nbins, layout, form="vec4"):
+    """hist_cases.edge_case on the card at cols 8192 (several row blocks
+    per segment); form "cols_97" (C % 4 != 0) and "offset" (a buffer 4
+    bytes past a 16-byte boundary) take the kernels' 4-byte loads."""
+    buf, seg, valid, lo, width, S = edge_case(
+        nbins, nbins, layout=layout, cols=97 if form == "cols_97" else 8192,
+        big=True)
+    b = torch.from_numpy(buf).to(dev)
+    if form == "offset":
+        store = torch.empty(b.numel() + 1, device=dev)
+        b = store[1:].view(b.shape)
+        b.copy_(torch.from_numpy(buf))
+        assert b.data_ptr() % 16 == 4
+    return (b, *[torch.from_numpy(a).to(dev) for a in (seg, valid, lo,
+                                                        width)], S)
+
+
+@pytest.mark.parametrize("nbins", [256, 2048, 8192])
+@pytest.mark.parametrize("layout", ["segments", "single", "interleaved"])
+def test_hist_kernel_edge_cases_bitwise_and_deterministic(dev, nbins,
+                                                          layout):
+    """An all-zero segment, a window of width 0, magnitudes at lo, lo + w,
+    one ulp past them and at bin edges, 90% equal magnitudes, ragged and
+    empty rows, padding of 7.0, segments over several row blocks, one
+    segment over all rows, and segments whose rows interleave: counts
+    bitwise the plain version's in both sweeps, moments bitwise equal
+    across two launches and within rtol 1e-5, atol 1e-3 of the plain
+    version (f32 sums in other orders)."""
+    buf, seg, valid, lo, width, S = _edge_on(dev, nbins, layout)
+    for with_moments in (True, False):
+        kw = dict(n_seg=S, nbins=nbins, with_moments=with_moments)
+        before = hq.segment_hist_moments.launches
+        got = hq.segment_hist_moments(buf, seg, valid, lo, width, **kw)
+        again = hq.segment_hist_moments(buf, seg, valid, lo, width, **kw)
+        assert hq.segment_hist_moments.launches == before + 2
+        want = hq.segment_hist_moments_plain(buf, seg, valid, lo, width,
+                                             **kw)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(again[0], want[0])
+        for g, a, w in zip(got[1:], again[1:], want[1:]):
+            assert torch.equal(g, a)                 # no float atomics
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("form", ["cols_97", "offset"])
+def test_hist_kernel_scalar_loads_bitwise(dev, form):
+    buf, seg, valid, lo, width, S = _edge_on(dev, 2048, "segments", form)
+    got = hq.segment_hist_moments(buf, seg, valid, lo, width, n_seg=S)
+    want = hq.segment_hist_moments_plain(buf, seg, valid, lo, width,
+                                         n_seg=S)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("layout,form", [
+    ("segments", "vec4"), ("single", "vec4"), ("interleaved", "vec4"),
+    ("segments", "cols_97"), ("segments", "offset")])
+def test_segment_absmax_kernel_bitwise_equals_plain(dev, layout, form):
+    buf, seg, valid, _, _, S = _edge_on(dev, 2048, layout, form)
+    before = hq.segment_absmax.launches
+    got = hq.segment_absmax(buf, seg, valid, n_seg=S)
+    assert hq.segment_absmax.launches == before + 1
+    want = hq._segment_absmax(buf, seg, valid, n_seg=S)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_hist_kernels_reject_bad_inputs(dev):
+    """A CUDA tensor the kernels cannot take raises; nothing falls back
+    to the plain versions."""
+    buf, seg, valid, lo, width, S = _edge_on(dev, 256, "segments")
+    before = (hq.segment_hist_moments.launches, hq.segment_absmax.launches)
+    for bad in (dict(nbins=0), dict(nbins=hq.MAX_NBINS + 1)):
+        with pytest.raises(ValueError):
+            hq.segment_hist_moments(buf, seg, valid, lo, width, n_seg=S,
+                                    **bad)
+    with pytest.raises(ValueError):
+        hq.segment_hist_moments(buf.double(), seg, valid, lo, width,
+                                n_seg=S)
+    with pytest.raises(ValueError):
+        hq.segment_absmax(buf, seg.long(), valid, n_seg=S)
+    with pytest.raises(ValueError):
+        hq.segment_absmax(buf[:, ::2], seg, valid, n_seg=S)
+    assert (hq.segment_hist_moments.launches,
+            hq.segment_absmax.launches) == before
+
+
+def test_quantile_moments_on_card_equal_plain_versions(dev):
+    """The two-pass selection through both kernels: thresholds, keep and
+    max bitwise the plain versions', the other statistics within rtol
+    1e-5; one absmax and two sweep launches."""
+    buf, seg, valid, _, _, S = _edge_on(dev, 2048, "segments")
+    count = torch.bincount(seg.long(), weights=valid.double(),
+                           minlength=S).to(torch.int32)
+    ops.reset_launch_counts()
+    got = hq.segmented_quantile_moments(buf, seg, valid, count, 0.1,
+                                        n_seg=S)
+    counts = ops.launch_counts()
+    assert counts["segment_absmax"] == 1
+    assert counts["segment_hist_moments"] == 2
+    with ops.plain_versions():
+        want = hq.segmented_quantile_moments(buf, seg, valid, count, 0.1,
+                                             n_seg=S)
+    for k in ("threshold", "keep", "max"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("mean", "std", "mean_abs", "sum", "sumsq"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
 
 
 def _bits(t):

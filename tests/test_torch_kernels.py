@@ -10,7 +10,8 @@ import torch
 
 from repro.core.packing import pack_bits as j_pack_bits
 from repro.kernels import ref as jref
-from repro.kernels.histogram_quantile import (_segment_hist_moments_jnp,
+from repro.kernels.histogram_quantile import (_segment_absmax as j_absmax,
+                                              _segment_hist_moments_jnp,
                                               segment_hist_moments_pallas,
                                               segmented_quantile_moments as
                                               j_sqm)
@@ -22,6 +23,7 @@ from repro.kernels.pack import pack_ternary_planes as j_pack
 from repro.kernels.popcount_dot import popcount_dot as j_popcount_dot
 from repro.kernels.ternary_matmul import ternary_matmul as j_matmul
 from repro.kernels.ternary_matmul import ternary_matmul_grouped as j_grouped
+from hist_cases import edge_case
 from repro_torch.core.compeft import _build_segment_buffer
 from repro_torch.core.packing import pack_bits, stack_packed, unpack_bits
 from repro_torch.kernels import histogram_quantile as hq
@@ -219,6 +221,76 @@ def test_threshold_matches_jax_jnp_backend(density):
                                   np.asarray(want["threshold"]))
     np.testing.assert_array_equal(got["keep"].numpy(),
                                   np.asarray(want["keep"]))
+    for k in ("std", "mean_abs", "max"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("nbins", [256, 2048, 8192])
+@pytest.mark.parametrize("layout", ["segments", "single"])
+def test_hist_plain_edge_cases_match_jnp(nbins, layout):
+    """Skewed and edge inputs (an all-zero segment, a window of width 0,
+    magnitudes at lo, at lo + w, one ulp past them and at bin edges,
+    90% equal magnitudes, ragged and empty rows, padding that is not
+    zero; one segment over all rows): counts bitwise the reference's jnp
+    sweep, moments within rtol 1e-5, atol 1e-3 (f32 sums in other
+    orders)."""
+    buf, seg, valid, lo, width, S = edge_case(nbins, nbins, layout=layout)
+    got = hq.segment_hist_moments_plain(
+        *[torch.from_numpy(a) for a in (buf, seg, valid, lo, width)],
+        n_seg=S, nbins=nbins)
+    want = _segment_hist_moments_jnp(
+        *[jnp.asarray(a) for a in (buf, seg, valid, lo, width)], n_seg=S,
+        nbins=nbins)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert int(got[0].sum()) > 0
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-3)
+
+
+@pytest.mark.parametrize("layout", ["segments", "single", "interleaved"])
+def test_segment_absmax_plain_bitwise_equals_jax(layout):
+    """The pre-pass bitwise the reference's, padding (7.0) skipped; the
+    CPU wrapper is the plain version and counts no launch."""
+    buf, seg, valid, _, _, S = edge_case(5, 2048, layout=layout)
+    args = [torch.from_numpy(a) for a in (buf, seg, valid)]
+    ops.reset_launch_counts()
+    got = hq.segment_absmax(*args, n_seg=S)
+    assert ops.launch_counts()["segment_absmax"] == 0
+    assert torch.equal(got, hq._segment_absmax(*args, n_seg=S))
+    want = j_absmax(*[jnp.asarray(a) for a in (buf, seg, valid)], n_seg=S)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+    if layout != "single":        # the all-zero segment's padding is 7.0
+        assert float(got[0]) == 0.0
+
+
+@pytest.mark.parametrize("per_tensor", [True, False])
+def test_threshold_skewed_leaves_match_jax_jnp_backend(per_tensor):
+    """The two-pass selection over a frozen (all-zero) leaf, a leaf of 90%
+    equal magnitudes and a Gaussian one, per leaf or as one segment:
+    thresholds and keep bitwise the reference's jnp backend, scales within
+    rtol 1e-5."""
+    rng = np.random.default_rng(21)
+    eq = np.where(rng.random(5000) < 0.9,
+                  np.where(rng.random(5000) < 0.5, -0.01, 0.01),
+                  0.01 * rng.standard_normal(5000)).astype(np.float32)
+    arrays = [np.zeros(3000, np.float32), eq,
+              rng.standard_normal(2500).astype(np.float32)]
+    buf, seg, valid, count, _ = _build_segment_buffer(
+        [torch.from_numpy(a) for a in arrays], 512, "cpu")
+    S = len(arrays)
+    if not per_tensor:
+        seg = torch.zeros_like(seg)
+        count = count.sum(dtype=torch.int32, dim=0, keepdim=True)
+        S = 1
+    got = hq.segmented_quantile_moments(buf, seg, valid, count, 0.1,
+                                        n_seg=S)
+    want = j_sqm(*[jnp.asarray(t.numpy()) for t in (buf, seg, valid, count)],
+                 0.1, n_seg=S, backend="jnp")
+    for k in ("threshold", "keep"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
     for k in ("std", "mean_abs", "max"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=1e-5, atol=1e-7)
