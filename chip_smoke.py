@@ -26,8 +26,9 @@ failure with a non-zero exit:
      and read just after: compress 4 experts (base + seeded noise on every
      leaf, density 0.1) through ``api.compress(...).as_(PACKED)``, then
      serve 8 greedy requests over them and ``BASE`` in FIFO mixed waves
-     (``api.serve(max_batch=4, cache_len=128, decode_chunk=8)``); then the
-     same requests by merge-on-swap (``scheduling="grouped"``), and a
+     (``api.serve(max_batch=4, cache_len=128, decode_chunk=8,
+     continuous=False)``, each decode chunk one CUDA graph replay); then
+     the same requests by merge-on-swap (``scheduling="grouped"``), and a
      merged ensemble of three experts; then, counted apart as a check and
      not a path, the ensemble's oracle, a loop of single-expert merges
      (``unpack_add``, which no path of the port calls);
@@ -40,6 +41,16 @@ failure with a non-zero exit:
      the plain versions'), ``api.merge`` by packed, task arithmetic and
      TIES (packed bitwise task arithmetic), and, counted apart as a
      check, ``ops.ternary_matvec`` over unit 0's projections;
+  3d. continuous admission at full width (``refill_path``): 16 greedy
+     requests over e0-e3 and ``BASE`` (prompts of 16-64 tokens, budgets
+     of 4-32, from ``--seed``) with ``max_batch=4``, ``cache_len=256``,
+     ``decode_chunk=8`` and slot refill: at least 4 admissions; the graph
+     chunks bitwise equal to the same chunks run eagerly; at
+     ``decode_chunk`` 0 (the eager loop), 1 and 16 every request placed
+     as at chunk 8 bitwise equal, the others reported (an admission at
+     another wave position sees other rope positions in bf16); and on an
+     f32 copy of the model, tokens bitwise equal at ``decode_chunk`` 0, 1,
+     8 and 16 and each request equal to its solo serve;
   4. check the result: tokens in range; one expert's planes bitwise equal
      to the plain compression of its tau (and one warm compression of it
      profiled: device ms by pass and the host share); every row's tokens
@@ -63,7 +74,11 @@ failure with a non-zero exit:
      kernel family, split into prefill and decode, and the idle share),
      and print the ``kernels`` JSON line (nine kernels) and the
      end-to-end numbers, each tagged with the card's name and power
-     limit.
+     limit: decode tokens/s, wall and device-busy time and idle share of
+     phase 3's warm wave and of phase 3d's warm run, the graph captures
+     and capture seconds of every serving engine, and the grouped
+     kernel's cost of the eight expert slots (its decode launches timed
+     on the slot stack and on a stack of only the wave's experts).
 
 The last line of standard output is ``{"ok": true, "device": ...}``; a
 run that fails prints no such line.  Details go to
@@ -669,11 +684,16 @@ def make_requests(torch, cfg, seed):
 
 
 def grouped_launch_shapes(torch, engine, wave) -> dict:
-    """Every launch of the grouped kernel in one warm serve of ``wave``,
+    """Every launch of the grouped kernel in one serve of ``wave``,
     counted by (M, K, N, transposed) through a counting stand-in in the
-    dispatch table the model reads (``ops.kernel``); it calls the real
-    wrapper, so the tokens are the path's own."""
+    dispatch table the model reads (``ops.kernel``).  A CUDA graph calls
+    the wrapper only while it is captured, so the shapes are counted on
+    the eager loop (``decode_chunk=0``) of an engine like ``engine``; its
+    tokens must equal the graph engine's bitwise, and the graph engine's
+    launches of a warm serve of the same wave (prefill launches plus each
+    replay's count) must add up to the eager count."""
     from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
     real, counts = ops.KERNELS["ternary_matmul_grouped"], {}
 
     def counting(x, pos, neg, scales, eid, *, transpose_rhs=False):
@@ -682,15 +702,30 @@ def grouped_launch_shapes(torch, engine, wave) -> dict:
         counts[key] = counts.get(key, 0) + 1
         return real(x, pos, neg, scales, eid, transpose_rhs=transpose_rhs)
 
+    eager = ServeEngine(engine.api, engine.base, engine.registry,
+                        dataclasses.replace(engine.cfg, decode_chunk=0))
     prev = ops._table
     ops._table = dict(prev, ternary_matmul_grouped=counting)
     try:
         reqs = fresh(wave, 900)
-        engine.run(reqs)
+        eager.run(reqs)
     finally:
         ops._table = prev
+    del eager
     check([r.out_tokens for r in reqs] == [r.out_tokens for r in wave],
-          "the wave counted by shape gave other tokens")
+          "the eager loop gave other tokens than the graph chunks")
+    c0 = engine.swap_summary()["graph_captures"]
+    ops.reset_launch_counts()
+    graphed = fresh(wave, 950)
+    engine.run(graphed)
+    torch.cuda.synchronize()
+    n = ops.launch_counts()["ternary_matmul_grouped"]
+    check(engine.swap_summary()["graph_captures"] == c0,
+          "a warm serve of the wave captured a graph")
+    check(n == sum(counts.values()), f"grouped launches: {n} through the "
+          f"graphs, {sum(counts.values())} on the eager loop")
+    log(f"  eager loop: tokens bitwise the graph chunks'; {n} grouped "
+        "launches per wave on both (the graphs' counted per replay)")
     return counts
 
 
@@ -710,7 +745,7 @@ def grouped_timing(torch, engine, wave, report):
     from repro_torch.models.delta import MatmulDelta, slice_unit
     experts = list(dict.fromkeys(r.expert for r in wave))
     ov = engine._overlay_for(tuple(experts))
-    eid = torch.as_tensor([experts.index(r.expert) for r in wave],
+    eid = torch.as_tensor([engine.slot_of(r.expert) for r in wave],
                           dtype=torch.int32, device=engine.dev)
     planes = {}                   # (K, N, transposed) -> (names, pos, neg, s)
     for path, md in tree_util.flatten_with_paths(slice_unit(ov["blocks"],
@@ -746,10 +781,29 @@ def grouped_timing(torch, engine, wave, report):
                "cols": launch_cols(N, tr),
                "launches_per_wave": n_launch, "ms": t, "bound_ms": b,
                "bound_by": by, "distinct_experts": len(used)}
+        if M == len(wave):
+            # the same launch on a stack of only the wave's experts: the
+            # cost of the engine's empty slots, bitwise the same rows
+            keep = sorted(used)
+            idx = torch.as_tensor(keep, device=engine.dev)
+            pc, nc, sc = pos[idx].contiguous(), neg[idx].contiguous(), \
+                scales[idx].contiguous()
+            ids_c = torch.as_tensor([keep.index(e) if e >= 0 else -1
+                                     for e in ids.tolist()],
+                                    dtype=torch.int32, device=engine.dev)
+            run_c = lambda: ternary_matmul_grouped(  # noqa: E731, B023
+                x, pc, nc, sc, ids_c, transpose_rhs=tr)
+            check(torch.equal(run(), run_c()), f"grouped {names}: the slot "
+                  "stack and the wave's own stack give other rows")
+            row["ms_compact"] = graph_ms(torch, run_c, 50)
+            row["slots"] = E
         rows.append(row)
         log(f"  grouped {', '.join(names):20s} M={M:3d} K={K:5d} N={N:6d}: "
             f"{t:.4f} ms by CUDA graph (bound {b:.5f}, {by}), "
-            f"{n_launch} launches per wave")
+            f"{n_launch} launches per wave"
+            + (f"; {row['ms_compact']:.4f} ms on the wave's {len(used)} "
+               f"experts alone (not {E} slots)" if "ms_compact" in row
+               else ""))
         if tr and M == len(wave):
             head = (row, x, pos, neg, scales, ids)
     check(head is not None, "no tied-head launch in the wave")
@@ -757,6 +811,8 @@ def grouped_timing(torch, engine, wave, report):
     tp = cuda_ms(torch, lambda: ternary_matmul_grouped_plain(
         x, pos, neg, scales, ids, transpose_rhs=True), 3)
     est = sum(r["ms"] * r["launches_per_wave"] for r in rows)
+    pad = sum((r["ms"] - r["ms_compact"]) * r["launches_per_wave"]
+              for r in rows if "ms_compact" in r)
     report["ternary_matmul_grouped"].update(
         ms=row["ms"], plain_ms=tp, bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=None,
@@ -764,9 +820,10 @@ def grouped_timing(torch, engine, wave, report):
         shape=f"tied head, transpose_rhs: x [{row['M']}, {row['K']}], "
               f"planes {list(pos.shape)}, {row['distinct_experts']} "
               "distinct experts",
-        shapes=rows, wave_ms_from_shapes=est)
+        shapes=rows, wave_ms_from_shapes=est, slot_padding_ms_per_wave=pad)
     log(f"  grouped kernel per wave from these times: {est:.2f} ms over "
-        f"{sum(r['launches_per_wave'] for r in rows)} launches")
+        f"{sum(r['launches_per_wave'] for r in rows)} launches; the empty "
+        f"expert slots cost the decode launches {pad:.3f} ms per wave")
 
 
 def row_independence_check(torch, engine, wave):
@@ -785,18 +842,49 @@ def row_independence_check(torch, engine, wave):
               f"{r.out_tokens} vs {variant[j].out_tokens}")
 
 
-def solo_check(torch, engine, reqs):
+def near_tie(torch, engine, r, tokens, other, what, gate=True):
+    """Where two streams of request ``r`` first part, both candidates must
+    lie within about one bf16 ulp of the top logit's own value (2**-7 *
+    |top|, one ulp at least and under two), recomputed by a prefill over
+    the prompt and the common tokens before the divergence.  Returns the
+    divergence (``within`` says whether it met the rule), or None when
+    the streams are equal; with ``gate`` a divergence beyond the rule
+    fails the run."""
+    if tokens == other:
+        return None
+    s = next(i for i, (a, b) in enumerate(zip(tokens, other)) if a != b)
+    ctx = torch.cat([torch.as_tensor(r.prompt, dtype=torch.int64),
+                     torch.as_tensor(tokens[:s], dtype=torch.int64)])
+    ov = engine._overlay_for((r.expert,))
+    logits, _ = engine.api.prefill(
+        engine.base, {"tokens": ctx[None].to(engine.dev)},
+        engine.cfg.cache_len, delta=ov,
+        eid=torch.full((1,), engine.slot_of(r.expert), dtype=torch.int32,
+                       device=engine.dev))
+    lg = logits[0, -1].float()
+    top = float(lg.max())
+    tol = 2.0 ** -7 * abs(top)
+    gaps = (top - float(lg[tokens[s]]), top - float(lg[other[s]]))
+    entry = {"uid": r.uid, "step": s, "tokens": (tokens[s], other[s]),
+             "gaps": gaps, "top": top, "tol": tol,
+             "within": max(gaps) <= tol}
+    log(f"  request {r.uid}: {what} first differ at step {s}; gaps to the "
+        f"top logit {top:.4f}: {gaps[0]:.4f} / {gaps[1]:.4f} (tol "
+        f"{tol:.4f})")
+    check(entry["within"] or not gate, f"request {r.uid}: {what} differ at "
+          f"step {s} beyond a near-tie: {entry}")
+    return entry
+
+
+def solo_check(torch, engine, reqs, gate=True):
     """Each request served alone vs in its mixed wave.
 
     Alone, a request has no left padding (other rope positions), other
     batch shapes (other cuBLAS and reduction configurations) and other
     attention lengths, so its bf16 logits are not bitwise those of its
-    wave row.  The gate: the tokens are equal, or the first token that
-    differs is a near-tie in the solo context -- both candidates within
-    about one bf16 ulp of the top logit's own value (2**-7 * |top|, one
-    ulp at least and under two), recomputed by a prefill over the prompt
-    and the solo tokens before the divergence.  The primary gate of the
-    mixed-wave contract is :func:`row_independence_check`, which is
+    wave row.  The gate: the tokens are equal, or they part first at a
+    near-tie in the solo context (:func:`near_tie`).  The primary gate of
+    the mixed-wave contract is :func:`row_independence_check`, which is
     bitwise.
     """
     from repro_torch.serve import Request
@@ -805,45 +893,29 @@ def solo_check(torch, engine, reqs):
         solo = Request(uid=100 + r.uid, expert=r.expert, prompt=r.prompt,
                        max_new_tokens=r.max_new_tokens)
         engine.run([solo])
-        if solo.out_tokens == r.out_tokens:
+        entry = near_tie(torch, engine, r, solo.out_tokens, r.out_tokens,
+                         "solo and mixed", gate)
+        if entry is None:
             out["exact"] += 1
-            continue
-        s = next(i for i, (a, b) in enumerate(zip(solo.out_tokens,
-                                                  r.out_tokens)) if a != b)
-        ctx = torch.cat([torch.as_tensor(r.prompt, dtype=torch.int64),
-                         torch.as_tensor(solo.out_tokens[:s],
-                                         dtype=torch.int64)])
-        ov = engine._overlay_for((r.expert,))
-        logits, _ = engine.api.prefill(
-            engine.base, {"tokens": ctx[None].to(engine.dev)}, 128,
-            delta=ov, eid=torch.zeros(1, dtype=torch.int32,
-                                      device=engine.dev))
-        lg = logits[0, -1].float()
-        top = float(lg.max())
-        tol = 2.0 ** -7 * abs(top)
-        gaps = (top - float(lg[solo.out_tokens[s]]),
-                top - float(lg[r.out_tokens[s]]))
-        entry = {"uid": r.uid, "step": s, "solo_token": solo.out_tokens[s],
-                 "mixed_token": r.out_tokens[s], "gaps": gaps, "top": top,
-                 "tol": tol}
-        out["near_tie"].append(entry)
-        log(f"  request {r.uid}: solo and mixed first differ at step {s}; "
-            f"gaps to the top logit {top:.4f}: {gaps[0]:.4f} / {gaps[1]:.4f} "
-            f"(tol {tol:.4f})")
-        check(max(gaps) <= tol, f"request {r.uid}: solo and mixed tokens "
-              f"differ at step {s} beyond a near-tie: {entry}")
+        else:
+            out["near_tie"].append(entry)
     log(f"  solo serves: {out['exact']} of {len(reqs)} token streams equal "
-        f"the mixed wave's, the rest part at near-ties")
+        f"the mixed wave's; {sum(e['within'] for e in out['near_tie'])} "
+        "part at near-ties, "
+        f"{sum(not e['within'] for e in out['near_tie'])} beyond")
     return out
 
 
-def profile_wave(torch, engine, wave, out_dir):
-    """torch.profiler over one warm serve of a wave (prefill + 16 tokens):
-    device time by kernel family, split into prefill and decode, and the
-    device's idle share of the wall time.  The engine synchronises after
-    the prefill, so every kernel that starts before the first decode
-    chunk (marked with ``record_function``) belongs to the prefill.  The
-    full table goes to chiprun_out/profile_wave.txt."""
+def profile_wave(torch, engine, wave, out_dir, name="profile_wave"):
+    """torch.profiler over one warm serve of a wave (prefill + 16 tokens;
+    or phase 3d's refill traffic): device time by kernel family, split
+    into prefill and decode, and the device's idle share of the wall
+    time.  The engine synchronises after the prefill, so every kernel
+    that starts before the first decode chunk (marked with
+    ``record_function``) belongs to the prefill; later admissions'
+    prefills fall in the decode part.  Each chunk is a CUDA graph replay,
+    whose kernels the trace lists one by one.  The full table goes to
+    chiprun_out/<name>.txt."""
     from torch.profiler import ProfilerActivity, profile, record_function
     reqs = fresh(wave, 300)
     chunk_fn = engine._chunk_fn
@@ -897,7 +969,7 @@ def profile_wave(torch, engine, wave, out_dir):
                 continue
             ph = "prefill" if ev.time_range.start < t_dec else "decode"
             split[ph][family(ev.name)] += ev.time_range.elapsed_us() / 1e3
-    with open(os.path.join(out_dir, "profile_wave.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
         f.write("device_ms\tlaunches\tkernel\n")
         for ev in kernels:
             f.write(f"{ev.self_device_time_total / 1e3:.3f}\t{ev.count}\t"
@@ -906,7 +978,7 @@ def profile_wave(torch, engine, wave, out_dir):
            "idle_share": (1 - busy / wall_ms) if busy else None,
            "device_ms_by_family": families, "launches_by_family": launches,
            "device_ms_by_phase": split}
-    log("  profile of one warm wave: wall {:.1f} ms, device busy {:.1f} ms"
+    log(f"  {name}: " + "one warm serve: wall {:.1f} ms, device busy {:.1f} ms"
         " ({})".format(wall_ms, busy, ", ".join(
             f"{k} {v:.1f} ms / {launches[k]} launches"
             for k, v in families.items())))
@@ -1005,7 +1077,7 @@ def logits_check(torch, engine, wave):
     from repro_torch.kernels import ops
     experts = list(dict.fromkeys(r.expert for r in wave))
     ov = engine._overlay_for(tuple(experts))
-    eid = torch.as_tensor([experts.index(r.expert) for r in wave],
+    eid = torch.as_tensor([engine.slot_of(r.expert) for r in wave],
                           dtype=torch.int32, device=engine.dev)
     toks, start = engine._pad_prompts(wave)
     api = engine.api
@@ -1093,7 +1165,8 @@ def merge_effect_check(torch, engine, gengine, reqs):
         lm, _ = api.prefill(merged, toks, 128)
         lo, _ = api.prefill(engine.base, toks, 128,
                             delta=engine._overlay_for((r.expert,)),
-                            eid=torch.zeros(1, dtype=torch.int32, device=dev))
+                            eid=torch.full((1,), engine.slot_of(r.expert),
+                                           dtype=torch.int32, device=dev))
         lb, _ = api.prefill(engine.base, toks, 128)
         lm, lo, lb = lm.float(), lo.float(), lb.float()
         diff = float((lm - lo).abs().max())
@@ -1220,7 +1293,7 @@ def artifact_path(torch, api, model, base, experts, reqs, cfg, dev, tmp):
                         experts=list(loaded.values()))
     del loaded, npz, cpft
     ceng = api.serve(model, base, creg, max_batch=4, cache_len=128,
-                     decode_chunk=8)
+                     decode_chunk=8, continuous=False)
     creqs = fresh(reqs, 800)
     counted("cold_serve", lambda: ceng.run(creqs))
     check([r.out_tokens for r in creqs] == [r.out_tokens for r in reqs],
@@ -1329,6 +1402,176 @@ def artifact_path(torch, api, model, base, experts, reqs, cfg, dev, tmp):
     return out, launches, check_launches
 
 
+def refill_requests(torch, cfg, seed):
+    """Phase 3d's traffic: 16 greedy requests over e0-e3 and ``BASE``,
+    prompts of 16-64 tokens and budgets of 4-32, drawn from the seed."""
+    from repro_torch.serve import BASE, Request
+    g = torch.Generator().manual_seed(seed + 13)
+    names = ["e0", "e1", "e2", "e3", BASE]
+    out = []
+    for i in range(16):
+        name = names[int(torch.randint(0, 5, (1,), generator=g))]
+        L = int(torch.randint(16, 65, (1,), generator=g))
+        budget = int(torch.randint(4, 33, (1,), generator=g))
+        out.append(Request(uid=2000 + i, expert=name, max_new_tokens=budget,
+                           prompt=torch.randint(2, cfg.vocab, (L,),
+                                                generator=g)))
+    return out
+
+
+def graph_stats(engine) -> dict:
+    s = engine.swap_summary()
+    return {k: s[k] for k in ("graphs", "graph_captures", "graph_capture_s",
+                              "graph_replays", "admitted")}
+
+
+def placements(engine, reqs, n0: int) -> list:
+    """How each request was placed in the waves logged since ``n0``: at a
+    wave's start (its padded prompt length and rows) or admitted into a
+    running wave (the wave position and rows)."""
+    out = {}
+    for w in engine.wave_log[n0:]:
+        for u in w["uids"]:
+            out[u] = ("wave", w["prompt_len"], w["rows"])
+        for u, cur in w["admitted_at"]:
+            out[u] = ("admitted", cur, w["rows"])
+    return [out[r.uid] for r in reqs]
+
+
+def refill_path(torch, api, model, base, reg, cfg, seed):
+    """Phase 3d: continuous admission at full width, driven with the
+    launch counts set to 0 just before it and read just after: 16
+    requests through ``max_batch=4``, ``cache_len=256``,
+    ``decode_chunk=8`` with slot refill (at least 4 admissions).  Then,
+    as checks:
+
+    - the same run with each chunk computed eagerly on the card (the
+      chunk's own loop, called without its graph: the same kernels, the
+      same shapes and the same admission points): tokens bitwise equal;
+    - the same traffic on fresh engines with ``decode_chunk`` 0 (the
+      eager per-token loop), 1 and 16.  A request placed at the same wave
+      position in a wave of as many rows runs the same shapes and must
+      give the same tokens bitwise.  One admitted at another position
+      (the eager loop refills a slot at the step its row ends, a chunked
+      wave at the chunk's end) has its prompt at other rope positions,
+      so its bf16 logits differ in the last bits: where its stream parts
+      from chunk 8's, the divergence and its gaps to the top logit are
+      reported (:func:`near_tie`), not gated;
+    - the same traffic on an f32 copy of the model (:func:`f32_refill`),
+      where the reference's contract is exact: tokens bitwise equal at
+      ``decode_chunk`` 0, 1, 8 and 16 for every request.
+
+    Returns (engine, requests, path launches, numbers)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.decode_loop import host_decode_steps
+    kw = dict(max_batch=4, cache_len=256)
+    reqs = refill_requests(torch, cfg, seed)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    engine = api.serve(model, base, reg, decode_chunk=8, **kw)
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    cold_s = time.monotonic() - t0
+    launches = ops.launch_counts()
+    for r in reqs:
+        check(len(r.out_tokens) == r.max_new_tokens
+              and all(0 <= t < cfg.vocab for t in r.out_tokens),
+              f"refill request {r.uid}: bad tokens {r.out_tokens}")
+    stats = {8: graph_stats(engine)}
+    check(stats[8]["admitted"] >= 4, f"refill path: {stats[8]['admitted']} "
+          "admissions, expected at least 4")
+    want = [r.out_tokens for r in reqs]
+    placed = placements(engine, reqs, 0)
+
+    eager = api.serve(model, base, reg, decode_chunk=8, **kw)
+    chunk = eager._chunker
+    eager._chunk_fn = lambda p, o, e, tok, cache, rem: (  # noqa: E731
+        tok, cache, chunk._run(p, o, e, tok, cache, torch.as_tensor(
+            rem, dtype=torch.int32, device=tok.device),
+            host_decode_steps(max(rem), 8)))
+    rr = fresh(reqs, 500)
+    eager.run(rr)
+    check([r.out_tokens for r in rr] == want, "refill path: the graph "
+          "chunks' tokens differ from the same chunks run eagerly")
+    check(graph_stats(eager)["graph_captures"] == 0,
+          "the eager chunk check captured a graph")
+    del eager, chunk
+
+    compared = {}
+    for K in (0, 1, 16):
+        other = api.serve(model, base, reg, decode_chunk=K, **kw)
+        rr = fresh(reqs, 1000 * (K + 1))
+        t1 = time.monotonic()
+        other.run(rr)
+        torch.cuda.synchronize()
+        stats[K] = dict(graph_stats(other), serve_s=time.monotonic() - t1)
+        c = {"equal": 0, "same_placement": 0, "parted": []}
+        for r, q, p, p8 in zip(reqs, rr, placements(other, rr, 0), placed):
+            if p == p8:
+                c["same_placement"] += 1
+                check(q.out_tokens == r.out_tokens, f"refill request "
+                      f"{r.uid}: placed alike ({p}) at decode_chunk {K} "
+                      "and 8, but its tokens differ")
+            entry = near_tie(torch, engine, r, r.out_tokens, q.out_tokens,
+                             f"bf16 decode_chunk 8 and {K}", gate=False)
+            if entry is None:
+                c["equal"] += 1
+            else:
+                c["parted"].append(dict(entry, placed=(p8, p)))
+        compared[K] = c
+        del other
+    log(f"  refill path: {len(reqs)} requests, {stats[8]['admitted']} "
+        f"admitted into {len(engine.wave_log)} waves; the graph chunks "
+        "bitwise equal to the same chunks run eagerly; bf16 against "
+        "decode_chunk 8: " + "; ".join(
+            f"{K}: {c['equal']} equal ({c['same_placement']} placed alike, "
+            f"all equal), {len(c['parted'])} placed otherwise part "
+            f"({sum(e['within'] for e in c['parted'])} at near-ties)"
+            for K, c in compared.items())
+        + " (admissions per chunk size: "
+        + ", ".join(f"{k}: {v['admitted']}" for k, v in sorted(stats.items()))
+        + ")")
+    return engine, reqs, launches, {"cold_serve_s": cold_s,
+                                    "by_chunk": stats, "bf16_against_8":
+                                    compared}
+
+
+def f32_refill(torch, api, model, base, reg, reqs):
+    """Phase 3d on an f32 copy of the model (the same weights widened,
+    the same experts and traffic), where the reference's contract is
+    exact: tokens bitwise equal at ``decode_chunk`` 0, 1, 8 and 16 with
+    slot refill, and each request equal to its solo serve (by the
+    near-tie rule; f32 leaves it nothing to excuse in practice)."""
+    from repro_torch import tree as tree_util
+    from repro_torch.models import build as build_model
+    model32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    base32 = tree_util.tree_map(lambda t: t.float(), base)
+    kw = dict(max_batch=4, cache_len=256)
+    runs, admitted = {}, {}
+    for K in (8, 0, 1, 16):
+        eng = api.serve(model32, base32, reg, decode_chunk=K, **kw)
+        rr = fresh(reqs, 5000 + 100 * K)
+        eng.run(rr)
+        runs[K] = [r.out_tokens for r in rr]
+        admitted[K] = eng.swap_summary()["admitted"]
+        if K == 8:
+            check(admitted[8] >= 4, f"f32 refill: {admitted[8]} admissions")
+            solo = solo_check(torch, eng, rr)
+        del eng
+        check(runs[K] == runs[8], f"f32 refill: tokens at decode_chunk={K} "
+              "differ from decode_chunk=8")
+    same_bf16 = sum(a == b for a, b in zip(runs[8],
+                                           [r.out_tokens for r in reqs]))
+    log(f"  f32 copy: tokens bitwise equal at decode_chunk 0, 1, 8 and 16 "
+        f"(admitted {admitted}); {solo['exact']} of {len(reqs)} equal "
+        f"their solo serves; {same_bf16} of {len(reqs)} streams equal the "
+        "bf16 run's")
+    del base32
+    return {"admitted": admitted, "solo": solo,
+            "streams_equal_to_bf16": same_bf16}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--units", type=int, default=4,
@@ -1419,8 +1662,8 @@ def main(argv=None) -> int:
     del ft0
     reg = api.registry(device=dev, device_cache_bytes=16 << 30,
                        experts=experts)
-    engine = api.serve(model, base, reg, max_batch=4,
-                       cache_len=128, decode_chunk=8)
+    engine = api.serve(model, base, reg, max_batch=4, cache_len=128,
+                       decode_chunk=8, continuous=False)
     reqs = make_requests(torch, cfg, args.seed)
     engine.run(reqs)
     launches = ops.launch_counts()
@@ -1471,6 +1714,15 @@ def main(argv=None) -> int:
     check(matvec_launches["ternary_matmul"] > 0,
           "ternary_matmul was not launched by the ternary_matvec check")
 
+    log("phase 3d: continuous admission (16 requests, slot refill, "
+        "max_batch 4, cache_len 256, decode_chunk 8)")
+    rengine, rreqs, refill_launches, refill = refill_path(
+        torch, api, model, base, reg, cfg, args.seed)
+    log(f"  launches on the refill path: {refill_launches}")
+    check(refill_launches["ternary_matmul_grouped"] > 0,
+          "ternary_matmul_grouped was not launched on the refill path")
+    refill["f32"] = f32_refill(torch, api, model, base, reg, rreqs)
+
     log("phase 4: checks")
     for r in reqs:
         check(len(r.out_tokens) == r.max_new_tokens
@@ -1502,6 +1754,9 @@ def main(argv=None) -> int:
     log("  every row's tokens are bitwise unchanged when the other rows of "
         "its wave carry BASE instead of their experts")
     details["solo"] = solo_check(torch, engine, reqs)
+    # bf16: reported (admitted rows sit at other rope positions than a
+    # solo serve's); the gate is the f32 copy's, in phase 3d
+    details["refill_solo"] = solo_check(torch, rengine, rreqs, gate=False)
     details["logits"] = logits_check(torch, engine, reqs[:4])
 
     # the merge path
@@ -1557,6 +1812,20 @@ def main(argv=None) -> int:
     batches = gengine.batch_log[b0:]
     swaps = list(gengine.swap_log)[s0:]
     details["profile"] = profile_wave(torch, engine, reqs[:4], out_dir)
+    rtimed = fresh(rreqs, 3000)
+    c0, rw0 = rengine.swap_summary()["graph_captures"], len(rengine.wave_log)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rengine.run(rtimed)
+    torch.cuda.synchronize()
+    refill_s = time.monotonic() - t0
+    rwaves = rengine.wave_log[rw0:]
+    check([r.out_tokens for r in rtimed] == [r.out_tokens for r in rreqs],
+          "a second run of the refill traffic gave other tokens")
+    check(rengine.swap_summary()["graph_captures"] == c0,
+          "a warm run of the refill traffic captured a graph")
+    details["refill_profile"] = profile_wave(torch, rengine, rreqs, out_dir,
+                                             "profile_refill")
     kernels = []
     for name, src, replaces in (
             ("ternary_matmul_grouped", "src/repro_torch/kernels/csrc/"
@@ -1581,7 +1850,8 @@ def main(argv=None) -> int:
         # each kernel's launches on the paths that run it: the mixed path,
         # the merge path, the merged ensemble and the artifact path
         n_launch = (launches[name] + merge_launches[name]
-                    + ens_launches[name] + art_launches[name])
+                    + ens_launches[name] + art_launches[name]
+                    + refill_launches[name])
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": n_launch,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1614,11 +1884,24 @@ def main(argv=None) -> int:
                "merge_serve_s_8_requests": gserve_s,
                "merge_peak_memory_gib": gpeak / 2 ** 30,
                "artifact_path": art,
+               "refill": dict(
+                   refill, warm_serve_s=refill_s,
+                   tokens=sum(r.max_new_tokens for r in rtimed),
+                   tokens_per_s=sum(r.max_new_tokens for r in rtimed)
+                   / refill_s,
+                   first_token_after_admit_ms=[
+                       (r.t_first_s - r.t_admit_s) * 1e3 for r in rtimed],
+                   admit_after_start_ms=[r.t_admit_s * 1e3 for r in rtimed],
+                   waves=rwaves),
+               "graphs": {"mixed": graph_stats(engine),
+                          "merge": graph_stats(gengine),
+                          "refill": graph_stats(rengine)},
                "params_m": n_params / 1e6}
     details.update(kernels=kernels, numbers=numbers, launches={
         "mixed_path": launches, "merge_path": merge_launches,
         "ensemble": ens_launches, "ensemble_loop_check": check_launches,
-        "artifact_path": art_launches, "ternary_matvec_check": matvec_launches})
+        "artifact_path": art_launches, "refill_path": refill_launches,
+        "ternary_matvec_check": matvec_launches})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1)
     log(f"compress seconds per expert {tag}: "
@@ -1682,9 +1965,40 @@ def main(argv=None) -> int:
             f"by CUDA graph {tag}: {r['ms']:.4f} (bound {r['bound_ms']:.5f}, "
             f"M={r['M']} K={r['K']} N={r['N']}, {r['launches_per_wave']} "
             "launches per wave)")
-    if details["profile"]["idle_share"] is not None:
-        log(f"device idle share of one profiled wave {tag}: "
-            f"{details['profile']['idle_share']:.3f}")
+    for key, what in (("profile", "phase 3's warm wave"),
+                      ("refill_profile", "phase 3d's warm refill run")):
+        p = details[key]
+        if p["idle_share"] is not None:
+            log(f"{what} {tag}: wall {p['wall_ms']:.1f} ms, device busy "
+                f"{p['device_busy_ms']:.1f} ms, idle share "
+                f"{p['idle_share']:.3f}")
+    rf = numbers["refill"]
+    log(f"refill traffic (16 requests, {rf['tokens']} tokens, "
+        f"{rf['by_chunk'][8]['admitted']} admitted) {tag}: warm serve "
+        f"{rf['warm_serve_s']:.3f} s, {rf['tokens_per_s']:.1f} tokens/s "
+        f"end to end; admitted at ms "
+        + ", ".join(f"{t:.1f}" for t in rf["admit_after_start_ms"])
+        + "; first token after admission ms "
+        + ", ".join(f"{t:.1f}" for t in rf["first_token_after_admit_ms"]))
+    log(f"refill traffic, bf16, against decode_chunk 8 {tag}: " + "; ".join(
+        f"chunk {K}: {c['equal']} of 16 equal, {len(c['parted'])} parted "
+        f"({sum(e['within'] for e in c['parted'])} within 2**-7 of the top)"
+        for K, c in rf["bf16_against_8"].items())
+        + f"; solo serves {details['refill_solo']['exact']} of 16 equal; "
+        f"f32 copy: all equal at chunks 0/1/8/16, "
+        f"{rf['f32']['solo']['exact']} of 16 equal their solo serves")
+    for name, g in numbers["graphs"].items():
+        log(f"graphs of the {name} engine {tag}: {g['graphs']} graphs, "
+            f"{g['graph_captures']} captures in {g['graph_capture_s']:.2f} s, "
+            f"{g['graph_replays']} replays")
+    for K, g in sorted(rf["by_chunk"].items()):
+        log(f"refill traffic at decode_chunk={K} {tag}: "
+            f"{g['graph_captures']} captures in {g['graph_capture_s']:.2f} s"
+            + (f", serve {g['serve_s']:.2f} s (cold)" if "serve_s" in g
+               else f", serve {rf['cold_serve_s']:.2f} s (cold)"))
+    log(f"grouped kernel: empty expert slots cost {tag}: "
+        f"{report['ternary_matmul_grouped']['slot_padding_ms_per_wave']:.3f}"
+        " ms per wave")
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1702,7 +2016,9 @@ ARTIFACT_PATH_KERNELS = ("pack_ternary_planes", "popcount_dot",
 def fresh(reqs, uid0):
     """Unserved copies of requests (same experts, prompts and budgets)."""
     return [dataclasses.replace(r, uid=uid0 + r.uid, out_tokens=[],
-                                status="pending") for r in reqs]
+                                status="pending", t_admit_s=None,
+                                t_first_s=None, t_done_s=None)
+            for r in reqs]
 
 
 def _is_pt(x) -> bool:

@@ -10,7 +10,10 @@ run the same path through both on the same inputs.
 Each kernel wrapper counts its launches in a plain integer
 (``wrapper.launches``); :func:`reset_launch_counts` and
 :func:`launch_counts` read them, so a run can show that its main path went
-through the kernels.
+through the kernels.  A wrapper called while a CUDA graph is captured
+counts a launch that the capture only records; the graph's owner takes
+those counts back and adds them again on every replay
+(:func:`add_launches`), so the counts keep meaning launches.
 """
 
 from __future__ import annotations
@@ -67,6 +70,12 @@ def kernel(name: str):
     return _table[name]
 
 
+def table() -> dict:
+    """The dispatch table in force: a cache of work done through
+    :func:`kernel` (a CUDA graph) keys by it."""
+    return _table
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Within the block, :func:`kernel` hands out the plain versions on
@@ -87,6 +96,13 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches, negative to take back) to
+    the wrappers' counters: a CUDA graph's launches per replay."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
 
 
 def grouped_delta_matmul(x: torch.Tensor, pos: torch.Tensor,

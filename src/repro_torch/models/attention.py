@@ -62,22 +62,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
     return o.reshape(B, T, Hq, D).to(q.dtype)
 
 
-def cache_write(k_cache, v_cache, pos, k_new, v_new, cur: int) -> None:
+def cache_write(k_cache, v_cache, pos, k_new, v_new,
+                cur: torch.Tensor) -> None:
     """Write one token (k_new/v_new [B, 1, Hkv, D]) at ring slot cur % S.
-    Updates the cache tensors in place (they are the wave's only copy)."""
-    slot = cur % k_cache.shape[1]
-    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
-    pos[slot] = cur
+
+    ``cur`` is the 0-d int32 position on the cache's device; the slot is
+    computed there, so the write reads no host value and a CUDA graph
+    replays it at whatever position the cache holds.  Updates the cache
+    tensors in place (they are the wave's only copy)."""
+    slot = torch.remainder(cur, k_cache.shape[1]).reshape(1).to(torch.int64)
+    k_cache.index_copy_(1, slot, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v_new.to(v_cache.dtype))
+    pos.index_copy_(0, slot, cur.reshape(1).to(pos.dtype))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: torch.Tensor, cur: int, cfg,
+                     v_cache: torch.Tensor, pos: torch.Tensor,
+                     cur: torch.Tensor, cfg,
                      start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token attention over the ring cache; returns [B, 1, Hq, D] f32.
 
-    ``pos`` [S] holds each slot's absolute position (-1 empty); ``start``
-    ([B] int32, optional) masks slots below each row's first real token.
+    ``pos`` [S] holds each slot's absolute position (-1 empty) and ``cur``
+    (0-d, on the device) the query's; ``start`` ([B] int32, optional)
+    masks slots below each row's first real token.
     """
     B, _, Hq, D = q.shape
     Hkv = k_cache.shape[2]

@@ -35,11 +35,27 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
                             / head_dim))
 
 
+_ROPE_INV: dict = {}      # (head_dim, theta, device) -> inverse frequencies
+
+
+def rope_inv(head_dim: int, theta: float, device) -> torch.Tensor:
+    """:func:`rope_frequencies` as a tensor on ``device``, made once per
+    (head_dim, theta, device): the decode path then does no host-to-device
+    copy, which a CUDA stream that is capturing a graph may not run."""
+    key = (head_dim, float(theta), torch.device(device))
+    inv = _ROPE_INV.get(key)
+    if inv is None:
+        inv = torch.as_tensor(rope_frequencies(head_dim, theta),
+                              device=device)
+        _ROPE_INV[key] = inv
+    return inv
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Rotary embedding.  x: [B, T, H, D]; positions broadcast to [B, T]."""
     d = x.shape[-1]
-    inv = torch.as_tensor(rope_frequencies(d, theta), device=x.device)
+    inv = rope_inv(d, theta, x.device)
     ang = positions[..., None].to(torch.float32) * inv     # [B, T, D/2]
     sin = torch.sin(ang)[..., None, :]                      # [B, T, 1, D/2]
     cos = torch.cos(ang)[..., None, :]

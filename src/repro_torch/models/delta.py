@@ -13,6 +13,9 @@ kernel's plain version unpacks them per call).
 
 Block-level deltas carry the unit axis in front, like the parameters;
 :func:`slice_unit` cuts out one unit for the model's loop over units.
+:class:`SlotOverlay` is the serving engine's overlay: a fixed number of
+expert slots at fixed addresses, filled by copy, so the engine's CUDA
+graphs read every expert set through the same tensors.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_util
-from repro_torch.core.packing import LANE, lane_shifts
+from repro_torch.core.packing import LANE, lane_shifts, stacked_bytes
 from repro_torch.kernels.ref import dense_of_planes
 
 
@@ -246,3 +249,113 @@ def build_overlay(plan: dict, stacks: dict) -> Optional[dict]:
                 flat[path] = MatmulDelta(pos=p[:, 0], neg=q[:, 0],
                                          scales=scales, n_out=spec.n)
     return tree_util.unflatten_paths(flat)
+
+
+class SlotOverlay:
+    """A zero-merge overlay over ``n_slots`` expert slots whose tensors
+    never move.
+
+    Slot s holds one expert's planes and scale, copied in from its
+    device-resident tree, or zeros (``BASE``, or an expert without the
+    leaf).  The vector leaves' dense deltas are recomputed for a slot when
+    it is filled.  A row's delta depends only on its own slot (the grouped
+    kernel's contract, and the plain version's arithmetic), so which slot
+    an expert holds and how many slots sit unused change no value; unused
+    slots cost the grouped kernel's launch empty blocks.
+
+    The buffers cover every leaf that any expert placed so far carries; an
+    expert with a leaf none carried before reallocates them (a new
+    ``overlay`` object) and refills every held slot.
+    """
+
+    def __init__(self, plan: dict, n_slots: int, device):
+        self.plan = plan
+        self.n_slots = n_slots
+        self.dev = torch.device(device)
+        self.names: list[Optional[str]] = [None] * n_slots
+        self._lru: list[int] = []        # held slots, least recent first
+        self.stacks: dict = {}
+        self.overlay: dict = {}
+        self._vectors: dict[str, VectorDelta] = {}
+        self.fills = 0
+
+    def slot_of(self, name: str) -> Optional[int]:
+        return self.names.index(name) if name in self.names else None
+
+    def nbytes(self) -> int:
+        return stacked_bytes(self.stacks)
+
+    def place(self, names, fetch) -> Optional[dict]:
+        """Give every expert of ``names`` a slot and return the overlay.
+
+        ``fetch(name)`` gives an expert's {path: PackedTernary} on this
+        device (``{}`` for ``BASE``); its error propagates before anything
+        changes.  A slot goes to a free one first, else to the least
+        recently used expert outside ``names``.  Returns None, changing
+        nothing, when an expert carries a leaf the plan cannot express."""
+        want = list(dict.fromkeys(names))
+        new = [n for n in want if n not in self.names]
+        packs = {n: fetch(n) for n in new}
+        if any(p not in self.plan for pk in packs.values() for p in pk):
+            return None
+        free = [s for s, n in enumerate(self.names) if n is None]
+        victims = [s for s in self._lru if self.names[s] not in want]
+        if len(new) > len(free) + len(victims):
+            raise ValueError(f"{len(want)} experts for {self.n_slots} slots")
+        for n in new:
+            s = free.pop(0) if free else victims.pop(0)
+            self.names[s] = n
+        leaves = {p: (pt.pos.numel(), tuple(pt.shape))
+                  for pk in packs.values() for p, pt in pk.items()}
+        if any(p not in self.stacks for p in leaves):
+            kept = {p: (pos.shape[1], shape)
+                    for p, (pos, _, _, shape) in self.stacks.items()}
+            self._allocate({**kept, **leaves})
+            refill = [s for s, n in enumerate(self.names) if n is not None]
+        else:
+            refill = [self.names.index(n) for n in new]
+        for s in refill:
+            n = self.names[s]
+            self._fill(s, packs[n] if n in packs else fetch(n))
+        for n in want:
+            s = self.names.index(n)
+            if s in self._lru:
+                self._lru.remove(s)
+            self._lru.append(s)
+        return self.overlay
+
+    def _allocate(self, leaves: dict) -> None:
+        E = self.n_slots
+        self.stacks = {
+            p: (torch.zeros((E, W), dtype=torch.int32, device=self.dev),
+                torch.zeros((E, W), dtype=torch.int32, device=self.dev),
+                torch.zeros((E,), dtype=torch.float32, device=self.dev),
+                shape) for p, (W, shape) in sorted(leaves.items())}
+        self.overlay = build_overlay(self.plan, self.stacks)
+        self._vectors = {p: vd for p, vd in tree_util.flatten_with_paths(
+            self.overlay) if isinstance(vd, VectorDelta)}
+
+    def _fill(self, s: int, packed: dict) -> None:
+        for p, (pos, neg, scales, shape) in self.stacks.items():
+            pt = packed.get(p)
+            if pt is None:
+                pos[s].zero_()
+                neg[s].zero_()
+                scales[s].zero_()
+                continue
+            if tuple(pt.shape) != shape:
+                raise ValueError(f"{p}: shape {pt.shape} != {shape}")
+            pos[s].copy_(pt.pos.reshape(-1))
+            neg[s].copy_(pt.neg.reshape(-1))
+            scales[s].copy_(pt.scale.to(torch.float32).reshape(()))
+        one = build_overlay(self.plan, {
+            p: (pos[s:s + 1], neg[s:s + 1], scales[s:s + 1], shape)
+            for p, (pos, neg, scales, shape) in self.stacks.items()
+            if p in self._vectors})
+        for p, vd in tree_util.flatten_with_paths(one or {}):
+            dst = self._vectors[p].values
+            if self.plan[p].units:
+                dst[:, s].copy_(vd.values[:, 0])
+            else:
+                dst[s].copy_(vd.values[0])
+        self.fills += 1

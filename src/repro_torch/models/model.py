@@ -18,7 +18,8 @@ from repro_torch.models import transformer as tf
 class ModelApi:
     cfg: object
     init: Callable            # (seed=, device=) -> params
-    prefill: Callable         # (params, batch, cache_len, delta=, eid=, start=)
+    prefill: Callable         # (params, batch, cache_len, delta=, eid=, start=,
+    #                            cache=)
     decode_step: Callable     # (params, token, cache, delta=, eid=)
     init_decode_cache: Callable   # (batch, cache_len, device=) -> cache
 
@@ -28,9 +29,9 @@ def build(cfg) -> ModelApi:
         return tf.init_params(cfg, seed=seed, device=device)
 
     def prefill_fn(params, batch, cache_len: int, delta=None, eid=None,
-                   start=None):
+                   start=None, cache=None):
         return tf.prefill(params, batch["tokens"], cfg, cache_len,
-                          delta=delta, eid=eid, start=start)
+                          delta=delta, eid=eid, start=start, cache=cache)
 
     def decode_fn(params, token, cache, delta=None, eid=None):
         return tf.decode_step(params, token, cache, cfg, delta=delta,

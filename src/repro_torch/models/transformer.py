@@ -37,8 +37,8 @@ def _check_attention_only(cfg) -> None:
             "with ROADMAP queue 1, item 12")
     if any(b.sandwich_norm for b in cfg.pattern):
         raise NotImplementedError(
-            f"{cfg.name}: sandwich norms and the (1 + scale) RMSNorm they "
-            "go with come with ROADMAP queue 1, item 12")
+            f"{cfg.name}: sandwich norms and their (1 + scale) RMSNorm "
+            "come with the gemma2_9b config, ROADMAP queue 1, item 3")
 
 
 # ---------------------------------------------------------------------------
@@ -122,10 +122,10 @@ def _prefill_block(x, bp, b, cfg, positions, dp, eid, kv_start):
     return _apply_ffn(x, bp, b, cfg, dp, eid), (k, v)
 
 
-def _decode_block(x, bp, b, cfg, st, cur: int, dp, eid, start):
+def _decode_block(x, bp, b, cfg, st, cur: torch.Tensor, dp, eid, start):
     h = rms_norm(x, eff_param(bp["pre_norm"], dp.get("pre_norm"), eid),
                  cfg.rms_eps)
-    positions = torch.full((1, 1), cur, dtype=torch.int32, device=x.device)
+    positions = cur.reshape(1, 1)
     q, k, v = qkv_project(h, bp["attn"], b.attn, positions, cfg.rms_eps,
                           dp=dp.get("attn"), eid=eid)
     cache_write(st["k"], st["v"], st["pos"], k, v, cur)
@@ -173,7 +173,8 @@ def logits_of(params, x, cfg, delta=None, eid=None):
 def init_decode_cache(cfg, batch: int, cache_len: int, dtype=None,
                       device="cuda") -> dict:
     """Empty dense ring caches: per block k/v [U, B, S, Hkv, D] and the
-    absolute position of each slot, pos [U, S] (-1 empty)."""
+    absolute position of each slot, pos [U, S] (-1 empty); ``cur``, the
+    position of the next token, is a 0-d int32 tensor on ``device``."""
     dtype = dtype or dtype_of(cfg)
     layers = {}
     for i, b in enumerate(cfg.pattern):
@@ -186,18 +187,21 @@ def init_decode_cache(cfg, batch: int, cache_len: int, dtype=None,
                              device=device),
             "pos": torch.full((U, S), -1, dtype=torch.int32, device=device),
         }
-    return {"layers": layers, "cur": 0}
+    return {"layers": layers,
+            "cur": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def decode_step(params, token, cache, cfg, delta=None, eid=None):
     """token [B, 1] -> (logits [B, 1, V], cache).
 
-    ``cache["cur"]`` is the host-side position of this token; the cache
-    tensors are written in place and ``cur`` advances by one.
+    ``cache["cur"]`` is the position of this token, a 0-d int32 tensor on
+    the device (as under the reference's ``jit``): the step reads no host
+    value, so a CUDA graph can replay it.  The cache tensors are written in
+    place and ``cur`` advances by one in place.
     """
     x = embed_tokens(params, token, cfg, delta=delta, eid=eid)
     x = x.to(dtype_of(cfg))
-    cur = int(cache["cur"])
+    cur = cache["cur"]
     start = cache.get("start")
     dblocks = delta.get("blocks") if delta is not None else None
     for u in range(cfg.n_units):
@@ -209,7 +213,7 @@ def decode_step(params, token, cache, cfg, delta=None, eid=None):
             x = _decode_block(x, unit_params[name], b, cfg, st, cur,
                               unit_delta.get(name) or {}, eid, start)
     logits = logits_of(params, x, cfg, delta=delta, eid=eid)
-    cache["cur"] = cur + 1
+    cur.add_(1)
     return logits, cache
 
 
@@ -232,20 +236,26 @@ def _ring_fill(full: torch.Tensor, S: int):
 
 
 def prefill(params, tokens, cfg, cache_len: int, delta=None,
-            eid=None, start: Optional[torch.Tensor] = None):
+            eid=None, start: Optional[torch.Tensor] = None,
+            cache: Optional[dict] = None):
     """Run the whole prompt; returns (last-token logits [B, 1, V], cache).
 
     ``start`` ([B] int32, optional) marks each row's first real token:
     left-pad positions before it are masked out of attention, and the mask
-    is kept in ``cache["start"]`` for the decode steps.
+    is kept in ``cache["start"]`` for the decode steps.  ``cache`` (from
+    :func:`init_decode_cache` at this batch and ``cache_len``, optional)
+    is filled in place, every tensor of it rewritten, so a caller that
+    keeps its cache at fixed addresses (the engine, for its CUDA graphs)
+    gets it back there; without it a fresh cache is made.
     """
     _check_attention_only(cfg)
     x = embed_tokens(params, tokens, cfg, delta=delta, eid=eid)
     B, T = tokens.shape
     positions = torch.arange(T, device=x.device)[None, :]
     dblocks = delta.get("blocks") if delta is not None else None
-    cache = init_decode_cache(cfg, B, cache_len, dtype=dtype_of(cfg),
-                              device=x.device)
+    if cache is None:
+        cache = init_decode_cache(cfg, B, cache_len, dtype=dtype_of(cfg),
+                                  device=x.device)
     for u in range(cfg.n_units):
         unit_params = _unit(params["blocks"], u)
         unit_delta = slice_unit(dblocks, u) if dblocks is not None else {}
@@ -258,7 +268,12 @@ def prefill(params, tokens, cfg, cache_len: int, delta=None,
             S = layer["k"].shape[2]
             layer["k"][u], layer["pos"][u] = _ring_fill(k, S)
             layer["v"][u] = _ring_fill(v, S)[0]
-    cache["cur"] = T
-    if start is not None:
+    cache["cur"].fill_(T)
+    if start is None:
+        if "start" in cache:
+            cache["start"].zero_()       # a kept cache: no row is padded
+    elif "start" in cache:
+        cache["start"].copy_(start)
+    else:
         cache["start"] = start.to(torch.int32)
     return logits_of(params, x[:, -1:], cfg, delta=delta, eid=eid), cache

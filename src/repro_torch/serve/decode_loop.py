@@ -2,20 +2,35 @@
 
 Port of ``repro/serve/decode_loop.py``.  The reference compiles K steps
 into one ``lax.scan`` with a donated cache and a ``lax.cond`` that stops
-the position once every row is done.  Here a chunk is a Python loop of K
-``decode_step`` calls on the device: each iteration emits the pending
+the position once every row is done.  Here a chunk is K iterations over
+the caller's buffers, updated in place: each iteration emits the pending
 token of every row that still has budget (:data:`PAD_TOKEN` otherwise,
 from an on-device ``remaining`` mask), and decodes only while some row
 still needs another token.  The host knows every row's budget, so that
-stop needs no device read; the engine reads the ``[B, K]`` token buffer
-once per chunk.  (A CUDA graph over the chunk is later work.)
+stop needs no device read (:func:`host_decode_steps`); the engine reads
+the ``[B, K]`` token buffer once per chunk.
+
+On the CPU the chunk runs as that Python loop: it is the plain path, as a
+kernel's plain version is.  On a CUDA device it runs as one
+``torch.cuda.CUDAGraph`` replay, the counterpart of the reference's single
+compiled launch.  A graph is captured per (rows, decode steps) at first
+use, and keyed further by every object it reads by address: the
+parameters, the overlay, the caller's token, expert-id and KV buffers, and
+the kernel dispatch table.  The caller keeps those at fixed addresses and
+writes them in place between replays; ``remaining`` goes in through a
+buffer of the graph's own.  A capture or replay that fails raises: nothing
+falls back to the loop on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
+
+from repro_torch import tree as tree_util
+from repro_torch.kernels import ops
 
 # emitted for rows whose budget is exhausted; never read by the engine
 PAD_TOKEN = -1
@@ -42,7 +57,7 @@ def select_tokens(logits: torch.Tensor,
     if not sampling.greedy:
         raise NotImplementedError(
             "temperature > 0: sampled decoding comes with ROADMAP queue 1, "
-            "item 5")
+            "item 5.3")
     return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
 
 
@@ -53,27 +68,101 @@ def host_decode_steps(max_remaining: int, chunk: int) -> int:
     return min(chunk, max(max_remaining - 1, 0))
 
 
-def make_decode_chunk(api, chunk: int, sampling: SamplingConfig):
-    """The K-step wave loop body for one engine.
+class DecodeChunk:
+    """The K-step wave loop body of one engine (see the module docstring).
 
-    Returns ``run(params, overlay, eid, tok, cache, remaining) -> (tok,
-    cache, tokens [B, K])``: ``tok`` [B, 1] is the pending (selected, not
+    ``chunk(params, overlay, eid, tok, cache, remaining) -> (tok, cache,
+    tokens [B, K])``: ``tok`` [B, 1] int32 is the pending (selected, not
     yet emitted) token of each row, ``remaining`` the host list of each
-    row's budget of tokens still to emit.  The cache is updated in place.
+    row's budget of tokens still to emit.  ``tok`` and the cache are
+    updated in place and returned.  ``captures``, ``capture_s`` and
+    ``replays`` count the CUDA graphs' work.
     """
 
-    def run(params, overlay, eid, tok, cache, remaining: list[int]):
-        steps = host_decode_steps(max(remaining), chunk)
-        rem = torch.as_tensor(remaining, dtype=torch.int32).to(tok.device)
+    def __init__(self, api, chunk: int, sampling: SamplingConfig):
+        self.api = api
+        self.chunk = chunk
+        self.sampling = sampling
+        self._graphs: dict = {}
+        self._stream = None
+        self.captures = 0
+        self.capture_s = 0.0
+        self.replays = 0
+
+    def __call__(self, params, overlay, eid, tok, cache,
+                 remaining: list[int]):
+        steps = host_decode_steps(max(remaining), self.chunk)
+        if tok.device.type == "cuda":
+            buf = self._replay(params, overlay, eid, tok, cache, remaining,
+                               steps)
+        else:
+            rem = torch.as_tensor(remaining, dtype=torch.int32)
+            buf = self._run(params, overlay, eid, tok, cache, rem, steps)
+        return tok, cache, buf
+
+    def _run(self, params, overlay, eid, tok, cache, rem, steps: int):
         emitted = []
-        for i in range(chunk):
+        for i in range(self.chunk):
             active = rem > 0
             emitted.append(torch.where(active, tok[:, 0], PAD_TOKEN))
             rem = torch.where(active, rem - 1, rem)
             if i < steps:
-                logits, cache = api.decode_step(params, tok, cache,
-                                                delta=overlay, eid=eid)
-                tok = select_tokens(logits[:, -1], sampling)[:, None]
-        return tok, cache, torch.stack(emitted, dim=1)
+                logits, _ = self.api.decode_step(params, tok, cache,
+                                                 delta=overlay, eid=eid)
+                tok.copy_(select_tokens(logits[:, -1], self.sampling)[:, None])
+        return torch.stack(emitted, dim=1)
 
-    return run
+    def _replay(self, params, overlay, eid, tok, cache, remaining, steps):
+        key = (tok.shape[0], steps, id(params), id(overlay), id(eid),
+               id(tok), id(cache), id(ops.table()))
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._capture(params, overlay, eid, tok,
+                                                  cache, steps)
+        g["rem"].copy_(torch.as_tensor(remaining, dtype=torch.int32))
+        g["graph"].replay()
+        ops.add_launches(g["launches"])
+        self.replays += 1
+        return g["buf"]
+
+    def _capture(self, params, overlay, eid, tok, cache, steps: int) -> dict:
+        t0 = time.monotonic()
+        dev = tok.device
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        stream = self._stream
+        rem = torch.zeros((tok.shape[0],), dtype=torch.int32, device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        if steps:
+            # one step outside the capture, on copies of the state and on
+            # the capture's stream: it builds the kernels at first use and
+            # sets up cuBLAS and the rope tables there
+            with torch.cuda.stream(stream):
+                self.api.decode_step(
+                    params, tok.clone(),
+                    tree_util.tree_map(lambda t: t.clone(), cache),
+                    delta=overlay, eid=eid)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        before = ops.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            buf = self._run(params, overlay, eid, tok, cache, rem, steps)
+        # the capture recorded these launches and ran none of them: take
+        # them back here, and add them on every replay
+        launches = {k: n - before[k] for k, n in ops.launch_counts().items()
+                    if n != before[k]}
+        ops.add_launches({k: -n for k, n in launches.items()})
+        self.captures += 1
+        self.capture_s += time.monotonic() - t0
+        return {"graph": graph, "buf": buf, "rem": rem, "launches": launches,
+                "refs": (params, overlay, eid, tok, cache)}
+
+    def stats(self) -> dict:
+        return {"graphs": len(self._graphs), "captures": self.captures,
+                "capture_s": self.capture_s, "replays": self.replays}
+
+
+def make_decode_chunk(api, chunk: int, sampling: SamplingConfig
+                      ) -> DecodeChunk:
+    """The K-step wave loop body for one engine (:class:`DecodeChunk`)."""
+    return DecodeChunk(api, chunk, sampling)

@@ -1,22 +1,45 @@
-"""Multi-expert serving engine of the port: FIFO mixed waves over one
-shared base, and merge-on-swap.
+"""Multi-expert serving engine of the port: continuous mixed-expert waves
+over one shared base, and merge-on-swap.
 
 Port of ``repro/serve/engine.py``.  Requests name an expert.  Under
-``scheduling="mixed"`` (the default) they are taken FIFO into waves of up
-to ``max_batch`` rows across up to ``max_stack`` distinct experts; a wave
+``scheduling="mixed"`` (the default) a FIFO scheduler
+(:mod:`repro_torch.serve.scheduler`) takes them into waves of up to
+``max_batch`` rows across up to ``max_stack`` distinct experts; a wave
 runs prefill and chunked decode against the **base** parameters plus a
-zero-merge overlay (the stacked bitplanes of every expert in the wave,
-contracted per row by the grouped ternary kernel), so no merged parameters
-ever exist.  Prompts are left-padded to the wave's longest, with each
-row's first real position masking its pads out of attention.
+zero-merge overlay (the bitplanes of every expert in the wave, contracted
+per row by the grouped ternary kernel), so no merged parameters ever
+exist.  Prompts are left-padded to the wave's longest, with each row's
+first real position masking its pads out of attention.  With
+``continuous=True`` (the default) a finished row's slot is refilled in
+place while requests are queued: the newcomer's prompt is left-padded to
+the wave's position, prefilled as a single row, and its KV, first
+position, expert id and first token are copied into the running wave's
+row, so it gets the tokens it gets when served alone.
+
+Decode runs in chunks of ``decode_chunk`` steps with one host read per
+chunk (:mod:`repro_torch.serve.decode_loop`), each chunk one CUDA graph
+replay on the card; ``decode_chunk=0`` is the eager per-token loop with
+one host read per token, the baseline.  Greedy chunked decode gives the
+eager loop's tokens, admissions included, at f32; in bf16 on the card an
+admission that a chunk boundary places at another wave position than the
+eager loop does sees other rope positions, so its stream may part at a
+near-tie.  A graph replays the chunk's own kernels at its own shapes, so
+it equals the chunk run eagerly bitwise.  Everything a graph reads stays
+at one address for the engine's life: per batch size a token, expert-id
+and KV buffer that every prefill and admission writes into; the expert
+slots (:class:`~repro_torch.models.delta.SlotOverlay`, ``max_stack`` of
+them) that waves and admissions fill by copy; on the merge path one
+merged parameter tree that every swap writes into.  So a warm engine
+serves a new wave, an admission, another expert set or a swap without a
+capture.
 
 Merge-on-swap (``scheduling="grouped"``, the reference's measured
 baseline) groups requests by expert in order of first appearance, merges
-each expert into a copy of the base once (``ExpertRegistry.merged_params``
-on the ``unpack_add_many`` kernel) and serves the group in batches of up
-to ``max_batch`` with no overlay.  It is also the mixed scheduler's
-fallback for a wave whose experts carry a leaf the overlay cannot express,
-and for a model family the overlay does not cover.
+each expert into the kept tree once (``ExpertRegistry.merged_params`` on
+the ``unpack_add_many`` kernel) and serves the group in batches of up to
+``max_batch`` with no overlay and no refill.  It is also the mixed
+scheduler's fallback for a wave whose experts carry a leaf the overlay
+cannot express, and for a model family the overlay does not cover.
 :meth:`ServeEngine.merged_ensemble_params` merges several weighted experts
 in one sweep per leaf.
 
@@ -33,10 +56,12 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.models.delta import build_overlay, plan_overlay
+from repro_torch import tree as tree_util
+from repro_torch.models.delta import SlotOverlay, plan_overlay
 from repro_torch.serve import decode_loop
 from repro_torch.serve.decode_loop import SamplingConfig, select_tokens
 from repro_torch.serve.expert_cache import BASE, ExpertRegistry
+from repro_torch.serve.scheduler import make_scheduler
 
 PENDING = "pending"
 DONE = "done"
@@ -54,6 +79,11 @@ class Request:
     out_tokens: list = dataclasses.field(default_factory=list)
     status: str = PENDING
     error: Optional[str] = None
+    # engine clock: seconds since run() began (time.monotonic based)
+    arrival_s: float = 0.0     # open-loop arrival offset; 0 = already queued
+    t_admit_s: Optional[float] = None    # first placed into a wave
+    t_first_s: Optional[float] = None    # first token selected
+    t_done_s: Optional[float] = None     # generation budget exhausted
 
 
 @dataclasses.dataclass
@@ -64,8 +94,8 @@ class EngineConfig:
     device_cache_bytes: Optional[int] = None
     scheduling: str = "mixed"
     max_stack: int = 8
-    continuous: bool = False      # slot refill is not ported yet
-    decode_chunk: int = 16
+    continuous: bool = True       # refill finished slots mid-wave
+    decode_chunk: int = 16        # decode steps per graph; 0 = eager loop
     sampling: SamplingConfig = dataclasses.field(
         default_factory=SamplingConfig)
     degrade: str = "request"
@@ -92,13 +122,7 @@ def _unsupported(cfg: EngineConfig) -> Optional[str]:
                 "ROADMAP queue 1, item 9")
     if not cfg.sampling.greedy:
         return ("temperature > 0: sampled decoding comes with ROADMAP "
-                "queue 1, item 5")
-    if cfg.continuous:
-        return ("continuous=True: slot refill (continuous admission) comes "
-                "with ROADMAP queue 1, item 5")
-    if cfg.decode_chunk == 0:
-        return ("decode_chunk=0: the eager per-token loop comes with ROADMAP "
-                "queue 1, item 5")
+                "queue 1, item 5.3")
     return None
 
 
@@ -128,11 +152,15 @@ class ServeEngine:
         self.cache = registry.device(ecfg.device_cache_bytes)
         # None: a family outside the overlay, served by merge-on-swap
         self._plan = plan_overlay(base_params, api.cfg)
-        self._overlays: dict[tuple, Any] = {}
+        self._slots: Optional[SlotOverlay] = None   # made at the first wave
+        self._states: dict[int, dict] = {}          # batch rows -> buffers
         self._merged_name: Optional[str] = None
-        self._merged_params: Optional[dict] = None
-        self._chunk_fn = decode_loop.make_decode_chunk(
+        self._merged_params: Optional[dict] = None  # made at the first swap
+        self._chunker = (decode_loop.make_decode_chunk(
             api, ecfg.decode_chunk, ecfg.sampling)
+            if ecfg.decode_chunk else None)
+        self._chunk_fn = self._chunker
+        self._t0 = time.monotonic()
         self.wave_log: list[dict] = []       # mixed waves
         self.batch_log: list[dict] = []      # merge-path batches
         self.swap_log: deque = deque(maxlen=512)   # merges, with seconds
@@ -141,19 +169,25 @@ class ServeEngine:
 
     def _params_for(self, expert: str) -> dict:
         """Merge-on-swap: the full merged params of one expert (the base
-        itself for ``BASE``).  The last merged expert is memoised; every
-        merge lands in ``swap_log`` with its seconds."""
+        itself for ``BASE``), written into the engine's one merged tree.
+        The last merged expert is memoised; every merge lands in
+        ``swap_log`` with its seconds."""
         if expert == BASE:
             return self.base
         if self._merged_name == expert:
             return self._merged_params
         t0 = time.monotonic()
-        params = self.registry.merged_params(self.base, [expert])
+        if self._merged_params is None:
+            self._merged_params = tree_util.tree_map(torch.empty_like,
+                                                     self.base)
+        self._merged_name = None             # the tree is rewritten below
+        self.registry.merged_params(self.base, [expert],
+                                    out=self._merged_params)
         self._sync()
-        self._merged_name, self._merged_params = expert, params
+        self._merged_name = expert
         self.swap_log.append({"expert": expert,
                               "seconds": time.monotonic() - t0})
-        return params
+        return self._merged_params
 
     def merged_ensemble_params(self, experts: list[str],
                                weights: Optional[list[float]] = None
@@ -163,23 +197,70 @@ class ServeEngine:
         weight-scaled experts one at a time."""
         return self.registry.merged_params(self.base, experts, weights)
 
-    # ---------------- expert overlays ----------------
+    # ---------------- expert slots ----------------
 
     def _overlay_for(self, experts: tuple) -> Optional[dict]:
-        """Zero-merge overlay for an ordered expert set (cached while the
-        device cache keeps its stack); None when a member carries a leaf
-        the overlay cannot express (the wave then merges)."""
-        if experts in self._overlays and self.cache.has_stack(experts):
-            self.cache.stats.stack_hits += 1
-            return self._overlays[experts]
-        self._overlays.pop(experts, None)
-        overlay = build_overlay(self._plan, self.cache.stacked(experts))
-        if overlay is None:
-            return None
-        while len(self._overlays) >= self.cache.MAX_STACKS:
-            self._overlays.pop(next(iter(self._overlays)))
-        self._overlays[experts] = overlay
+        """The zero-merge overlay with every expert of ``experts`` in a
+        slot (:meth:`slot_of` gives the slot a row's expert id names), or
+        None when a member carries a leaf the overlay cannot express (the
+        wave then merges).  An unknown expert raises ``KeyError``."""
+        if self._slots is None:
+            self._slots = SlotOverlay(self._plan, self.cfg.max_stack,
+                                      self.dev)
+        held = sum(self._slots.slot_of(n) is not None
+                   for n in dict.fromkeys(experts))
+        fills = self._slots.fills
+        overlay = self._slots.place(experts, self.registry.fetch_packed)
+        if overlay is not None:
+            self.cache.stats.stack_hits += held
+            self.cache.stats.stack_builds += self._slots.fills - fills
         return overlay
+
+    def slot_of(self, expert: str) -> int:
+        """The slot (expert id) of an expert placed by
+        :meth:`_overlay_for`."""
+        return self._slots.slot_of(expert)
+
+    # ---------------- kept buffers ----------------
+
+    def _state(self, rows: int) -> dict:
+        """The pending-token, expert-id and KV buffers of a batch of
+        ``rows``, made once and rewritten by every prefill and admission
+        (a CUDA graph reads them by address)."""
+        st = self._states.get(rows)
+        if st is None:
+            cache = self.api.init_decode_cache(rows, self.cfg.cache_len,
+                                               device=self.dev)
+            cache["start"] = torch.zeros((rows,), dtype=torch.int32,
+                                         device=self.dev)
+            st = self._states[rows] = {
+                "tok": torch.zeros((rows, 1), dtype=torch.int32,
+                                   device=self.dev),
+                "eid": torch.zeros((rows,), dtype=torch.int32,
+                                   device=self.dev),
+                "cache": cache}
+        return st
+
+    # ---------------- engine clock ----------------
+
+    def _now(self) -> float:
+        return time.monotonic() - self._t0
+
+    def _mark_admitted(self, reqs: list[Request]) -> None:
+        now = self._now()
+        for r in reqs:
+            if r.t_admit_s is None:
+                r.t_admit_s = now
+
+    def _mark_first(self, reqs: list[Request]) -> None:
+        now = self._now()
+        for r in reqs:
+            if r.t_first_s is None and r.max_new_tokens > 0:
+                r.t_first_s = now
+
+    def _mark_done(self, r: Request) -> None:
+        if r.t_done_s is None and len(r.out_tokens) >= r.max_new_tokens:
+            r.t_done_s = self._now()
 
     # ---------------- serving loop ----------------
 
@@ -190,6 +271,7 @@ class ServeEngine:
     def run(self, requests: list[Request]) -> list[Request]:
         """Serve every request to its budget; tokens land in
         ``Request.out_tokens``."""
+        self._t0 = time.monotonic()
         pending = [r for r in requests if r.status == PENDING]
         if self.cfg.scheduling == "grouped" or self._plan is None:
             self._run_grouped(pending)
@@ -205,18 +287,29 @@ class ServeEngine:
             r.status, r.error = FAILED, why
 
     def _run_mixed(self, requests: list[Request]) -> None:
-        """FIFO waves on the zero-merge overlay; a wave the overlay cannot
-        express is served by merge-on-swap."""
-        queue = deque(requests)
-        while queue:
-            wave, experts = [], []
-            while queue and len(wave) < self.cfg.max_batch:
-                r = queue[0]
-                if r.expert not in experts:
-                    if len(experts) >= self.cfg.max_stack:
-                        break                    # over the stack: next wave
-                    experts.append(r.expert)
-                wave.append(queue.popleft())
+        sched = make_scheduler(self.cfg.scheduler)
+        for r in requests:
+            sched.push(r)
+        self._drain(sched)
+
+    def _drain(self, sched) -> None:
+        """Serve the scheduler dry: build waves, serve them, honour future
+        arrivals.  A wave the overlay cannot express is served by
+        merge-on-swap."""
+        while sched.pending():
+            sched.release(self._now())
+            if not sched.ready_count():
+                nxt = sched.next_arrival()
+                if nxt is None:
+                    break
+                # open-loop idle: sleep toward the next arrival (bounded,
+                # so a clock hiccup never wedges the loop)
+                time.sleep(min(max(nxt - self._now(), 0.0), 0.05))
+                continue
+            wave, experts = sched.take_wave(self.cfg.max_batch,
+                                            self.cfg.max_stack)
+            if not wave:
+                continue
             overlay = None
             while wave:
                 try:
@@ -236,11 +329,10 @@ class ServeEngine:
             if overlay is None:
                 self._run_grouped(wave)
                 continue
-            slot = {e: i for i, e in enumerate(experts)}
-            eid = torch.as_tensor([slot[r.expert] for r in wave],
-                                  dtype=torch.int32).to(self.dev)
-            log = self._serve_rows(self.base, overlay, eid, wave)
-            self.wave_log.append(dict(log, experts=len(experts)))
+            if self.cfg.decode_chunk:
+                self._serve_wave_chunked(wave, experts, overlay, sched)
+            else:
+                self._serve_wave_eager(wave, experts, overlay, sched)
 
     def _run_grouped(self, requests: list[Request]) -> None:
         """Merge-on-swap: group by expert in order of first appearance,
@@ -259,9 +351,8 @@ class ServeEngine:
                 self._fail(group, f"unknown expert {e}")
                 continue
             for i in range(0, len(group), self.cfg.max_batch):
-                batch = group[i:i + self.cfg.max_batch]
-                log = self._serve_rows(params, None, None, batch)
-                self.batch_log.append(dict(log, expert=expert))
+                self._serve_batch(params, group[i:i + self.cfg.max_batch],
+                                  expert)
 
     def _pad_prompts(self, reqs: list[Request]):
         """Left-pad prompts to one width -> (tokens [B, T] int64, start [B]
@@ -276,42 +367,284 @@ class ServeEngine:
                                 dtype=torch.int32)
         return toks.to(self.dev), start.to(self.dev)
 
-    def _serve_rows(self, params: dict, overlay: Optional[dict],
-                    eid: Optional[torch.Tensor], reqs: list[Request]) -> dict:
-        """Prefill a batch on ``params`` (plus the overlay of a mixed wave,
-        none on the merge path), then chunks of K decode steps with one
-        host read of the [B, K] token buffer per chunk.  Returns the
-        batch's log entry."""
-        t0 = time.monotonic()
+    def _prefill(self, params: dict, overlay: Optional[dict],
+                 reqs: list[Request], slots: Optional[list[int]]):
+        """Prefill a batch into the kept buffers of its size (expert ids
+        ``slots`` with the overlay, none on the merge path) and select
+        each row's first token.  Returns (buffers, padded prompt length:
+        the host's mirror of the wave position)."""
+        st = self._state(len(reqs))
         toks, start = self._pad_prompts(reqs)
-        logits, cache = self.api.prefill(params, {"tokens": toks},
-                                         self.cfg.cache_len, delta=overlay,
-                                         eid=eid, start=start)
-        tok = select_tokens(logits[:, -1], self.cfg.sampling)[:, None]
+        eid = None
+        if slots is not None:
+            st["eid"].copy_(torch.as_tensor(slots, dtype=torch.int32))
+            eid = st["eid"]
+        logits, _ = self.api.prefill(params, {"tokens": toks},
+                                     self.cfg.cache_len, delta=overlay,
+                                     eid=eid, start=start, cache=st["cache"])
+        st["tok"].copy_(select_tokens(logits[:, -1], self.cfg.sampling)[:, None])
+        return st, int(toks.shape[1])
+
+    def _can_admit(self) -> bool:
+        # slot refill splices per-row KV; the port's families (attention
+        # only) keep all decode state per row
+        return self.cfg.continuous
+
+    @staticmethod
+    def _done_rows(rows: list[Request]) -> list[int]:
+        """Slots eligible for refill: budget exhausted or failed."""
+        return [j for j, r in enumerate(rows)
+                if r.status == FAILED
+                or len(r.out_tokens) >= r.max_new_tokens]
+
+    def _admission_block_reason(self, nxt: Request, cur: int,
+                                slot: dict) -> Optional[str]:
+        """Why ``nxt`` cannot be placed into a finished slot now (None:
+        placeable).  Dense slots are hostage to the wave position: no
+        left-pad down, no ring wrap."""
+        if nxt.expert not in slot and len(slot) >= self.cfg.max_stack:
+            return "stack"
+        if len(nxt.prompt) > cur:
+            return "position"         # cannot left-pad down
+        if cur + nxt.max_new_tokens > self.cfg.cache_len:
+            return "wrap"             # would wrap the KV ring
+        return None
+
+    def _try_admissions(self, rows, done, cur, experts, slot, overlay, st,
+                        sched):
+        """Refill finished slots in place from the scheduler, with the
+        strict-FIFO head-of-line block: an unplaceable head stops every
+        refill.  ``cur`` is the host's mirror of the wave position.
+        Returns (rows, experts, overlay, slots refilled)."""
+        sched.release(self._now())
+        refilled = []
+        blocked = False
+        for j in done:
+            if blocked:
+                break
+            admitted = rescan = True
+            while rescan and not blocked:
+                admitted = rescan = False
+                for nxt in sched.candidates(slot):
+                    reason = self._admission_block_reason(nxt, cur, slot)
+                    if reason is not None:
+                        if sched.strict_fifo:
+                            blocked = True
+                            break
+                        sched.note_deferred(reason)
+                        continue
+                    if nxt.expert not in slot:
+                        try:
+                            grown = self._overlay_for(
+                                tuple(experts + [nxt.expert]))
+                        except KeyError as e:
+                            # fail only this request and look again: an
+                            # unknown expert must not block the queue
+                            if self.cfg.degrade == "raise":
+                                raise
+                            sched.remove(nxt)
+                            self._fail([nxt], f"unknown expert {e}")
+                            rescan = True
+                            break
+                        if grown is None:
+                            if sched.strict_fifo:
+                                blocked = True   # newcomer not coverable
+                                break
+                            sched.note_deferred("overlay")
+                            continue
+                        experts.append(nxt.expert)
+                        slot[nxt.expert] = self.slot_of(nxt.expert)
+                        overlay = grown
+                    else:
+                        self.cache.stats.stack_hits += 1
+                    sched.remove(nxt)
+                    rows[j] = nxt
+                    st["eid"][j] = slot[nxt.expert]
+                    self._admit_row(nxt, j, cur, st, overlay)
+                    self._mark_admitted([nxt])
+                    self._mark_first([nxt])
+                    refilled.append(j)
+                    admitted = True
+                    break             # slot j filled; on to the next
+                if admitted:
+                    break
+        return rows, experts, overlay, refilled
+
+    def _admit_row(self, r: Request, j: int, cur: int, st: dict,
+                   overlay: dict) -> None:
+        """Prefill one newcomer left-padded to the wave position and copy
+        its KV, its first real position and its first token into row j of
+        the kept buffers.  The row's ``start`` (cur - prompt length) masks
+        its pads, so it matches the same prompt served alone."""
+        prompt = torch.as_tensor(r.prompt, dtype=torch.int64).reshape(-1)
+        row_start = cur - int(prompt.numel())
+        toks = torch.full((1, cur), PAD_PROMPT_TOKEN, dtype=torch.int64)
+        toks[0, row_start:] = prompt
+        logits, row_cache = self.api.prefill(
+            self.base, {"tokens": toks.to(self.dev)}, self.cfg.cache_len,
+            delta=overlay, eid=st["eid"][j:j + 1],
+            start=torch.full((1,), row_start, dtype=torch.int32,
+                             device=self.dev))
+        cache = st["cache"]
+        for name, layer in cache["layers"].items():
+            for k in ("k", "v"):
+                layer[k][:, j].copy_(row_cache["layers"][name][k][:, 0])
+        cache["start"][j] = row_start
+        st["tok"][j].copy_(select_tokens(logits[:, -1], self.cfg.sampling))
+
+    def _drive_chunk(self, params, overlay, eid, st, rows) -> tuple:
+        """One K-step chunk and the flush of its [B, K] token buffer into
+        the rows (one host read).  Returns (decode steps, launched)."""
+        K = self.cfg.decode_chunk
+        rem = [0 if r.status == FAILED
+               else max(r.max_new_tokens - len(r.out_tokens), 0)
+               for r in rows]
+        if max(rem) == 0:
+            return 0, False
+        _, _, buf = self._chunk_fn(params, overlay, eid, st["tok"],
+                                   st["cache"], rem)
+        buf = buf.cpu().tolist()              # one host read per chunk
+        for j, r in enumerate(rows):
+            n = min(K, rem[j])
+            if n:
+                r.out_tokens.extend(buf[j][:n])
+                self._mark_done(r)
+        return decode_loop.host_decode_steps(max(rem), K), True
+
+    def _chunk_loop(self, rows, experts, slot, overlay, st, sched,
+                    cur: int) -> tuple:
+        """The chunked wave driver: a chunk, its flush, then refills of
+        finished slots.  A newcomer's first token stays on the device as
+        the pending token the next chunk emits first.  Returns (admitted
+        (request, wave position) pairs, chunks)."""
+        admitted, chunks = [], 0
+        while True:
+            steps, launched = self._drive_chunk(self.base, overlay,
+                                                st["eid"], st, rows)
+            cur += steps                      # host mirror of the position
+            chunks += int(launched)
+            done = self._done_rows(rows)
+            if sched is not None and sched.pending() and self._can_admit():
+                rows, experts, overlay, refilled = self._try_admissions(
+                    rows, done, cur, experts, slot, overlay, st, sched)
+                admitted += [(rows[j], cur) for j in refilled]
+                done = self._done_rows(rows)
+            if len(done) == len(rows):
+                return admitted, chunks
+
+    def _serve_wave_chunked(self, wave, experts, overlay, sched) -> None:
+        t0, g0 = time.monotonic(), self._graph_counts()
+        self._mark_admitted(wave)
+        slot = {e: self.slot_of(e) for e in experts}
+        st, cur = self._prefill(self.base, overlay, wave,
+                                [slot[r.expert] for r in wave])
         self._sync()
         prefill_s = time.monotonic() - t0
-        K = self.cfg.decode_chunk
-        chunks = 0
+        self._mark_first(wave)
+        admitted, chunks = self._chunk_loop(list(wave), experts, slot,
+                                            overlay, st, sched, cur)
+        self.wave_log.append(self._log(t0, g0, wave, admitted, chunks, cur,
+                                       prefill_s, experts=len(experts)))
+
+    def _serve_wave_eager(self, wave, experts, overlay, sched) -> None:
+        """The baseline: one decode step and one host read per token."""
+        t0, g0 = time.monotonic(), self._graph_counts()
+        self._mark_admitted(wave)
+        slot = {e: self.slot_of(e) for e in experts}
+        st, cur = self._prefill(self.base, overlay, wave,
+                                [slot[r.expert] for r in wave])
+        self._sync()
+        prefill_s = time.monotonic() - t0
+        T = cur
+        self._mark_first(wave)
+        rows, admitted = list(wave), []
+        tok = st["tok"]
         while True:
-            rem = [max(r.max_new_tokens - len(r.out_tokens), 0) for r in reqs]
-            if max(rem) == 0:
+            toks = tok[:, 0].tolist()          # one host read per step
+            for j, r in enumerate(rows):
+                if len(r.out_tokens) < r.max_new_tokens:
+                    r.out_tokens.append(toks[j])
+                    self._mark_done(r)
+            done = self._done_rows(rows)
+            if sched is not None and sched.pending() and self._can_admit():
+                rows, experts, overlay, refilled = self._try_admissions(
+                    rows, done, cur, experts, slot, overlay, st, sched)
+                for j in refilled:
+                    # the newcomer's prefill selection is its first token
+                    if rows[j].max_new_tokens > 0:
+                        rows[j].out_tokens.append(int(tok[j, 0]))
+                        self._mark_done(rows[j])
+                admitted += [(rows[j], cur) for j in refilled]
+                done = self._done_rows(rows)
+            if len(done) == len(rows):
                 break
-            tok, cache, buf = self._chunk_fn(params, overlay, eid, tok,
-                                             cache, rem)
-            buf = buf.cpu().tolist()              # one host read per chunk
-            chunks += 1
-            for j, r in enumerate(reqs):
-                n = min(K, rem[j])
-                r.out_tokens.extend(buf[j][:n])
-        return {"rows": len(reqs), "chunks": chunks,
-                "prompt_len": int(toks.shape[1]), "prefill_s": prefill_s,
-                "seconds": time.monotonic() - t0,
-                "tokens": sum(r.max_new_tokens for r in reqs)}
+            logits, _ = self.api.decode_step(self.base, tok, st["cache"],
+                                             delta=overlay, eid=st["eid"])
+            tok.copy_(select_tokens(logits[:, -1], self.cfg.sampling)[:, None])
+            cur += 1
+        self.wave_log.append(self._log(t0, g0, wave, admitted, 0, T,
+                                       prefill_s, experts=len(experts)))
+
+    def _serve_batch(self, params: dict, reqs: list[Request],
+                     expert: str) -> None:
+        """Merge-path batch (one expert, no overlay, no refill): prefill,
+        then chunks, or the eager loop with ``decode_chunk=0``."""
+        t0, g0 = time.monotonic(), self._graph_counts()
+        self._mark_admitted(reqs)
+        st, T = self._prefill(params, None, reqs, None)
+        self._sync()
+        prefill_s = time.monotonic() - t0
+        self._mark_first(reqs)
+        chunks = 0
+        if self.cfg.decode_chunk:
+            while self._drive_chunk(params, None, None, st, reqs)[1]:
+                chunks += 1
+        else:
+            tok = st["tok"]
+            while True:
+                toks = tok[:, 0].tolist()      # one host read per step
+                for j, r in enumerate(reqs):
+                    if len(r.out_tokens) < r.max_new_tokens:
+                        r.out_tokens.append(toks[j])
+                        self._mark_done(r)
+                if len(self._done_rows(reqs)) == len(reqs):
+                    break
+                logits, _ = self.api.decode_step(params, tok, st["cache"])
+                tok.copy_(select_tokens(logits[:, -1],
+                                        self.cfg.sampling)[:, None])
+        self.batch_log.append(self._log(t0, g0, reqs, [], chunks, T,
+                                        prefill_s, expert=expert))
+
+    # ---------------- accounting ----------------
+
+    def _graph_counts(self) -> dict:
+        return (self._chunker.stats() if self._chunker is not None else
+                {"graphs": 0, "captures": 0, "capture_s": 0.0, "replays": 0})
+
+    def _log(self, t0, g0, reqs, admitted, chunks, prompt_len, prefill_s,
+             **extra) -> dict:
+        g = self._graph_counts()
+        served = list(reqs) + [r for r, _ in admitted]
+        return dict(rows=len(reqs), admitted=len(admitted), chunks=chunks,
+                    uids=[r.uid for r in reqs],
+                    admitted_at=[(r.uid, cur) for r, cur in admitted],
+                    prompt_len=prompt_len, prefill_s=prefill_s,
+                    seconds=time.monotonic() - t0,
+                    tokens=sum(r.max_new_tokens for r in served),
+                    captures=g["captures"] - g0["captures"],
+                    capture_s=g["capture_s"] - g0["capture_s"],
+                    replays=g["replays"] - g0["replays"], **extra)
 
     def swap_summary(self) -> dict:
         s = self.cache.stats.as_dict()
+        g = self._graph_counts()
         s.update(n_waves=len(self.wave_log), n_batches=len(self.batch_log),
                  n_swaps=len(self.swap_log),
                  swap_seconds=sum(x["seconds"] for x in self.swap_log),
-                 resident_bytes=self.cache.resident_bytes())
+                 resident_bytes=self.cache.resident_bytes(),
+                 slot_bytes=(self._slots.nbytes() if self._slots is not None
+                             else 0),
+                 admitted=sum(w["admitted"] for w in self.wave_log),
+                 graphs=g["graphs"], graph_captures=g["captures"],
+                 graph_capture_s=g["capture_s"], graph_replays=g["replays"])
         return s

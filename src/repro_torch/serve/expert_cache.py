@@ -7,17 +7,17 @@ Port of the local tiers of ``repro/serve/expert_cache.py``:
                                  (``cold_golomb=True``), decoded to
                                  planes on promotion
   DeviceCache    (device tier)   packed bitplane trees on the card under one
-                                 byte budget (LRU), plus stacked per-path
-                                 plane buffers for mixed-expert waves
+                                 byte budget (LRU)
   ExpertRegistry                 the front door over both, and the
                                  fused merge of named experts into the
                                  base (merge-on-swap, merged ensembles)
 
-Experts stay in the 2-bit bitplane form end to end.  Stack bytes count
-against the same budget as the packed trees; an over-budget build evicts
-other stacks first, then least-recently-used non-member trees, and never
-the expert set being served.  The remote tiers (transports, prefetch
-workers, quarantine) come with ROADMAP queue 1, item 8.
+Experts stay in the 2-bit bitplane form end to end.  A mixed wave reads
+its experts through the serving engine's expert slots
+(:class:`~repro_torch.models.delta.SlotOverlay`), filled by copy from the
+trees here; the slots are the engine's and outside this budget.  The
+remote tiers (transports, prefetch workers, quarantine) come with ROADMAP
+queue 1, item 8.
 """
 
 from __future__ import annotations
@@ -30,8 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch import tree as tree_util
-from repro_torch.core.packing import (stack_packed, stacked_bytes,
-                                      tree_packed_bytes)
+from repro_torch.core.packing import tree_packed_bytes
 from repro_torch.device import resolve_device
 from repro_torch.expert import GOLOMB, PACKED, Expert, as_expert
 from repro_torch.kernels.ops import apply_ternary_delta_many_flat
@@ -50,10 +49,8 @@ class SwapStats:
     hits: int = 0
     misses: int = 0
     seconds: float = 0.0
-    stack_builds: int = 0
-    stack_hits: int = 0
-    stack_bytes: int = 0
-    stack_evictions: int = 0
+    stack_builds: int = 0          # expert slots filled by copy
+    stack_hits: int = 0            # experts found already in their slot
     golomb_decode_seconds: float = 0.0
 
     def as_dict(self):
@@ -111,9 +108,7 @@ class ExpertStore:
 
 class DeviceCache:
     """LRU cache of packed bitplane trees on one device under a byte
-    budget, plus stacked plane buffers for mixed-expert batches."""
-
-    MAX_STACKS = 4       # LRU bound on distinct expert-set stacks
+    budget."""
 
     def __init__(self, store: ExpertStore, capacity_bytes: int, device):
         self.store = store
@@ -121,36 +116,20 @@ class DeviceCache:
         self.dev = torch.device(device)
         self._cache: OrderedDict[str, dict] = OrderedDict()
         self._sizes: dict[str, int] = {}
-        self._stacks: OrderedDict[tuple, dict] = OrderedDict()
         self.stats = SwapStats()
 
     def resident_bytes(self) -> int:
-        """Packed trees + stacked buffers: everything under the budget."""
-        return sum(self._sizes.values()) + self.stats.stack_bytes
-
-    def _drop_stack(self, key: tuple) -> None:
-        self.stats.stack_bytes -= stacked_bytes(self._stacks.pop(key))
-        self.stats.stack_evictions += 1
+        return sum(self._sizes.values())
 
     def _drop_tree(self, name: str) -> None:
         self._cache.pop(name)
         self._sizes.pop(name)
         self.stats.evictions += 1
-        for key in [k for k in self._stacks if name in k]:
-            self._drop_stack(key)
 
-    def _enforce_budget(self, protect: tuple = ()) -> None:
-        """Evict until within budget: other stacks first, then LRU trees
-        outside ``protect`` (which may overshoot alone)."""
-        while self.resident_bytes() > self.capacity:
-            others = [k for k in self._stacks if k != tuple(protect)]
-            if others:
-                self._drop_stack(others[0])
-                continue
-            victims = [n for n in self._cache if n not in protect]
-            if not victims:
-                break
-            self._drop_tree(victims[0])
+    def _enforce_budget(self) -> None:
+        """Evict least-recently-used trees until within budget."""
+        while self._cache and self.resident_bytes() > self.capacity:
+            self._drop_tree(next(iter(self._cache)))
 
     def fetch(self, name: str) -> dict:
         """-> {path: PackedTernary} resident on the cache's device."""
@@ -177,29 +156,6 @@ class DeviceCache:
         self.stats.promotions += 1
         self.stats.seconds += time.monotonic() - t0
         return packed
-
-    def stacked(self, names: tuple) -> dict:
-        """Stacked plane buffers for an ordered expert set (slot e =
-        names[e]): {path: (pos [E, W], neg [E, W], scales [E], shape)}.
-        ``BASE`` contributes an all-zero slot; unknown names raise."""
-        key = tuple(names)
-        hit = self._stacks.get(key)
-        if hit is not None:
-            self._stacks.move_to_end(key)
-            self.stats.stack_hits += 1
-            return hit
-        stacks = stack_packed([{} if n == BASE else self.fetch(n)
-                               for n in key])
-        while len(self._stacks) >= self.MAX_STACKS:
-            self._drop_stack(next(iter(self._stacks)))
-        self._stacks[key] = stacks
-        self.stats.stack_builds += 1
-        self.stats.stack_bytes += stacked_bytes(stacks)
-        self._enforce_budget(protect=key)
-        return stacks
-
-    def has_stack(self, names: tuple) -> bool:
-        return tuple(names) in self._stacks
 
 
 class ExpertRegistry:
@@ -243,22 +199,30 @@ class ExpertRegistry:
         (``{}`` for ``BASE``)."""
         return {} if name == BASE else self.device().fetch(name)
 
-    def merged_params(self, base: dict, names, weights=None) -> dict:
+    def merged_params(self, base: dict, names, weights=None,
+                      out: Optional[dict] = None) -> dict:
         """``W_base + sum_e w_e * Delta_e`` with ONE fused sweep per leaf.
 
         Each leaf that any named expert carries goes through
         ``unpack_add_many`` once, over the experts that carry it, bitwise
         equal to applying the weight-scaled experts one at a time; a leaf
         no expert carries is returned as it is (not copied).  With one
-        name this is the merge-on-swap promotion."""
+        name this is the merge-on-swap promotion.  ``out`` (a tree shaped
+        like ``base``) takes every merged leaf, and every other leaf of the
+        base, by copy, and is returned: a caller whose CUDA graphs read
+        the parameters by address keeps them at one place across swaps."""
         names = [names] if isinstance(names, str) else list(names)
         w = list(weights) if weights is not None else [1.0] * len(names)
         if len(w) != len(names):
             raise ValueError(f"{len(w)} weights for {len(names)} experts")
         packs = [self.fetch_packed(n) for n in names]
-        out = {}
+        dst = dict(tree_util.flatten_with_paths(out)) if out is not None \
+            else None
+        flat = {}
         for path, leaf in tree_util.flatten_with_paths(base):
             pts = [(pk[path], wi) for pk, wi in zip(packs, w) if path in pk]
-            out[path] = leaf if not pts else apply_ternary_delta_many_flat(
+            flat[path] = leaf if not pts else apply_ternary_delta_many_flat(
                 leaf, [pt for pt, _ in pts], [wi for _, wi in pts])
-        return tree_util.unflatten_paths(out)
+            if dst is not None:
+                dst[path].copy_(flat.pop(path))
+        return out if out is not None else tree_util.unflatten_paths(flat)

@@ -400,3 +400,117 @@ def test_ternary_matmul_kernel_matches_plain_and_grouped_rows(dev, M, K, N):
 def test_launch_counts_reset(dev):
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# The decode chunk as a CUDA graph (serving on a two-unit smoke config)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def serving():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
+    from repro_torch import api, tree as tree_util
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build
+    model = build(get_smoke_config("qwen2_5_3b", n_units=2))
+    base = model.init(seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    experts = [api.compress(tree_util.tree_map(
+        lambda l: 0.03 * torch.randn(l.shape, generator=gen, device="cuda"),
+        base), name=f"e{i}", density=0.2) for i in range(3)]
+    reg = api.registry(experts=experts)
+    return model, base, reg
+
+
+def _requests(names, budgets, lens, seed=0):
+    from repro_torch.serve import Request
+    g = torch.Generator().manual_seed(seed)
+    return [Request(uid=i, expert=n, max_new_tokens=b,
+                    prompt=torch.randint(2, 500, (L,), generator=g))
+            for i, (n, b, L) in enumerate(zip(names, budgets, lens))]
+
+
+def _serve(serving, reqs, **kw):
+    from repro_torch import api
+    model, base, reg = serving
+    eng = api.serve(model, base, reg, **dict(dict(max_batch=3, cache_len=64),
+                                            **kw))
+    eng.run(reqs)
+    return eng, [r.out_tokens for r in reqs]
+
+
+REFILL = (["e0", "e1", "__base__", "e2", "e0", "e1", "e2"],
+          (2, 3, 4, 2, 3, 4, 2), (6, 8, 10, 6, 8, 10, 6))
+
+
+@pytest.mark.parametrize("K", [1, 4, 8])
+def test_graph_chunk_equals_eager_loop_with_admissions(serving, K):
+    _, eager = _serve(serving, _requests(*REFILL), decode_chunk=0)
+    eng, toks = _serve(serving, _requests(*REFILL), decode_chunk=K)
+    assert toks == eager
+    s = eng.swap_summary()
+    assert s["admitted"] >= 1
+    assert s["graph_captures"] >= 1 and s["graph_replays"] >= s["graphs"]
+
+
+def test_warm_engine_serves_new_expert_sets_without_capture(serving):
+    """Waves of other expert sets of the same size, an admission and a
+    merge-path swap reuse the graphs; tokens repeat a fresh engine's."""
+    names_b = ["e2", "__base__", "e1", "e0"]
+    budgets, lens = (3, 3, 3, 2), (8, 8, 8, 6)
+    eng, _ = _serve(serving, _requests(["e0", "e1", "e2", "e1"], budgets,
+                                       lens), decode_chunk=4)
+    before = eng.swap_summary()["graph_captures"]
+    reqs = _requests(names_b, budgets, lens, seed=1)
+    eng.run(reqs)
+    assert eng.swap_summary()["graph_captures"] == before
+    _, fresh = _serve(serving, _requests(names_b, budgets, lens, seed=1),
+                      decode_chunk=4)
+    assert [r.out_tokens for r in reqs] == fresh
+    g, _ = _serve(serving, _requests(["e0", "e0"], (4, 4), (8, 8)),
+                  scheduling="grouped", max_batch=2, decode_chunk=4)
+    before = g.swap_summary()["graph_captures"]
+    g.run(_requests(["e1", "e1"], (4, 4), (8, 8), seed=2))
+    s = g.swap_summary()
+    assert s["n_swaps"] == 2 and s["graph_captures"] == before
+
+
+def test_launch_counts_after_replays_equal_eager_loop(serving):
+    from repro_torch.kernels import ops
+    names, budgets, lens = ["e0", "e1", "__base__"], (5, 3, 4), (6, 9, 7)
+    counts = []
+    for K in (0, 4):
+        eng, _ = _serve(serving, _requests(names, budgets, lens),
+                        decode_chunk=K)
+        ops.reset_launch_counts()
+        eng.run(_requests(names, budgets, lens))
+        torch.cuda.synchronize()
+        counts.append(ops.launch_counts())
+        if K:
+            assert eng.swap_summary()["graph_replays"] >= 2
+    assert counts[0] == counts[1]
+    assert counts[1]["ternary_matmul_grouped"] > 0
+
+
+def test_failing_capture_raises(serving, monkeypatch):
+    """A host read inside the chunk breaks the capture: the engine raises,
+    and no chunk runs as the Python loop instead."""
+    from repro_torch.serve import decode_loop
+
+    def reads_host(logits, sampling):
+        int(logits.sum())
+        return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+
+    monkeypatch.setattr(decode_loop, "select_tokens", reads_host)
+    from repro_torch import api
+    model, base, reg = serving
+    eng = api.serve(model, base, reg, max_batch=3, cache_len=64,
+                    decode_chunk=4)
+    reqs = _requests(["e0", "e1"], (4, 4), (6, 6))
+    with pytest.raises(RuntimeError):
+        eng.run(reqs)
+    torch.cuda.synchronize()
+    assert eng._chunker.replays == 0
+    assert all(len(r.out_tokens) == 0 for r in reqs)

@@ -1,7 +1,8 @@
 """Serving in the port: greedy token streams identical to the reference
 ``ServeEngine`` (mixed FIFO waves, ``continuous=False``) on the qwen2.5-3b
 smoke config, the mixed-wave-equals-sequential contract, and the options
-this slice does not serve."""
+the port does not serve yet.  Slot refill and the eager loop are held in
+``test_torch_admission.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -59,8 +60,8 @@ def test_greedy_tokens_identical_to_reference_engine(setup, chunk):
                continuous=False, decode_chunk=chunk).run(jr)
     tr = [Request(uid=i, expert=n, prompt=p, max_new_tokens=3 + i)
           for i, (n, p) in enumerate(zip(names, prompts))]
-    eng = tapi.serve(model, tbase, treg, max_batch=4,
-                     cache_len=48, decode_chunk=chunk)
+    eng = tapi.serve(model, tbase, treg, max_batch=4, cache_len=48,
+                     continuous=False, decode_chunk=chunk)
     eng.run(tr)
     for a, b in zip(jr, tr):
         assert b.out_tokens == a.out_tokens, b.uid
@@ -117,7 +118,7 @@ def test_unknown_expert_fails_only_its_requests(setup):
 @pytest.mark.parametrize("option", [
     {"kv_layout": "paged"}, {"scheduler": "affinity"}, {"mesh": object()},
     {"snapshot_dir": "snapshots"},
-    {"temperature": 0.7}, {"continuous": True}, {"decode_chunk": 0}])
+    {"temperature": 0.7}])
 def test_unported_options_raise(setup, option):
     _, _, _, _, model, tbase, treg = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
