@@ -9,7 +9,7 @@ QKV bias, swiglu d_ff 11008, vocab 151936, tied embeddings, rope theta
 random weights from ``--seed``, it runs, in order, stopping at the first
 failure with a non-zero exit:
 
-  1. require CUDA; print the card's name and power limit; build the five
+  1. require CUDA; print the card's name and power limit; build the six
      kernel sources (one nvcc per source, in parallel) and print the
      build time;
   2. hold each kernel against its plain PyTorch version on the card at the
@@ -21,7 +21,9 @@ failure with a non-zero exit:
      bitwise at the tied embedding's size with -0.0 and +-threshold
      planted; popcount_dot bitwise over two such plane pairs; the
      single-expert matmul on FFN-down, wq and wg planes, bitwise each row
-     of a grouped launch on the same expert);
+     of a grouped launch on the same expert; the sampler's tokens and
+     gumbel noise bitwise at [4, V] for the three configs' vocabularies,
+     T 0.7 and 1.0, top_k 0 and 40, stream positions up to 2**31);
   3. the main paths, each with every launch count set to 0 just before it
      and read just after: compress 4 experts (base + seeded noise on every
      leaf, density 0.1) through ``api.compress(...).as_(PACKED)``, then
@@ -51,6 +53,16 @@ failure with a non-zero exit:
      another wave position sees other rope positions in bf16); and on an
      f32 copy of the model, tokens bitwise equal at ``decode_chunk`` 0, 1,
      8 and 16 and each request equal to its solo serve;
+  3e. llama-7b (4 of 32 units) and gemma2-9b (2 of 21 units) at full
+     width (``config_path``): 4 experts compressed, phase 3's 8 requests
+     and gates (planes, row independence, logits, solo near-ties, a warm
+     run repeating its tokens), decode tokens/s, the grouped matmul at
+     every launch shape and one profiled wave, then everything freed;
+  3s. phase 3d's 16 requests sampled at temperature 0.8, top_k 40 and 0
+     (``sampled_path``, uids kept): graph chunks bitwise the same chunks
+     run eagerly, requests placed alike bitwise at ``decode_chunk`` 0, 1
+     and 16, and on the f32 copy every stream bitwise across chunk sizes
+     and equal to its solo serve;
   4. check the result: tokens in range; one expert's planes bitwise equal
      to the plain compression of its tau (and one warm compression of it
      profiled: device ms by pass and the host share); every row's tokens
@@ -72,10 +84,11 @@ failure with a non-zero exit:
      its launches per wave, and the short kernels by CUDA graph (device
      time); profile one wave with ``torch.profiler`` (device time by
      kernel family, split into prefill and decode, and the idle share),
-     and print the ``kernels`` JSON line (nine kernels) and the
+     and print the ``kernels`` JSON line (ten kernels) and the
      end-to-end numbers, each tagged with the card's name and power
-     limit: decode tokens/s, wall and device-busy time and idle share of
-     phase 3's warm wave and of phase 3d's warm run, the graph captures
+     limit: decode tokens/s (greedy, and sampled on the same wave),
+     wall and device-busy time and idle share of phase 3's warm wave
+     (greedy and sampled) and of phase 3d's warm run, the graph captures
      and capture seconds of every serving engine, and the grouped
      kernel's cost of the eight expert slots (its decode launches timed
      on the slot stack and on a stack of only the wave's experts).
@@ -106,6 +119,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# 32-bit integer operations outside the tensor cores: 64 INT32 lanes per
+# SM (half the 128 f32 lanes behind the f32 rate), 132 SMs, 1.98 GHz
+INT32_OPS_PER_S = 16.7e12
 
 
 class CheckFailed(Exception):
@@ -657,6 +673,95 @@ def check_artifact_kernels(torch, cfg, gen, dev, report):
         f"{t8:.4f} ms (bound {b8:.4f})")
 
 
+SAMPLER_SHAPES = ((4, 151936), (4, 32000), (4, 256000))
+# operations per element of csrc/sample.cu: threefry-2x32 is 72 integer
+# ops (2 key adds, 20 rounds of add, funnel rotate and xor, 10 injection
+# adds), the bits and mantissa 3 more; then about 10 f32 operations
+# (uniform 4, two logf, two negations, the add of the logit, the compare)
+SAMPLER_INT_OPS = 75
+SAMPLER_F32_OPS = 10
+
+
+def sampler_inputs(torch, B, V, temperature, top_k, seed, dev):
+    """Logits scaled and top-k masked as ``select_tokens`` makes them, keys
+    from (seed, uid) and stream positions up to 2**31."""
+    from repro_torch.serve import sampling
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = 4.0 * torch.randn((B, V), generator=g, device=dev)
+    scaled = logits / logits.new_full((1, 1), temperature)
+    if top_k:
+        kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+        scaled = torch.where(scaled < kth, float("-inf"), scaled)
+    uids = [7, 2014, 2 ** 31, 2 ** 32 - 1][:B]
+    gen = torch.tensor([0, 1, 2 ** 31 - 1, 2 ** 31][:B], device=dev)
+    return (scaled.contiguous(), sampling.row_keys(seed, uids).to(dev), gen)
+
+
+def sampler_bound(B, V) -> tuple[float, str]:
+    """The sampler's least time: its bytes (logits read, keys, gen and
+    tokens) or its operations, integer and f32 on their own lanes."""
+    n = B * V
+    t_bytes = (4 * n + 28 * B) / HBM_BYTES_PER_S
+    # F32_OPS_PER_S counts an FMA as two: an f32 instruction costs two
+    t_ops = max(SAMPLER_INT_OPS * n / INT32_OPS_PER_S,
+                2 * SAMPLER_F32_OPS * n / F32_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_sampler(torch, dev, report):
+    """The sampler kernel against its plain version on the card at the
+    vocabularies of the three configs (B = 4), with T in {0.7, 1.0},
+    top_k in {0, 40} and stream positions up to 2**31: tokens and gumbel
+    noise bitwise equal, each row's token equal to its own launch alone.
+    Then, at each shape, the kernel's and the plain version's device ms
+    by CUDA graph beside the bound."""
+    from repro_torch.kernels.sample import (sample_gumbel_argmax,
+                                            sample_gumbel_argmax_plain)
+    rows = []
+    for i, (B, V) in enumerate(SAMPLER_SHAPES):
+        for T in (0.7, 1.0):
+            for top_k in (0, 40):
+                x, keys, gen = sampler_inputs(torch, B, V, T, top_k, 100 + i,
+                                              dev)
+                tok, noise = sample_gumbel_argmax(x, keys, gen, noise=True)
+                want, wnoise = sample_gumbel_argmax_plain(x, keys, gen,
+                                                          noise=True)
+                torch.cuda.synchronize()
+                check(torch.equal(bits(torch, noise), bits(torch, wnoise)),
+                      f"sampler [{B}, {V}] T={T} top_k={top_k}: noise "
+                      "differs from the plain version's")
+                check(torch.equal(tok, want), f"sampler [{B}, {V}] T={T} "
+                      f"top_k={top_k}: tokens {tok.tolist()} vs plain "
+                      f"{want.tolist()}")
+                for b in range(B):
+                    alone = sample_gumbel_argmax(x[b:b + 1], keys[b:b + 1],
+                                                 gen[b:b + 1])
+                    check(torch.equal(alone, tok[b:b + 1]),
+                          f"sampler [{B}, {V}]: row {b} differs alone")
+        x, keys, gen = sampler_inputs(torch, B, V, 0.8, 40, 200 + i, dev)
+        t = graph_ms(torch, lambda: sample_gumbel_argmax(  # noqa: B023
+            x, keys, gen), 50)
+        tp = graph_ms(torch, lambda: sample_gumbel_argmax_plain(  # noqa: B023
+            x, keys, gen), 4, 3)
+        b, by = sampler_bound(B, V)
+        rows.append({"B": B, "V": V, "ms": t, "plain_ms": tp, "bound_ms": b,
+                     "bound_by": by})
+        log(f"  sampler [{B}, {V:6d}]: tokens and noise bitwise the plain "
+            f"version's (T 0.7/1.0, top_k 0/40, gen up to 2**31); "
+            f"{t:.4f} ms by CUDA graph (bound {b:.5f}, {by}), plain "
+            f"{tp:.3f} ms")
+    head = rows[0]
+    report["sample_gumbel_argmax"] = dict(
+        max_abs_err=0.0, ms=head["ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        library_ms=None, shapes=rows,
+        shape=f"scaled logits [{head['B']}, {head['V']}] f32, top_k 40",
+        library_note="null: no PyTorch call draws on JAX's threefry stream",
+        timing="CUDA graph of 50 launches (device time); the plain "
+               "version's ~170 launches by CUDA graph too")
+
+
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
@@ -729,39 +834,45 @@ def grouped_launch_shapes(torch, engine, wave) -> dict:
     return counts
 
 
-def grouped_timing(torch, engine, wave, report):
-    """The grouped kernel at every shape the main path launches it with in
-    one warm wave (decode M = 4, prefill M = 4 T over the padded prompt
-    length T), on the wave's own expert planes (unit 0 of each
-    projection, the embedding for the tied head) and its own expert
-    indices: device ms by CUDA graph, the bound (bytes read once per
-    distinct expert, or 2 ops per nonzero weight per row), and launches
-    per wave.  The tied head at decode is the kernel's headline row; its
-    plain version is timed there too."""
+def grouped_shape_rows(torch, engine, wave) -> list:
+    """The grouped kernel at every shape one warm wave launches it with
+    (decode M = 4, prefill M = 4 T over the padded prompt length T), on
+    the wave's own expert planes (unit 0 of each projection, the untied
+    head, the embedding for the tied head) and its own expert indices:
+    device ms by CUDA graph, the bound (bytes read once per distinct
+    expert, or 2 ops per nonzero weight per row), and launches per wave.
+    A decode row also times the same launch on a stack of only the wave's
+    experts (the cost of the engine's empty slots).  Returns the rows;
+    the head's decode row carries its inputs under ``"inputs"``."""
     from repro_torch import tree as tree_util
     from repro_torch.core.packing import popcount
-    from repro_torch.kernels.ternary_matmul import (
-        launch_cols, ternary_matmul_grouped, ternary_matmul_grouped_plain)
+    from repro_torch.kernels.ternary_matmul import (launch_cols,
+                                                    ternary_matmul_grouped)
     from repro_torch.models.delta import MatmulDelta, slice_unit
     experts = list(dict.fromkeys(r.expert for r in wave))
     ov = engine._overlay_for(tuple(experts))
+    cfg = engine.api.cfg
     eid = torch.as_tensor([engine.slot_of(r.expert) for r in wave],
                           dtype=torch.int32, device=engine.dev)
     planes = {}                   # (K, N, transposed) -> (names, pos, neg, s)
-    for path, md in tree_util.flatten_with_paths(slice_unit(ov["blocks"],
-                                                            0)):
+    leaves = tree_util.flatten_with_paths(slice_unit(ov["blocks"], 0))
+    if isinstance(ov.get("lm_head"), MatmulDelta):
+        leaves.append(("lm_head", ov["lm_head"]))
+    for path, md in leaves:
         if not isinstance(md, MatmulDelta):
             continue
         key = (md.pos.shape[1], 32 * md.pos.shape[2], False)
         names = planes[key][0] if key in planes else []
-        planes[key] = (names + ["/".join(path.split("/")[-2:])], md.pos,
-                       md.neg, md.scales)
-    ed = ov["embed"]
-    planes[(engine.api.cfg.d_model, ed.pos.shape[1], True)] = (
-        ["tied_head"], ed.pos, ed.neg, ed.scales)
+        name = "/".join(path.split("/")[-2:])
+        planes[key] = (names + [name] * (name not in names), md.pos, md.neg,
+                       md.scales)
+    if cfg.tie_embeddings:
+        ed = ov["embed"]
+        planes[(cfg.d_model, ed.pos.shape[1], True)] = (
+            ["tied_head"], ed.pos, ed.neg, ed.scales)
     counts = grouped_launch_shapes(torch, engine, wave)
     g = torch.Generator(device=engine.dev).manual_seed(3)
-    rows, head = [], None
+    rows = []
     for (M, K, N, tr), n_launch in sorted(counts.items()):
         names, pos, neg, scales = planes[(K, N, tr)]
         E, _, W = pos.shape
@@ -797,6 +908,8 @@ def grouped_timing(torch, engine, wave, report):
                   "stack and the wave's own stack give other rows")
             row["ms_compact"] = graph_ms(torch, run_c, 50)
             row["slots"] = E
+            if N == cfg.vocab:
+                row["inputs"] = (x, pos, neg, scales, ids)
         rows.append(row)
         log(f"  grouped {', '.join(names):20s} M={M:3d} K={K:5d} N={N:6d}: "
             f"{t:.4f} ms by CUDA graph (bound {b:.5f}, {by}), "
@@ -804,10 +917,18 @@ def grouped_timing(torch, engine, wave, report):
             + (f"; {row['ms_compact']:.4f} ms on the wave's {len(used)} "
                f"experts alone (not {E} slots)" if "ms_compact" in row
                else ""))
-        if tr and M == len(wave):
-            head = (row, x, pos, neg, scales, ids)
-    check(head is not None, "no tied-head launch in the wave")
-    row, x, pos, neg, scales, ids = head
+    check(any("inputs" in r for r in rows), "no head launch in the wave")
+    return rows
+
+
+def grouped_timing(torch, engine, wave, report):
+    """Phase 3's grouped-kernel numbers (:func:`grouped_shape_rows`); the
+    tied head at decode is the kernel's headline row, and its plain
+    version is timed there too."""
+    from repro_torch.kernels.ternary_matmul import ternary_matmul_grouped_plain
+    rows = grouped_shape_rows(torch, engine, wave)
+    row = next(r for r in rows if "inputs" in r)
+    x, pos, neg, scales, ids = row.pop("inputs")
     tp = cuda_ms(torch, lambda: ternary_matmul_grouped_plain(
         x, pos, neg, scales, ids, transpose_rhs=True), 3)
     est = sum(r["ms"] * r["launches_per_wave"] for r in rows)
@@ -824,6 +945,36 @@ def grouped_timing(torch, engine, wave, report):
     log(f"  grouped kernel per wave from these times: {est:.2f} ms over "
         f"{sum(r['launches_per_wave'] for r in rows)} launches; the empty "
         f"expert slots cost the decode launches {pad:.3f} ms per wave")
+
+
+def planes_check(torch, expert) -> dict:
+    """The expert's planes bitwise equal to the plain compression of its
+    tau (the same density 0.1), its scales within a relative 1e-4."""
+    from repro_torch import tree as tree_util
+    from repro_torch.core.compeft import CompressionConfig, compress_packed
+    from repro_torch.expert import DENSE, PACKED
+    from repro_torch.kernels import ops
+    with ops.plain_versions():
+        want = compress_packed(expert.as_(DENSE),
+                               CompressionConfig(density=0.1))
+    got = expert.as_(PACKED)
+    n_leaves, worst_scale = 0, 0.0
+    for (path, w), (_, g) in zip(
+            tree_util.flatten_with_paths(want, is_leaf=_is_pt),
+            tree_util.flatten_with_paths(got, is_leaf=_is_pt)):
+        check(torch.equal(w.pos, g.pos) and torch.equal(w.neg, g.neg),
+              f"expert {expert.name} {path}: planes differ from the plain "
+              "compression")
+        rel = abs(float(w.scale) - float(g.scale)) / max(float(w.scale),
+                                                         1e-30)
+        check(rel <= 1e-4, f"expert {expert.name} {path}: scale rel err "
+              f"{rel}")
+        worst_scale = max(worst_scale, rel)
+        n_leaves += 1
+    del want
+    log(f"  {expert.name}: planes of {n_leaves} leaves bitwise equal to the "
+        f"plain compression; scales within rel {worst_scale:.2e} (tol 1e-4)")
+    return {"leaves": n_leaves, "worst_scale_rel": worst_scale}
 
 
 def row_independence_check(torch, engine, wave):
@@ -939,12 +1090,14 @@ def profile_wave(torch, engine, wave, out_dir, name="profile_wave"):
     def family(name):
         name = name.lower()
         return ("grouped ternary kernel" if "grouped" in name else
+                "sampler kernel" if name.startswith("sample_") or
+                "::sample_" in name else
                 "cuBLAS GEMM" if any(s in name for s in (
                     "gemm", "cutlass", "xmma", "sm90", "nvjet")) else
                 "other PyTorch kernels")
 
-    families = {"grouped ternary kernel": 0.0, "cuBLAS GEMM": 0.0,
-                "other PyTorch kernels": 0.0}
+    families = {"grouped ternary kernel": 0.0, "sampler kernel": 0.0,
+                "cuBLAS GEMM": 0.0, "other PyTorch kernels": 0.0}
     launches = {k: 0 for k in families}
     # the marker's own device-side range is an annotation, not a kernel
     kernels = sorted((ev for ev in prof.key_averages()
@@ -1463,7 +1616,6 @@ def refill_path(torch, api, model, base, reg, cfg, seed):
 
     Returns (engine, requests, path launches, numbers)."""
     from repro_torch.kernels import ops
-    from repro_torch.serve.decode_loop import host_decode_steps
     kw = dict(max_batch=4, cache_len=256)
     reqs = refill_requests(torch, cfg, seed)
     ops.reset_launch_counts()
@@ -1484,19 +1636,15 @@ def refill_path(torch, api, model, base, reg, cfg, seed):
     want = [r.out_tokens for r in reqs]
     placed = placements(engine, reqs, 0)
 
-    eager = api.serve(model, base, reg, decode_chunk=8, **kw)
-    chunk = eager._chunker
-    eager._chunk_fn = lambda p, o, e, tok, cache, rem: (  # noqa: E731
-        tok, cache, chunk._run(p, o, e, tok, cache, torch.as_tensor(
-            rem, dtype=torch.int32, device=tok.device),
-            host_decode_steps(max(rem), 8)))
+    eager = eager_chunks(torch, api.serve(model, base, reg, decode_chunk=8,
+                                          **kw))
     rr = fresh(reqs, 500)
     eager.run(rr)
     check([r.out_tokens for r in rr] == want, "refill path: the graph "
           "chunks' tokens differ from the same chunks run eagerly")
     check(graph_stats(eager)["graph_captures"] == 0,
           "the eager chunk check captured a graph")
-    del eager, chunk
+    del eager
 
     compared = {}
     for K in (0, 1, 16):
@@ -1537,6 +1685,19 @@ def refill_path(torch, api, model, base, reg, cfg, seed):
                                     compared}
 
 
+def eager_chunks(torch, engine):
+    """``engine`` with each decode chunk computed eagerly on the card: the
+    chunk's own loop called without its graph (the same kernels, shapes
+    and admission points)."""
+    from repro_torch.serve.decode_loop import host_decode_steps
+    chunk, K = engine._chunker, engine.cfg.decode_chunk
+    engine._chunk_fn = lambda p, o, e, tok, cache, rem, gen, keys: (
+        tok, cache, chunk._run(p, o, e, tok, cache, torch.as_tensor(
+            rem, dtype=torch.int32, device=tok.device), gen, keys,
+            host_decode_steps(max(rem), K)))
+    return engine
+
+
 def f32_refill(torch, api, model, base, reg, reqs):
     """Phase 3d on an f32 copy of the model (the same weights widened,
     the same experts and traffic), where the reference's contract is
@@ -1572,6 +1733,221 @@ def f32_refill(torch, api, model, base, reg, reqs):
             "streams_equal_to_bf16": same_bf16}
 
 
+# Phase 3e's configurations at full width, their depth cut: llama-7b (the
+# paper's base family; untied head) with 4 of 32 units, gemma2-9b (GeGLU,
+# softcaps, sandwich norms, tied head over vocab 256000) with 2 of 21
+# units (4 layers: 2 local, 2 global)
+WIDE_CONFIGS = (("llama_7b", 4), ("gemma2_9b", 2))
+
+
+def config_path(torch, api, arch, units, seed, dev, out_dir):
+    """Phase 3e: one more configuration at full width, its depth cut to
+    ``units``, with random weights from ``seed``: compress 4 experts
+    (density 0.1) through ``api.compress(...).as_(PACKED)``, then serve 8
+    greedy requests over them and ``BASE`` (``max_batch=4``,
+    ``cache_len=128``, ``decode_chunk=8``, ``continuous=False``), the
+    launch counts set to 0 just before and read just after.  Then phase
+    3's gates on it (e0's planes bitwise the plain compression, rows
+    bitwise independent of their neighbours' experts, the first decode
+    step's logits within 2**-7 of the plain versions', solo serves equal
+    up to the near-tie rule, a warm run repeating its tokens) and its
+    numbers (decode tokens/s of the warm run, the grouped kernel at every
+    launch shape of a wave, one profiled wave).  Everything it made is
+    freed before it returns (numbers, launches)."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.expert import DENSE, PACKED
+    from repro_torch.kernels import ops
+    from repro_torch.models import build as build_model
+    cfg = dataclasses.replace(get_config(arch), n_units=units)
+    model = build_model(cfg)
+    base = model.init(seed=seed, device=dev)
+    n_params = sum(t.numel() for t in tree_util.leaves(base))
+    log(f"  {arch}: {n_params / 1e6:.1f} M params, {units} of "
+        f"{get_config(arch).n_units} units, full width")
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    experts, compress_s = [], []
+    for i in range(4):
+        ft = finetune(torch, base, gen)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ex = api.compress(base, ft, name=f"e{i}", density=0.1, device=dev)
+        ex.as_(PACKED)
+        torch.cuda.synchronize()
+        compress_s.append(time.monotonic() - t0)
+        if i:
+            ex.drop(DENSE)
+        experts.append(ex)
+        del ft
+    reg = api.registry(device=dev, device_cache_bytes=16 << 30,
+                       experts=experts)
+    engine = api.serve(model, base, reg, max_batch=4, cache_len=128,
+                       decode_chunk=8, continuous=False)
+    reqs = make_requests(torch, cfg, seed)
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches on the {arch} path: {launches}")
+    for name in MIXED_PATH_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the {arch} path")
+    for r in reqs:
+        check(len(r.out_tokens) == r.max_new_tokens
+              and all(0 <= t < cfg.vocab for t in r.out_tokens),
+              f"{arch} request {r.uid}: bad tokens {r.out_tokens}")
+    out = {"params_m": n_params / 1e6, "units": units,
+           "compress_s_per_expert": compress_s,
+           "peak_memory_gib": peak / 2 ** 30,
+           "planes_e0": planes_check(torch, experts[0])}
+    experts[0].drop(DENSE)
+    for w in (reqs[:4], reqs[4:]):
+        row_independence_check(torch, engine, w)
+    log(f"  {arch}: every row's tokens bitwise unchanged when the other "
+        "rows of its wave carry BASE")
+    out["solo"] = solo_check(torch, engine, reqs)
+    out["logits"] = logits_check(torch, engine, reqs[:4])
+    timed = fresh(reqs, 200)
+    n0 = len(engine.wave_log)
+    torch.cuda.synchronize()
+    engine.run(timed)
+    check([r.out_tokens for r in timed] == [r.out_tokens for r in reqs],
+          f"{arch}: a second run of the same requests gave other tokens")
+    waves = engine.wave_log[n0:]
+    out["decode_tokens_per_s"] = (
+        sum(w["tokens"] - w["rows"] for w in waves)
+        / sum(w["seconds"] - w["prefill_s"] for w in waves))
+    out["prefill_ms_per_wave"] = [w["prefill_s"] * 1e3 for w in waves]
+    rows = grouped_shape_rows(torch, engine, reqs[:4])
+    for r in rows:
+        r.pop("inputs", None)
+    out["grouped_shapes"] = rows
+    out["profile"] = profile_wave(torch, engine, reqs[:4], out_dir,
+                                  f"profile_{arch}")
+    out["graphs"] = graph_stats(engine)
+    log(f"  {arch}: decode {out['decode_tokens_per_s']:.1f} tokens/s (4 "
+        f"rows, chunk 8), device busy {out['profile']['device_busy_ms']:.1f}"
+        f" of {out['profile']['wall_ms']:.1f} ms of a warm wave")
+    del engine, reg, experts, base, model
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+SAMPLING = dict(temperature=0.8, seed=0)
+
+
+def sampled_path(torch, api, model, base, reg, reqs, top_k):
+    """Phase 3s, one top-k setting: phase 3d's 16 refill requests on the
+    same model and experts, sampled at temperature 0.8 (``max_batch=4``,
+    ``cache_len=256``, ``decode_chunk=8``, slot refill), the launch counts
+    set to 0 just before and read just after; uids are kept, since a
+    request's stream is keyed by (seed, uid).  Then, as checks: the graph
+    chunks bitwise equal to the same chunks run eagerly; at
+    ``decode_chunk`` 0, 1 and 16 every request placed as at chunk 8
+    bitwise equal, the others' partings reported (other rope positions in
+    bf16); and on the f32 copy, every stream bitwise equal across chunk
+    sizes 0, 1, 8 and 16 and to its solo serve.  Returns (engine,
+    requests, launches, numbers)."""
+    from repro_torch.kernels import ops
+    kw = dict(max_batch=4, cache_len=256, top_k=top_k, **SAMPLING)
+    sreqs = fresh(reqs, 0)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    engine = api.serve(model, base, reg, decode_chunk=8, **kw)
+    engine.run(sreqs)
+    torch.cuda.synchronize()
+    cold_s = time.monotonic() - t0
+    launches = ops.launch_counts()
+    vocab = model.cfg.vocab
+    for r in sreqs:
+        check(len(r.out_tokens) == r.max_new_tokens
+              and all(0 <= t < vocab for t in r.out_tokens),
+              f"sampled request {r.uid}: bad tokens {r.out_tokens}")
+    for name in ("sample_gumbel_argmax", "ternary_matmul_grouped"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the "
+              f"sampled path (top_k {top_k})")
+    want = [r.out_tokens for r in sreqs]
+    greedy = sum(a == r.out_tokens for a, r in zip(want, reqs))
+    placed = placements(engine, sreqs, 0)
+    eager = eager_chunks(torch, api.serve(model, base, reg, decode_chunk=8,
+                                          **kw))
+    rr = fresh(reqs, 0)
+    eager.run(rr)
+    check([r.out_tokens for r in rr] == want, f"sampled (top_k {top_k}): "
+          "the graph chunks' tokens differ from the same chunks run eagerly")
+    del eager
+    compared = {}
+    for K in (0, 1, 16):
+        other = api.serve(model, base, reg, decode_chunk=K, **kw)
+        rr = fresh(reqs, 0)
+        other.run(rr)
+        c = {"equal": 0, "same_placement": 0, "parted": []}
+        for r, q, p, p8 in zip(sreqs, rr, placements(other, rr, 0), placed):
+            if p == p8:
+                c["same_placement"] += 1
+                check(q.out_tokens == r.out_tokens, f"sampled request "
+                      f"{r.uid} (top_k {top_k}): placed alike ({p}) at "
+                      f"decode_chunk {K} and 8, but its tokens differ")
+            if q.out_tokens == r.out_tokens:
+                c["equal"] += 1
+            else:
+                step = next(i for i, (a, b) in enumerate(
+                    zip(r.out_tokens, q.out_tokens)) if a != b)
+                c["parted"].append({"uid": r.uid, "step": step,
+                                    "placed": (p8, p)})
+        compared[K] = c
+        del other
+    f32 = f32_sampled(torch, api, model, base, reg, reqs, kw)
+    log(f"  sampled top_k {top_k}: {len(sreqs)} requests, "
+        f"{graph_stats(engine)['admitted']} admitted; graph chunks bitwise "
+        "the same chunks run eagerly; bf16 against decode_chunk 8: "
+        + "; ".join(f"{K}: {c['equal']} equal ({c['same_placement']} "
+                    f"placed alike, all equal), {len(c['parted'])} part"
+                    for K, c in compared.items())
+        + f"; {greedy} of {len(reqs)} streams equal the greedy ones")
+    return engine, sreqs, launches, {
+        "top_k": top_k, "cold_serve_s": cold_s, "bf16_against_8": compared,
+        "streams_equal_to_greedy": greedy, "f32": f32,
+        "graphs": graph_stats(engine)}
+
+
+def f32_sampled(torch, api, model, base, reg, reqs, kw):
+    """Sampled refill traffic on an f32 copy of the model (the same
+    weights widened, experts and uids): every stream bitwise equal at
+    ``decode_chunk`` 0, 1, 8 and 16, and each equal to the same request
+    (same uid) served alone.  A draw depends only on (seed, uid, gen), so
+    where the logits agree the tokens must."""
+    from repro_torch import tree as tree_util
+    from repro_torch.models import build as build_model
+    model32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    base32 = tree_util.tree_map(lambda t: t.float(), base)
+    runs = {}
+    for K in (8, 0, 1, 16):
+        eng = api.serve(model32, base32, reg, decode_chunk=K, **kw)
+        rr = fresh(reqs, 0)
+        eng.run(rr)
+        runs[K] = [r.out_tokens for r in rr]
+        check(runs[K] == runs[8], f"f32 sampled (top_k {kw['top_k']}): "
+              f"tokens at decode_chunk={K} differ from decode_chunk=8")
+        if K == 8:
+            check(eng.swap_summary()["admitted"] >= 4,
+                  "f32 sampled: fewer than 4 admissions")
+            for r in rr:
+                solo = fresh([r], 0)
+                eng.run(solo)
+                check(solo[0].out_tokens == r.out_tokens, f"f32 sampled "
+                      f"request {r.uid}: solo serve {solo[0].out_tokens} "
+                      f"vs in the wave {r.out_tokens}")
+        del eng
+    del base32
+    log(f"  f32 copy, sampled top_k {kw['top_k']}: streams bitwise equal at "
+        f"decode_chunk 0, 1, 8 and 16 and to their solo serves")
+    return {"equal_across_chunks": True, "solo_equal": len(reqs)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--units", type=int, default=4,
@@ -1591,7 +1967,6 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import api, tree as tree_util
     from repro_torch.configs import get_config
-    from repro_torch.core.compeft import CompressionConfig, compress_packed
     from repro_torch.expert import DENSE, PACKED
     from repro_torch.kernels import build, ops
     from repro_torch.models import build as build_model
@@ -1639,6 +2014,7 @@ def main(argv=None) -> int:
         device=dev).manual_seed(args.seed + 1), dev, report)
     check_artifact_kernels(torch, cfg, torch.Generator(
         device=dev).manual_seed(args.seed + 2), dev, report)
+    check_sampler(torch, dev, report)
     if args.stop_after == "kernels":
         log(json.dumps({"kernels_checked": report}))
         return 0
@@ -1723,31 +2099,30 @@ def main(argv=None) -> int:
           "ternary_matmul_grouped was not launched on the refill path")
     refill["f32"] = f32_refill(torch, api, model, base, reg, rreqs)
 
+    wide, wide_launches = {}, {}
+    for arch, units in WIDE_CONFIGS:
+        log(f"phase 3e: {arch} at full width, {units} units (compress 4 "
+            "experts, serve 8 requests, phase 3's gates)")
+        wide[arch], wide_launches[arch] = config_path(
+            torch, api, arch, units, args.seed, dev, out_dir)
+
+    sampled, sampled_launches = {}, {}
+    for top_k in (40, 0):
+        log(f"phase 3s: sampled refill traffic (16 requests, temperature "
+            f"0.8, top_k {top_k})")
+        _, _, sampled_launches[top_k], sampled[top_k] = sampled_path(
+            torch, api, model, base, reg, rreqs, top_k)
+
     log("phase 4: checks")
     for r in reqs:
         check(len(r.out_tokens) == r.max_new_tokens
               and all(0 <= t < cfg.vocab for t in r.out_tokens),
               f"request {r.uid}: bad tokens {r.out_tokens}")
+    details["planes_e0"] = planes_check(torch, experts[0])
     tau = experts[0].as_(DENSE)
-    with ops.plain_versions():
-        want = compress_packed(tau, CompressionConfig(density=0.1))
-    got = experts[0].as_(PACKED)
-    n_leaves, worst_scale = 0, 0.0
-    for (path, w), (_, g) in zip(
-            tree_util.flatten_with_paths(want, is_leaf=_is_pt),
-            tree_util.flatten_with_paths(got, is_leaf=_is_pt)):
-        check(torch.equal(w.pos, g.pos) and torch.equal(w.neg, g.neg),
-              f"expert e0 {path}: planes differ from the plain compression")
-        rel = abs(float(w.scale) - float(g.scale)) / max(float(w.scale),
-                                                         1e-30)
-        check(rel <= 1e-4, f"expert e0 {path}: scale rel err {rel}")
-        worst_scale = max(worst_scale, rel)
-        n_leaves += 1
     details["compress_profile"] = profile_compress(torch, tau, out_dir)
     experts[0].drop(DENSE)
-    del tau, want
-    log(f"  e0: planes of {n_leaves} leaves bitwise equal to the plain "
-        f"compression; scales within rel {worst_scale:.2e} (tol 1e-4)")
+    del tau
 
     for w in (reqs[:4], reqs[4:]):
         row_independence_check(torch, engine, w)
@@ -1812,6 +2187,19 @@ def main(argv=None) -> int:
     batches = gengine.batch_log[b0:]
     swaps = list(gengine.swap_log)[s0:]
     details["profile"] = profile_wave(torch, engine, reqs[:4], out_dir)
+    # phase 3's wave sampled (temperature 0.8, top_k 40): its cold run
+    # captures the graphs, the warm one is timed like the greedy one
+    sengine = api.serve(model, base, reg, max_batch=4, cache_len=128,
+                        decode_chunk=8, continuous=False, top_k=40,
+                        **SAMPLING)
+    sengine.run(fresh(reqs, 0))
+    n0 = len(sengine.wave_log)
+    torch.cuda.synchronize()
+    sengine.run(fresh(reqs, 0))
+    swaves = sengine.wave_log[n0:]
+    details["sampled_profile"] = profile_wave(torch, sengine, reqs[:4],
+                                              out_dir, "profile_sampled")
+    del sengine
     rtimed = fresh(rreqs, 3000)
     c0, rw0 = rengine.swap_summary()["graph_captures"], len(rengine.wave_log)
     torch.cuda.synchronize()
@@ -1845,13 +2233,18 @@ def main(argv=None) -> int:
             ("pack_ternary_planes", "src/repro_torch/kernels/csrc/pack.cu",
              "src/repro/kernels/pack.py:64"),
             ("popcount_dot", "src/repro_torch/kernels/csrc/popcount_dot.cu",
-             "src/repro/kernels/popcount_dot.py:32")):
+             "src/repro/kernels/popcount_dot.py:32"),
+            ("sample_gumbel_argmax", "src/repro_torch/kernels/csrc/sample.cu",
+             "src/repro/serve/decode_loop.py:87")):
         r = report[name]
         # each kernel's launches on the paths that run it: the mixed path,
-        # the merge path, the merged ensemble and the artifact path
+        # the merge path, the merged ensemble, the artifact path, the
+        # refill path, the two wide configurations and the sampled paths
         n_launch = (launches[name] + merge_launches[name]
                     + ens_launches[name] + art_launches[name]
-                    + refill_launches[name])
+                    + refill_launches[name]
+                    + sum(c[name] for c in wide_launches.values())
+                    + sum(c[name] for c in sampled_launches.values()))
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": n_launch,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1868,12 +2261,15 @@ def main(argv=None) -> int:
     prefill_ms = [w["prefill_s"] * 1e3 for w in waves]
     dec_tok = sum(w["tokens"] - w["rows"] for w in waves)
     dec_s = sum(w["seconds"] - w["prefill_s"] for w in waves)
+    s_dec_tok = sum(w["tokens"] - w["rows"] for w in swaves)
+    s_dec_s = sum(w["seconds"] - w["prefill_s"] for w in swaves)
     g_prefill_ms = [b["prefill_s"] * 1e3 for b in batches]
     g_dec_tok = sum(b["tokens"] - b["rows"] for b in batches)
     g_dec_s = sum(b["seconds"] - b["prefill_s"] for b in batches)
     numbers = {"compress_s_per_expert": compress_s,
                "prefill_ms_per_wave": prefill_ms,
                "decode_tokens_per_s": dec_tok / dec_s,
+               "sampled_decode_tokens_per_s": s_dec_tok / s_dec_s,
                "serve_s_8_requests": serve_s,
                "peak_memory_gib": peak / 2 ** 30,
                "merge_swap_s_per_expert": {x["expert"]: x["seconds"]
@@ -1896,12 +2292,16 @@ def main(argv=None) -> int:
                "graphs": {"mixed": graph_stats(engine),
                           "merge": graph_stats(gengine),
                           "refill": graph_stats(rengine)},
+               "wide_configs": wide, "sampled": sampled,
                "params_m": n_params / 1e6}
     details.update(kernels=kernels, numbers=numbers, launches={
         "mixed_path": launches, "merge_path": merge_launches,
         "ensemble": ens_launches, "ensemble_loop_check": check_launches,
         "artifact_path": art_launches, "refill_path": refill_launches,
-        "ternary_matvec_check": matvec_launches})
+        "ternary_matvec_check": matvec_launches,
+        **{f"{a}_path": c for a, c in wide_launches.items()},
+        **{f"sampled_top_k_{k}_path": c
+           for k, c in sampled_launches.items()}})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1)
     log(f"compress seconds per expert {tag}: "
@@ -1918,6 +2318,35 @@ def main(argv=None) -> int:
         + ", ".join(f"{t:.1f}" for t in prefill_ms))
     log(f"decode tokens/s (4 rows, chunk 8) {tag}: "
         f"{numbers['decode_tokens_per_s']:.1f}")
+    log(f"sampled decode tokens/s (the same wave, temperature 0.8, top_k 40)"
+        f" {tag}: {numbers['sampled_decode_tokens_per_s']:.1f} (greedy "
+        f"{numbers['decode_tokens_per_s']:.1f})")
+    for r in report["sample_gumbel_argmax"]["shapes"]:
+        log(f"sample_gumbel_argmax [{r['B']}, {r['V']}] ms by CUDA graph "
+            f"{tag}: {r['ms']:.4f} (bound {r['bound_ms']:.5f}, "
+            f"{r['bound_by']}; plain {r['plain_ms']:.3f})")
+    for arch, w in wide.items():
+        p = w["profile"]
+        log(f"{arch} ({w['units']} units, {w['params_m']:.1f} M params) "
+            f"{tag}: decode tokens/s {w['decode_tokens_per_s']:.1f}; "
+            "prefill ms per wave " + ", ".join(
+                f"{t:.1f}" for t in w["prefill_ms_per_wave"])
+            + f"; warm wave wall {p['wall_ms']:.1f} ms, device busy "
+            f"{p['device_busy_ms']:.1f} ms, idle share "
+            f"{p['idle_share']:.3f}; compress s per expert " + ", ".join(
+                f"{t:.3f}" for t in w["compress_s_per_expert"]))
+        for r in w["grouped_shapes"]:
+            log(f"{arch} ternary_matmul_grouped {', '.join(r['names'])} "
+                f"{r['phase']} ms by CUDA graph {tag}: {r['ms']:.4f} (bound "
+                f"{r['bound_ms']:.5f}, M={r['M']} K={r['K']} N={r['N']}, "
+                f"{r['launches_per_wave']} launches per wave)")
+    for top_k, smp in sampled.items():
+        log(f"sampled refill traffic, top_k {top_k}, bf16, against "
+            f"decode_chunk 8 {tag}: " + "; ".join(
+                f"chunk {K}: {c['equal']} of 16 equal, {len(c['parted'])} "
+                "parted" for K, c in smp["bf16_against_8"].items())
+            + "; f32 copy: all equal at chunks 0/1/8/16 and to their solo "
+            "serves")
     log(f"merge path: swap seconds per expert {tag}: " + ", ".join(
         f"{k} {v:.4f}" for k, v in numbers["merge_swap_s_per_expert"].items()))
     log(f"merge path: prefill ms per batch (rows "
@@ -1966,6 +2395,7 @@ def main(argv=None) -> int:
             f"M={r['M']} K={r['K']} N={r['N']}, {r['launches_per_wave']} "
             "launches per wave)")
     for key, what in (("profile", "phase 3's warm wave"),
+                      ("sampled_profile", "phase 3's warm wave, sampled"),
                       ("refill_profile", "phase 3d's warm refill run")):
         p = details[key]
         if p["idle_share"] is not None:

@@ -9,9 +9,10 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ("qwen2_5_3b",)
+ARCHS = ("qwen2_5_3b", "gemma2_9b", "llama_7b")
 
-_ALIASES = {"qwen2.5-3b": "qwen2_5_3b"}
+_ALIASES = {"qwen2.5-3b": "qwen2_5_3b", "gemma2-9b": "gemma2_9b",
+            "llama-7b": "llama_7b"}
 
 
 def normalize(arch: str) -> str:

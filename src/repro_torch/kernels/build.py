@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("ternary_matmul", "pack", "histogram", "unpack_add",
-           "popcount_dot")
+           "popcount_dot", "sample")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -45,6 +45,8 @@ SIGNATURES = {
     "unpack_add": {"unpack_add_many":
                    [_P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _L, _I, _P]},
     "popcount_dot": {"popcount_dot": [_P, _P, _P, _P, _L, _P, _P]},
+    "sample": {"sample_gumbel_argmax": [_P, _P, _P, _I, _L, _I, _P, _P, _P,
+                                        _P, _P]},
 }
 
 _lock = threading.Lock()

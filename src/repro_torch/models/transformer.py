@@ -6,7 +6,10 @@ prefill and the one-token decode step.  Parameters are nested dicts with
 the reference's paths and layouts; block leaves carry the unit axis in
 front, and a Python loop over units takes the place of ``lax.scan``.
 The decode cache is updated in place (the wave holds its only copy), where
-the reference donates it to a functional update.
+the reference donates it to a functional update.  As in the reference, a
+gemma-named model (``cfg.name``) takes the (1 + scale) RMSNorm with
+zero-initialised scales, and a block with ``sandwich_norm`` normalises
+the attention and FFN outputs before each residual add.
 """
 
 from __future__ import annotations
@@ -35,10 +38,19 @@ def _check_attention_only(cfg) -> None:
             f"{cfg.name}: the port serves attention-only decoder patterns; "
             "recurrent, enc-dec, cross-attention and frontend families come "
             "with ROADMAP queue 1, item 12")
-    if any(b.sandwich_norm for b in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: sandwich norms and their (1 + scale) RMSNorm "
-            "come with the gemma2_9b config, ROADMAP queue 1, item 3")
+
+
+def _gemma(cfg) -> bool:
+    """The reference's rule (``repro/models/transformer.py::_gemma``): a
+    gemma-named model takes the (1 + scale) RMSNorm."""
+    return cfg.name.startswith("gemma")
+
+
+def _norm_init(cfg, d: int, dt, dev, units: int = 0) -> torch.Tensor:
+    """A norm scale: zeros under the (1 + scale) RMSNorm, else ones."""
+    shape = (units, d) if units else (d,)
+    fill = torch.zeros if _gemma(cfg) else torch.ones
+    return fill(shape, dtype=dt, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -60,7 +72,7 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
     d, U = cfg.d_model, cfg.n_units
     params: dict = {
         "embed": embed_init(cfg.vocab, d, dt, gen, dev),
-        "final_norm": torch.ones((d,), dtype=dt, device=dev),
+        "final_norm": _norm_init(cfg, d, dt, dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init((d, cfg.vocab), d, dt, gen, dev)
@@ -81,14 +93,18 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
         if a.qk_norm:
             attn["q_norm"] = torch.ones((U, a.head_dim), dtype=dt, device=dev)
             attn["k_norm"] = torch.ones((U, a.head_dim), dtype=dt, device=dev)
-        bp = {"pre_norm": torch.ones((U, d), dtype=dt, device=dev),
-              "attn": attn}
+        bp = {"pre_norm": _norm_init(cfg, d, dt, dev, U), "attn": attn}
         if b.ffn is not None:
             f = b.ffn.d_ff
-            bp["ffn_norm"] = torch.ones((U, d), dtype=dt, device=dev)
+            bp["ffn_norm"] = _norm_init(cfg, d, dt, dev, U)
             bp["ffn"] = {"wg": dense_init((U, d, f), d, dt, gen, dev),
                          "wu": dense_init((U, d, f), d, dt, gen, dev),
                          "wo": dense_init((U, f, d), f, dt, gen, dev)}
+        if b.sandwich_norm:
+            bp["post_attn_norm"] = torch.zeros((U, d), dtype=dt, device=dev)
+            if b.ffn is not None:
+                bp["post_ffn_norm"] = torch.zeros((U, d), dtype=dt,
+                                                  device=dev)
         blocks[f"block{i}"] = bp
     params["blocks"] = blocks
     return params
@@ -103,35 +119,50 @@ def _unit(tree: dict, u: int) -> dict:
     return tree_util.tree_map(lambda t: t[u], tree)
 
 
+def _norm(x, bp, name, cfg, dp, eid):
+    """The block norm ``name`` with the row's expert delta."""
+    return rms_norm(x, eff_param(bp[name], dp.get(name), eid), cfg.rms_eps,
+                    _gemma(cfg))
+
+
 def _apply_ffn(x, bp, b, cfg, dp, eid):
     if b.ffn is None:
         return x
-    h = rms_norm(x, eff_param(bp["ffn_norm"], dp.get("ffn_norm"), eid),
-                 cfg.rms_eps)
-    return x + dense_ffn(h, bp["ffn"], b.ffn, dp=dp.get("ffn"), eid=eid)
+    h = _norm(x, bp, "ffn_norm", cfg, dp, eid)
+    out = dense_ffn(h, bp["ffn"], b.ffn, dp=dp.get("ffn"), eid=eid)
+    if b.sandwich_norm:
+        out = _norm(out, bp, "post_ffn_norm", cfg, dp, eid)
+    return x + out
+
+
+def _attn_residual(x, o, bp, b, cfg, dp, eid):
+    """x + the output projection of attention ``o`` (normalised first in
+    a sandwich block)."""
+    out = out_project(o, bp["attn"], dp=dp.get("attn"), eid=eid)
+    if b.sandwich_norm:
+        out = _norm(out, bp, "post_attn_norm", cfg, dp, eid)
+    return x + out
 
 
 def _prefill_block(x, bp, b, cfg, positions, dp, eid, kv_start):
-    h = rms_norm(x, eff_param(bp["pre_norm"], dp.get("pre_norm"), eid),
-                 cfg.rms_eps)
+    h = _norm(x, bp, "pre_norm", cfg, dp, eid)
     q, k, v = qkv_project(h, bp["attn"], b.attn, positions, cfg.rms_eps,
                           dp=dp.get("attn"), eid=eid)
     o = flash_attention(q, k, v, b.attn, causal=b.attn.causal,
                         kv_start=kv_start)
-    x = x + out_project(o, bp["attn"], dp=dp.get("attn"), eid=eid)
+    x = _attn_residual(x, o, bp, b, cfg, dp, eid)
     return _apply_ffn(x, bp, b, cfg, dp, eid), (k, v)
 
 
 def _decode_block(x, bp, b, cfg, st, cur: torch.Tensor, dp, eid, start):
-    h = rms_norm(x, eff_param(bp["pre_norm"], dp.get("pre_norm"), eid),
-                 cfg.rms_eps)
+    h = _norm(x, bp, "pre_norm", cfg, dp, eid)
     positions = cur.reshape(1, 1)
     q, k, v = qkv_project(h, bp["attn"], b.attn, positions, cfg.rms_eps,
                           dp=dp.get("attn"), eid=eid)
     cache_write(st["k"], st["v"], st["pos"], k, v, cur)
     o = decode_attention(q, st["k"], st["v"], st["pos"], cur, b.attn,
                          start=start).to(q.dtype)
-    x = x + out_project(o, bp["attn"], dp=dp.get("attn"), eid=eid)
+    x = _attn_residual(x, o, bp, b, cfg, dp, eid)
     return _apply_ffn(x, bp, b, cfg, dp, eid)
 
 
@@ -154,7 +185,7 @@ def embed_tokens(params, tokens, cfg, delta=None, eid=None):
 def logits_of(params, x, cfg, delta=None, eid=None):
     delta = delta or {}
     x = rms_norm(x, eff_param(params["final_norm"], delta.get("final_norm"),
-                              eid), cfg.rms_eps)
+                              eid), cfg.rms_eps, _gemma(cfg))
     B, T, d = x.shape
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = (x.reshape(B * T, d) @ head).reshape(B, T, -1)

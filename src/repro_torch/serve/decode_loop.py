@@ -20,6 +20,15 @@ the kernel dispatch table.  The caller keeps those at fixed addresses and
 writes them in place between replays; ``remaining`` goes in through a
 buffer of the graph's own.  A capture or replay that fails raises: nothing
 falls back to the loop on the card.
+
+Sampled selection (``temperature > 0``) draws the reference's own
+threefry stream (:mod:`repro_torch.serve.sampling`): token ``i`` of a
+request is drawn under ``fold_in(keys[row], i)`` with ``keys[row] =
+fold_in(PRNGKey(seed), uid)``, so a stream depends only on (seed, uid,
+i), not on the chunk size, the slot or the admission time.  The per-row
+keys and stream positions ``gen`` are caller buffers like ``tok``: a chunk
+advances ``gen`` in place at every decode step, and a graph holds no
+generator state.
 """
 
 from __future__ import annotations
@@ -38,8 +47,10 @@ PAD_TOKEN = -1
 
 @dataclasses.dataclass(frozen=True)
 class SamplingConfig:
-    """Token selection: ``temperature <= 0`` is greedy argmax, the only
-    mode the port serves so far."""
+    """Token selection: ``temperature <= 0`` is greedy argmax;
+    otherwise a draw from ``softmax(logits / temperature)``, cut to the
+    ``top_k`` largest (0: the whole vocabulary), on the stream rooted at
+    ``seed``."""
 
     temperature: float = 0.0
     top_k: int = 0
@@ -50,15 +61,29 @@ class SamplingConfig:
         return self.temperature <= 0.0
 
 
-def select_tokens(logits: torch.Tensor,
-                  sampling: SamplingConfig) -> torch.Tensor:
-    """logits [B, V] -> next token [B] int32, on the device (the first
-    maximum, as ``jnp.argmax`` picks)."""
-    if not sampling.greedy:
-        raise NotImplementedError(
-            "temperature > 0: sampled decoding comes with ROADMAP queue 1, "
-            "item 5.3")
-    return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
+def select_tokens(logits: torch.Tensor, keys: torch.Tensor,
+                  gen: torch.Tensor, sampling: SamplingConfig) -> torch.Tensor:
+    """logits [B, V] -> next token [B] int32, on the device.
+
+    Greedy: the first maximum, as ``jnp.argmax`` picks.  Sampled, in the
+    reference's order: ``logits / max(T, 1e-6)`` (a true division, as
+    jnp's), every value below the k-th largest masked to -inf when
+    ``0 < top_k < V``, then row b draws ``argmax(scaled + gumbel)`` under
+    ``fold_in(keys[b], gen[b])`` (keys [B, 2] and gen [B] int64, see
+    :mod:`repro_torch.serve.sampling`); the first maximum wins.  That last
+    step is the ``sample_gumbel_argmax`` kernel on the card."""
+    logits = logits.to(torch.float32)
+    if sampling.greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    # a tensor divisor: torch would multiply by the reciprocal of a
+    # Python scalar on the card
+    scaled = logits / logits.new_full((1, 1), max(sampling.temperature,
+                                                  1e-6))
+    if sampling.top_k and sampling.top_k < scaled.shape[-1]:
+        kth = torch.topk(scaled, sampling.top_k, dim=-1).values[:, -1:]
+        scaled = torch.where(scaled < kth, float("-inf"), scaled)
+    return ops.kernel("sample_gumbel_argmax")(scaled.contiguous(), keys,
+                                              gen)
 
 
 def host_decode_steps(max_remaining: int, chunk: int) -> int:
@@ -71,12 +96,14 @@ def host_decode_steps(max_remaining: int, chunk: int) -> int:
 class DecodeChunk:
     """The K-step wave loop body of one engine (see the module docstring).
 
-    ``chunk(params, overlay, eid, tok, cache, remaining) -> (tok, cache,
-    tokens [B, K])``: ``tok`` [B, 1] int32 is the pending (selected, not
-    yet emitted) token of each row, ``remaining`` the host list of each
-    row's budget of tokens still to emit.  ``tok`` and the cache are
-    updated in place and returned.  ``captures``, ``capture_s`` and
-    ``replays`` count the CUDA graphs' work.
+    ``chunk(params, overlay, eid, tok, cache, remaining, gen, keys) ->
+    (tok, cache, tokens [B, K])``: ``tok`` [B, 1] int32 is the pending
+    (selected, not yet emitted) token of each row, ``remaining`` the host
+    list of each row's budget of tokens still to emit, ``gen`` [B] int64
+    each row's stream position for the next draw and ``keys`` [B, 2] its
+    key (:func:`select_tokens`).  ``tok``, ``gen`` and the cache are
+    updated in place; ``tok`` and the cache are returned.  ``captures``,
+    ``capture_s`` and ``replays`` count the CUDA graphs' work.
     """
 
     def __init__(self, api, chunk: int, sampling: SamplingConfig):
@@ -90,17 +117,19 @@ class DecodeChunk:
         self.replays = 0
 
     def __call__(self, params, overlay, eid, tok, cache,
-                 remaining: list[int]):
+                 remaining: list[int], gen, keys):
         steps = host_decode_steps(max(remaining), self.chunk)
         if tok.device.type == "cuda":
             buf = self._replay(params, overlay, eid, tok, cache, remaining,
-                               steps)
+                               gen, keys, steps)
         else:
             rem = torch.as_tensor(remaining, dtype=torch.int32)
-            buf = self._run(params, overlay, eid, tok, cache, rem, steps)
+            buf = self._run(params, overlay, eid, tok, cache, rem, gen, keys,
+                            steps)
         return tok, cache, buf
 
-    def _run(self, params, overlay, eid, tok, cache, rem, steps: int):
+    def _run(self, params, overlay, eid, tok, cache, rem, gen, keys,
+             steps: int):
         emitted = []
         for i in range(self.chunk):
             active = rem > 0
@@ -109,23 +138,27 @@ class DecodeChunk:
             if i < steps:
                 logits, _ = self.api.decode_step(params, tok, cache,
                                                  delta=overlay, eid=eid)
-                tok.copy_(select_tokens(logits[:, -1], self.sampling)[:, None])
+                tok.copy_(select_tokens(logits[:, -1], keys, gen,
+                                        self.sampling)[:, None])
+                gen.add_(1)
         return torch.stack(emitted, dim=1)
 
-    def _replay(self, params, overlay, eid, tok, cache, remaining, steps):
+    def _replay(self, params, overlay, eid, tok, cache, remaining, gen, keys,
+                steps):
         key = (tok.shape[0], steps, id(params), id(overlay), id(eid),
-               id(tok), id(cache), id(ops.table()))
+               id(tok), id(cache), id(gen), id(keys), id(ops.table()))
         g = self._graphs.get(key)
         if g is None:
             g = self._graphs[key] = self._capture(params, overlay, eid, tok,
-                                                  cache, steps)
+                                                  cache, gen, keys, steps)
         g["rem"].copy_(torch.as_tensor(remaining, dtype=torch.int32))
         g["graph"].replay()
         ops.add_launches(g["launches"])
         self.replays += 1
         return g["buf"]
 
-    def _capture(self, params, overlay, eid, tok, cache, steps: int) -> dict:
+    def _capture(self, params, overlay, eid, tok, cache, gen, keys,
+                 steps: int) -> dict:
         t0 = time.monotonic()
         dev = tok.device
         if self._stream is None:
@@ -138,15 +171,18 @@ class DecodeChunk:
             # the capture's stream: it builds the kernels at first use and
             # sets up cuBLAS and the rope tables there
             with torch.cuda.stream(stream):
-                self.api.decode_step(
+                logits, _ = self.api.decode_step(
                     params, tok.clone(),
                     tree_util.tree_map(lambda t: t.clone(), cache),
                     delta=overlay, eid=eid)
+                select_tokens(logits[:, -1], keys, gen.clone(),
+                              self.sampling)
         torch.cuda.current_stream(dev).wait_stream(stream)
         before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream):
-            buf = self._run(params, overlay, eid, tok, cache, rem, steps)
+            buf = self._run(params, overlay, eid, tok, cache, rem, gen, keys,
+                            steps)
         # the capture recorded these launches and ran none of them: take
         # them back here, and add them on every replay
         launches = {k: n - before[k] for k, n in ops.launch_counts().items()
@@ -155,7 +191,7 @@ class DecodeChunk:
         self.captures += 1
         self.capture_s += time.monotonic() - t0
         return {"graph": graph, "buf": buf, "rem": rem, "launches": launches,
-                "refs": (params, overlay, eid, tok, cache)}
+                "refs": (params, overlay, eid, tok, cache, gen, keys)}
 
     def stats(self) -> dict:
         return {"graphs": len(self._graphs), "captures": self.captures,

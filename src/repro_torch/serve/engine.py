@@ -23,9 +23,13 @@ one host read per token, the baseline.  Greedy chunked decode gives the
 eager loop's tokens, admissions included, at f32; in bf16 on the card an
 admission that a chunk boundary places at another wave position than the
 eager loop does sees other rope positions, so its stream may part at a
-near-tie.  A graph replays the chunk's own kernels at its own shapes, so
-it equals the chunk run eagerly bitwise.  Everything a graph reads stays
-at one address for the engine's life: per batch size a token, expert-id
+near-tie.  Sampled decoding (``temperature > 0``) draws token ``i`` of a
+request on the reference's own threefry stream, keyed by (seed, uid,
+``i``) (:mod:`repro_torch.serve.sampling`), so its streams do not depend
+on the chunk size or the admission time either.  A graph replays the
+chunk's own kernels at its own shapes, so it equals the chunk run eagerly
+bitwise.  Everything a graph reads stays at one address for the engine's
+life: per batch size a token, expert-id, sampling-key, stream-position
 and KV buffer that every prefill and admission writes into; the expert
 slots (:class:`~repro_torch.models.delta.SlotOverlay`, ``max_stack`` of
 them) that waves and admissions fill by copy; on the merge path one
@@ -61,6 +65,7 @@ from repro_torch.models.delta import SlotOverlay, plan_overlay
 from repro_torch.serve import decode_loop
 from repro_torch.serve.decode_loop import SamplingConfig, select_tokens
 from repro_torch.serve.expert_cache import BASE, ExpertRegistry
+from repro_torch.serve.sampling import row_keys
 from repro_torch.serve.scheduler import make_scheduler
 
 PENDING = "pending"
@@ -120,9 +125,6 @@ def _unsupported(cfg: EngineConfig) -> Optional[str]:
     if cfg.snapshot_dir is not None or cfg.snapshot_every_chunks:
         return ("snapshot_dir=: journal, snapshots and resume come with "
                 "ROADMAP queue 1, item 9")
-    if not cfg.sampling.greedy:
-        return ("temperature > 0: sampled decoding comes with ROADMAP "
-                "queue 1, item 5.3")
     return None
 
 
@@ -224,9 +226,9 @@ class ServeEngine:
     # ---------------- kept buffers ----------------
 
     def _state(self, rows: int) -> dict:
-        """The pending-token, expert-id and KV buffers of a batch of
-        ``rows``, made once and rewritten by every prefill and admission
-        (a CUDA graph reads them by address)."""
+        """The pending-token, expert-id, sampling-key, stream-position and
+        KV buffers of a batch of ``rows``, made once and rewritten by every
+        prefill and admission (a CUDA graph reads them by address)."""
         st = self._states.get(rows)
         if st is None:
             cache = self.api.init_decode_cache(rows, self.cfg.cache_len,
@@ -237,6 +239,10 @@ class ServeEngine:
                 "tok": torch.zeros((rows, 1), dtype=torch.int32,
                                    device=self.dev),
                 "eid": torch.zeros((rows,), dtype=torch.int32,
+                                   device=self.dev),
+                "keys": torch.zeros((rows, 2), dtype=torch.int64,
+                                    device=self.dev),
+                "gen": torch.zeros((rows,), dtype=torch.int64,
                                    device=self.dev),
                 "cache": cache}
         return st
@@ -382,8 +388,28 @@ class ServeEngine:
         logits, _ = self.api.prefill(params, {"tokens": toks},
                                      self.cfg.cache_len, delta=overlay,
                                      eid=eid, start=start, cache=st["cache"])
-        st["tok"].copy_(select_tokens(logits[:, -1], self.cfg.sampling)[:, None])
+        st["keys"].copy_(self._keys(reqs))
+        st["gen"].zero_()
+        st["tok"].copy_(self._select(logits, st))
         return st, int(toks.shape[1])
+
+    def _keys(self, reqs: list[Request]) -> torch.Tensor:
+        """Per-request sampling keys [B, 2] (host), from (seed, uid)."""
+        return row_keys(self.cfg.sampling.seed, [r.uid for r in reqs])
+
+    def _select(self, logits, st: dict,
+                j: Optional[int] = None) -> torch.Tensor:
+        """The next token [B, 1] from last-position logits, each row drawn
+        under its kept key at its kept ``gen``; row ``j`` alone if given."""
+        rows = slice(None) if j is None else slice(j, j + 1)
+        return select_tokens(logits[:, -1], st["keys"][rows],
+                             st["gen"][rows], self.cfg.sampling)[:, None]
+
+    def _set_gen(self, st: dict, rows: list[Request], pending: int) -> None:
+        """Each row's stream position for its next draw: the tokens it has
+        emitted, plus ``pending`` (the selected, not yet emitted one)."""
+        st["gen"].copy_(torch.as_tensor([len(r.out_tokens) + pending
+                                         for r in rows], dtype=torch.int64))
 
     def _can_admit(self) -> bool:
         # slot refill splices per-row KV; the port's families (attention
@@ -473,9 +499,10 @@ class ServeEngine:
     def _admit_row(self, r: Request, j: int, cur: int, st: dict,
                    overlay: dict) -> None:
         """Prefill one newcomer left-padded to the wave position and copy
-        its KV, its first real position and its first token into row j of
-        the kept buffers.  The row's ``start`` (cur - prompt length) masks
-        its pads, so it matches the same prompt served alone."""
+        its KV, its first real position, its sampling key and its first
+        token into row j of the kept buffers.  The row's ``start`` (cur -
+        prompt length) masks its pads, so it matches the same prompt
+        served alone."""
         prompt = torch.as_tensor(r.prompt, dtype=torch.int64).reshape(-1)
         row_start = cur - int(prompt.numel())
         toks = torch.full((1, cur), PAD_PROMPT_TOKEN, dtype=torch.int64)
@@ -490,7 +517,9 @@ class ServeEngine:
             for k in ("k", "v"):
                 layer[k][:, j].copy_(row_cache["layers"][name][k][:, 0])
         cache["start"][j] = row_start
-        st["tok"][j].copy_(select_tokens(logits[:, -1], self.cfg.sampling))
+        st["keys"][j].copy_(self._keys([r])[0])
+        st["gen"][j] = 0
+        st["tok"][j].copy_(self._select(logits, st, j)[0])
 
     def _drive_chunk(self, params, overlay, eid, st, rows) -> tuple:
         """One K-step chunk and the flush of its [B, K] token buffer into
@@ -501,8 +530,9 @@ class ServeEngine:
                for r in rows]
         if max(rem) == 0:
             return 0, False
+        self._set_gen(st, rows, 1)
         _, _, buf = self._chunk_fn(params, overlay, eid, st["tok"],
-                                   st["cache"], rem)
+                                   st["cache"], rem, st["gen"], st["keys"])
         buf = buf.cpu().tolist()              # one host read per chunk
         for j, r in enumerate(rows):
             n = min(K, rem[j])
@@ -580,7 +610,8 @@ class ServeEngine:
                 break
             logits, _ = self.api.decode_step(self.base, tok, st["cache"],
                                              delta=overlay, eid=st["eid"])
-            tok.copy_(select_tokens(logits[:, -1], self.cfg.sampling)[:, None])
+            self._set_gen(st, rows, 0)
+            tok.copy_(self._select(logits, st))
             cur += 1
         self.wave_log.append(self._log(t0, g0, wave, admitted, 0, T,
                                        prefill_s, experts=len(experts)))
@@ -610,8 +641,8 @@ class ServeEngine:
                 if len(self._done_rows(reqs)) == len(reqs):
                     break
                 logits, _ = self.api.decode_step(params, tok, st["cache"])
-                tok.copy_(select_tokens(logits[:, -1],
-                                        self.cfg.sampling)[:, None])
+                self._set_gen(st, reqs, 0)
+                tok.copy_(self._select(logits, st))
         self.batch_log.append(self._log(t0, g0, reqs, [], chunks, T,
                                         prefill_s, expert=expert))
 

@@ -310,14 +310,16 @@ def test_warm_engine_keeps_its_buffers(setup):
     _tserve(setup, _traffic(cfg, names=["e0", "e1", "e2", "e0"]),
             engine=eng)
     st = eng._states[3]
-    ptrs = [t.data_ptr() for t in (st["tok"], st["eid"], st["cache"]["cur"],
+    ptrs = [t.data_ptr() for t in (st["tok"], st["eid"], st["keys"],
+                                   st["gen"], st["cache"]["cur"],
                                    st["cache"]["start"])]
     kv = st["cache"]["layers"]["block0"]["k"].data_ptr()
     overlay = eng._slots.overlay
     _tserve(setup, _traffic(cfg, seed=1, names=[BASE, "e2", "e1", "e1"]),
             engine=eng)
     assert eng._states[3] is st and eng._slots.overlay is overlay
-    assert [t.data_ptr() for t in (st["tok"], st["eid"], st["cache"]["cur"],
+    assert [t.data_ptr() for t in (st["tok"], st["eid"], st["keys"],
+                                   st["gen"], st["cache"]["cur"],
                                    st["cache"]["start"])] == ptrs
     assert st["cache"]["layers"]["block0"]["k"].data_ptr() == kv
     s = eng.swap_summary()

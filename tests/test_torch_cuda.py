@@ -16,6 +16,8 @@ from repro_torch.kernels.pack import (pack_ternary_planes,
                                       pack_ternary_planes_segmented,
                                       pack_ternary_planes_segmented_plain)
 from repro_torch.kernels.popcount_dot import popcount_dot, popcount_dot_plain
+from repro_torch.kernels.sample import (sample_gumbel_argmax,
+                                        sample_gumbel_argmax_plain)
 from repro_torch.kernels.ternary_matmul import (ternary_matmul,
                                                 ternary_matmul_grouped,
                                                 ternary_matmul_grouped_plain,
@@ -397,6 +399,57 @@ def test_ternary_matmul_kernel_matches_plain_and_grouped_rows(dev, M, K, N):
         assert torch.equal(got, grouped)
 
 
+def _sample_inputs(dev, B, V, temperature, top_k, seed):
+    """Scaled, top-k masked logits as ``select_tokens`` makes them, keys
+    from (seed, uid) and stream positions up to 2**31."""
+    from repro_torch.serve import sampling
+    gen_t = torch.Generator(device=dev).manual_seed(seed)
+    logits = 4.0 * torch.randn((B, V), generator=gen_t, device=dev)
+    scaled = logits / logits.new_full((1, 1), temperature)
+    if top_k:
+        kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+        scaled = torch.where(scaled < kth, float("-inf"), scaled)
+    keys = sampling.row_keys(seed, [7, 2014, 2 ** 31, 2 ** 32 - 1][:B]).to(dev)
+    gen = torch.tensor([0, 1, 2 ** 31 - 1, 2 ** 31][:B], device=dev)
+    return scaled.contiguous(), keys, gen
+
+
+@pytest.mark.parametrize("V", [512, 32000, 151936, 256000])
+@pytest.mark.parametrize("temperature,top_k", [(0.7, 0), (1.0, 40)])
+def test_sample_kernel_bitwise_equals_plain(dev, V, temperature, top_k):
+    """Tokens and gumbel noise bitwise the plain version's on the card;
+    a row's token does not depend on the batch."""
+    x, keys, gen = _sample_inputs(dev, 4, V, temperature, top_k, seed=V)
+    before = sample_gumbel_argmax.launches
+    tok, noise = sample_gumbel_argmax(x, keys, gen, noise=True)
+    assert sample_gumbel_argmax.launches == before + 1
+    want_tok, want_noise = sample_gumbel_argmax_plain(x, keys, gen,
+                                                      noise=True)
+    assert torch.equal(noise, want_noise)
+    assert torch.equal(tok, want_tok)
+    assert torch.equal(sample_gumbel_argmax(x, keys, gen), tok)
+    for b in range(4):
+        assert torch.equal(sample_gumbel_argmax(
+            x[b:b + 1], keys[b:b + 1], gen[b:b + 1]), tok[b:b + 1])
+
+
+def test_sample_kernel_masked_rows_and_bad_inputs(dev):
+    """-inf is never drawn over a finite value, a row of all -inf gives
+    index 0 (as argmax), and inputs the kernel does not take raise."""
+    from repro_torch.serve import sampling
+    keys = sampling.row_keys(0, [1, 2]).to(dev)
+    gen = torch.tensor([0, 3], device=dev)
+    x = torch.full((2, 1000), float("-inf"), device=dev)
+    x[0, 917] = -50.0
+    assert sample_gumbel_argmax(x, keys, gen).tolist() == [917, 0]
+    with pytest.raises(ValueError):
+        sample_gumbel_argmax(x.double(), keys, gen)
+    with pytest.raises(ValueError):
+        sample_gumbel_argmax(x, keys.to(torch.int32), gen)
+    with pytest.raises(ValueError):
+        sample_gumbel_argmax(x[:, ::2], keys, gen)
+
+
 def test_launch_counts_reset(dev):
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
@@ -455,6 +508,27 @@ def test_graph_chunk_equals_eager_loop_with_admissions(serving, K):
     assert s["graph_captures"] >= 1 and s["graph_replays"] >= s["graphs"]
 
 
+@pytest.mark.parametrize("K,top_k", [(1, 5), (4, 0), (8, 5)])
+def test_sampled_graph_chunk_equals_eager_loop(serving, K, top_k):
+    """Sampled (f32 smoke model): the graphed chunks draw the eager loop's
+    streams, admissions included; the sampler kernel runs in the graphs
+    and a warm engine captures nothing new."""
+    from repro_torch.kernels import ops
+    kw = dict(temperature=0.8, top_k=top_k, seed=3)
+    _, eager = _serve(serving, _requests(*REFILL), decode_chunk=0, **kw)
+    eng, toks = _serve(serving, _requests(*REFILL), decode_chunk=K, **kw)
+    assert toks == eager
+    assert eng.swap_summary()["admitted"] >= 1
+    before = eng.swap_summary()["graph_captures"]
+    ops.reset_launch_counts()
+    reqs = _requests(*REFILL)
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    assert [r.out_tokens for r in reqs] == eager
+    assert eng.swap_summary()["graph_captures"] == before
+    assert ops.launch_counts()["sample_gumbel_argmax"] > len(reqs)
+
+
 def test_warm_engine_serves_new_expert_sets_without_capture(serving):
     """Waves of other expert sets of the same size, an admission and a
     merge-path swap reuse the graphs; tokens repeat a fresh engine's."""
@@ -499,7 +573,7 @@ def test_failing_capture_raises(serving, monkeypatch):
     and no chunk runs as the Python loop instead."""
     from repro_torch.serve import decode_loop
 
-    def reads_host(logits, sampling):
+    def reads_host(logits, keys, gen, sampling):
         int(logits.sum())
         return torch.argmax(logits.float(), dim=-1).to(torch.int32)
 

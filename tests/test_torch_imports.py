@@ -107,6 +107,11 @@ def test_cuda_tensor_never_takes_the_plain_version():
                             torch.empty((), **meta))
     with pytest.raises(ValueError, match="unsupported device"):
         popcount_dot(words, words, words, words)
+    from repro_torch.kernels.sample import sample_gumbel_argmax
+    with pytest.raises(ValueError, match="unsupported device"):
+        sample_gumbel_argmax(torch.empty(2, 32, **meta),
+                             torch.empty(2, 2, dtype=torch.int64, **meta),
+                             torch.empty(2, dtype=torch.int64, **meta))
     with pytest.raises(ValueError, match="unsupported device"):
         segment_hist_moments(torch.empty(2, 32, **meta),
                              torch.empty(2, dtype=torch.int32, **meta),

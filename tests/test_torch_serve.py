@@ -1,8 +1,10 @@
 """Serving in the port: greedy token streams identical to the reference
-``ServeEngine`` (mixed FIFO waves, ``continuous=False``) on the qwen2.5-3b
-smoke config, the mixed-wave-equals-sequential contract, and the options
-the port does not serve yet.  Slot refill and the eager loop are held in
-``test_torch_admission.py``."""
+``ServeEngine`` (mixed FIFO waves, ``continuous=False``) on the smoke
+configs of qwen2.5-3b, llama-7b and gemma2-9b, the
+mixed-wave-equals-sequential contract, and the options the port does not
+serve yet.  Slot refill and the eager loop are held in
+``test_torch_admission.py``, sampled decoding in
+``test_torch_sampling.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -22,9 +24,22 @@ from repro_torch.serve import BASE, Request
 RT = Runtime(attn_chunk_q=16, attn_chunk_k=16, remat_policy="none")
 
 
+_SETUPS: dict = {}
+
+
+def _setup(arch):
+    if arch not in _SETUPS:
+        _SETUPS[arch] = _build_setup(arch)
+    return _SETUPS[arch]
+
+
 @pytest.fixture(scope="module")
 def setup():
-    cfg = get_smoke_config("qwen2_5_3b", n_units=1)
+    return _setup("qwen2_5_3b")
+
+
+def _build_setup(arch):
+    cfg = get_smoke_config(arch, n_units=1)
     api = build(cfg)
     base = api.init(jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
@@ -39,7 +54,7 @@ def setup():
                       density=0.2, device="cpu") for i, t in enumerate(taus)])
     tbase = params_from_jax(jax.tree_util.tree_map(np.asarray, base),
                             device="cpu")
-    model = t_build(t_smoke("qwen2_5_3b", n_units=1))
+    model = t_build(t_smoke(arch, n_units=1))
     return cfg, api, base, jreg, model, tbase, treg
 
 
@@ -48,19 +63,31 @@ def _prompts(cfg, seed, lens):
     return [rng.integers(1, cfg.vocab, L) for L in lens]
 
 
-@pytest.mark.parametrize("chunk", [3, 8])
-def test_greedy_tokens_identical_to_reference_engine(setup, chunk):
-    cfg, api, base, jreg, model, tbase, treg = setup
-    prompts = _prompts(cfg, 1, (5, 9, 7, 12, 6, 8))
+# per arch: prompt lengths and cache length (gemma's prompts outrun its
+# smoke window of 32, so the window binds in prefill and in decode)
+LENGTHS = {"qwen2_5_3b": ((5, 9, 7, 12, 6, 8), 48),
+           "llama_7b": ((5, 9, 7, 12, 6, 8), 48),
+           "gemma2_9b": ((35, 41, 37, 44, 36, 40), 64)}
+
+
+@pytest.mark.parametrize("arch,chunk", [
+    pytest.param("qwen2_5_3b", 3, id="3"),
+    pytest.param("qwen2_5_3b", 8, id="8"),
+    pytest.param("llama_7b", 3, id="llama_7b-3"),
+    pytest.param("gemma2_9b", 8, id="gemma2_9b-8")])
+def test_greedy_tokens_identical_to_reference_engine(arch, chunk):
+    cfg, api, base, jreg, model, tbase, treg = _setup(arch)
+    lens, cache_len = LENGTHS[arch]
+    prompts = _prompts(cfg, 1, lens)
     names = ["e0", "e1", BASE, "e2", "e0", "e1"]
     jr = [JRequest(uid=i, expert=n, prompt=jnp.asarray(p, jnp.int32),
                    max_new_tokens=3 + i)
           for i, (n, p) in enumerate(zip(names, prompts))]
-    rapi.serve(api, RT, base, jreg, max_batch=4, cache_len=48,
+    rapi.serve(api, RT, base, jreg, max_batch=4, cache_len=cache_len,
                continuous=False, decode_chunk=chunk).run(jr)
     tr = [Request(uid=i, expert=n, prompt=p, max_new_tokens=3 + i)
           for i, (n, p) in enumerate(zip(names, prompts))]
-    eng = tapi.serve(model, tbase, treg, max_batch=4, cache_len=48,
+    eng = tapi.serve(model, tbase, treg, max_batch=4, cache_len=cache_len,
                      continuous=False, decode_chunk=chunk)
     eng.run(tr)
     for a, b in zip(jr, tr):
@@ -118,7 +145,7 @@ def test_unknown_expert_fails_only_its_requests(setup):
 @pytest.mark.parametrize("option", [
     {"kv_layout": "paged"}, {"scheduler": "affinity"}, {"mesh": object()},
     {"snapshot_dir": "snapshots"},
-    {"temperature": 0.7}])
+    {"scheduler": "priority"}])
 def test_unported_options_raise(setup, option):
     _, _, _, _, model, tbase, treg = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
