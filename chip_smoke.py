@@ -21,9 +21,14 @@ failure with a non-zero exit:
      bitwise at the tied embedding's size with -0.0 and +-threshold
      planted; popcount_dot bitwise over two such plane pairs; the
      single-expert matmul on FFN-down, wq and wg planes, bitwise each row
-     of a grouped launch on the same expert; the sampler's tokens and
-     gumbel noise bitwise at [4, V] for the three configs' vocabularies,
-     T 0.7 and 1.0, top_k 0 and 40, stream positions up to 2**31);
+     of a grouped launch on the same expert; the fused sampler
+     (``sample_tokens``: scale, top-k cut and draw in one launch): tokens
+     and gumbel noise bitwise its plain version at [4, V] for the three
+     configs' vocabularies, f32 and bf16 logits, T 0.7 and 1.0, top_k 0,
+     1, 40, 1000, V - 1 and V, stream positions up to 2**31, bf16 logits
+     whose k-th value is tied many times or is a zero of either sign, each
+     row launched alone; then timed beside ``torch.topk`` and the composite
+     path it replaced);
   3. the main paths, each with every launch count set to 0 just before it
      and read just after: compress 4 experts (base + seeded noise on every
      leaf, density 0.1) through ``api.compress(...).as_(PACKED)``, then
@@ -86,7 +91,8 @@ failure with a non-zero exit:
      kernel family, split into prefill and decode, and the idle share),
      and print the ``kernels`` JSON line (ten kernels) and the
      end-to-end numbers, each tagged with the card's name and power
-     limit: decode tokens/s (greedy, and sampled on the same wave),
+     limit: decode tokens/s (greedy, and sampled on the same wave, whose
+     profile must hold no ``torch.topk`` kernel),
      wall and device-busy time and idle share of phase 3's warm wave
      (greedy and sampled) and of phase 3d's warm run, the graph captures
      and capture seconds of every serving engine, and the grouped
@@ -674,92 +680,197 @@ def check_artifact_kernels(torch, cfg, gen, dev, report):
 
 
 SAMPLER_SHAPES = ((4, 151936), (4, 32000), (4, 256000))
-# operations per element of csrc/sample.cu: threefry-2x32 is 72 integer
-# ops (2 key adds, 20 rounds of add, funnel rotate and xor, 10 injection
-# adds), the bits and mantissa 3 more; then about 10 f32 operations
-# (uniform 4, two logf, two negations, the add of the logit, the compare)
+# operations of csrc/sample.cu: threefry-2x32 is 72 integer ops (2 key
+# adds, 20 rounds of add, funnel rotate and xor, 10 injection adds), the
+# bits and mantissa 3 more, for each element drawn; then about 10 f32
+# operations (uniform 4, two logf, two negations, the add of the logit,
+# the compare).  Every element is divided by T (one f32 operation).  With
+# a cut, the fast path (top_k < 2048) of the radix select touches every
+# element twice: the first digit pass (the order map, 5 operations, the
+# top digit's shift and the shared-memory count) and the candidate test
+# (the order map again and a compare), 13 integer operations.  Only the
+# candidates (keys whose top digit is at least the k-th largest's) take
+# the last two digit passes (each the order map, the prefix mask and
+# compare, the digit's shift and mask, the count) and the survivor test,
+# 21 more, and only the survivors are drawn.
 SAMPLER_INT_OPS = 75
 SAMPLER_F32_OPS = 10
+SAMPLER_SELECT_OPS = 13
+SAMPLER_CANDIDATE_OPS = 21
 
 
-def sampler_inputs(torch, B, V, temperature, top_k, seed, dev):
-    """Logits scaled and top-k masked as ``select_tokens`` makes them, keys
-    from (seed, uid) and stream positions up to 2**31."""
+def sampler_inputs(torch, B, V, dtype, seed, dev, grid=None):
+    """Logits [B, V] in ``dtype`` (bf16 as the model hands them on the
+    card), on a grid of ``grid`` when given (so the k-th value is tied
+    many times), keys from (seed, uid) and stream positions up to 2**31."""
     from repro_torch.serve import sampling
     g = torch.Generator(device=dev).manual_seed(seed)
     logits = 4.0 * torch.randn((B, V), generator=g, device=dev)
-    scaled = logits / logits.new_full((1, 1), temperature)
-    if top_k:
-        kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
-        scaled = torch.where(scaled < kth, float("-inf"), scaled)
+    if grid:
+        logits = torch.round(logits / grid) * grid
     uids = [7, 2014, 2 ** 31, 2 ** 32 - 1][:B]
     gen = torch.tensor([0, 1, 2 ** 31 - 1, 2 ** 31][:B], device=dev)
-    return (scaled.contiguous(), sampling.row_keys(seed, uids).to(dev), gen)
+    return (logits.to(dtype).contiguous(),
+            sampling.row_keys(seed, uids).to(dev), gen)
 
 
-def sampler_bound(B, V) -> tuple[float, str]:
-    """The sampler's least time: its bytes (logits read, keys, gen and
-    tokens) or its operations, integer and f32 on their own lanes."""
+def sampler_order(torch, x):
+    """The order-preserving keys of f32 ``x`` that the kernel selects by
+    (-0.0 takes the key of +0.0), as int64."""
+    b = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = torch.where(b == 0x80000000, 0, b)
+    return torch.where(b >= 0x80000000, b ^ 0xFFFFFFFF, b ^ 0x80000000)
+
+
+def sampler_work(torch, x, T, top_k) -> tuple[int, int]:
+    """This run's candidates (keys whose top 11-bit digit is at least
+    the k-th largest's: what the fast path's last two digit passes see;
+    0 without a cut) and survivors (the elements drawn) for logits ``x``."""
+    from repro_torch.kernels.sample import scale_and_mask
+    masked = scale_and_mask(x, T, top_k)
+    drawn = int(torch.isfinite(masked).sum())
+    if not 0 < top_k < x.shape[-1]:
+        return 0, drawn
+    scaled = scale_and_mask(x, T, 0)
+    kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+    top = sampler_order(torch, scaled) >> 21
+    return int((top >= sampler_order(torch, kth) >> 21).sum()), drawn
+
+
+def sampler_bound(B, V, itemsize, candidates, drawn,
+                  cut) -> tuple[float, str]:
+    """The fused sampler's least time: its bytes (logits read once, keys,
+    gen and tokens) or its operations, integer and f32 on their own lanes:
+    the division of every element, the selection's work when there is a
+    cut (on the fast path, top_k < 2048, the timed one: every element's
+    first pass and candidate test, and this run's
+    ``candidates``' last passes), and the draw of the ``drawn`` elements
+    (the survivors of this run's inputs; every element without a cut)."""
     n = B * V
-    t_bytes = (4 * n + 28 * B) / HBM_BYTES_PER_S
+    t_bytes = (itemsize * n + 28 * B) / HBM_BYTES_PER_S
+    int_ops = ((SAMPLER_SELECT_OPS * n + SAMPLER_CANDIDATE_OPS * candidates
+                if cut else 0) + SAMPLER_INT_OPS * drawn)
     # F32_OPS_PER_S counts an FMA as two: an f32 instruction costs two
-    t_ops = max(SAMPLER_INT_OPS * n / INT32_OPS_PER_S,
-                2 * SAMPLER_F32_OPS * n / F32_OPS_PER_S)
+    f32_ops = 2 * n + SAMPLER_F32_OPS * drawn
+    t_ops = max(int_ops / INT32_OPS_PER_S, 2 * f32_ops / F32_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def check_fused_sampler(torch, x, keys, gen, T, top_k, what):
+    """One case: tokens and noise bitwise the plain version's, the
+    noise-free launch the same tokens, each row equal launched alone."""
+    from repro_torch.kernels.sample import sample_tokens, sample_tokens_plain
+    tok, noise = sample_tokens(x, keys, gen, T, top_k, noise=True)
+    want, wnoise = sample_tokens_plain(x, keys, gen, T, top_k, noise=True)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(torch, noise), bits(torch, wnoise)),
+          f"sampler {what} T={T} top_k={top_k}: noise differs from the "
+          "plain version's")
+    check(torch.equal(tok, want), f"sampler {what} T={T} top_k={top_k}: "
+          f"tokens {tok.tolist()} vs plain {want.tolist()}")
+    check(torch.equal(sample_tokens(x, keys, gen, T, top_k), tok),
+          f"sampler {what} T={T} top_k={top_k}: the noise-free launch "
+          "differs")
+    for b in range(x.shape[0]):
+        alone = sample_tokens(x[b:b + 1], keys[b:b + 1], gen[b:b + 1], T,
+                              top_k)
+        check(torch.equal(alone, tok[b:b + 1]),
+              f"sampler {what} T={T} top_k={top_k}: row {b} differs alone")
+
+
 def check_sampler(torch, dev, report):
-    """The sampler kernel against its plain version on the card at the
-    vocabularies of the three configs (B = 4), with T in {0.7, 1.0},
-    top_k in {0, 40} and stream positions up to 2**31: tokens and gumbel
-    noise bitwise equal, each row's token equal to its own launch alone.
-    Then, at each shape, the kernel's and the plain version's device ms
-    by CUDA graph beside the bound."""
+    """The fused sampler (``sample_tokens``: scale, top-k cut, draw)
+    against its plain version on the card, bitwise (tokens, and the noise
+    in check mode), at the vocabularies of the three configs (B = 4), f32
+    and bf16 logits, T in {0.7, 1.0}, top_k in {0, 1, 40, 1000, V - 1, V},
+    stream positions up to 2**31, and bf16 logits on a grid of 0.5 whose
+    k-th value is tied many times (with rows whose k-th value is +-0.0);
+    every row also launched alone.  Then, at each shape with bf16 logits
+    and T 0.8, the device ms by CUDA graph of the fused kernel (top_k 40
+    and 0), its plain version, ``torch.topk`` alone
+    (the selection stage's library yardstick) and the composite path the
+    fused kernel replaced (PyTorch scale, topk and where, then the kernel
+    without a cut), beside the bound."""
     from repro_torch.kernels.sample import (sample_gumbel_argmax,
-                                            sample_gumbel_argmax_plain)
+                                            sample_tokens,
+                                            sample_tokens_plain,
+                                            scale_and_mask)
     rows = []
     for i, (B, V) in enumerate(SAMPLER_SHAPES):
-        for T in (0.7, 1.0):
-            for top_k in (0, 40):
-                x, keys, gen = sampler_inputs(torch, B, V, T, top_k, 100 + i,
-                                              dev)
-                tok, noise = sample_gumbel_argmax(x, keys, gen, noise=True)
-                want, wnoise = sample_gumbel_argmax_plain(x, keys, gen,
-                                                          noise=True)
-                torch.cuda.synchronize()
-                check(torch.equal(bits(torch, noise), bits(torch, wnoise)),
-                      f"sampler [{B}, {V}] T={T} top_k={top_k}: noise "
-                      "differs from the plain version's")
-                check(torch.equal(tok, want), f"sampler [{B}, {V}] T={T} "
-                      f"top_k={top_k}: tokens {tok.tolist()} vs plain "
-                      f"{want.tolist()}")
-                for b in range(B):
-                    alone = sample_gumbel_argmax(x[b:b + 1], keys[b:b + 1],
-                                                 gen[b:b + 1])
-                    check(torch.equal(alone, tok[b:b + 1]),
-                          f"sampler [{B}, {V}]: row {b} differs alone")
-        x, keys, gen = sampler_inputs(torch, B, V, 0.8, 40, 200 + i, dev)
-        t = graph_ms(torch, lambda: sample_gumbel_argmax(  # noqa: B023
-            x, keys, gen), 50)
-        tp = graph_ms(torch, lambda: sample_gumbel_argmax_plain(  # noqa: B023
-            x, keys, gen), 4, 3)
-        b, by = sampler_bound(B, V)
-        rows.append({"B": B, "V": V, "ms": t, "plain_ms": tp, "bound_ms": b,
-                     "bound_by": by})
-        log(f"  sampler [{B}, {V:6d}]: tokens and noise bitwise the plain "
-            f"version's (T 0.7/1.0, top_k 0/40, gen up to 2**31); "
-            f"{t:.4f} ms by CUDA graph (bound {b:.5f}, {by}), plain "
-            f"{tp:.3f} ms")
-    head = rows[0]
-    report["sample_gumbel_argmax"] = dict(
+        cases = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            x, keys, gen = sampler_inputs(torch, B, V, dtype, 100 + i, dev)
+            for T in (0.7, 1.0):
+                for top_k in (0, 1, 40, 1000, V - 1, V):
+                    check_fused_sampler(torch, x, keys, gen, T, top_k,
+                                        f"[{B}, {V}] {dtype}")
+                    cases += 1
+        x, keys, gen = sampler_inputs(torch, B, V, torch.float32, 150 + i,
+                                      dev, grid=0.5)
+        x[2] = -1.0 - torch.rand(V, generator=torch.Generator(
+            device=dev).manual_seed(i), device=dev)
+        x[2, :10], x[2, 10:30], x[2, 30:50] = 0.5, 0.0, -0.0
+        x[3] = x[2].flip(0)
+        x = x.to(torch.bfloat16)
+        for step in range(3):        # zeros of both signs win draws
+            for T in (0.7, 1.0):
+                for top_k in (1, 10, 11, 40, 1000, V - 1):
+                    check_fused_sampler(torch, x, keys, gen + step, T, top_k,
+                                        f"[{B}, {V}] tied bf16")
+                    cases += 1
+        kept = torch.isfinite(scale_and_mask(x, 1.0, 40)).sum(-1).tolist()
+        check(kept[2:] == [50, 50], f"sampler [{B}, {V}]: {kept[2:]} of the "
+              "50 values at or above a +-0.0 threshold kept")
+
+        x, keys, gen = sampler_inputs(torch, B, V, torch.bfloat16, 200 + i,
+                                      dev)
+        row = {"B": B, "V": V, "dtype": "bfloat16", "temperature": 0.8,
+               "cases_checked": cases}
+        for top_k in (40, 0):
+            def fused(k=top_k):
+                return sample_tokens(x, keys, gen, 0.8, k)
+
+            def plain(k=top_k):
+                return sample_tokens_plain(x, keys, gen, 0.8, k)
+
+            def composite(k=top_k):
+                return sample_gumbel_argmax(scale_and_mask(x, 0.8, k), keys,
+                                            gen)
+
+            cand, drawn = sampler_work(torch, x, 0.8, top_k)
+            b, by = sampler_bound(B, V, x.element_size(), cand, drawn,
+                                  top_k > 0)
+            r = {"ms": graph_ms(torch, fused, 50),
+                 "plain_ms": graph_ms(torch, plain, 4, 3),
+                 "composite_ms": graph_ms(torch, composite, 10),
+                 "bound_ms": b, "bound_by": by, "candidates": cand,
+                 "drawn": drawn}
+            if top_k:
+                x32 = scale_and_mask(x, 0.8, 0)
+                r["topk_ms"] = graph_ms(torch, lambda: torch.topk(  # noqa: B023
+                    x32, top_k, dim=-1), 20)
+            row[f"top_k_{top_k}"] = r
+            log(f"  sampler [{B}, {V:6d}] bf16 top_k {top_k:2d}: fused "
+                f"{r['ms']:.4f} ms by CUDA graph (bound {b:.5f}, {by}, "
+                f"{cand} candidates, {drawn} drawn), composite "
+                f"{r['composite_ms']:.4f}, plain {r['plain_ms']:.3f}" + (
+                    f", torch.topk {r['topk_ms']:.4f}" if top_k else ""))
+        rows.append(row)
+        log(f"  sampler [{B}, {V:6d}]: {cases} cases bitwise the plain "
+            "version (tokens and noise, f32 and bf16, T 0.7/1.0, top_k 0, 1,"
+            " 40, 1000, V-1, V, tied thresholds, each row alone)")
+    head = rows[0]["top_k_40"]
+    report["sample_tokens"] = dict(
         max_abs_err=0.0, ms=head["ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-        library_ms=None, shapes=rows,
-        shape=f"scaled logits [{head['B']}, {head['V']}] f32, top_k 40",
-        library_note="null: no PyTorch call draws on JAX's threefry stream",
+        library_ms=head["topk_ms"], shapes=rows,
+        shape=f"logits [{rows[0]['B']}, {rows[0]['V']}] bf16, T 0.8, "
+              "top_k 40",
+        library_note="torch.topk(scaled, 40) alone: the selection stage "
+                     "only (no PyTorch call draws on JAX's threefry stream)",
         timing="CUDA graph of 50 launches (device time); the plain "
-               "version's ~170 launches by CUDA graph too")
+               "version's launches by CUDA graph too")
 
 
 # ---------------------------------------------------------------------------
@@ -1127,8 +1238,12 @@ def profile_wave(torch, engine, wave, out_dir, name="profile_wave"):
         for ev in kernels:
             f.write(f"{ev.self_device_time_total / 1e3:.3f}\t{ev.count}\t"
                     f"{ev.key}\n")
+    # torch.topk's kernels (gatherTopK, radixFindKthValues, ...)
+    topk = sum(ev.count for ev in kernels
+               if "topk" in ev.key.lower() or "radix" in ev.key.lower())
     out = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": (1 - busy / wall_ms) if busy else None,
+           "topk_launches": topk,
            "device_ms_by_family": families, "launches_by_family": launches,
            "device_ms_by_phase": split}
     log(f"  {name}: " + "one warm serve: wall {:.1f} ms, device busy {:.1f} ms"
@@ -1153,7 +1268,8 @@ def profile_compress(torch, tau, out_dir):
     included) and nothing else; every other kernel (keep counts, bin
     selection, thresholds, scales) is counted as bin selection.  The full
     list goes to chiprun_out/profile_compress.txt."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
     from repro_torch.core import compeft
     from repro_torch.kernels import ops
     cfg = compeft.CompressionConfig(density=0.1)
@@ -1177,8 +1293,14 @@ def profile_compress(torch, tau, out_dir):
         pack_ternary_planes_segmented=marked(
             "pack", prev["pack_ternary_planes_segmented"]))
     try:
+        # a warm-up cycle, whose events are dropped: without it the tracer
+        # has missed the device ranges of the first marked passes
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            compeft.compress_packed(tau, cfg)
+            torch.cuda.synchronize()
+            prof.step()
             t0 = time.monotonic()
             compeft.compress_packed(tau, cfg)
             torch.cuda.synchronize()
@@ -1186,7 +1308,9 @@ def profile_compress(torch, tau, out_dir):
     finally:
         compeft._build_segment_buffer, ops._table = build_buf, prev
 
-    cuda = [ev for ev in prof.events() if ev.device_type.name == "CUDA"]
+    # the schedule's own range (ProfilerStep#n) is an annotation too
+    cuda = [ev for ev in prof.events() if ev.device_type.name == "CUDA"
+            and not ev.name.startswith("ProfilerStep")]
     spans = [(ev.time_range.start, ev.time_range.end, ev.name) for ev in cuda
              if ev.name in marks]
     passes = dict.fromkeys(("buffer build", "absmax", "coarse", "refine",
@@ -1866,7 +1990,7 @@ def sampled_path(torch, api, model, base, reg, reqs, top_k):
         check(len(r.out_tokens) == r.max_new_tokens
               and all(0 <= t < vocab for t in r.out_tokens),
               f"sampled request {r.uid}: bad tokens {r.out_tokens}")
-    for name in ("sample_gumbel_argmax", "ternary_matmul_grouped"):
+    for name in ("sample_tokens", "ternary_matmul_grouped"):
         check(launches[name] > 0, f"kernel {name} was not launched on the "
               f"sampled path (top_k {top_k})")
     want = [r.out_tokens for r in sreqs]
@@ -2199,6 +2323,9 @@ def main(argv=None) -> int:
     swaves = sengine.wave_log[n0:]
     details["sampled_profile"] = profile_wave(torch, sengine, reqs[:4],
                                               out_dir, "profile_sampled")
+    check(details["sampled_profile"]["topk_launches"] == 0,
+          "the sampled wave launched torch.topk kernels: the sampler is one "
+          "fused launch a step")
     del sengine
     rtimed = fresh(rreqs, 3000)
     c0, rw0 = rengine.swap_summary()["graph_captures"], len(rengine.wave_log)
@@ -2234,7 +2361,7 @@ def main(argv=None) -> int:
              "src/repro/kernels/pack.py:64"),
             ("popcount_dot", "src/repro_torch/kernels/csrc/popcount_dot.cu",
              "src/repro/kernels/popcount_dot.py:32"),
-            ("sample_gumbel_argmax", "src/repro_torch/kernels/csrc/sample.cu",
+            ("sample_tokens", "src/repro_torch/kernels/csrc/sample.cu",
              "src/repro/serve/decode_loop.py:87")):
         r = report[name]
         # each kernel's launches on the paths that run it: the mixed path,
@@ -2321,10 +2448,15 @@ def main(argv=None) -> int:
     log(f"sampled decode tokens/s (the same wave, temperature 0.8, top_k 40)"
         f" {tag}: {numbers['sampled_decode_tokens_per_s']:.1f} (greedy "
         f"{numbers['decode_tokens_per_s']:.1f})")
-    for r in report["sample_gumbel_argmax"]["shapes"]:
-        log(f"sample_gumbel_argmax [{r['B']}, {r['V']}] ms by CUDA graph "
-            f"{tag}: {r['ms']:.4f} (bound {r['bound_ms']:.5f}, "
-            f"{r['bound_by']}; plain {r['plain_ms']:.3f})")
+    for r in report["sample_tokens"]["shapes"]:
+        for top_k in (40, 0):
+            e = r[f"top_k_{top_k}"]
+            log(f"sample_tokens [{r['B']}, {r['V']}] bf16 top_k {top_k} ms "
+                f"by CUDA graph {tag}: {e['ms']:.4f} (bound "
+                f"{e['bound_ms']:.5f}, {e['bound_by']}; composite "
+                f"{e['composite_ms']:.4f}; plain {e['plain_ms']:.3f}"
+                + (f"; torch.topk {e['topk_ms']:.4f}" if top_k else "")
+                + ")")
     for arch, w in wide.items():
         p = w["profile"]
         log(f"{arch} ({w['units']} units, {w['params_m']:.1f} M params) "

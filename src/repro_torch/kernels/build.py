@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p
 SIGNATURES = {
     "ternary_matmul": {"ternary_matmul_grouped":
@@ -45,8 +46,8 @@ SIGNATURES = {
     "unpack_add": {"unpack_add_many":
                    [_P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _L, _I, _P]},
     "popcount_dot": {"popcount_dot": [_P, _P, _P, _P, _L, _P, _P]},
-    "sample": {"sample_gumbel_argmax": [_P, _P, _P, _I, _L, _I, _P, _P, _P,
-                                        _P, _P]},
+    "sample": {"sample_tokens": [_P, _I, _P, _P, _I, _L, _F, _I, _I, _P, _P,
+                                 _P, _P, _P, _P]},
 }
 
 _lock = threading.Lock()

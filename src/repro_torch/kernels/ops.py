@@ -31,8 +31,7 @@ from repro_torch.kernels.pack import (pack_ternary_planes,
                                       pack_ternary_planes_segmented,
                                       pack_ternary_planes_segmented_plain)
 from repro_torch.kernels.popcount_dot import popcount_dot, popcount_dot_plain
-from repro_torch.kernels.sample import (sample_gumbel_argmax,
-                                        sample_gumbel_argmax_plain)
+from repro_torch.kernels.sample import sample_tokens, sample_tokens_plain
 from repro_torch.kernels.ternary_matmul import (ternary_matmul,
                                                 ternary_matmul_grouped,
                                                 ternary_matmul_grouped_plain,
@@ -51,7 +50,7 @@ KERNELS = {
     "ternary_matmul": ternary_matmul,
     "pack_ternary_planes": pack_ternary_planes,
     "popcount_dot": popcount_dot,
-    "sample_gumbel_argmax": sample_gumbel_argmax,
+    "sample_tokens": sample_tokens,
 }
 PLAIN = {
     "ternary_matmul_grouped": ternary_matmul_grouped_plain,
@@ -63,7 +62,7 @@ PLAIN = {
     "ternary_matmul": ternary_matmul_plain,
     "pack_ternary_planes": pack_ternary_planes_plain,
     "popcount_dot": popcount_dot_plain,
-    "sample_gumbel_argmax": sample_gumbel_argmax_plain,
+    "sample_tokens": sample_tokens_plain,
 }
 _table = KERNELS
 

@@ -70,20 +70,13 @@ def select_tokens(logits: torch.Tensor, keys: torch.Tensor,
     jnp's), every value below the k-th largest masked to -inf when
     ``0 < top_k < V``, then row b draws ``argmax(scaled + gumbel)`` under
     ``fold_in(keys[b], gen[b])`` (keys [B, 2] and gen [B] int64, see
-    :mod:`repro_torch.serve.sampling`); the first maximum wins.  That last
-    step is the ``sample_gumbel_argmax`` kernel on the card."""
-    logits = logits.to(torch.float32)
+    :mod:`repro_torch.serve.sampling`); the first maximum wins.  The whole
+    sampled branch is the ``sample_tokens`` kernel on the card, one launch
+    on the logits as they come (f32 or bf16)."""
     if sampling.greedy:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
-    # a tensor divisor: torch would multiply by the reciprocal of a
-    # Python scalar on the card
-    scaled = logits / logits.new_full((1, 1), max(sampling.temperature,
-                                                  1e-6))
-    if sampling.top_k and sampling.top_k < scaled.shape[-1]:
-        kth = torch.topk(scaled, sampling.top_k, dim=-1).values[:, -1:]
-        scaled = torch.where(scaled < kth, float("-inf"), scaled)
-    return ops.kernel("sample_gumbel_argmax")(scaled.contiguous(), keys,
-                                              gen)
+        return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
+    return ops.kernel("sample_tokens")(logits.contiguous(), keys, gen,
+                                       sampling.temperature, sampling.top_k)
 
 
 def host_decode_steps(max_remaining: int, chunk: int) -> int:

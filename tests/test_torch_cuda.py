@@ -17,7 +17,8 @@ from repro_torch.kernels.pack import (pack_ternary_planes,
                                       pack_ternary_planes_segmented_plain)
 from repro_torch.kernels.popcount_dot import popcount_dot, popcount_dot_plain
 from repro_torch.kernels.sample import (sample_gumbel_argmax,
-                                        sample_gumbel_argmax_plain)
+                                        sample_gumbel_argmax_plain,
+                                        sample_tokens, sample_tokens_plain)
 from repro_torch.kernels.ternary_matmul import (ternary_matmul,
                                                 ternary_matmul_grouped,
                                                 ternary_matmul_grouped_plain,
@@ -420,9 +421,9 @@ def test_sample_kernel_bitwise_equals_plain(dev, V, temperature, top_k):
     """Tokens and gumbel noise bitwise the plain version's on the card;
     a row's token does not depend on the batch."""
     x, keys, gen = _sample_inputs(dev, 4, V, temperature, top_k, seed=V)
-    before = sample_gumbel_argmax.launches
+    before = sample_tokens.launches
     tok, noise = sample_gumbel_argmax(x, keys, gen, noise=True)
-    assert sample_gumbel_argmax.launches == before + 1
+    assert sample_tokens.launches == before + 1
     want_tok, want_noise = sample_gumbel_argmax_plain(x, keys, gen,
                                                       noise=True)
     assert torch.equal(noise, want_noise)
@@ -448,6 +449,128 @@ def test_sample_kernel_masked_rows_and_bad_inputs(dev):
         sample_gumbel_argmax(x, keys.to(torch.int32), gen)
     with pytest.raises(ValueError):
         sample_gumbel_argmax(x[:, ::2], keys, gen)
+
+
+def _logits(dev, B, V, dtype, seed, grid=None):
+    """Logits [B, V] from a seed; with ``grid``, rounded to multiples of
+    it first, so that the k-th value is tied many times."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = 4.0 * torch.randn((B, V), generator=g, device=dev)
+    if grid:
+        x = torch.round(x / grid) * grid
+    return x.to(dtype).contiguous()
+
+
+def _sample_keys(dev, B, seed):
+    from repro_torch.serve import sampling
+    uids = [7, 2014, 2 ** 31, 2 ** 32 - 1, 5, 6][:B]
+    gens = [0, 1, 2 ** 31 - 1, 2 ** 31, 77, 2 ** 20][:B]
+    return (sampling.row_keys(seed, uids).to(dev),
+            torch.tensor(gens, device=dev))
+
+
+def _check_fused(x, keys, gen, T, top_k, alone=True):
+    """Tokens and noise bitwise the plain version's, one launch a call,
+    the noise-free launch the same tokens, and each row equal alone."""
+    before = sample_tokens.launches
+    tok, noise = sample_tokens(x, keys, gen, T, top_k, noise=True)
+    assert sample_tokens.launches == before + 1
+    want, want_noise = sample_tokens_plain(x, keys, gen, T, top_k,
+                                           noise=True)
+    assert torch.equal(noise, want_noise)
+    assert torch.equal(tok, want), (T, top_k, tok.tolist(), want.tolist())
+    assert torch.equal(sample_tokens(x, keys, gen, T, top_k), tok)
+    if alone:
+        for b in range(x.shape[0]):
+            assert torch.equal(sample_tokens(
+                x[b:b + 1], keys[b:b + 1], gen[b:b + 1], T, top_k),
+                tok[b:b + 1])
+
+
+@pytest.mark.parametrize("V", [512, 32000, 151936])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sample_tokens_kernel_bitwise_equals_plain(dev, V, dtype):
+    """The fused sampler (scale, top-k cut, draw) against its plain
+    version at T 0.7 / 1.0 and every kind of cut, stream positions up to
+    2**31."""
+    x = _logits(dev, 4, V, dtype, seed=V)
+    keys, gen = _sample_keys(dev, 4, seed=V)
+    for T in (0.7, 1.0):
+        for top_k in (0, 1, 40, 1000, V - 1, V):
+            _check_fused(x, keys, gen, T, top_k, alone=top_k in (0, 40))
+
+
+@pytest.mark.parametrize("V", [512, 32000])
+def test_sample_tokens_kernel_tied_thresholds(dev, V):
+    """bf16 logits on a coarse grid (the k-th value tied many times), and
+    rows whose k-th value is -0.0 or +0.0 with both zeros at the
+    boundary: every tie survives, as in the plain version (several stream
+    positions, so that zeros of both signs win draws)."""
+    x = _logits(dev, 6, V, torch.float32, seed=3, grid=0.5)
+    x[4] = -1.0 - torch.rand(V, device=dev)
+    x[4, :10] = 0.5
+    x[4, 10:30] = 0.0
+    x[4, 30:50] = -0.0
+    x[5] = x[4].flip(0)
+    x = x.to(torch.bfloat16)
+    keys, gen = _sample_keys(dev, 6, seed=4)
+    for step in range(4):
+        for T in (0.7, 1.0):
+            for top_k in (1, 10, 11, 40, 41, V - 1):
+                _check_fused(x, keys, gen + step, T, top_k, alone=False)
+    from repro_torch.kernels.sample import scale_and_mask
+    kept = torch.isfinite(scale_and_mask(x, 1.0, 40)[4:])
+    assert kept.sum(dim=-1).tolist() == [50, 50]
+
+
+@pytest.mark.parametrize("V,dtype", [(1001, torch.float32),
+                                     (1001, torch.bfloat16),
+                                     (600000, torch.bfloat16)])
+def test_sample_tokens_kernel_odd_and_uncached_rows(dev, V, dtype):
+    """A V that no 16-byte word divides (scalar loads), and a row too
+    long for shared memory (read again at each pass)."""
+    x = _logits(dev, 2, V, dtype, seed=V)
+    keys, gen = _sample_keys(dev, 2, seed=1)
+    for top_k in (1, 40, V - 1, 0):
+        _check_fused(x, keys, gen, 0.8, top_k, alone=False)
+
+
+def test_sample_tokens_concurrent_streams_agree(dev):
+    """Launches that overlap on two streams give each its own tokens: the
+    no-cut kernel's tickets are each launch's own scratch."""
+    x = _logits(dev, 4, 151936, torch.bfloat16, seed=9)
+    y = _logits(dev, 4, 151936, torch.bfloat16, seed=10)
+    keys, gen = _sample_keys(dev, 4, seed=9)
+    want = [sample_tokens_plain(z, keys, gen, 0.8, k)
+            for z in (x, y) for k in (0, 40)]
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    torch.cuda.synchronize(dev)
+    for _ in range(20):
+        got = []
+        for s, z in zip(streams, (x, y)):
+            with torch.cuda.stream(s):
+                got.append([sample_tokens(z, keys, gen, 0.8, k)
+                            for k in (0, 40)])
+        torch.cuda.synchronize(dev)
+        assert all(torch.equal(g, w) for g, w in
+                   zip(got[0] + got[1], want))
+
+
+def test_sample_tokens_rejects_bad_inputs(dev):
+    x = _logits(dev, 2, 1000, torch.float32, seed=0)
+    keys, gen = _sample_keys(dev, 2, seed=0)
+    for bad in (x.half(), x.double(), x[0], x[:, ::2]):
+        with pytest.raises(ValueError):
+            sample_tokens(bad, keys, gen, 0.8, 40)
+    with pytest.raises(ValueError):
+        sample_tokens(x, keys, gen, 0.8, -1)
+    with pytest.raises(ValueError):
+        sample_tokens(x, keys[:1], gen, 0.8, 40)
+    with pytest.raises(ValueError):
+        sample_tokens(x, keys, gen.to(torch.int32), 0.8, 40)
+    wide = torch.zeros(1, dtype=torch.bfloat16, device=dev).expand(1, 2 ** 31)
+    with pytest.raises(ValueError):
+        sample_tokens(wide, keys[:1], gen[:1], 0.8, 40)
 
 
 def test_launch_counts_reset(dev):
@@ -526,7 +649,32 @@ def test_sampled_graph_chunk_equals_eager_loop(serving, K, top_k):
     torch.cuda.synchronize()
     assert [r.out_tokens for r in reqs] == eager
     assert eng.swap_summary()["graph_captures"] == before
-    assert ops.launch_counts()["sample_gumbel_argmax"] > len(reqs)
+    assert ops.launch_counts()["sample_tokens"] > len(reqs)
+
+
+def test_sampled_decode_runs_one_sampler_launch_a_step(serving,
+                                                      monkeypatch):
+    """A sampled serve on the card runs the fused sampler, once a step
+    (the same count graphed as eager), and never torch.topk."""
+    def no_topk(*args, **kwargs):
+        raise AssertionError("torch.topk ran on the sampled path")
+
+    monkeypatch.setattr(torch, "topk", no_topk)
+    kw = dict(temperature=0.8, top_k=5, seed=3)
+    names, budgets, lens = ["e0", "e1", "__base__"], (5, 3, 4), (6, 9, 7)
+    counts, toks = [], []
+    for K in (0, 4):
+        eng, _ = _serve(serving, _requests(names, budgets, lens),
+                        decode_chunk=K, **kw)
+        ops.reset_launch_counts()
+        reqs = _requests(names, budgets, lens)
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        counts.append(ops.launch_counts())
+        toks.append([r.out_tokens for r in reqs])
+    assert counts[0] == counts[1] and toks[0] == toks[1]
+    # one launch selects the first tokens of a wave, then one a step
+    assert counts[1]["sample_tokens"] == max(budgets)
 
 
 def test_warm_engine_serves_new_expert_sets_without_capture(serving):

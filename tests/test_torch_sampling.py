@@ -21,7 +21,8 @@ from repro.serve.decode_loop import select_tokens as j_select_tokens
 from repro_torch import api as tapi
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.convert import params_from_jax
-from repro_torch.kernels.sample import sample_gumbel_argmax
+from repro_torch.kernels.sample import (sample_gumbel_argmax, sample_tokens,
+                                        scale_and_mask)
 from repro_torch.models import build as t_build
 from repro_torch.serve import BASE, Request, SamplingConfig
 from repro_torch.serve import sampling
@@ -124,6 +125,56 @@ def test_select_tokens_equal_reference(V, top_k, temperature, one_thread):
     if top_k:
         top = np.argsort(-logits, axis=-1)[:, :top_k]
         assert all(int(t) in top[b] for b, t in enumerate(got))
+
+
+def _tied_logits(V, seed):
+    """bf16-rounded logits [6, V] from a seed: rows 0-3 on a grid of 0.25,
+    so the k-th value repeats many times; row 4 holds 10 values of 2.0,
+    20 of +0.0 and 20 of -0.0 over negatives, so the 11th to 50th largest
+    are zeros of both signs; row 5 is row 4 reversed."""
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.normal(size=(6, V)) * 12.0) / 4.0
+    x[4] = -1.0 - rng.random(V)
+    x[4, :10], x[4, 10:30], x[4, 30:50] = 2.0, 0.0, -0.0
+    x[5] = x[4, ::-1]
+    return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("V", [512, 32000])
+@pytest.mark.parametrize("top_k", [1, 40, "V-1", "V"])
+def test_sample_tokens_tied_thresholds_equal_reference(V, top_k, one_thread):
+    """The plain ``sample_tokens`` on bf16 logits whose k-th value is tied
+    (and is -0.0 or +0.0 with both zeros at the boundary): tokens equal
+    the reference's ``select_tokens``, and every value equal to the
+    threshold survives the mask, as the radix select must keep."""
+    k = {"V-1": V - 1, "V": V}.get(top_k, top_k)
+    logits = _tied_logits(V, seed=V + 7)
+    scaled_ref = logits.to(torch.float32).numpy()
+    uids, gens = [3, 2014, 2 ** 31, 77, 5, 2 ** 32 - 1], [0, 1, 9, 2 ** 31 - 1,
+                                                         4, 2 ** 31]
+    jlogits = jnp.asarray(logits.to(torch.float32).numpy(), jnp.bfloat16)
+    for T in (0.7, 1.0):
+        jcfg = JSamplingConfig(temperature=T, top_k=k, seed=5)
+        want = np.asarray(j_select_tokens(jlogits, j_row_keys(5, uids),
+                                          jnp.asarray(gens, jnp.uint32),
+                                          jcfg))
+        got = sample_tokens(logits, sampling.row_keys(5, uids),
+                            torch.tensor(gens), T, k)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        scaled = scaled_ref / np.float32(T)
+        masked = scale_and_mask(logits, T, k).numpy()
+        if k < V:
+            kth = -np.sort(-scaled, axis=-1)[:, k - 1:k]
+            keep = scaled >= kth           # as floats: -0.0 == +0.0
+            assert (keep.sum(-1) >= k).all()
+        else:
+            keep = np.ones_like(scaled, dtype=bool)
+        np.testing.assert_array_equal(np.isfinite(masked), keep)
+        np.testing.assert_array_equal(masked[keep], scaled[keep])
+    if k == 40:      # the 11th-50th largest of rows 4 and 5 are zeros
+        assert np.isfinite(scale_and_mask(logits, 1.0, 40)[4:].numpy()).sum(
+            -1).tolist() == [50, 50]
 
 
 def test_sampler_edge_rows():
