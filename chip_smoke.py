@@ -68,6 +68,25 @@ failure with a non-zero exit:
      run eagerly, requests placed alike bitwise at ``decode_chunk`` 0, 1
      and 16, and on the f32 copy every stream bitwise across chunk sizes
      and equal to its solo serve;
+  3p. paged KV and the three schedulers (``paged_path``): 24 closed
+     requests from ``repro_torch.serve.traffic.generate`` (prompts of 16
+     and 96 tokens, budgets of 8 and 32, priorities 0 and 1, Zipf
+     experts e0-e3) with ``max_batch=4``, ``cache_len=256``,
+     ``kv_block_size=16``, ``decode_chunk=8``, served paged under
+     ``fifo``, ``priority`` and ``affinity`` and sampled (T 0.8, top_k
+     40) under ``affinity``; the gates: every paged stream equal to the
+     dense FIFO run's by the near-tie rule (its head-of-line blocks
+     recorded), on an f32 copy the paged streams bitwise across
+     ``decode_chunk`` 1, 8 and 16 and equal to their solo serves (greedy
+     under each scheduler, sampled under affinity), the graph chunks
+     bitwise the same chunks run eagerly, no capture on a warm engine, no
+     block left in use and the peak within the pool, pools of half and a
+     quarter of the default (the quarter re-queues overflow rows), the
+     blocked head at full width (priority admits past it, fifo keeps
+     order), and no "position" or "wrap" block on the paged path; then,
+     reported, the generator's open-loop timeline per scheduler, dense
+     and paged, one warm paged run profiled, and the paged attention's
+     device time per step beside the dense ring's;
   4. check the result: tokens in range; one expert's planes bitwise equal
      to the plain compression of its tau (and one warm compression of it
      profiled: device ms by pass and the host share); every row's tokens
@@ -2072,6 +2091,450 @@ def f32_sampled(torch, api, model, base, reg, reqs, kw):
     return {"equal_across_chunks": True, "solo_equal": len(reqs)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 3p: paged KV and the three schedulers
+# ---------------------------------------------------------------------------
+
+SCHEDULERS = ("fifo", "priority", "affinity")
+PAGED = dict(max_batch=4, cache_len=256, kv_block_size=16, decode_chunk=8)
+
+
+def paged_traffic(cfg, seed, closed=True):
+    """Phase 3p's traffic from ``repro_torch.serve.traffic.generate``: 24
+    requests over e0-e3 (Zipf 1.1), prompts of 16 and 96 tokens (a
+    quarter long), budgets of 8 and 32 (a quarter long), priorities 0
+    (weight 0.2) and 1 (0.8), bursts of 4x for 1 s in every 4 s at a base
+    rate of 8 requests/s.  Closed traffic sets every ``arrival_s`` to 0."""
+    from repro_torch.serve.traffic import TrafficConfig, generate
+    reqs = generate(TrafficConfig(
+        seed=seed, n_requests=24, base_rate=8.0, burst_every_s=4.0,
+        burst_duration_s=1.0, burst_rate_x=4.0, n_experts=4, zipf_alpha=1.1,
+        expert_prefix="e", prompt_len_short=16, prompt_len_long=96,
+        long_frac=0.25, max_new_short=8, max_new_long=32, long_out_frac=0.25,
+        vocab=cfg.vocab, priorities=((0, 0.2), (1, 0.8))))
+    if closed:
+        for r in reqs:
+            r.arrival_s = 0.0
+    return reqs
+
+
+def record_blocks(engine):
+    """Count, by reason, every time ``engine`` finds a queued request it
+    cannot place into a finished slot ("stack", "position", "wrap" or
+    "kv_blocks"); under FIFO each such find is a head-of-line block."""
+    import collections
+    reasons = collections.Counter()
+    decide = engine._admission_block_reason
+
+    def recorded(*args, **kwargs):
+        why = decide(*args, **kwargs)
+        if why is not None:
+            reasons[why] += 1
+        return why
+
+    engine._admission_block_reason = recorded
+    return reasons
+
+
+def kv_check(engine, what):
+    kv = engine.swap_summary()["kv"]
+    check(kv["blocks_in_use"] == 0, f"{what}: {kv['blocks_in_use']} KV "
+          "blocks still in use after the run")
+    check(kv["blocks_total"] is None
+          or kv["blocks_peak"] <= kv["blocks_total"],
+          f"{what}: peak {kv['blocks_peak']} blocks above the pool's "
+          f"{kv['blocks_total']}")
+    return kv
+
+
+def valid_tokens(reqs, vocab, what):
+    for r in reqs:
+        check(r.status == "done" and len(r.out_tokens) == r.max_new_tokens
+              and all(0 <= t < vocab for t in r.out_tokens),
+              f"{what} request {r.uid}: bad tokens {r.out_tokens}")
+
+
+def near_ties(torch, engine, reqs, others, what):
+    """Each request's stream against another run's, by the near-tie rule
+    (a gate); returns (equal, partings)."""
+    equal, parted = 0, []
+    for r, q in zip(reqs, others):
+        entry = near_tie(torch, engine, r, r.out_tokens, q.out_tokens, what)
+        if entry is None:
+            equal += 1
+        else:
+            parted.append(entry)
+    return equal, parted
+
+
+def blocked_head_requests(torch, cfg):
+    """``tests/test_paged_kv.py``'s blocked head at block size 16: with 6
+    usable blocks and 2 rows the wave holds uid 0 (3 blocks, 20 tokens)
+    and uid 1 (2 blocks, 2 tokens); when uid 1 ends, the head uid 2 needs
+    5 blocks of the 3 free, while uid 3 needs 2."""
+    from repro_torch.serve import Request
+    g = torch.Generator().manual_seed(7)
+    prompt = lambda n: torch.randint(2, cfg.vocab, (n,), generator=g)  # noqa
+    return [Request(uid=0, expert="e0", prompt=prompt(6), max_new_tokens=20),
+            Request(uid=1, expert="e0", prompt=prompt(3), max_new_tokens=2),
+            Request(uid=2, expert="e0", prompt=prompt(30), max_new_tokens=40),
+            Request(uid=3, expert="e0", prompt=prompt(3), max_new_tokens=2)]
+
+
+def paged_path(torch, api, model, base, reg, cfg, seed, out_dir):
+    """Phase 3p: paged KV under the graphed decode chunk and the three
+    schedulers, at full width (``max_batch=4``, ``cache_len=256``,
+    ``kv_block_size=16``, ``decode_chunk=8``), on 24 closed requests of
+    :func:`paged_traffic`.  The main path, driven with the launch counts
+    set to 0 just before it and read just after: the traffic served paged
+    under ``fifo``, ``priority`` and ``affinity``, and sampled (T 0.8,
+    top_k 40) under ``affinity``.  Then the gates:
+
+    (a) a dense FIFO run of the traffic (its head-of-line blocks
+        recorded); every paged stream equal to its dense stream by the
+        near-tie rule (paged rows decode at ``Lp + i``, dense rows at the
+        wave's position: other rope positions in bf16);
+    (b) on an f32 copy, per scheduler, the paged streams bitwise equal at
+        ``decode_chunk`` 1, 8 and 16 and equal to each request's paged
+        solo serve;
+    (c) the graphed paged chunks bitwise the same chunks run eagerly, and
+        a warm paged engine captures no graph;
+    (d) no block in use after any run, the peak within the pool; at half
+        the default pool, and at a quarter (which re-queues overflow
+        rows), the streams of (a) by the near-tie rule; the blocked head
+        at full width: ``priority`` admits past it (``deferred >= 1``),
+        ``fifo`` keeps head order;
+    (e) no "position" or "wrap" block on the paged path;
+    (f) the sampled affinity traffic keeps (b) on the f32 copy.
+
+    Then, reported: the same generator's open-loop timeline per
+    scheduler, dense and paged (``summarize``, TTFT by priority,
+    deadline misses, admissions, deferrals, peak blocks), one warm run
+    profiled paged and one dense, and the paged attention's device time
+    per step beside the dense one's.  Returns (launches, numbers)."""
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels import ops
+    from repro_torch.models import build as build_model
+    import numpy as np
+    from repro_torch.serve.traffic import summarize
+    vocab = cfg.vocab
+    reqs = paged_traffic(cfg, seed)
+    dense_kw = {k: v for k, v in PAGED.items() if k != "kv_block_size"}
+
+    # the main path
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    engines, runs, blocks = {}, {}, {}
+    for sched in SCHEDULERS:
+        eng = api.serve(model, base, reg, kv_layout="paged", scheduler=sched,
+                        **PAGED)
+        blocks[sched] = record_blocks(eng)
+        rr = fresh(reqs, 0)
+        eng.run(rr)
+        engines[sched], runs[sched] = eng, rr
+    seng = api.serve(model, base, reg, kv_layout="paged",
+                     scheduler="affinity", top_k=40, **SAMPLING, **PAGED)
+    sreqs = fresh(reqs, 0)
+    seng.run(sreqs)
+    torch.cuda.synchronize()
+    cold_s = time.monotonic() - t0
+    launches = ops.launch_counts()
+    for name in ("ternary_matmul_grouped", "sample_tokens"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the "
+              "paged path")
+    out = {"cold_serve_s": cold_s, "schedulers": {}}
+    for sched in SCHEDULERS:
+        eng = engines[sched]
+        valid_tokens(runs[sched], vocab, f"paged/{sched}")
+        s = eng.swap_summary()
+        check(s["graph_captures"] >= 1 and s["graph_replays"] >= 1,
+              f"paged/{sched}: the decode chunks ran no CUDA graph")
+        # (e)
+        check(not ({"position", "wrap"} & set(blocks[sched])),
+              f"paged/{sched} reported dense blocks: {dict(blocks[sched])}")
+        out["schedulers"][sched] = {
+            "kv": kv_check(eng, f"paged/{sched}"),
+            "blocks": dict(blocks[sched]), "admitted": s["admitted"],
+            "deferred": s["scheduler"]["deferred"],
+            "queue_depth_max": s["scheduler"]["queue_depth_max"],
+            "stack_hit_rate": s["stack_hit_rate"],
+            "graphs": graph_stats(eng)}
+    valid_tokens(sreqs, vocab, "paged sampled/affinity")
+    kv_check(seng, "paged sampled/affinity")
+
+    # (a) the dense FIFO run, then every paged stream against it
+    dense = api.serve(model, base, reg, **dense_kw)
+    dblocks = record_blocks(dense)
+    drr = fresh(reqs, 0)
+    dense.run(drr)
+    valid_tokens(drr, vocab, "dense/fifo")
+    out["dense"] = {"blocks": dict(dblocks),
+                    "admitted": dense.swap_summary()["admitted"],
+                    "waves": len(dense.wave_log)}
+    against = {}
+    for sched in SCHEDULERS:
+        eq, parted = near_ties(torch, engines[sched], runs[sched], drr,
+                               f"bf16 paged/{sched} and dense/fifo")
+        against[sched] = {"equal": eq, "parted": parted}
+    out["bf16_against_dense"] = against
+    log(f"  paged path: 24 requests; dense/fifo admitted "
+        f"{out['dense']['admitted']} in {out['dense']['waves']} waves, "
+        f"head-of-line blocks {dict(dblocks)}; paged against dense/fifo "
+        "(bf16, near-tie rule): " + "; ".join(
+            f"{s}: {a['equal']} equal, {len(a['parted'])} part at near-ties"
+            for s, a in against.items()) + "; paged blocks " + "; ".join(
+            f"{s}: {dict(blocks[s])}" for s in SCHEDULERS))
+
+    # (c) the graphed chunks against the same chunks run eagerly; warm
+    # engines capture nothing
+    eager = eager_chunks(torch, api.serve(model, base, reg, kv_layout="paged",
+                                          **PAGED))
+    rr = fresh(reqs, 0)
+    eager.run(rr)
+    check([r.out_tokens for r in rr] == [r.out_tokens for r in runs["fifo"]],
+          "paged path: the graph chunks' tokens differ from the same chunks "
+          "run eagerly")
+    check(graph_stats(eager)["graph_captures"] == 0,
+          "the paged eager chunk check captured a graph")
+    kv_check(eager, "paged eager chunks")
+    del eager
+    warm = {}
+    for sched in SCHEDULERS:
+        eng = engines[sched]
+        c0 = eng.swap_summary()["graph_captures"]
+        rr = fresh(reqs, 0)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        eng.run(rr)
+        torch.cuda.synchronize()
+        warm[sched] = time.monotonic() - t1
+        check([r.out_tokens for r in rr]
+              == [r.out_tokens for r in runs[sched]],
+              f"a warm paged/{sched} run gave other tokens")
+        check(eng.swap_summary()["graph_captures"] == c0,
+              f"a warm paged/{sched} engine captured a graph")
+        kv_check(eng, f"warm paged/{sched}")
+    c0 = dense.swap_summary()["graph_captures"]
+    rr = fresh(reqs, 0)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    dense.run(rr)
+    torch.cuda.synchronize()
+    warm["dense/fifo"] = time.monotonic() - t1
+    check([r.out_tokens for r in rr] == [r.out_tokens for r in drr],
+          "a warm dense/fifo run gave other tokens")
+    n_tok = sum(r.max_new_tokens for r in reqs)
+    out["warm_serve_s"] = warm
+    out["warm_tokens_per_s"] = {k: n_tok / v for k, v in warm.items()}
+    log("  graph chunks bitwise the same chunks run eagerly; warm engines "
+        "capture no graph; warm closed traffic, tokens/s end to end: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in
+                    out["warm_tokens_per_s"].items()))
+
+    # (d) smaller pools and the blocked head
+    default = 4 * (256 // 16) + 1
+    pools = {}
+    for nb, sched in ((default // 2, "fifo"), (default // 4, "priority")):
+        eng = api.serve(model, base, reg, kv_layout="paged", scheduler=sched,
+                        kv_blocks=nb, **PAGED)
+        pblocks = record_blocks(eng)
+        rr = fresh(reqs, 0)
+        eng.run(rr)
+        valid_tokens(rr, vocab, f"paged/{sched}, {nb} blocks")
+        kv = kv_check(eng, f"paged/{sched}, {nb} blocks")
+        eq, parted = near_ties(torch, eng, rr, runs[sched],
+                               f"bf16 paged/{sched} at {nb} and "
+                               f"{default} blocks")
+        requeued = sum(w["requeued"] for w in eng.wave_log)
+        pools[nb] = {"scheduler": sched, "kv": kv, "requeued": requeued,
+                     "blocks": dict(pblocks), "equal": eq,
+                     "parted": parted,
+                     "deferred": eng.swap_summary()["scheduler"]["deferred"]}
+        del eng
+    quarter = pools[default // 4]
+    check(quarter["requeued"] >= 1, f"a pool of {default // 4} blocks "
+          "re-queued no overflow row")
+    out["pools"] = pools
+    heads = {}
+    for sched in ("priority", "fifo"):
+        eng = api.serve(model, base, reg, kv_layout="paged", scheduler=sched,
+                        max_batch=2, cache_len=256, kv_block_size=16,
+                        kv_blocks=7, decode_chunk=8)
+        hr = blocked_head_requests(torch, cfg)
+        eng.run(hr)
+        valid_tokens(hr, vocab, f"blocked head/{sched}")
+        kv_check(eng, f"blocked head/{sched}")
+        heads[sched] = {"first_token_order": sorted(
+            range(4), key=lambda i: hr[i].t_first_s),
+            "deferred": eng.swap_summary()["scheduler"]["deferred"],
+            "tokens": [r.out_tokens for r in hr]}
+        del eng
+    check(heads["priority"]["first_token_order"].index(3)
+          < heads["priority"]["first_token_order"].index(2)
+          and heads["priority"]["deferred"] >= 1,
+          f"priority did not admit past the blocked head: {heads}")
+    check(heads["fifo"]["first_token_order"].index(2)
+          < heads["fifo"]["first_token_order"].index(3),
+          f"fifo did not keep head order: {heads}")
+    out["blocked_head"] = {k: {"first_token_order": v["first_token_order"],
+                               "deferred": v["deferred"]}
+                           for k, v in heads.items()}
+    log("  pools: " + "; ".join(
+        f"{nb} blocks ({p['scheduler']}): peak {p['kv']['blocks_peak']} of "
+        f"{p['kv']['blocks_total']}, {p['requeued']} re-queued, "
+        f"{p['deferred']} deferred, {p['equal']} of 24 equal, "
+        f"{len(p['parted'])} part at near-ties" for nb, p in pools.items())
+        + "; blocked head: priority admits uid 3 past uid 2 (deferred "
+        f"{heads['priority']['deferred']}), fifo keeps head order")
+
+    # (b) and (f) on an f32 copy
+    model32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    base32 = tree_util.tree_map(lambda t: t.float(), base)
+
+    def f32_runs(sched, **kw):
+        runs32 = {}
+        for K in (8, 1, 16):
+            eng = api.serve(model32, base32, reg, kv_layout="paged",
+                            scheduler=sched, **dict(PAGED, decode_chunk=K),
+                            **kw)
+            rr = fresh(reqs, 0)
+            eng.run(rr)
+            kv_check(eng, f"f32 paged/{sched} at decode_chunk {K}")
+            runs32[K] = [r.out_tokens for r in rr]
+            check(runs32[K] == runs32[8], f"f32 paged/{sched} {kw}: tokens "
+                  f"at decode_chunk={K} differ from decode_chunk=8")
+            del eng
+        return runs32[8]
+
+    def solos(**kw):
+        eng = api.serve(model32, base32, reg, kv_layout="paged", **PAGED,
+                        **kw)
+        got = []
+        for r in reqs:
+            solo = fresh([r], 0)
+            eng.run(solo)
+            got.append(solo[0].out_tokens)
+        kv_check(eng, "f32 paged solo serves")
+        return got
+
+    solo = solos()
+    f32 = {}
+    for sched in SCHEDULERS:
+        toks = f32_runs(sched)
+        for r, a, b in zip(reqs, toks, solo):
+            check(a == b, f"f32 paged/{sched} request {r.uid}: {a} in the "
+                  f"wave, {b} served alone")
+        f32[sched] = toks
+    eng = api.serve(model32, base32, reg, **dense_kw)
+    rr = fresh(reqs, 0)
+    eng.run(rr)
+    out["f32_dense_equal_paged"] = sum(
+        r.out_tokens == t for r, t in zip(rr, f32["fifo"]))
+    del eng
+    samp = dict(top_k=40, **SAMPLING)
+    stoks = f32_runs("affinity", **samp)
+    for r, a, b in zip(reqs, stoks, solos(**samp)):
+        check(a == b, f"f32 sampled paged/affinity request {r.uid}: {a} in "
+              f"the wave, {b} served alone")
+    out["f32_sampled_equal_greedy"] = sum(
+        a == b for a, b in zip(stoks, f32["affinity"]))
+    del model32, base32
+    log("  f32 copy: paged streams bitwise equal at decode_chunk 1, 8 and 16 "
+        "under fifo, priority and affinity, and sampled under affinity, each "
+        "equal to its solo serve; "
+        f"{out['f32_dense_equal_paged']} of 24 equal the dense/fifo streams")
+
+    # reported: the open-loop timeline, dense and paged, per scheduler
+    open_loop = {}
+    for layout in ("dense", "paged"):
+        for sched in SCHEDULERS:
+            if layout == "paged":
+                eng = engines[sched]
+            elif sched == "fifo":
+                eng = dense
+            else:
+                eng = api.serve(model, base, reg, scheduler=sched,
+                                **dense_kw)
+                eng.run(fresh(reqs, 0))        # warm: captures its graphs
+            ol = paged_traffic(cfg, seed, closed=False)
+            reasons = record_blocks(eng)
+            n0 = len(eng.wave_log)
+            eng.run(ol)
+            valid_tokens(ol, vocab, f"open-loop {layout}/{sched}")
+            waves = eng.wave_log[n0:]
+            rec = summarize(ol)
+            by_prio = {}
+            for p in sorted({r.priority for r in ol}):
+                t = [r.t_first_s - r.arrival_s for r in ol if r.priority == p]
+                by_prio[str(p)] = {q: float(np.percentile(t, q))
+                                   for q in (50, 95, 99)}
+            rec.update(
+                ttft_by_priority_s=by_prio, admitted=sum(
+                    w["admitted"] for w in waves),
+                waves=len(waves), rows=[w["rows"] for w in waves],
+                deferred=eng._sched.deferred, blocks=dict(reasons),
+                blocks_peak=max((w.get("kv_blocks_peak", 0) for w in waves),
+                                default=0))
+            if layout == "paged":
+                kv_check(eng, f"open-loop paged/{sched}")
+            open_loop[f"{layout}/{sched}"] = rec
+            if layout == "dense" and sched != "fifo":
+                del eng
+    out["open_loop"] = open_loop
+    out["profile"] = profile_wave(torch, engines["fifo"], reqs, out_dir,
+                                  "profile_paged")
+    out["dense_profile"] = profile_wave(torch, dense, reqs, out_dir,
+                                        "profile_paged_traffic_dense")
+    out["attention_ms_per_step"] = attention_step_ms(torch, model.cfg)
+    return launches, out
+
+
+def attention_step_ms(torch, cfg):
+    """Device ms of one decode step's attention, every layer, by CUDA
+    graph: the paged write, gather attention and normalisation against
+    the dense ring's write and attention, at phase 3p's shapes (4 rows,
+    256 positions: 16 blocks of 16 per row out of 65, per-row positions
+    of 20-120)."""
+    from repro_torch.models.attention import (cache_write, decode_attention,
+                                              finalize_partial,
+                                              paged_attention_partial,
+                                              paged_cache_write)
+    dev = torch.device("cuda")
+    a = cfg.pattern[0].attn
+    B, BS, NB, S = 4, 16, 65, 256
+    g = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(  # noqa
+        torch.bfloat16)
+    q, kn, vn = rnd(B, 1, a.n_q, a.head_dim), rnd(B, 1, a.n_kv,
+                                                 a.head_dim), rnd(
+        B, 1, a.n_kv, a.head_dim)
+    kp, vp = rnd(NB, BS, a.n_kv, a.head_dim), rnd(NB, BS, a.n_kv,
+                                                 a.head_dim)
+    tables = (torch.arange(B * 16, device=dev, dtype=torch.int32)
+              .reshape(B, 16) + 1)
+    lens = torch.tensor([100, 40, 20, 120], dtype=torch.int32, device=dev)
+    start = torch.tensor([4, 8, 0, 2], dtype=torch.int32, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    kc, vc = rnd(B, S, a.n_kv, a.head_dim), rnd(B, S, a.n_kv, a.head_dim)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    cur = torch.tensor(120, dtype=torch.int32, device=dev)
+
+    def paged():
+        paged_cache_write(kp, vp, tables, lens, active, kn, vn)
+        o, m, l = paged_attention_partial(q, kp, vp, tables, lens, start, a)
+        return finalize_partial(o, m, l)[:, None].to(q.dtype)
+
+    def dense():
+        cache_write(kc, vc, pos, kn, vn, cur)
+        return decode_attention(q, kc, vc, pos, cur, a,
+                                start=start).to(q.dtype)
+
+    layers = cfg.n_units * len(cfg.pattern)
+    return {"paged": graph_ms(torch, paged) * layers,
+            "dense": graph_ms(torch, dense) * layers, "layers": layers}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--units", type=int, default=4,
@@ -2237,6 +2700,16 @@ def main(argv=None) -> int:
         _, _, sampled_launches[top_k], sampled[top_k] = sampled_path(
             torch, api, model, base, reg, rreqs, top_k)
 
+    log("phase 3p: paged KV under fifo, priority and affinity (24 "
+        "requests, max_batch 4, cache_len 256, kv_block_size 16, "
+        "decode_chunk 8)")
+    t0 = time.monotonic()
+    paged_launches, paged = paged_path(torch, api, model, base, reg, cfg,
+                                       args.seed, out_dir)
+    paged["phase_s"] = time.monotonic() - t0
+    log(f"  launches on the paged path: {paged_launches}; phase 3p took "
+        f"{paged['phase_s']:.1f} s")
+
     log("phase 4: checks")
     for r in reqs:
         check(len(r.out_tokens) == r.max_new_tokens
@@ -2366,10 +2839,11 @@ def main(argv=None) -> int:
         r = report[name]
         # each kernel's launches on the paths that run it: the mixed path,
         # the merge path, the merged ensemble, the artifact path, the
-        # refill path, the two wide configurations and the sampled paths
+        # refill path, the two wide configurations, the sampled paths and
+        # the paged path
         n_launch = (launches[name] + merge_launches[name]
                     + ens_launches[name] + art_launches[name]
-                    + refill_launches[name]
+                    + refill_launches[name] + paged_launches[name]
                     + sum(c[name] for c in wide_launches.values())
                     + sum(c[name] for c in sampled_launches.values()))
         entry = {"name": name, "route": "cuda", "source": src,
@@ -2419,12 +2893,13 @@ def main(argv=None) -> int:
                "graphs": {"mixed": graph_stats(engine),
                           "merge": graph_stats(gengine),
                           "refill": graph_stats(rengine)},
-               "wide_configs": wide, "sampled": sampled,
+               "wide_configs": wide, "sampled": sampled, "paged": paged,
                "params_m": n_params / 1e6}
     details.update(kernels=kernels, numbers=numbers, launches={
         "mixed_path": launches, "merge_path": merge_launches,
         "ensemble": ens_launches, "ensemble_loop_check": check_launches,
         "artifact_path": art_launches, "refill_path": refill_launches,
+        "paged_path": paged_launches,
         "ternary_matvec_check": matvec_launches,
         **{f"{a}_path": c for a, c in wide_launches.items()},
         **{f"sampled_top_k_{k}_path": c
@@ -2558,6 +3033,50 @@ def main(argv=None) -> int:
             f"{g['graph_captures']} captures in {g['graph_capture_s']:.2f} s"
             + (f", serve {g['serve_s']:.2f} s (cold)" if "serve_s" in g
                else f", serve {rf['cold_serve_s']:.2f} s (cold)"))
+    for name, p in (("warm closed paged/fifo run", paged["profile"]),
+                    ("the same traffic, dense/fifo", paged["dense_profile"])):
+        log(f"{name} {tag}: wall {p['wall_ms']:.1f} ms, device busy "
+            f"{p['device_busy_ms']:.1f} ms, idle share "
+            + (f"{p['idle_share']:.3f}" if p["idle_share"] is not None
+               else "not measured"))
+    log(f"paged traffic, closed (24 requests, "
+        f"{sum(r.max_new_tokens for r in paged_traffic(cfg, args.seed))} "
+        f"tokens), warm tokens/s end to end {tag}: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in paged["warm_tokens_per_s"].items())
+        + "; dense/fifo head-of-line blocks "
+        f"{paged['dense']['blocks']}; paged blocks " + "; ".join(
+            f"{k}: {v['blocks']}, {v['deferred']} deferred, peak "
+            f"{v['kv']['blocks_peak']} of {v['kv']['blocks_total']} blocks"
+            for k, v in paged["schedulers"].items()))
+    for k, v in paged["schedulers"].items():
+        g = v["graphs"]
+        log(f"graphs of the paged/{k} engine {tag}: {g['graphs']} graphs, "
+            f"{g['graph_captures']} captures in {g['graph_capture_s']:.2f} s,"
+            f" {g['graph_replays']} replays (cold run; a warm run captured "
+            "none)")
+    for k, a in paged["bf16_against_dense"].items():
+        log(f"paged/{k} against dense/fifo, bf16 {tag}: {a['equal']} of 24 "
+            "equal; partings " + (", ".join(
+                f"uid {e['uid']} at step {e['step']} (gaps {e['gaps'][0]:.4f}"
+                f" / {e['gaps'][1]:.4f}, tol {e['tol']:.4f})"
+                for e in a["parted"]) or "none"))
+    at = paged["attention_ms_per_step"]
+    log(f"decode attention device ms per step ({at['layers']} layers, 4 rows,"
+        f" 256 positions) by CUDA graph {tag}: paged {at['paged']:.4f}, dense "
+        f"{at['dense']:.4f}")
+    for k, rec in paged["open_loop"].items():
+        log(f"open-loop {k} (24 requests, base 8/s, 4x bursts) {tag}: "
+            f"tokens/s {rec['tokens_per_s']:.1f}, span {rec['span_s']:.3f} s, "
+            f"TTFT s p50/p95/p99 all {rec['ttft_p50_s']:.3f}/"
+            f"{rec['ttft_p95_s']:.3f}/{rec['ttft_p99_s']:.3f}, " + ", ".join(
+                f"p{p} {v[50]:.3f}/{v[95]:.3f}/{v[99]:.3f}"
+                for p, v in rec["ttft_by_priority_s"].items())
+            + ", deadline misses " + ", ".join(
+                f"p{p} {v['deadline_miss']}"
+                for p, v in rec["per_priority"].items())
+            + f", {rec['waves']} waves of rows {rec['rows']}, "
+            f"{rec['admitted']} admitted, {rec['deferred']} deferred, blocks "
+            f"{rec['blocks']}, peak {rec['blocks_peak']} KV blocks")
     log(f"grouped kernel: empty expert slots cost {tag}: "
         f"{report['ternary_matmul_grouped']['slot_padding_ms_per_wave']:.3f}"
         " ms per wave")

@@ -92,8 +92,11 @@ def serve(model, base_params: dict, reg, cfg=None, **engine_kw):
     """A :class:`~repro_torch.serve.engine.ServeEngine` over a registry,
     on the registry's device.  Pass an ``EngineConfig`` or its fields
     (``max_batch``, ``cache_len``, ``decode_chunk``, ``scheduling`` =
-    ``"mixed"`` or ``"grouped"`` for merge-on-swap, ...); ``temperature``,
-    ``top_k`` and ``seed`` build its ``SamplingConfig``."""
+    ``"mixed"`` or ``"grouped"`` for merge-on-swap, ``scheduler`` =
+    ``"fifo"``, ``"priority"`` or ``"affinity"``, ``kv_layout`` =
+    ``"dense"`` or ``"paged"`` with ``kv_block_size`` and ``kv_blocks``,
+    ...); ``temperature``, ``top_k`` and ``seed`` build its
+    ``SamplingConfig``."""
     from repro_torch.serve.decode_loop import SamplingConfig
     from repro_torch.serve.engine import EngineConfig, ServeEngine
     samp = {k: engine_kw.pop(k) for k in ("temperature", "top_k", "seed")

@@ -1,10 +1,12 @@
 """Attention for prefill and decode, and the q/k/v/o projections (PyTorch).
 
-Port of the dense-KV parts of ``repro/models/attention.py``.  The JAX
-package computes attention in plain jnp (no Pallas kernel), so the port
-computes it in plain PyTorch with the same masked-softmax arithmetic: a
-fully masked query row yields zeros, like the reference's flash partials.
-Layouts are the reference's: q [B, T, Hq, D], k/v [B, S, Hkv, D].
+Port of the dense-KV and paged-KV parts of ``repro/models/attention.py``.
+The JAX package computes attention in plain jnp (no Pallas kernel), so the
+port computes it in plain PyTorch with the same masked-softmax arithmetic:
+a fully masked query row yields zeros, like the reference's flash
+partials.  Layouts are the reference's: q [B, T, Hq, D], k/v [B, S, Hkv,
+D]; paged pools [NB, BS, Hkv, D] with block tables [B, MAXB]
+(:mod:`repro_torch.serve.paged_kv`).
 """
 
 from __future__ import annotations
@@ -101,6 +103,84 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     mask = valid[:, None, None, None, :]                     # [B,1,1,1,S]
     o = _masked_softmax_av(s, mask, v_cache)
     return o.reshape(B, 1, Hq, D)
+
+
+def finalize_partial(o: torch.Tensor, m: torch.Tensor,
+                     l: torch.Tensor) -> torch.Tensor:
+    """Normalise flash partials (o [B, Hq, D], m and l [B, Hq])."""
+    return o / torch.clamp_min(l[..., None], 1e-30)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV (block-table pools; see repro_torch.serve.paged_kv)
+# ---------------------------------------------------------------------------
+
+
+def paged_cache_write(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                      tables: torch.Tensor, lens: torch.Tensor,
+                      active: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor) -> None:
+    """Write one token per row into each row's current block, in place.
+
+    ``k_pool``/``v_pool`` [NB, BS, Hkv, D]; ``tables`` [B, MAXB] (-1
+    unallocated); ``lens`` [B] write positions; ``active`` [B] rows still
+    generating; ``k_new``/``v_new`` [B, 1, Hkv, D].  Finished rows keep
+    stepping with the batch, so their writes go to the trash block, which
+    no live table lists; several dead rows may hit one trash slot, which
+    is never read."""
+    BS = k_pool.shape[1]
+    # each row's block, found on the device so that a CUDA graph replays
+    # it: tables[b, lens[b] // BS], or the trash block for an inactive row
+    # or an unallocated entry
+    bidx = torch.clamp(torch.div(lens, BS, rounding_mode="floor"), 0,
+                       tables.shape[1] - 1).to(torch.int64)
+    blk = torch.gather(tables, 1, bidx[:, None])[:, 0]
+    blk = torch.where(active & (blk >= 0), blk, 0).to(torch.int64)
+    slot = torch.remainder(lens, BS).to(torch.int64)
+    k_pool.index_put_((blk, slot), k_new[:, 0].to(k_pool.dtype))
+    v_pool.index_put_((blk, slot), v_new[:, 0].to(v_pool.dtype))
+
+
+def paged_attention_partial(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, tables: torch.Tensor,
+                            lens: torch.Tensor, start: torch.Tensor, cfg):
+    """One-token attention over gathered block-table KV.
+
+    ``q`` [B, 1, Hq, D] (rope applied); ``pool[tables[b]]`` lays row b's
+    positions out in order, so gathered position s is absolute position
+    s and the mask is ``start[b] <= s <= lens[b]``, allocated blocks only,
+    and the window.  The reference's order: gather (-1 clamped to block
+    0), the score einsum, then the scale and the softcap, the mask, the
+    masked max and its safe value, exp, the mask again, the sum, the
+    einsum with V.  Returns flash partials (o [B, Hq, D], m [B, Hq],
+    l [B, Hq]) in f32."""
+    B, _, Hq, D = q.shape
+    BS, Hkv = k_pool.shape[1], k_pool.shape[2]
+    maxb = tables.shape[1]
+    S = maxb * BS
+    G = Hq // Hkv
+    safe = torch.where(tables < 0, 0, tables).to(torch.int64)
+    kf = k_pool[safe].reshape(B, S, Hkv, D).to(torch.float32)
+    vf = v_pool[safe].reshape(B, S, Hkv, D).to(torch.float32)
+    qf = q.reshape(B, Hkv, G, D).to(torch.float32)
+    s = torch.einsum("bhgd,bshd->bhgs", qf, kf) * (1.0 / np.sqrt(D))
+    s = softcap(s, cfg.attn_softcap)
+    spos = torch.arange(S, device=q.device)[None, :]
+    lens_c = lens.to(torch.int64)[:, None]
+    allocated = (tables >= 0)[:, :, None].expand(B, maxb, BS).reshape(B, S)
+    valid = ((spos <= lens_c)
+             & (spos >= start.to(torch.int64)[:, None]) & allocated)
+    if cfg.window is not None:
+        valid &= spos > (lens_c - cfg.window)
+    vmask = valid[:, None, None, :]
+    s = torch.where(vmask, s, NEG_INF)
+    m = s.amax(dim=-1)
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    p = torch.exp(s - m_safe[..., None])
+    p = torch.where(vmask, p, 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, vf)
+    return o.reshape(B, Hq, D), m.reshape(B, Hq), l.reshape(B, Hq)
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

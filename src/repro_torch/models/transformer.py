@@ -21,8 +21,9 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.models.attention import (cache_write, decode_attention,
-                                          flash_attention, out_project,
-                                          qkv_project)
+                                          finalize_partial, flash_attention,
+                                          out_project, paged_attention_partial,
+                                          paged_cache_write, qkv_project)
 from repro_torch.models.common import (dense_init, dtype_of, embed_init,
                                        rms_norm, softcap)
 from repro_torch.models.delta import (add_delta, delta_proj,
@@ -154,14 +155,31 @@ def _prefill_block(x, bp, b, cfg, positions, dp, eid, kv_start):
     return _apply_ffn(x, bp, b, cfg, dp, eid), (k, v)
 
 
-def _decode_block(x, bp, b, cfg, st, cur: torch.Tensor, dp, eid, start):
+def _decode_block(x, bp, b, cfg, st, cur, dp, eid, start, paged=None):
+    """One-token step through one block, its KV written in place.
+
+    ``paged`` (``(tables, lens, active)``) switches to the block-table
+    pools: rope positions are per row (``lens``), the write lands in each
+    row's current block (the trash block for inactive rows) and attention
+    gathers each row's blocks.  Without it the dense ring at the shared
+    position ``cur`` is used."""
     h = _norm(x, bp, "pre_norm", cfg, dp, eid)
-    positions = cur.reshape(1, 1)
+    if paged is not None:
+        tables, lens, active = paged
+        positions = lens[:, None]                    # [B, 1] per row
+    else:
+        positions = cur.reshape(1, 1)
     q, k, v = qkv_project(h, bp["attn"], b.attn, positions, cfg.rms_eps,
                           dp=dp.get("attn"), eid=eid)
-    cache_write(st["k"], st["v"], st["pos"], k, v, cur)
-    o = decode_attention(q, st["k"], st["v"], st["pos"], cur, b.attn,
-                         start=start).to(q.dtype)
+    if paged is not None:
+        paged_cache_write(st["k"], st["v"], tables, lens, active, k, v)
+        o, m, l = paged_attention_partial(q, st["k"], st["v"], tables, lens,
+                                          start, b.attn)
+        o = finalize_partial(o, m, l)[:, None].to(q.dtype)
+    else:
+        cache_write(st["k"], st["v"], st["pos"], k, v, cur)
+        o = decode_attention(q, st["k"], st["v"], st["pos"], cur, b.attn,
+                             start=start).to(q.dtype)
     x = _attn_residual(x, o, bp, b, cfg, dp, eid)
     return _apply_ffn(x, bp, b, cfg, dp, eid)
 
@@ -225,14 +243,22 @@ def init_decode_cache(cfg, batch: int, cache_len: int, dtype=None,
 def decode_step(params, token, cache, cfg, delta=None, eid=None):
     """token [B, 1] -> (logits [B, 1, V], cache).
 
-    ``cache["cur"]`` is the position of this token, a 0-d int32 tensor on
-    the device (as under the reference's ``jit``): the step reads no host
-    value, so a CUDA graph can replay it.  The cache tensors are written in
-    place and ``cur`` advances by one in place.
+    Dense ring: ``cache["cur"]`` is the position of this token, a 0-d
+    int32 tensor on the device (as under the reference's ``jit``), and
+    advances by one in place.  Paged (``"tables" in cache``): each row's
+    position is ``cache["lens"]``, which advances in place by
+    ``cache["active"]``, so finished rows freeze.  The step reads no host
+    value, so a CUDA graph can replay it; the cache tensors are written in
+    place.
     """
     x = embed_tokens(params, token, cfg, delta=delta, eid=eid)
     x = x.to(dtype_of(cfg))
-    cur = cache["cur"]
+    paged = "tables" in cache          # block-table KV (serve/paged_kv.py)
+    if paged:
+        cur = None
+        pg = (cache["tables"], cache["lens"], cache["active"])
+    else:
+        cur, pg = cache["cur"], None
     start = cache.get("start")
     dblocks = delta.get("blocks") if delta is not None else None
     for u in range(cfg.n_units):
@@ -242,9 +268,13 @@ def decode_step(params, token, cache, cfg, delta=None, eid=None):
             name = f"block{i}"
             st = {k: t[u] for k, t in cache["layers"][name].items()}
             x = _decode_block(x, unit_params[name], b, cfg, st, cur,
-                              unit_delta.get(name) or {}, eid, start)
+                              unit_delta.get(name) or {}, eid, start,
+                              paged=pg)
     logits = logits_of(params, x, cfg, delta=delta, eid=eid)
-    cur.add_(1)
+    if paged:
+        cache["lens"].add_(cache["active"].to(torch.int32))
+    else:
+        cur.add_(1)
     return logits, cache
 
 

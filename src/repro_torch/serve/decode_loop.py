@@ -15,11 +15,14 @@ kernel's plain version is.  On a CUDA device it runs as one
 ``torch.cuda.CUDAGraph`` replay, the counterpart of the reference's single
 compiled launch.  A graph is captured per (rows, decode steps) at first
 use, and keyed further by every object it reads by address: the
-parameters, the overlay, the caller's token, expert-id and KV buffers, and
-the kernel dispatch table.  The caller keeps those at fixed addresses and
-writes them in place between replays; ``remaining`` goes in through a
-buffer of the graph's own.  A capture or replay that fails raises: nothing
-falls back to the loop on the card.
+parameters, the overlay, the caller's token, expert-id and KV buffers
+(the dense ring, or the paged pools with their block tables and row
+vectors), and the kernel dispatch table.  The caller keeps those at fixed
+addresses and writes them in place between replays; ``remaining`` goes in
+through a buffer of the graph's own.  With paged KV a row turns inactive
+inside the chunk when its budget runs dry, as in the reference.  A
+capture or replay that fails raises: nothing falls back to the loop on
+the card.
 
 Sampled selection (``temperature > 0``) draws the reference's own
 threefry stream (:mod:`repro_torch.serve.sampling`): token ``i`` of a
@@ -128,6 +131,11 @@ class DecodeChunk:
             active = rem > 0
             emitted.append(torch.where(active, tok[:, 0], PAD_TOKEN))
             rem = torch.where(active, rem - 1, rem)
+            if "active" in cache:
+                # paged KV: a row whose budget just ran dry turns inactive,
+                # so decode_step sends its writes to the trash block and
+                # freezes its position (in place, inside the graph)
+                cache["active"].copy_(rem > 0)
             if i < steps:
                 logits, _ = self.api.decode_step(params, tok, cache,
                                                  delta=overlay, eid=eid)

@@ -2,8 +2,9 @@
 over one shared base, and merge-on-swap.
 
 Port of ``repro/serve/engine.py``.  Requests name an expert.  Under
-``scheduling="mixed"`` (the default) a FIFO scheduler
-(:mod:`repro_torch.serve.scheduler`) takes them into waves of up to
+``scheduling="mixed"`` (the default) a scheduler
+(:mod:`repro_torch.serve.scheduler`: ``"fifo"``, ``"priority"`` or
+``"affinity"``) takes them into waves of up to
 ``max_batch`` rows across up to ``max_stack`` distinct experts; a wave
 runs prefill and chunked decode against the **base** parameters plus a
 zero-merge overlay (the bitplanes of every expert in the wave, contracted
@@ -15,6 +16,16 @@ place while requests are queued: the newcomer's prompt is left-padded to
 the wave's position, prefilled as a single row, and its KV, first
 position, expert id and first token are copied into the running wave's
 row, so it gets the tokens it gets when served alone.
+
+With ``kv_layout="paged"`` the wave's KV lives in block pools
+(:mod:`repro_torch.serve.paged_kv`): each row's prompt is left-padded only
+to the next block boundary, rows of one bucket are prefilled together and
+scattered into their blocks, and an admission allocates the newcomer's
+blocks, at any prompt length and any point of the wave, whenever enough
+blocks are free.  A wave larger than the pool re-queues its overflow.
+Each row decodes at its own position, so the dense path's ``"position"``
+and ``"wrap"`` blocks do not exist there; ``"kv_blocks"`` takes their
+place.
 
 Decode runs in chunks of ``decode_chunk`` steps with one host read per
 chunk (:mod:`repro_torch.serve.decode_loop`), each chunk one CUDA graph
@@ -30,7 +41,8 @@ on the chunk size or the admission time either.  A graph replays the
 chunk's own kernels at its own shapes, so it equals the chunk run eagerly
 bitwise.  Everything a graph reads stays at one address for the engine's
 life: per batch size a token, expert-id, sampling-key, stream-position
-and KV buffer that every prefill and admission writes into; the expert
+and KV buffer (dense ring or paged pools, block tables and row vectors)
+that every prefill and admission writes into; the expert
 slots (:class:`~repro_torch.models.delta.SlotOverlay`, ``max_stack`` of
 them) that waves and admissions fill by copy; on the merge path one
 merged parameter tree that every swap writes into.  So a warm engine
@@ -55,18 +67,18 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from collections import deque
+from collections import defaultdict, deque
 from typing import Any, Optional
 
 import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.models.delta import SlotOverlay, plan_overlay
-from repro_torch.serve import decode_loop
+from repro_torch.serve import decode_loop, paged_kv
 from repro_torch.serve.decode_loop import SamplingConfig, select_tokens
 from repro_torch.serve.expert_cache import BASE, ExpertRegistry
 from repro_torch.serve.sampling import row_keys
-from repro_torch.serve.scheduler import make_scheduler
+from repro_torch.serve.scheduler import SCHEDULERS, make_scheduler
 
 PENDING = "pending"
 DONE = "done"
@@ -84,6 +96,8 @@ class Request:
     out_tokens: list = dataclasses.field(default_factory=list)
     status: str = PENDING
     error: Optional[str] = None
+    priority: int = 1          # lower value = more urgent class
+    deadline_s: Optional[float] = None   # absolute SLO deadline (EDF tiebreak)
     # engine clock: seconds since run() began (time.monotonic based)
     arrival_s: float = 0.0     # open-loop arrival offset; 0 = already queued
     t_admit_s: Optional[float] = None    # first placed into a wave
@@ -104,9 +118,11 @@ class EngineConfig:
     sampling: SamplingConfig = dataclasses.field(
         default_factory=SamplingConfig)
     degrade: str = "request"
-    scheduler: str = "fifo"
-    kv_layout: str = "dense"
-    kv_block_size: int = 16
+    scheduler: str = "fifo"       # "fifo" | "priority" | "affinity"
+    kv_layout: str = "dense"      # "dense" ring | "paged" block pools
+    kv_block_size: int = 16       # token positions per KV block (paged)
+    # pool blocks, the reserved trash block included; None sizes the pool
+    # so that a full batch at cache_len never waits for blocks
     kv_blocks: Optional[int] = None
     mesh: Optional[Any] = None
     snapshot_dir: Optional[str] = None
@@ -114,18 +130,34 @@ class EngineConfig:
 
 
 def _unsupported(cfg: EngineConfig) -> Optional[str]:
-    if cfg.kv_layout != "dense":
-        return (f"kv_layout={cfg.kv_layout!r}: paged KV comes with ROADMAP "
-                "queue 1, item 7")
-    if cfg.scheduler != "fifo":
-        return (f"scheduler={cfg.scheduler!r}: priority and affinity "
-                "scheduling come with ROADMAP queue 1, item 7")
     if cfg.mesh is not None:
         return "mesh=: serving across GPUs comes with ROADMAP queue 1, item 10"
     if cfg.snapshot_dir is not None or cfg.snapshot_every_chunks:
         return ("snapshot_dir=: journal, snapshots and resume come with "
                 "ROADMAP queue 1, item 9")
     return None
+
+
+def _check_paged(mcfg, ecfg: EngineConfig) -> None:
+    """The reference's conditions for ``kv_layout="paged"``."""
+    if not ecfg.decode_chunk:
+        raise ValueError("kv_layout='paged' needs the chunked decode loop; "
+                         "set decode_chunk > 0")
+    if (any(b.kind != "attn" for b in mcfg.pattern)
+            or mcfg.frontend is not None or mcfg.cross_attn
+            or mcfg.enc_n_units):
+        raise ValueError("kv_layout='paged' needs a pure-attention "
+                         "decoder-only pattern (recurrent blocks and "
+                         "frontends keep state outside KV)")
+    if ecfg.kv_block_size < 1:
+        raise ValueError("kv_block_size must be >= 1")
+    for b in mcfg.pattern:
+        if b.attn.window is not None and b.attn.window < ecfg.cache_len:
+            # a window below cache_len shrinks the dense ring; the paged
+            # prefill needs the whole position range resident
+            raise ValueError(
+                "kv_layout='paged' needs attention windows >= cache_len "
+                f"(got window={b.attn.window}, cache_len={ecfg.cache_len})")
 
 
 class ServeEngine:
@@ -143,6 +175,20 @@ class ServeEngine:
             raise ValueError("decode_chunk must be >= 0")
         if ecfg.degrade not in ("request", "raise"):
             raise ValueError('degrade must be "request" or "raise"')
+        if ecfg.scheduler not in SCHEDULERS:
+            raise ValueError(f"unknown scheduler {ecfg.scheduler!r}; "
+                             f"expected one of {sorted(SCHEDULERS)}")
+        if ecfg.kv_layout not in ("dense", "paged"):
+            raise ValueError('kv_layout must be "dense" or "paged", '
+                             f"got {ecfg.kv_layout!r}")
+        if ecfg.kv_layout == "paged":
+            _check_paged(api.cfg, ecfg)
+        self._bs = ecfg.kv_block_size
+        self._max_blocks = -(-ecfg.cache_len // max(self._bs, 1))
+        self._kv_blocks = (ecfg.kv_blocks if ecfg.kv_blocks is not None
+                           else ecfg.max_batch * self._max_blocks + 1)
+        if ecfg.kv_layout == "paged" and self._kv_blocks < 2:
+            raise ValueError("kv_blocks must be >= 2 (block 0 is reserved)")
         self.api = api
         self.base = base_params
         self.registry = registry
@@ -156,6 +202,7 @@ class ServeEngine:
         self._plan = plan_overlay(base_params, api.cfg)
         self._slots: Optional[SlotOverlay] = None   # made at the first wave
         self._states: dict[int, dict] = {}          # batch rows -> buffers
+        self._paged_states: dict[int, dict] = {}    # the same, paged KV
         self._merged_name: Optional[str] = None
         self._merged_params: Optional[dict] = None  # made at the first swap
         self._chunker = (decode_loop.make_decode_chunk(
@@ -166,6 +213,10 @@ class ServeEngine:
         self.wave_log: list[dict] = []       # mixed waves
         self.batch_log: list[dict] = []      # merge-path batches
         self.swap_log: deque = deque(maxlen=512)   # merges, with seconds
+        self._sched = None                   # the last run's scheduler
+        self._adm_wait: dict[int, list] = defaultdict(list)  # by priority
+        self._kv_in_use = 0                  # pool blocks in use (paged)
+        self._kv_peak = 0
 
     # ---------------- merged parameters ----------------
 
@@ -225,6 +276,17 @@ class ServeEngine:
 
     # ---------------- kept buffers ----------------
 
+    def _row_buffers(self, rows: int, cache: dict) -> dict:
+        return {"tok": torch.zeros((rows, 1), dtype=torch.int32,
+                                   device=self.dev),
+                "eid": torch.zeros((rows,), dtype=torch.int32,
+                                   device=self.dev),
+                "keys": torch.zeros((rows, 2), dtype=torch.int64,
+                                    device=self.dev),
+                "gen": torch.zeros((rows,), dtype=torch.int64,
+                                   device=self.dev),
+                "cache": cache}
+
     def _state(self, rows: int) -> dict:
         """The pending-token, expert-id, sampling-key, stream-position and
         KV buffers of a batch of ``rows``, made once and rewritten by every
@@ -235,16 +297,19 @@ class ServeEngine:
                                                device=self.dev)
             cache["start"] = torch.zeros((rows,), dtype=torch.int32,
                                          device=self.dev)
-            st = self._states[rows] = {
-                "tok": torch.zeros((rows, 1), dtype=torch.int32,
-                                   device=self.dev),
-                "eid": torch.zeros((rows,), dtype=torch.int32,
-                                   device=self.dev),
-                "keys": torch.zeros((rows, 2), dtype=torch.int64,
-                                    device=self.dev),
-                "gen": torch.zeros((rows,), dtype=torch.int64,
-                                   device=self.dev),
-                "cache": cache}
+            st = self._states[rows] = self._row_buffers(rows, cache)
+        return st
+
+    def _paged_state(self, rows: int) -> dict:
+        """:meth:`_state` for paged KV: the block pools, ``tables``,
+        ``lens``, ``start`` and ``active`` of ``rows`` rows, made once per
+        row count and reset in place at each wave."""
+        st = self._paged_states.get(rows)
+        if st is None:
+            cache = paged_kv.init_paged_cache(
+                self.api.cfg, rows, self._kv_blocks, self._bs,
+                self._max_blocks, device=self.dev)
+            st = self._paged_states[rows] = self._row_buffers(rows, cache)
         return st
 
     # ---------------- engine clock ----------------
@@ -257,6 +322,7 @@ class ServeEngine:
         for r in reqs:
             if r.t_admit_s is None:
                 r.t_admit_s = now
+                self._adm_wait[r.priority].append(now - r.arrival_s)
 
     def _mark_first(self, reqs: list[Request]) -> None:
         now = self._now()
@@ -292,10 +358,29 @@ class ServeEngine:
         for r in reqs:
             r.status, r.error = FAILED, why
 
-    def _run_mixed(self, requests: list[Request]) -> None:
-        sched = make_scheduler(self.cfg.scheduler)
+    def _validate_paged(self, requests: list[Request]) -> None:
+        """A request that can never be placed (more blocks than the whole
+        pool, or more positions than a row's table) fails terminally
+        instead of blocking the queue."""
         for r in requests:
-            sched.push(r)
+            lp, need = paged_kv.blocks_for(len(r.prompt), r.max_new_tokens,
+                                           self._bs)
+            if (lp + r.max_new_tokens > self._max_blocks * self._bs
+                    or need > min(self._max_blocks, self._kv_blocks - 1)):
+                self._fail([r], (
+                    f"request {r.uid} needs {need} KV blocks "
+                    f"({lp}+{r.max_new_tokens} positions); pool holds "
+                    f"{self._kv_blocks - 1} usable blocks of {self._bs} "
+                    f"with {self._max_blocks} per row"))
+
+    def _run_mixed(self, requests: list[Request]) -> None:
+        if self.cfg.kv_layout == "paged":
+            self._validate_paged(requests)
+        sched = make_scheduler(self.cfg.scheduler)
+        self._sched = sched
+        for r in requests:
+            if r.status == PENDING:
+                sched.push(r)
         self._drain(sched)
 
     def _drain(self, sched) -> None:
@@ -335,7 +420,9 @@ class ServeEngine:
             if overlay is None:
                 self._run_grouped(wave)
                 continue
-            if self.cfg.decode_chunk:
+            if self.cfg.kv_layout == "paged":
+                self._serve_wave_paged(wave, experts, overlay, sched)
+            elif self.cfg.decode_chunk:
                 self._serve_wave_chunked(wave, experts, overlay, sched)
             else:
                 self._serve_wave_eager(wave, experts, overlay, sched)
@@ -360,12 +447,13 @@ class ServeEngine:
                 self._serve_batch(params, group[i:i + self.cfg.max_batch],
                                   expert)
 
-    def _pad_prompts(self, reqs: list[Request]):
-        """Left-pad prompts to one width -> (tokens [B, T] int64, start [B]
-        int32, each row's first real position)."""
+    def _pad_prompts(self, reqs: list[Request], width: int = 0):
+        """Left-pad prompts to one width (the longest, or ``width``) ->
+        (tokens [B, T] int64, start [B] int32, each row's first real
+        position)."""
         prompts = [torch.as_tensor(r.prompt, dtype=torch.int64).reshape(-1)
                    for r in reqs]
-        T = max(int(p.numel()) for p in prompts)
+        T = width or max(int(p.numel()) for p in prompts)
         toks = torch.full((len(reqs), T), PAD_PROMPT_TOKEN, dtype=torch.int64)
         for j, p in enumerate(prompts):
             toks[j, T - p.numel():] = p
@@ -423,27 +511,43 @@ class ServeEngine:
                 if r.status == FAILED
                 or len(r.out_tokens) >= r.max_new_tokens]
 
-    def _admission_block_reason(self, nxt: Request, cur: int,
-                                slot: dict) -> Optional[str]:
+    def _admission_block_reason(self, nxt: Request, cur: int, slot: dict,
+                                alloc=None) -> Optional[str]:
         """Why ``nxt`` cannot be placed into a finished slot now (None:
         placeable).  Dense slots are hostage to the wave position: no
-        left-pad down, no ring wrap."""
+        left-pad down, no ring wrap.  Paged slots need only free blocks
+        (``alloc``, the wave's allocator)."""
         if nxt.expert not in slot and len(slot) >= self.cfg.max_stack:
             return "stack"
-        if len(nxt.prompt) > cur:
-            return "position"         # cannot left-pad down
-        if cur + nxt.max_new_tokens > self.cfg.cache_len:
-            return "wrap"             # would wrap the KV ring
+        if alloc is None:
+            if len(nxt.prompt) > cur:
+                return "position"     # cannot left-pad down
+            if cur + nxt.max_new_tokens > self.cfg.cache_len:
+                return "wrap"         # would wrap the KV ring
+        else:
+            _, need = paged_kv.blocks_for(len(nxt.prompt),
+                                          nxt.max_new_tokens, self._bs)
+            if need > alloc.available:
+                return "kv_blocks"
         return None
 
     def _try_admissions(self, rows, done, cur, experts, slot, overlay, st,
-                        sched):
-        """Refill finished slots in place from the scheduler, with the
-        strict-FIFO head-of-line block: an unplaceable head stops every
-        refill.  ``cur`` is the host's mirror of the wave position.
-        Returns (rows, experts, overlay, slots refilled)."""
+                        sched, alloc=None, row_blocks=None):
+        """Refill finished slots in place from the scheduler.  Under FIFO
+        (``strict_fifo``) an unplaceable head stops every refill; the
+        priority and affinity schedulers scan past it and count the
+        deferral.  ``cur`` is the host's mirror of the wave position
+        (dense only); on the paged path ``alloc`` and ``row_blocks`` (row
+        -> its blocks) are the wave's, and every finished row's blocks go
+        back to the pool first.  Returns (rows, experts, overlay, slots
+        refilled)."""
         sched.release(self._now())
         refilled = []
+        if alloc is not None:
+            for j in done:
+                if j in row_blocks:
+                    alloc.free(row_blocks.pop(j))
+            self._kv_in_use = alloc.in_use
         blocked = False
         for j in done:
             if blocked:
@@ -452,7 +556,8 @@ class ServeEngine:
             while rescan and not blocked:
                 admitted = rescan = False
                 for nxt in sched.candidates(slot):
-                    reason = self._admission_block_reason(nxt, cur, slot)
+                    reason = self._admission_block_reason(nxt, cur, slot,
+                                                          alloc)
                     if reason is not None:
                         if sched.strict_fifo:
                             blocked = True
@@ -486,7 +591,11 @@ class ServeEngine:
                     sched.remove(nxt)
                     rows[j] = nxt
                     st["eid"][j] = slot[nxt.expert]
-                    self._admit_row(nxt, j, cur, st, overlay)
+                    if alloc is not None:
+                        self._admit_row_paged(nxt, j, st, overlay, alloc,
+                                              row_blocks)
+                    else:
+                        self._admit_row(nxt, j, cur, st, overlay)
                     self._mark_admitted([nxt])
                     self._mark_first([nxt])
                     refilled.append(j)
@@ -542,11 +651,11 @@ class ServeEngine:
         return decode_loop.host_decode_steps(max(rem), K), True
 
     def _chunk_loop(self, rows, experts, slot, overlay, st, sched,
-                    cur: int) -> tuple:
-        """The chunked wave driver: a chunk, its flush, then refills of
-        finished slots.  A newcomer's first token stays on the device as
-        the pending token the next chunk emits first.  Returns (admitted
-        (request, wave position) pairs, chunks)."""
+                    cur: int, alloc=None, row_blocks=None) -> tuple:
+        """The chunked wave driver (dense and paged): a chunk, its flush,
+        then refills of finished slots.  A newcomer's first token stays on
+        the device as the pending token the next chunk emits first.
+        Returns (admitted (request, wave position) pairs, chunks)."""
         admitted, chunks = [], 0
         while True:
             steps, launched = self._drive_chunk(self.base, overlay,
@@ -556,7 +665,8 @@ class ServeEngine:
             done = self._done_rows(rows)
             if sched is not None and sched.pending() and self._can_admit():
                 rows, experts, overlay, refilled = self._try_admissions(
-                    rows, done, cur, experts, slot, overlay, st, sched)
+                    rows, done, cur, experts, slot, overlay, st, sched,
+                    alloc=alloc, row_blocks=row_blocks)
                 admitted += [(rows[j], cur) for j in refilled]
                 done = self._done_rows(rows)
             if len(done) == len(rows):
@@ -575,6 +685,116 @@ class ServeEngine:
                                             overlay, st, sched, cur)
         self.wave_log.append(self._log(t0, g0, wave, admitted, chunks, cur,
                                        prefill_s, experts=len(experts)))
+
+    # ---------------- paged-KV wave driver ----------------
+
+    def _paged_prefill(self, reqs: list[Request], js: list[int], lp: int,
+                       st: dict, overlay: dict, row_blocks: dict) -> None:
+        """Prefill rows ``js`` (prompts all bucketed to width ``lp``) and
+        scatter their KV into their pool blocks.  The rows run one dense
+        prefill at ``cache_len = lp``: there the ring fill is the
+        identity, so slot order is position order and each row's cache
+        drops into ``lp // BS`` blocks.  Each row's key, first token
+        (drawn at stream position 0), block table, position and first
+        real position are written into the kept buffers in place."""
+        dev = self.dev
+        jsa = torch.as_tensor(js, dtype=torch.int64, device=dev)
+        toks, start = self._pad_prompts(reqs, lp)
+        logits, row_cache = self.api.prefill(
+            self.base, {"tokens": toks}, lp, delta=overlay,
+            eid=st["eid"][jsa], start=start)
+        nbp = lp // self._bs
+        ptab = torch.as_tensor([row_blocks[j][:nbp] for j in js],
+                               dtype=torch.int64)
+        tables = torch.full((len(js), self._max_blocks), -1,
+                            dtype=torch.int32)
+        for i, j in enumerate(js):
+            tables[i, :len(row_blocks[j])] = torch.as_tensor(row_blocks[j])
+        paged_kv.insert_prefill_rows(
+            st["cache"], row_cache["layers"], jsa, ptab.to(dev),
+            tables.to(dev), torch.full((len(js),), lp, dtype=torch.int32,
+                                       device=dev), start)
+        st["keys"].index_copy_(0, jsa, self._keys(reqs).to(dev))
+        first = select_tokens(logits[:, -1], st["keys"][jsa],
+                              torch.zeros((len(js),), dtype=torch.int64,
+                                          device=dev), self.cfg.sampling)
+        st["tok"].index_copy_(0, jsa, first[:, None])
+
+    def _admit_row_paged(self, r: Request, j: int, st: dict, overlay: dict,
+                         alloc, row_blocks: dict) -> None:
+        """Paged slot refill: allocate the row's blocks and write its
+        prefill KV into them.  No wave position to pad against and no
+        ring to wrap: the feasibility check already found the blocks."""
+        lp, need = paged_kv.blocks_for(len(r.prompt), r.max_new_tokens,
+                                       self._bs)
+        row_blocks[j] = alloc.alloc(need)
+        self._kv_in_use = alloc.in_use
+        self._kv_peak = max(self._kv_peak, alloc.peak_in_use)
+        self._paged_prefill([r], [j], lp, st, overlay, row_blocks)
+
+    def _serve_wave_paged(self, wave, experts, overlay, sched) -> None:
+        """Block-table wave: one batched prefill per prompt bucket into
+        pool blocks, then the chunked driver over the paged cache (one
+        CUDA graph replay a chunk on the card).  Admission control is the
+        wave's free list, fresh on the host: a finished row's blocks go
+        back to the pool, and any queued request whose blocks fit is
+        placeable.  A wave larger than the pool re-queues its overflow."""
+        t0, g0 = time.monotonic(), self._graph_counts()
+        alloc = paged_kv.BlockAllocator(self._kv_blocks, self._bs)
+        row_blocks: dict[int, list] = {}
+        kept, buckets = [], []
+        for r in wave:
+            lp, need = paged_kv.blocks_for(len(r.prompt), r.max_new_tokens,
+                                           self._bs)
+            blocks = alloc.alloc(need)
+            if blocks is None:
+                # the pool is smaller than the wave: the overflow re-enters
+                # through a later wave or a slot refill
+                sched.push(r)
+                continue
+            row_blocks[len(kept)] = blocks
+            kept.append(r)
+            buckets.append(lp)
+        if not kept:
+            return
+        requeued = len(wave) - len(kept)
+        wave = kept
+        self._mark_admitted(wave)
+        slot = {e: self.slot_of(e) for e in experts}
+        st = self._paged_state(len(wave))
+        cache = st["cache"]
+        cache["tables"].fill_(-1)
+        cache["active"].zero_()
+        st["eid"].copy_(torch.as_tensor([slot[r.expert] for r in wave],
+                                        dtype=torch.int32))
+        groups: dict[int, list] = defaultdict(list)
+        for j, lp in enumerate(buckets):
+            groups[lp].append(j)
+        for lp in sorted(groups):
+            self._paged_prefill([wave[j] for j in groups[lp]], groups[lp],
+                                lp, st, overlay, row_blocks)
+        self._sync()
+        prefill_s = time.monotonic() - t0
+        self._mark_first(wave)
+        self._kv_in_use = alloc.in_use
+        self._kv_peak = max(self._kv_peak, alloc.peak_in_use)
+        try:
+            admitted, chunks = self._chunk_loop(
+                list(wave), experts, slot, overlay, st, sched, 0,
+                alloc=alloc, row_blocks=row_blocks)
+        finally:
+            # every live row's blocks go back on any exit, and the
+            # allocator must balance: a leak would starve later waves
+            for j in list(row_blocks):
+                alloc.free(row_blocks.pop(j))
+            self._kv_in_use = alloc.in_use
+            assert alloc.in_use == 0, (
+                f"paged KV leak: {alloc.in_use} blocks still allocated at "
+                "wave teardown")
+        self.wave_log.append(self._log(
+            t0, g0, wave, admitted, chunks, max(buckets), prefill_s,
+            experts=len(experts), kv_blocks_peak=alloc.peak_in_use,
+            requeued=requeued))
 
     def _serve_wave_eager(self, wave, experts, overlay, sched) -> None:
         """The baseline: one decode step and one host read per token."""
@@ -666,9 +886,26 @@ class ServeEngine:
                     capture_s=g["capture_s"] - g0["capture_s"],
                     replays=g["replays"] - g0["replays"], **extra)
 
+    def _scheduler_stats(self) -> dict:
+        s = self._sched.stats() if self._sched is not None else {
+            "policy": self.cfg.scheduler, "queue_depth_max": 0,
+            "deferred": 0}
+        s["admission_wait_s"] = {
+            str(p): {"n": len(w), "mean": sum(w) / len(w), "max": max(w)}
+            for p, w in sorted(self._adm_wait.items()) if w}
+        return s
+
+    def _kv_stats(self) -> dict:
+        total = (self._kv_blocks - 1 if self.cfg.kv_layout == "paged"
+                 else None)
+        return {"layout": self.cfg.kv_layout, "block_size": self._bs,
+                "blocks_total": total, "blocks_in_use": self._kv_in_use,
+                "blocks_peak": self._kv_peak}
+
     def swap_summary(self) -> dict:
         s = self.cache.stats.as_dict()
         g = self._graph_counts()
+        hits, builds = s.get("stack_hits", 0), s.get("stack_builds", 0)
         s.update(n_waves=len(self.wave_log), n_batches=len(self.batch_log),
                  n_swaps=len(self.swap_log),
                  swap_seconds=sum(x["seconds"] for x in self.swap_log),
@@ -677,5 +914,7 @@ class ServeEngine:
                              else 0),
                  admitted=sum(w["admitted"] for w in self.wave_log),
                  graphs=g["graphs"], graph_captures=g["captures"],
-                 graph_capture_s=g["capture_s"], graph_replays=g["replays"])
+                 graph_capture_s=g["capture_s"], graph_replays=g["replays"],
+                 stack_hit_rate=hits / max(hits + builds, 1),
+                 scheduler=self._scheduler_stats(), kv=self._kv_stats())
         return s

@@ -266,8 +266,9 @@ def test_fifo_scheduler_equals_reference():
             ref.remove(ref.candidates({})[0])
     assert ours.stats() == {k: v for k, v in ref.stats().items()}
     assert make_scheduler("fifo").strict_fifo
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_scheduler("priority")
+    assert not make_scheduler("priority").strict_fifo
+    with pytest.raises(ValueError, match="unknown scheduler"):
+        make_scheduler("lottery")
 
 
 def test_decode_step_device_position_past_ring_wrap(setup):

@@ -736,3 +736,103 @@ def test_failing_capture_raises(serving, monkeypatch):
     torch.cuda.synchronize()
     assert eng._chunker.replays == 0
     assert all(len(r.out_tokens) == 0 for r in reqs)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV under the graphed decode chunk
+# ---------------------------------------------------------------------------
+
+
+PAGED = dict(kv_layout="paged", kv_block_size=8)
+
+
+def _eager_chunks(eng, K):
+    """``eng`` with each decode chunk computed by the chunk's own loop,
+    without its graph (the same kernels, shapes and admission points)."""
+    from repro_torch.serve.decode_loop import host_decode_steps
+    chunk = eng._chunker
+    eng._chunk_fn = lambda p, o, e, tok, cache, rem, gen, keys: (
+        tok, cache, chunk._run(p, o, e, tok, cache, torch.as_tensor(
+            rem, dtype=torch.int32, device=tok.device), gen, keys,
+            host_decode_steps(max(rem), K)))
+    return eng
+
+
+@pytest.mark.parametrize("K,sampled", [(1, False), (4, False), (8, True)])
+def test_paged_graph_chunk_equals_eager_chunks(serving, K, sampled):
+    from repro_torch import api
+    model, base, reg = serving
+    kw = dict(temperature=0.8, top_k=5, seed=3) if sampled else {}
+    eng, toks = _serve(serving, _requests(*REFILL), decode_chunk=K,
+                       scheduler="priority", **PAGED, **kw)
+    s = eng.swap_summary()
+    assert s["admitted"] >= 1 and s["graph_captures"] >= 1
+    assert s["graph_replays"] >= s["graphs"]
+    eager = _eager_chunks(api.serve(model, base, reg, max_batch=3,
+                                    cache_len=64, decode_chunk=K,
+                                    scheduler="priority", **PAGED, **kw), K)
+    reqs = _requests(*REFILL)
+    eager.run(reqs)
+    assert [r.out_tokens for r in reqs] == toks
+    assert eager.swap_summary()["graph_captures"] == 0
+
+
+@pytest.mark.parametrize("sched", ["fifo", "priority", "affinity"])
+def test_warm_paged_engine_captures_nothing_and_leaks_no_blocks(serving,
+                                                                sched):
+    eng, toks = _serve(serving, _requests(*REFILL), decode_chunk=4,
+                       scheduler=sched, **PAGED)
+    before = eng.swap_summary()["graph_captures"]
+    reqs = _requests(*REFILL)
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    s = eng.swap_summary()
+    assert [r.out_tokens for r in reqs] == toks
+    assert s["graph_captures"] == before
+    assert s["kv"]["blocks_in_use"] == 0
+    assert 1 <= s["kv"]["blocks_peak"] <= s["kv"]["blocks_total"]
+    # a pool of 7 blocks re-queues the overflow and gives the same tokens
+    small, small_toks = _serve(serving, _requests(*REFILL), decode_chunk=4,
+                               scheduler=sched, kv_blocks=7, **PAGED)
+    assert small_toks == toks
+    kv = small.swap_summary()["kv"]
+    assert kv["blocks_in_use"] == 0 and kv["blocks_peak"] <= 6
+
+
+def test_paged_launch_counts_match_dense_per_step(serving):
+    """One decode step launches the grouped kernel as often on block pools
+    as on the dense ring (every projection and the head)."""
+    from repro_torch import api
+    from repro_torch.serve import paged_kv
+    model, base, reg = serving
+    eng = api.serve(model, base, reg, max_batch=3, cache_len=64)
+    overlay = eng._overlay_for(("e0", "e1"))
+    eid = torch.tensor([eng.slot_of(n) for n in ("e0", "e1", "e0")],
+                       dtype=torch.int32, device="cuda")
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(2, 500, (3, 8), generator=g).cuda()
+    _, dense = model.prefill(base, {"tokens": toks}, 64, delta=overlay,
+                             eid=eid)
+    _, rows = model.prefill(base, {"tokens": toks}, 8, delta=overlay,
+                            eid=eid)
+    paged = paged_kv.init_paged_cache(model.cfg, 3, 25, 8, 8,
+                                      device="cuda")
+    blocks = torch.tensor([[1, 2], [3, 4], [5, 6]], device="cuda")
+    tables = torch.full((3, 8), -1, dtype=torch.int32, device="cuda")
+    tables[:, :2] = blocks.to(torch.int32)
+    paged_kv.insert_prefill_rows(
+        paged, rows["layers"], torch.arange(3, device="cuda"), blocks[:, :1],
+        tables, torch.full((3,), 8, dtype=torch.int32, device="cuda"),
+        torch.zeros(3, dtype=torch.int32, device="cuda"))
+    tok = torch.full((3, 1), 7, dtype=torch.int32, device="cuda")
+    counts = []
+    for cache in (dense, paged):
+        ops.reset_launch_counts()
+        logits, _ = model.decode_step(base, tok, cache, delta=overlay,
+                                      eid=eid)
+        torch.cuda.synchronize()
+        counts.append(ops.launch_counts())
+        assert torch.isfinite(logits).all()
+    assert counts[0] == counts[1]
+    assert counts[1]["ternary_matmul_grouped"] > 0
+    assert paged["lens"].tolist() == [9, 9, 9]

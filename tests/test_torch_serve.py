@@ -143,9 +143,10 @@ def test_unknown_expert_fails_only_its_requests(setup):
 
 
 @pytest.mark.parametrize("option", [
-    {"kv_layout": "paged"}, {"scheduler": "affinity"}, {"mesh": object()},
-    {"snapshot_dir": "snapshots"},
-    {"scheduler": "priority"}])
+    {"kv_layout": "paged", "mesh": object()},
+    {"scheduler": "affinity", "snapshot_dir": "snapshots"},
+    {"mesh": object()}, {"snapshot_dir": "snapshots"},
+    {"scheduler": "priority", "snapshot_every_chunks": 2}])
 def test_unported_options_raise(setup, option):
     _, _, _, _, model, tbase, treg = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
