@@ -87,6 +87,25 @@ failure with a non-zero exit:
      reported, the generator's open-loop timeline per scheduler, dense
      and paged, one warm paged run profiled, and the paged attention's
      device time per step beside the dense ring's;
+  3r. the remote tiers (``remote_path``): the 4 experts published as
+     PACKED wire blobs; phase 3's 8 requests served on fresh engines from
+     a ``LocalTransport`` directory, from ``serve_local_http`` on
+     127.0.0.1 (mixed, and by merge-on-swap from a second registry), and
+     from a ``ReplicatedTransport`` over 3 chaos-wrapped in-memory
+     replicas (R 2; a seeded bitflip on one owner of e1, the other owner
+     down after 5 reads a name): tokens bitwise phase 3's (3b's for
+     merge-on-swap), fetched planes bitwise the published, kernel 1's
+     launches per wave phase 3's; a fresh engine captures its decode
+     graphs while e2 and e3 are still on a simulated 3 s link (no capture
+     error, prefetch hits, no prefetch error, tokens bitwise a local
+     registry's); e2 blacked out under paged KV and the affinity
+     scheduler: its 2 requests fail naming e2 and "unavailable", one
+     quarantine, no KV block left in use, survivors equal the no-fault
+     run by the near-tie rule in bf16 and bitwise on an f32 copy; every
+     prefetch stage's planes on the host; reported: bytes on the wire
+     per expert (PACKED, GOLOMB, DENSE reckoned), one expert's HTTP
+     fetch, CRC-and-decode and host-to-device seconds, the cold and warm
+     first token of a remote request, remote against prefetch seconds;
   4. check the result: tokens in range; one expert's planes bitwise equal
      to the plain compression of its tau (and one warm compression of it
      profiled: device ms by pass and the host share); every row's tokens
@@ -2490,6 +2509,390 @@ def paged_path(torch, api, model, base, reg, cfg, seed, out_dir):
     return launches, out
 
 
+def remote_requests(reqs, uid0):
+    """Phase 3's 8 requests reordered so that the first FIFO wave holds
+    only e0, e1 and ``BASE`` and the second only e2 and e3."""
+    order = [r for r in reqs if r.expert not in ("e2", "e3")] + \
+        [r for r in reqs if r.expert in ("e2", "e3")]
+    return fresh(order, uid0)
+
+
+def timed_spans(obj, attr, spans):
+    """Wrap the method ``attr`` of ``obj`` so that each call's (start,
+    end) on the monotonic clock is appended to ``spans``."""
+    inner = getattr(obj, attr)
+
+    def timed(*args, **kwargs):
+        t0 = time.monotonic()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            spans.append((t0, time.monotonic()))
+    setattr(obj, attr, timed)
+
+
+def host_stages(torch, cache, seen):
+    """Hold every prefetch stage of ``cache`` to the host: each staged
+    tree's tensors must lie on the CPU (gate (e)); records the thread and
+    the devices seen in ``seen``."""
+    import threading
+    stage = cache._stage
+
+    def checked(name):
+        tree, secs = stage(name)
+        devs = sorted({t.device.type for pt in (tree or {}).values()
+                       for t in (pt.pos, pt.neg, pt.scale)})
+        seen.append((name, threading.current_thread().name, devs))
+        check(devs in ([], ["cpu"]), f"the prefetch stage of {name} made "
+              f"tensors on {devs}")
+        return tree, secs
+    cache._stage = checked
+
+
+def planes_equal(torch, got, want, what):
+    """``got`` (on any device) bitwise the published planes ``want``."""
+    for path, pt in want.items():
+        g = got[path]
+        dev = pt.pos.device
+        check(torch.equal(g.pos.to(dev), pt.pos)
+              and torch.equal(g.neg.to(dev), pt.neg)
+              and torch.equal(g.scale.to(dev), pt.scale),
+              f"{what} {path}: fetched planes differ from the published")
+
+
+def remote_path(torch, api, model, base, reg, experts, reqs, greqs,
+                grouped_per_wave, art, tmp):
+    """Phase 3r: the remote tiers at full width.  The 4 experts are
+    published as PACKED wire blobs (no decode on arrival) and phase 3's 8
+    requests served, each run on a fresh engine (phase 3's config) with
+    the launch counts set to 0 just before it and read just after, from:
+
+    1. a ``LocalTransport`` in a temporary directory;
+    2. an ``HTTPTransport`` against ``serve_local_http`` on 127.0.0.1,
+       mixed, then by merge-on-swap (``scheduling="grouped"``) from a
+       second HTTP registry;
+    3. a ``ReplicatedTransport`` over 3 ``ChaosTransport``-wrapped
+       in-memory replicas, R = 2: one owner of e1 flips a seeded bit of
+       e1's second read, the other goes down after 5 reads of each name.
+
+    Gates: (a) every fetched tree bitwise the published planes, tokens
+    bitwise phase 3's (mixed) and phase 3b's (merge-on-swap); (b) kernel
+    1's launches per wave equal phase 3's; (c) a fresh engine whose e2
+    and e3 sit behind a simulated link of 3 s captures its first wave's
+    decode graphs while their prefetch stages are in flight: no capture
+    error, ``prefetch_hits >= 1``, ``prefetch_errors == 0``, tokens
+    bitwise a local registry's; (d) blackout of e2 (``quarantine_after=
+    1``) under paged KV and the affinity scheduler: the e2 requests fail
+    with an error naming e2 and "unavailable", the rest end done, 2
+    failed, 1 quarantine, no KV block in use; survivors equal the
+    no-fault run by the near-tie rule in bf16 and bitwise on an f32 copy;
+    (e) every staged tree lies on the CPU until ``fetch`` moves it.
+    Returns (numbers, launches)."""
+    import threading
+    from repro_torch import tree as tree_util
+    from repro_torch.core.packing import tree_packed_bytes
+    from repro_torch.expert import PACKED
+    from repro_torch.kernels import ops
+    from repro_torch.models import build as build_model
+    from repro_torch.transport import (ChaosFault, ChaosTransport,
+                                       HTTPTransport, InMemoryTransport,
+                                       LocalTransport, ReplicaFault,
+                                       ReplicatedTransport,
+                                       SimulatedNetworkTransport,
+                                       decode_expert, serve_local_http)
+    kw = dict(max_batch=4, cache_len=128, decode_chunk=8, continuous=False)
+    out, launches, stages = {}, {}, []
+    want = [r.out_tokens for r in reqs]
+    names = [e.name for e in experts]
+    published = {e.name: e.packed for e in experts}
+
+    def remote_registry(**rkw):
+        r = api.registry(device=base["embed"].device,
+                         device_cache_bytes=16 << 30, **rkw)
+        host_stages(torch, r.device(), stages)
+        return r
+
+    def counted_run(what, engine, rr):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        engine.run(rr)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        got = ops.launch_counts()
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return got, secs
+
+    def mixed_gates(what, rreg, engine, rr, got):
+        check([r.out_tokens for r in rr] == want,
+              f"{what}: tokens differ from phase 3's")
+        n = len(engine.wave_log)
+        check(n == 2 and got["ternary_matmul_grouped"] / n
+              == grouped_per_wave, f"{what}: "
+              f"{got['ternary_matmul_grouped']} grouped launches in {n} "
+              f"waves, phase 3 launched {grouped_per_wave} per wave")
+        for name in names:
+            planes_equal(torch, rreg.fetch_packed(name), published[name],
+                         what)
+        s = engine.swap_summary()
+        check(s["prefetch_errors"] == 0 and s["failed"] == 0,
+              f"{what}: {s['prefetch_errors']} prefetch errors, "
+              f"{s['failed']} failed requests")
+        return {k: s[k] for k in (
+            "remote_fetches", "remote_bytes", "remote_seconds",
+            "prefetch_issued", "prefetch_hits", "prefetch_seconds",
+            "retries", "transport_bytes_wasted", "promotions",
+            "host_to_device_bytes")}
+
+    # 1. publish (PACKED) into a directory, serve from it
+    root = os.path.join(tmp, "experts")
+    local = LocalTransport(root)
+    t0 = time.monotonic()
+    info = [api.publish(e, local, rep=PACKED) for e in experts]
+    out["publish_packed_s"] = time.monotonic() - t0
+    blobs = {n: local.fetch_bytes(n) for n in names}
+    params = sum(int(math.prod(pt.shape)) for pt in published["e0"].values())
+    out["wire_bytes_per_expert"] = {
+        "packed": {i["name"]: i["nbytes"] for i in info},
+        "golomb": {k[:-5]: v for k, v in art["file_bytes"].items()
+                   if k.endswith(".cpft")},
+        "dense_reckoned": 2 * params}
+    lreg = remote_registry(transport=local)
+    leng = api.serve(model, base, lreg, **kw)
+    rr = fresh(reqs, 1100)
+    got, secs = counted_run("local", leng, rr)
+    out["local"] = dict(mixed_gates("LocalTransport", lreg, leng, rr, got),
+                        serve_s=secs)
+    lreg.close()
+    del leng, lreg
+    log(f"  LocalTransport: 4 PACKED blobs of {info[0]['nbytes'] / 2**20:.1f}"
+        f" MiB published in {out['publish_packed_s']:.2f} s; tokens bitwise "
+        "phase 3's, planes bitwise the published, grouped launches per wave"
+        " equal phase 3's")
+
+    # 2. loopback HTTP: the per-expert costs, mixed serve, merge-on-swap
+    server, url = serve_local_http(root)
+    try:
+        http = HTTPTransport(url)
+        t0 = time.monotonic()
+        raw = http.fetch_bytes("e0")
+        fetch_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        host = decode_expert(raw, device="cpu")
+        decode_s = time.monotonic() - t0
+        del raw
+        hreg = remote_registry(transport=HTTPTransport(url))
+        heng = api.serve(model, base, hreg, **kw)
+        rr = fresh(reqs, 1200)
+        got, secs = counted_run("http", heng, rr)
+        out["http"] = dict(mixed_gates("HTTPTransport", hreg, heng, rr,
+                                       got), serve_s=secs)
+        # one promotion from the cold tier: the host-to-device copy alone
+        cache = hreg.device()
+        cache._drop_tree("e0")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        tree = cache.fetch("e0")
+        torch.cuda.synchronize()
+        h2d_s = time.monotonic() - t0
+        nbytes = tree_packed_bytes(tree)
+        planes_equal(torch, tree, published["e0"], "HTTP promotion")
+        hreg.close()
+        del heng, hreg, tree, cache
+        out["per_expert"] = {
+            "http_fetch_s": fetch_s, "crc_decode_s": decode_s,
+            "h2d_s": h2d_s, "h2d_bytes": nbytes,
+            "h2d_gb_per_s": nbytes / h2d_s / 1e9}
+        planes_equal(torch, host.packed, published["e0"],
+                     "HTTP fetch and decode")
+        del host
+
+        # the cold and warm first token of a request whose expert is
+        # remote (a fresh registry and engine, one request, then again),
+        # its tokens those of the same request alone on a local registry
+        solo = fresh([reqs[1]], 1302)
+        api.serve(model, base, reg, **kw).run(solo)
+        creg = remote_registry(transport=HTTPTransport(url))
+        ceng = api.serve(model, base, creg, **kw)
+        ttft = []
+        for uid in (1300, 1301):
+            one = fresh([reqs[1]], uid)
+            ceng.run(one)
+            check(one[0].out_tokens == solo[0].out_tokens,
+                  "the remote first-token request's tokens differ from "
+                  "the same request served alone from a local registry")
+            ttft.append(one[0].t_first_s)
+        out["ttft_s"] = {"cold": ttft[0], "warm": ttft[1]}
+        creg.close()
+        del ceng, creg
+
+        greg = remote_registry(transport=HTTPTransport(url))
+        geng = api.serve(model, base, greg, scheduling="grouped",
+                         max_batch=4, cache_len=128, decode_chunk=8)
+        rr = fresh(greqs, 1400)
+        got, secs = counted_run("http merge", geng, rr)
+        check([r.out_tokens for r in rr] == [r.out_tokens for r in greqs],
+              "merge-on-swap over HTTP: tokens differ from phase 3b's")
+        check(got["unpack_add_many"] > 0, "merge-on-swap over HTTP did not "
+              "launch unpack_add_many")
+        gs = geng.swap_summary()
+        check(gs["n_swaps"] == 4 and gs["prefetch_errors"] == 0,
+              f"merge-on-swap over HTTP: {gs['n_swaps']} swaps, "
+              f"{gs['prefetch_errors']} prefetch errors")
+        out["http_merge"] = {"serve_s": secs, "prefetch_hits":
+                             gs["prefetch_hits"],
+                             "remote_seconds": gs["remote_seconds"],
+                             "prefetch_seconds": gs["prefetch_seconds"]}
+        greg.close()
+        del geng, greg
+    finally:
+        server.shutdown()
+        server.server_close()
+    log(f"  HTTP on 127.0.0.1: tokens bitwise phase 3's (mixed) and phase "
+        "3b's (merge-on-swap, 4 swaps); planes bitwise the published")
+
+    # 3. a replicated fleet: a bitflip on one owner of e1, the other owner
+    # down mid-stream
+    probe = ReplicatedTransport([InMemoryTransport() for _ in range(3)],
+                                replication_factor=2)
+    flip, down = probe._owners("e1")
+    fleet = [ChaosTransport(
+        InMemoryTransport(), seed=0,
+        faults=[ChaosFault("e1", 1, "bitflip")] if i == flip else (),
+        replica_faults=[ReplicaFault("blackout", at=5)] if i == down
+        else ()) for i in range(3)]
+    for e in experts:
+        api.publish(e, fleet, rep=PACKED, replication_factor=2)
+    rreg = remote_registry(replicas=fleet, replication_factor=2)
+    reng = api.serve(model, base, rreg, **kw)
+    rr = fresh(reqs, 1500)
+    got, secs = counted_run("replicated", reng, rr)
+    out["replicated"] = dict(mixed_gates("ReplicatedTransport", rreg, reng,
+                                         rr, got), serve_s=secs)
+    fired = {i: [f["kind"] for f in c.fired()] for i, c in enumerate(fleet)}
+    check("bitflip" in fired[flip] and "replica_blackout" in fired[down],
+          f"the replicated fleet's faults did not fire: {fired}")
+    out["replicated"].update(
+        faults=fired, health=rreg.health()["replicas"]["replicas"])
+    rreg.close()
+    del reng, rreg
+    log(f"  replicated (3 replicas, R 2): replica {flip} flipped a bit of "
+        f"e1, replica {down} went down after 5 reads a name ({fired}); "
+        "tokens bitwise phase 3's")
+
+    # (c) capture while the prefetch stages of e2 and e3 are in flight
+    inner = InMemoryTransport()
+    for n in ("e2", "e3"):
+        inner._put(n, blobs[n])
+    link = SimulatedNetworkTransport(bandwidth_bps=1e12, latency_s=3.0,
+                                     inner=inner)
+    gets, caps = [], []
+    timed_spans(link, "_get", gets)
+    sreg = remote_registry(transport=link)
+    sreg.add(experts[0], experts[1])        # local overlays, card-resident
+    seng = api.serve(model, base, sreg, **kw)
+    timed_spans(seng._chunker, "_capture", caps)
+    order = remote_requests(reqs, 1600)
+    ops.reset_launch_counts()
+    seng.run(order)
+    torch.cuda.synchronize()
+    for k, v in ops.launch_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    ss = seng.swap_summary()
+    overlapped = [c for c in caps
+                  if any(g[0] < c[0] and c[1] < g[1] for g in gets)]
+    check(len(caps) >= 1 and overlapped, f"no capture ran inside a prefetch "
+          f"stage: captures {caps}, link reads {gets}")
+    check(ss["prefetch_hits"] >= 1 and ss["prefetch_errors"] == 0,
+          f"prefetch under capture: {ss['prefetch_hits']} hits, "
+          f"{ss['prefetch_errors']} errors")
+    ref = remote_requests(reqs, 1700)
+    api.serve(model, base, reg, **kw).run(ref)
+    check([r.out_tokens for r in order] == [r.out_tokens for r in ref],
+          "prefetch under capture: tokens differ from a local registry's")
+    planes_equal(torch, sreg.fetch_packed("e2"), published["e2"],
+                 "simulated link")
+    out["capture_overlap"] = {
+        "captures": len(caps), "captures_in_flight": len(overlapped),
+        "prefetch_hits": ss["prefetch_hits"],
+        "prefetch_seconds": ss["prefetch_seconds"],
+        "remote_seconds": ss["remote_seconds"]}
+    sreg.close()
+    del seng, sreg
+    log(f"  capture under prefetch: {len(overlapped)} of {len(caps)} "
+        f"captures ran while e2/e3 were on the 3 s link; "
+        f"{ss['prefetch_hits']} prefetch hits, 0 errors; tokens bitwise a "
+        "local registry's")
+
+    # (d) blackout of e2 under paged KV and the affinity scheduler, bf16
+    # and on an f32 copy
+    pkw = dict(max_batch=4, cache_len=128, decode_chunk=8,
+               kv_layout="paged", kv_block_size=16, scheduler="affinity")
+    model32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    base32 = tree_util.tree_map(lambda t: t.float(), base)
+    blackout = {}
+    for dtype, m, b in (("bf16", model, base), ("f32", model32, base32)):
+        clean_eng = api.serve(m, b, reg, **pkw)
+        clean = fresh(reqs, 1800)
+        clean_eng.run(clean)
+        store = InMemoryTransport()
+        for n in names:
+            store._put(n, blobs[n])
+        breg = api.registry(transport=ChaosTransport(store, blackout=["e2"],
+                                                     seed=0),
+                            device=base["embed"].device,
+                            device_cache_bytes=16 << 30, quarantine_after=1)
+        host_stages(torch, breg.device(), stages)
+        beng = api.serve(m, b, breg, **pkw)
+        rr = fresh(reqs, 1900)
+        beng.run(rr)
+        s = beng.swap_summary()
+        hit = [r for r in rr if r.expert == "e2"]
+        for r in hit:
+            check(r.status == "failed" and r.out_tokens == []
+                  and "e2" in r.error and "unavailable" in r.error,
+                  f"blackout {dtype}: request {r.uid} on e2 ended "
+                  f"{r.status} ({r.error})")
+        check(all(r.status == "done" for r in rr if r.expert != "e2"),
+              f"blackout {dtype}: a request on another expert failed")
+        check(s["failed"] == len(hit) == 2 and s["quarantines"] == 1,
+              f"blackout {dtype}: failed {s['failed']}, quarantines "
+              f"{s['quarantines']}")
+        kv_check(beng, f"blackout {dtype}")
+        survivors = [(r, c) for r, c in zip(rr, clean) if r.expert != "e2"]
+        if dtype == "f32":
+            check(all(r.out_tokens == c.out_tokens for r, c in survivors),
+                  "blackout f32: a survivor's tokens differ from the "
+                  "no-fault run's")
+            equal, parted = len(survivors), []
+        else:
+            equal, parted = near_ties(torch, clean_eng,
+                                      [c for _, c in survivors],
+                                      [r for r, _ in survivors],
+                                      "blackout bf16 against no fault")
+        blackout[dtype] = {"failed": s["failed"],
+                           "quarantines": s["quarantines"],
+                           "survivors_equal": equal, "parted": parted,
+                           "prefetch_errors": s["prefetch_errors"],
+                           "kv": s["kv"]}
+        breg.close()
+        del clean_eng, beng, breg
+    del model32, base32
+    out["blackout"] = blackout
+    check(stages and all(d in ([], ["cpu"]) for _, _, d in stages)
+          and all(t != threading.current_thread().name
+                  for _, t, _ in stages),
+          "a prefetch stage ran off a worker or made device tensors")
+    out["stages"] = {"n": len(stages), "on_host": True}
+    log(f"  blackout of e2 (paged, affinity): 2 failed, 1 quarantine, no "
+        f"block in use; survivors bf16 {blackout['bf16']['survivors_equal']}"
+        f" of 6 equal ({len(blackout['bf16']['parted'])} at near-ties), "
+        "f32 all 6 bitwise; every one of "
+        f"{len(stages)} prefetch stages left its planes on the host")
+    return out, launches
+
+
 def attention_step_ms(torch, cfg):
     """Device ms of one decode step's attention, every layer, by CUDA
     graph: the paged write, gather attention and normalisation against
@@ -2631,6 +3034,8 @@ def main(argv=None) -> int:
     engine.run(reqs)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    grouped_per_wave = launches["ternary_matmul_grouped"] / len(
+        engine.wave_log)
     log(f"  launches on the mixed path: {launches}")
     for name in MIXED_PATH_KERNELS:
         check(launches[name] > 0,
@@ -2709,6 +3114,21 @@ def main(argv=None) -> int:
     paged["phase_s"] = time.monotonic() - t0
     log(f"  launches on the paged path: {paged_launches}; phase 3p took "
         f"{paged['phase_s']:.1f} s")
+
+    log("phase 3r: remote tiers (PACKED blobs over a directory, loopback "
+        "HTTP and a replicated fleet with faults; capture under prefetch; "
+        "blackout)")
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="_artifacts_", dir=ROOT) as tmp:
+        remote, remote_launches = remote_path(
+            torch, api, model, base, reg, experts, reqs, greqs,
+            grouped_per_wave, art, tmp)
+    remote["phase_s"] = time.monotonic() - t0
+    log(f"  launches on the remote paths: {remote_launches}; phase 3r took "
+        f"{remote['phase_s']:.1f} s")
+    for name in ("ternary_matmul_grouped", "unpack_add_many"):
+        check(remote_launches[name] > 0,
+              f"kernel {name} was not launched on the remote paths")
 
     log("phase 4: checks")
     for r in reqs:
@@ -2839,11 +3259,12 @@ def main(argv=None) -> int:
         r = report[name]
         # each kernel's launches on the paths that run it: the mixed path,
         # the merge path, the merged ensemble, the artifact path, the
-        # refill path, the two wide configurations, the sampled paths and
-        # the paged path
+        # refill path, the two wide configurations, the sampled paths, the
+        # paged path and the remote paths
         n_launch = (launches[name] + merge_launches[name]
                     + ens_launches[name] + art_launches[name]
                     + refill_launches[name] + paged_launches[name]
+                    + remote_launches[name]
                     + sum(c[name] for c in wide_launches.values())
                     + sum(c[name] for c in sampled_launches.values()))
         entry = {"name": name, "route": "cuda", "source": src,
@@ -2894,12 +3315,13 @@ def main(argv=None) -> int:
                           "merge": graph_stats(gengine),
                           "refill": graph_stats(rengine)},
                "wide_configs": wide, "sampled": sampled, "paged": paged,
+               "remote": remote,
                "params_m": n_params / 1e6}
     details.update(kernels=kernels, numbers=numbers, launches={
         "mixed_path": launches, "merge_path": merge_launches,
         "ensemble": ens_launches, "ensemble_loop_check": check_launches,
         "artifact_path": art_launches, "refill_path": refill_launches,
-        "paged_path": paged_launches,
+        "paged_path": paged_launches, "remote_path": remote_launches,
         "ternary_matvec_check": matvec_launches,
         **{f"{a}_path": c for a, c in wide_launches.items()},
         **{f"sampled_top_k_{k}_path": c
@@ -3077,6 +3499,32 @@ def main(argv=None) -> int:
             + f", {rec['waves']} waves of rows {rec['rows']}, "
             f"{rec['admitted']} admitted, {rec['deferred']} deferred, blocks "
             f"{rec['blocks']}, peak {rec['blocks_peak']} KV blocks")
+    wb = remote["wire_bytes_per_expert"]
+    log(f"bytes on the wire per expert {tag}: PACKED " + ", ".join(
+        f"{k} {v}" for k, v in wb["packed"].items()) + "; GOLOMB (phase 3c's"
+        " files) " + ", ".join(f"{k} {v}" for k, v in wb["golomb"].items())
+        + f"; DENSE reckoned at 2 bytes a parameter {wb['dense_reckoned']}")
+    pe = remote["per_expert"]
+    log(f"remote e0 (PACKED) {tag}: fetch over loopback HTTP "
+        f"{pe['http_fetch_s']:.3f} s, CRC and decode {pe['crc_decode_s']:.3f}"
+        f" s, host-to-device promotion {pe['h2d_s']:.4f} s for "
+        f"{pe['h2d_bytes']} bytes ({pe['h2d_gb_per_s']:.2f} GB/s)")
+    log(f"first token of a request whose expert is remote (HTTP) {tag}: "
+        f"cold {remote['ttft_s']['cold']:.3f} s, warm "
+        f"{remote['ttft_s']['warm']:.3f} s")
+    for k in ("local", "http", "replicated"):
+        r = remote[k]
+        log(f"remote serve over {k} {tag}: {r['serve_s']:.2f} s cold, "
+            f"remote_seconds {r['remote_seconds']:.3f} against "
+            f"prefetch_seconds {r['prefetch_seconds']:.3f} "
+            f"({r['prefetch_hits']} prefetch hits, {r['retries']} retries, "
+            f"{r['transport_bytes_wasted']} bytes wasted)")
+    co = remote["capture_overlap"]
+    log(f"capture under prefetch {tag}: {co['captures_in_flight']} of "
+        f"{co['captures']} captures inside a 3 s link read; remote_seconds "
+        f"{co['remote_seconds']:.3f} against prefetch_seconds "
+        f"{co['prefetch_seconds']:.3f}")
+    log(f"phase 3r took {remote['phase_s']:.1f} s {tag}")
     log(f"grouped kernel: empty expert slots cost {tag}: "
         f"{report['ternary_matmul_grouped']['slot_padding_ms_per_wave']:.3f}"
         " ms per wave")

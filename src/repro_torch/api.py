@@ -12,11 +12,23 @@
                        max_batch=4, cache_len=128, decode_chunk=8)
     engine.run(requests)
 
+    # another host: publish over a transport, serve from a remote registry
+    from repro_torch.transport import LocalTransport
+    tr = LocalTransport("/shared/experts")
+    api.publish(ex, tr, rep=PACKED)        # or a list of transports
+    remote = api.registry(transport=tr)    # remote -> cold -> card tiers
+    api.serve(model, base_params, remote).run(requests)
+    ex = api.fetch(tr, "math")             # planes decoded onto the card
+
 ``serve(..., scheduling="grouped")`` serves by merge-on-swap instead of
 mixed waves: each expert is merged into a copy of the base once (the
 ``unpack_add_many`` kernel) and its requests are batched on the merged
 params; ``engine.merged_ensemble_params(names, weights)`` merges several
 weighted experts the same way.
+
+A remote registry serves a request whose expert cannot be fetched (a
+dead replica, a quarantine) as ``failed`` and the others as usual
+(``degrade="request"``, the default).
 
 Every entry point takes ``device=`` (default ``"cuda"``) and raises when
 the card is absent; pass ``device="cpu"`` for the plain PyTorch versions.
@@ -34,7 +46,7 @@ from repro_torch.expert import (DENSE, GOLOMB, PACKED, REPRESENTATIONS,
 
 __all__ = ["Expert", "DENSE", "TERNARY", "PACKED", "GOLOMB",
            "REPRESENTATIONS", "compress", "merge", "registry", "serve",
-           "load", "save"]
+           "load", "save", "publish", "fetch"]
 
 
 def compress(tau_or_init: dict, theta_ft: Optional[dict] = None, *,
@@ -74,15 +86,44 @@ def merge(experts: Sequence, method: str = "auto", lam: float = 1.0,
 
 def registry(store=None, *, cold_golomb: bool = False,
              device_cache_bytes: Optional[int] = None,
-             device="cuda", experts: Sequence[Expert] = ()):
+             transport=None, cold_budget_bytes: Optional[int] = None,
+             retry=None, quarantine_after: Optional[int] = None,
+             quarantine_probe_s: Optional[float] = None,
+             replicas=None, replication_factor: Optional[int] = None,
+             hedge_ms: Optional[float] = None, device="cuda",
+             experts: Sequence[Expert] = ()):
     """A fresh :class:`~repro_torch.serve.expert_cache.ExpertRegistry`
     whose device tier lives on ``device``.  ``cold_golomb=True`` keeps only
-    Golomb streams in the cold tier and decodes them on promotion."""
+    Golomb streams in the cold tier and decodes them on promotion.
+
+    ``transport=`` (a :class:`~repro_torch.transport.ExpertTransport`)
+    builds it over a **remote** store: experts are fetched as checksummed
+    wire blobs on first use, decoded on the host, and ``reg.prefetch``
+    overlaps the transfers with serving.  ``replicas=[t0, t1, ...]``
+    fronts a fleet with a :class:`~repro_torch.transport.
+    ReplicatedTransport` (``replication_factor`` owners per name, default
+    2; hedged reads after ``hedge_ms``).  ``retry=`` replaces the
+    transport's :class:`~repro_torch.transport.RetryPolicy`;
+    ``quarantine_after`` consecutive failed fetch cycles put an expert in
+    quarantine for ``quarantine_probe_s``; ``cold_budget_bytes`` bounds
+    the cold cache of fetched blobs.  A fetch that still fails raises
+    :class:`~repro_torch.serve.ExpertUnavailable`, which the engine turns
+    into a ``failed`` request."""
     from repro_torch.serve.expert_cache import (DEFAULT_DEVICE_BYTES,
+                                                DEFAULT_QUARANTINE_AFTER,
+                                                DEFAULT_QUARANTINE_PROBE_S,
                                                 ExpertRegistry)
-    reg = ExpertRegistry(store, cold_golomb=cold_golomb, device=device,
-                         device_cache_bytes=(device_cache_bytes
-                                             or DEFAULT_DEVICE_BYTES))
+    reg = ExpertRegistry(
+        store, cold_golomb=cold_golomb, device=device,
+        device_cache_bytes=device_cache_bytes or DEFAULT_DEVICE_BYTES,
+        transport=transport, cold_budget_bytes=cold_budget_bytes,
+        retry=retry, replicas=replicas,
+        replication_factor=replication_factor, hedge_ms=hedge_ms,
+        quarantine_after=(DEFAULT_QUARANTINE_AFTER if quarantine_after is None
+                          else quarantine_after),
+        quarantine_probe_s=(DEFAULT_QUARANTINE_PROBE_S
+                            if quarantine_probe_s is None
+                            else quarantine_probe_s))
     for e in experts:
         reg.add(e)
     return reg
@@ -120,3 +161,51 @@ def load(path: str, name: Optional[str] = None, device="cuda") -> Expert:
 def save(expert: Expert, path: str) -> dict:
     """Write ``expert`` as the Golomb artifact; returns size stats."""
     return expert.save(path)
+
+
+def publish(expert: Expert, transport, rep: str = GOLOMB,
+            replication_factor: Optional[int] = None) -> dict:
+    """Upload ``expert`` through a transport as one wire blob (manifest
+    and per-leaf CRCs; :mod:`repro_torch.transport.wire`), byte for byte
+    the reference's.  ``rep``: :data:`GOLOMB` (the default, smallest),
+    :data:`PACKED` (2 bits a parameter, no decode on arrival) or
+    :data:`DENSE` (bf16).  Returns ``{name, rep, nbytes}``.
+
+    ``transport`` may be a **list** of transports: the blob then goes to
+    the ``replication_factor`` (default 2) ring owners of the name, and
+    the result names them under ``replicas``; a
+    :class:`~repro_torch.transport.ReplicatedTransport` over the same list
+    computes the same owners."""
+    if isinstance(transport, (list, tuple)):
+        from repro_torch.transport.replication import ReplicatedTransport
+        transport = ReplicatedTransport(
+            list(transport),
+            replication_factor=(replication_factor
+                                if replication_factor is not None else 2))
+    elif replication_factor is not None:
+        if not hasattr(transport, "replication_factor"):
+            raise ValueError("replication_factor= needs a replica list or "
+                             "a ReplicatedTransport")
+        transport.replication_factor = min(replication_factor,
+                                           len(transport.replicas))
+    return transport.publish(expert, rep=rep)
+
+
+def fetch(transport, name: str, retry=None, device="cuda") -> Expert:
+    """Fetch, verify and decode one published expert; its planes are
+    placed on ``device`` (the wire decode runs on the host).  Transient
+    failures (5xx, timeouts, checksum mismatches) are retried under the
+    transport's :class:`~repro_torch.transport.RetryPolicy`, or
+    ``retry``."""
+    dev = resolve_device(device)
+    ex = transport.fetch_expert(name, retry=retry)[0]
+    if dev.type == "cpu":
+        return ex
+    planes = {p: dataclasses.replace(pt, pos=pt.pos.to(dev),
+                                     neg=pt.neg.to(dev),
+                                     scale=pt.scale.to(dev))
+              for p, pt in ex.packed.items()}
+    return Expert.from_packed(ex.name, ex.kind,
+                              tree_util.unflatten_paths(planes),
+                              density=ex.density, alpha=ex.alpha,
+                              meta=ex.meta)

@@ -289,10 +289,13 @@ class SlotOverlay:
         """Give every expert of ``names`` a slot and return the overlay.
 
         ``fetch(name)`` gives an expert's {path: PackedTernary} on this
-        device (``{}`` for ``BASE``); its error propagates before anything
-        changes.  A slot goes to a free one first, else to the least
-        recently used expert outside ``names``.  Returns None, changing
-        nothing, when an expert carries a leaf the plan cannot express."""
+        device (``{}`` for ``BASE``).  Every tree a slot will be filled
+        from is fetched before anything changes, so a fetch that raises
+        (an expert a remote store cannot promote, or an unknown one)
+        leaves the slots, their names and their order as they were.  A
+        slot goes to a free one first, else to the least recently used
+        expert outside ``names``.  Returns None, changing nothing, when an
+        expert carries a leaf the plan cannot express."""
         want = list(dict.fromkeys(names))
         new = [n for n in want if n not in self.names]
         packs = {n: fetch(n) for n in new}
@@ -302,21 +305,25 @@ class SlotOverlay:
         victims = [s for s in self._lru if self.names[s] not in want]
         if len(new) > len(free) + len(victims):
             raise ValueError(f"{len(want)} experts for {self.n_slots} slots")
+        names = list(self.names)
         for n in new:
-            s = free.pop(0) if free else victims.pop(0)
-            self.names[s] = n
+            names[free.pop(0) if free else victims.pop(0)] = n
         leaves = {p: (pt.pos.numel(), tuple(pt.shape))
                   for pk in packs.values() for p, pt in pk.items()}
-        if any(p not in self.stacks for p in leaves):
+        grow = any(p not in self.stacks for p in leaves)
+        refill = ([s for s, n in enumerate(names) if n is not None] if grow
+                  else [names.index(n) for n in new])
+        # the kept experts a reallocation refills: their trees may have
+        # left the device cache, and fetching them again may fail
+        packs.update({names[s]: fetch(names[s]) for s in refill
+                      if names[s] not in packs})
+        self.names = names
+        if grow:
             kept = {p: (pos.shape[1], shape)
                     for p, (pos, _, _, shape) in self.stacks.items()}
             self._allocate({**kept, **leaves})
-            refill = [s for s, n in enumerate(self.names) if n is not None]
-        else:
-            refill = [self.names.index(n) for n in new]
         for s in refill:
-            n = self.names[s]
-            self._fill(s, packs[n] if n in packs else fetch(n))
+            self._fill(s, packs[self.names[s]])
         for n in want:
             s = self.names.index(n)
             if s in self._lru:

@@ -3,8 +3,10 @@ from repro_torch.serve.engine import (DONE, FAILED, PENDING, EngineConfig,
                                       Request, ServeEngine)
 from repro_torch.serve.expert_cache import (BASE, DeviceCache,
                                             ExpertRegistry, ExpertStore,
-                                            SwapStats)
+                                            ExpertUnavailable,
+                                            RemoteExpertStore, SwapStats)
 
 __all__ = ["PAD_TOKEN", "SamplingConfig", "DONE", "FAILED", "PENDING",
            "EngineConfig", "Request", "ServeEngine", "BASE", "DeviceCache",
-           "ExpertRegistry", "ExpertStore", "SwapStats"]
+           "ExpertRegistry", "ExpertStore", "ExpertUnavailable",
+           "RemoteExpertStore", "SwapStats"]

@@ -22,7 +22,10 @@ addresses and writes them in place between replays; ``remaining`` goes in
 through a buffer of the graph's own.  With paged KV a row turns inactive
 inside the chunk when its budget runs dry, as in the reference.  A
 capture or replay that fails raises: nothing falls back to the loop on
-the card.
+the card.  A capture runs in the global error mode, where any other CUDA
+call invalidates it, so it runs with Python's cyclic garbage collector
+paused: a collection there could free an unreachable engine's graphs or
+buffers, which is such a call.
 
 Sampled selection (``temperature > 0``) draws the reference's own
 threefry stream (:mod:`repro_torch.serve.sampling`): token ``i`` of a
@@ -37,6 +40,7 @@ generator state.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 
 import torch
@@ -181,9 +185,15 @@ class DecodeChunk:
         torch.cuda.current_stream(dev).wait_stream(stream)
         before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            buf = self._run(params, overlay, eid, tok, cache, rem, gen, keys,
-                            steps)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                buf = self._run(params, overlay, eid, tok, cache, rem, gen,
+                                keys, steps)
+        finally:
+            if collecting:
+                gc.enable()
         # the capture recorded these launches and ran none of them: take
         # them back here, and add them on every replay
         launches = {k: n - before[k] for k, n in ops.launch_counts().items()

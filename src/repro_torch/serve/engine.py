@@ -59,6 +59,17 @@ cannot express, and for a model family the overlay does not cover.
 :meth:`ServeEngine.merged_ensemble_params` merges several weighted experts
 in one sweep per leaf.
 
+Each wave stages the promotions of its experts and of the queued
+requests' experts on the registry's prefetch workers (host only), so a
+remote fetch overlaps the decode of the wave before.  An expert that a
+remote registry cannot promote (:class:`~repro_torch.serve.expert_cache.
+ExpertUnavailable`: a dead replica, a quarantine, a blob never
+published) fails only its own requests under ``degrade="request"`` (the
+default), at wave formation, at admission and on the merge path; the
+others serve as if it had not been asked for.  ``degrade="raise"``
+propagates the error, and an unknown expert of a local store raises
+``KeyError``, as in the reference.
+
 Options of the reference engine that the port does not serve yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
@@ -66,6 +77,7 @@ Options of the reference engine that the port does not serve yet raise
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from collections import defaultdict, deque
 from typing import Any, Optional
@@ -76,7 +88,8 @@ from repro_torch import tree as tree_util
 from repro_torch.models.delta import SlotOverlay, plan_overlay
 from repro_torch.serve import decode_loop, paged_kv
 from repro_torch.serve.decode_loop import SamplingConfig, select_tokens
-from repro_torch.serve.expert_cache import BASE, ExpertRegistry
+from repro_torch.serve.expert_cache import (BASE, ExpertRegistry,
+                                            ExpertUnavailable, as_registry)
 from repro_torch.serve.sampling import row_keys
 from repro_torch.serve.scheduler import SCHEDULERS, make_scheduler
 
@@ -191,13 +204,13 @@ class ServeEngine:
             raise ValueError("kv_blocks must be >= 2 (block 0 is reserved)")
         self.api = api
         self.base = base_params
-        self.registry = registry
+        self.registry = as_registry(registry, base_params["embed"].device)
         self.cfg = ecfg
-        self.dev = registry.dev
+        self.dev = self.registry.dev
         if base_params["embed"].device.type != self.dev.type:
             raise ValueError(f"base params lie on {base_params['embed'].device}"
                              f" but the registry serves on {self.dev}")
-        self.cache = registry.device(ecfg.device_cache_bytes)
+        self.cache = self.registry.device(ecfg.device_cache_bytes)
         # None: a family outside the overlay, served by merge-on-swap
         self._plan = plan_overlay(base_params, api.cfg)
         self._slots: Optional[SlotOverlay] = None   # made at the first wave
@@ -212,7 +225,14 @@ class ServeEngine:
         self._t0 = time.monotonic()
         self.wave_log: list[dict] = []       # mixed waves
         self.batch_log: list[dict] = []      # merge-path batches
+        # bounded rings: a long-lived engine must not grow host memory
+        # with its own accounting; evictions are counted per ring
+        # (swap_summary()["log_dropped"]), and failed_total survives them.
+        # wave_log stays a list (callers slice it): its count stays 0
         self.swap_log: deque = deque(maxlen=512)   # merges, with seconds
+        self.failed_log: deque = deque(maxlen=1024)
+        self.failed_total = 0
+        self._log_dropped = {"swap": 0, "wave": 0, "failed": 0}
         self._sched = None                   # the last run's scheduler
         self._adm_wait: dict[int, list] = defaultdict(list)  # by priority
         self._kv_in_use = 0                  # pool blocks in use (paged)
@@ -238,8 +258,8 @@ class ServeEngine:
                                     out=self._merged_params)
         self._sync()
         self._merged_name = expert
-        self.swap_log.append({"expert": expert,
-                              "seconds": time.monotonic() - t0})
+        self._ring_append("swap", {"expert": expert,
+                                   "seconds": time.monotonic() - t0})
         return self._merged_params
 
     def merged_ensemble_params(self, experts: list[str],
@@ -352,11 +372,44 @@ class ServeEngine:
         for r in requests:
             if r.status == PENDING:
                 r.status = DONE
+        self._export_gauges()
         return requests
 
-    def _fail(self, reqs: list[Request], why: str) -> None:
+    # ---------------- graceful degradation ----------------
+
+    def _fail(self, reqs: list[Request], err: Exception) -> None:
+        """Terminal per-request failure.  ``degrade="request"`` marks only
+        ``reqs`` FAILED, with the error attached, and the rest of the wave
+        proceeds; ``degrade="raise"`` propagates ``err``."""
+        if self.cfg.degrade != "request":
+            raise err
         for r in reqs:
-            r.status, r.error = FAILED, why
+            r.status, r.error = FAILED, str(err)
+            self.failed_total += 1
+            self._ring_append("failed", {"uid": r.uid, "expert": r.expert,
+                                         "error": str(err)})
+
+    def _ring_append(self, name: str, item: dict) -> None:
+        """Append to one of the bounded logs, counting evictions."""
+        ring = getattr(self, f"{name}_log")
+        if getattr(ring, "maxlen", None) is not None \
+                and len(ring) == ring.maxlen:
+            self._log_dropped[name] += 1
+        ring.append(item)
+
+    def _prefetch_upcoming(self, upcoming, extra=()) -> None:
+        """Admission-time prefetch: stage promotions for every distinct
+        expert of the queued requests ``upcoming`` (bounded lookahead),
+        plus ``extra`` (the wave about to be served, so its cold fetches
+        run concurrently), while the current wave decodes."""
+        names = list(dict.fromkeys(extra))
+        seen = set(names)
+        for r in itertools.islice(upcoming, 0, 4 * self.cfg.max_batch):
+            if r.expert not in seen:
+                seen.add(r.expert)
+                names.append(r.expert)
+        if names:
+            self.registry.prefetch(names)
 
     def _validate_paged(self, requests: list[Request]) -> None:
         """A request that can never be placed (more blocks than the whole
@@ -367,7 +420,7 @@ class ServeEngine:
                                            self._bs)
             if (lp + r.max_new_tokens > self._max_blocks * self._bs
                     or need > min(self._max_blocks, self._kv_blocks - 1)):
-                self._fail([r], (
+                self._fail([r], ValueError(
                     f"request {r.uid} needs {need} KV blocks "
                     f"({lp}+{r.max_new_tokens} positions); pool holds "
                     f"{self._kv_blocks - 1} usable blocks of {self._bs} "
@@ -401,20 +454,23 @@ class ServeEngine:
                                             self.cfg.max_stack)
             if not wave:
                 continue
+            self._prefetch_upcoming(sched.peek(4 * self.cfg.max_batch),
+                                    extra=experts)
             overlay = None
             while wave:
                 try:
                     overlay = self._overlay_for(tuple(experts))
                     break
-                except KeyError as e:
-                    # an expert the registry does not hold fails only its
-                    # own requests; the rest of the wave serves
-                    hit = [r for r in wave if r.expert == e.args[0]]
-                    if self.cfg.degrade == "raise" or not hit:
-                        raise
-                    self._fail(hit, f"unknown expert {e}")
-                    wave = [r for r in wave if r.expert != e.args[0]]
-                    experts.remove(e.args[0])
+                except ExpertUnavailable as e:
+                    # drop the dead expert's rows from the wave and place
+                    # the rest; an unknown expert of a local store
+                    # (KeyError) propagates, as in the reference
+                    hit = [r for r in wave if r.expert == e.name]
+                    if not hit:
+                        raise    # not from this wave: don't loop forever
+                    self._fail(hit, e)
+                    wave = [r for r in wave if r.expert != e.name]
+                    experts = [x for x in experts if x != e.name]
             if not wave:
                 continue
             if overlay is None:
@@ -434,14 +490,18 @@ class ServeEngine:
         groups: dict[str, list[Request]] = {}
         for r in requests:
             groups.setdefault(r.expert, []).append(r)
-        for expert, group in groups.items():
+        order = list(groups)
+        for gi, expert in enumerate(order):
+            group = groups[expert]
+            if gi + 1 < len(order):
+                # overlap the next group's cold fetch with this group's
+                # merge and decode steps
+                self.registry.prefetch([order[gi + 1]])
             try:
                 params = self._params_for(expert)
-            except KeyError as e:
-                # an unknown expert fails its own group; the others serve
-                if self.cfg.degrade == "raise":
-                    raise
-                self._fail(group, f"unknown expert {e}")
+            except ExpertUnavailable as e:
+                # one dead expert fails its group; every other group serves
+                self._fail(group, e)
                 continue
             for i in range(0, len(group), self.cfg.max_batch):
                 self._serve_batch(params, group[i:i + self.cfg.max_batch],
@@ -568,13 +628,11 @@ class ServeEngine:
                         try:
                             grown = self._overlay_for(
                                 tuple(experts + [nxt.expert]))
-                        except KeyError as e:
-                            # fail only this request and look again: an
-                            # unknown expert must not block the queue
-                            if self.cfg.degrade == "raise":
-                                raise
+                        except ExpertUnavailable as e:
+                            # fail only this request and look again: a
+                            # dead expert must not block the queue
                             sched.remove(nxt)
-                            self._fail([nxt], f"unknown expert {e}")
+                            self._fail([nxt], e)
                             rescan = True
                             break
                         if grown is None:
@@ -913,8 +971,21 @@ class ServeEngine:
                  slot_bytes=(self._slots.nbytes() if self._slots is not None
                              else 0),
                  admitted=sum(w["admitted"] for w in self.wave_log),
+                 failed=self.failed_total,
+                 log_dropped=dict(self._log_dropped),
                  graphs=g["graphs"], graph_captures=g["captures"],
                  graph_capture_s=g["capture_s"], graph_replays=g["replays"],
                  stack_hit_rate=hits / max(hits + builds, 1),
                  scheduler=self._scheduler_stats(), kv=self._kv_stats())
         return s
+
+    def _export_gauges(self) -> None:
+        """Publish serving gauges onto the device cache, so that
+        ``registry.health()["serving"]`` shows them beside the swap and
+        straggler state."""
+        s = self.cache.stats
+        self.cache.gauges = {
+            "stack_hit_rate": s.stack_hits / max(s.stack_hits
+                                                 + s.stack_builds, 1),
+            "scheduler": self._scheduler_stats(),
+            "kv": self._kv_stats()}

@@ -21,8 +21,10 @@ from repro_torch import api as tapi
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.convert import params_from_jax
 from repro_torch.models import build as t_build
+from repro_torch.expert import PACKED
 from repro_torch.serve import BASE, Request
 from repro_torch.serve.scheduler import FIFOScheduler, make_scheduler
+from repro_torch.transport import InMemoryTransport
 
 RT = Runtime(attn_chunk_q=16, attn_chunk_k=16, remat_policy="none")
 ENGINE = dict(max_batch=3, cache_len=64)      # as tests/test_decode_loop.py
@@ -222,18 +224,35 @@ def test_blocked_head_as_in_reference(setup, reason):
     assert eng._admission_block_reason(head, cur, slot) == reason
 
 
-def test_unknown_admission_fails_only_itself(setup):
-    """A queued request naming an unknown expert fails when it reaches a
-    free slot; the requests behind it are admitted and served."""
-    cfg = setup[0]
+@pytest.mark.parametrize("store", ["local", "remote"])
+def test_unknown_admission_fails_only_itself(setup, store):
+    """A queued request naming an expert that cannot be promoted, met at a
+    free slot: on a local store the unknown name raises ``KeyError``, in
+    the port as in the reference; on a remote store whose transport lacks
+    it, only that request fails and the requests behind it are admitted
+    and served."""
+    cfg, treg = setup[0], setup[-1]
     traffic = _traffic(cfg, seed=4, names=["e0", "nope", "e1"],
                        lens=(8, 6, 6), budgets=(2, 2, 3))
-    tr, eng = _tserve(setup, traffic, max_batch=1, cache_len=64,
-                      decode_chunk=4)
-    assert [r.status for r in tr] == ["done", "failed", "done"]
-    assert "nope" in tr[1].error and tr[1].out_tokens == []
-    assert eng.swap_summary()["admitted"] == 1
-    assert len(tr[2].out_tokens) == 3
+    kw = dict(max_batch=1, cache_len=64, decode_chunk=4)
+    if store == "local":
+        with pytest.raises(KeyError):
+            _jserve(setup, traffic, **kw)
+        with pytest.raises(KeyError):
+            _tserve(setup, traffic, **kw)
+        return
+    tr = InMemoryTransport()
+    for n in ("e0", "e1"):
+        tapi.publish(treg.get(n), tr, rep=PACKED)
+    _, _, _, _, model, tbase, _ = setup
+    eng = tapi.serve(model, tbase, tapi.registry(transport=tr, device="cpu"),
+                     **kw)
+    tr_reqs, eng = _tserve(setup, traffic, engine=eng)
+    assert [r.status for r in tr_reqs] == ["done", "failed", "done"]
+    assert "nope" in tr_reqs[1].error and tr_reqs[1].out_tokens == []
+    s = eng.swap_summary()
+    assert (s["admitted"], s["failed"]) == (1, 1)
+    assert len(tr_reqs[2].out_tokens) == 3
 
 
 def test_fifo_scheduler_equals_reference():

@@ -836,3 +836,147 @@ def test_paged_launch_counts_match_dense_per_step(serving):
     assert counts[0] == counts[1]
     assert counts[1]["ternary_matmul_grouped"] > 0
     assert paged["lens"].tolist() == [9, 9, 9]
+
+
+# ---------------------------------------------------------------------------
+# Remote expert tiers under the graphed decode chunk
+# ---------------------------------------------------------------------------
+
+
+def _spans(obj, attr, spans):
+    """Record each call's (start, end) of the method ``attr`` of ``obj``."""
+    import time
+    inner = getattr(obj, attr)
+
+    def timed(*args, **kwargs):
+        t0 = time.monotonic()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            spans.append((t0, time.monotonic()))
+    setattr(obj, attr, timed)
+
+
+def test_prefetch_stages_while_a_graph_captures(serving):
+    """e2 sits behind a slow simulated link: a fresh engine captures its
+    first wave's decode graphs while e2's prefetch stage is in flight on
+    a worker thread.  Captures run in the global error mode, where a
+    worker's CUDA call would break them: none breaks, the stage is on the
+    host, the prefetch hits and the tokens are a local registry's."""
+    from repro_torch import api
+    from repro_torch.expert import PACKED
+    from repro_torch.transport import (InMemoryTransport,
+                                       SimulatedNetworkTransport)
+    model, base, reg = serving
+    link = SimulatedNetworkTransport(latency_s=1.5, inner=InMemoryTransport())
+    api.publish(reg.get("e2"), link, rep=PACKED)
+    rreg = api.registry(transport=link)
+    rreg.add(reg.get("e0"), reg.get("e1"))      # local, on the card
+    gets, caps = [], []
+    _spans(link, "_get", gets)
+    names, budgets, lens = (["e0", "e1", "e0", "e2", "e2", "e2"], (4,) * 6,
+                            (8,) * 6)
+    eng = api.serve(model, base, rreg, max_batch=3, cache_len=64,
+                    decode_chunk=4)
+    _spans(eng._chunker, "_capture", caps)
+    reqs = _requests(names, budgets, lens)
+    eng.run(reqs)
+    assert caps and any(g0 < c0 and c1 < g1 for c0, c1 in caps
+                        for g0, g1 in gets)
+    s = eng.swap_summary()
+    assert s["prefetch_hits"] >= 1 and s["prefetch_errors"] == 0
+    _, local = _serve(serving, _requests(names, budgets, lens),
+                      decode_chunk=4)
+    assert [r.out_tokens for r in reqs] == local
+    rreg.close()
+
+
+@pytest.mark.parametrize("kind", ["local", "http"])
+def test_remote_registry_tokens_equal_local(serving, tmp_path, kind):
+    """The same experts fetched from a directory (Golomb blobs, decoded on
+    the host) or over loopback HTTP (PACKED blobs) serve a local
+    registry's tokens bitwise, admissions included, with the published
+    planes on the card."""
+    from repro_torch import api
+    from repro_torch.expert import GOLOMB, PACKED
+    from repro_torch.transport import (HTTPTransport, LocalTransport,
+                                       serve_local_http)
+    model, base, reg = serving
+    root = LocalTransport(str(tmp_path))
+    for n in ("e0", "e1", "e2"):
+        api.publish(reg.get(n), root, rep=GOLOMB if kind == "local"
+                    else PACKED)
+    server = None
+    tr = root
+    if kind == "http":
+        server, url = serve_local_http(str(tmp_path))
+        tr = HTTPTransport(url)
+    try:
+        rreg = api.registry(transport=tr)
+        eng, toks = _serve((model, base, rreg), _requests(*REFILL),
+                           decode_chunk=4)
+        _, want = _serve(serving, _requests(*REFILL), decode_chunk=4)
+        assert toks == want
+        for n in ("e0", "e1", "e2"):
+            got, pub = rreg.fetch_packed(n), reg.get(n).packed
+            for p, pt in pub.items():
+                assert torch.equal(got[p].pos, pt.pos)
+                assert torch.equal(got[p].neg, pt.neg)
+                assert got[p].pos.device.type == "cuda"
+        s = eng.swap_summary()
+        assert s["remote_fetches"] == 3 and s["prefetch_errors"] == 0
+        rreg.close()
+    finally:
+        if server is not None:
+            server.shutdown()
+
+
+def test_capture_survives_cyclic_garbage_holding_graphs(serving):
+    """Graphs of an old engine that become cyclic garbage inside another
+    engine's capture: a collection there would destroy them, a CUDA call
+    that invalidates the capture in the global error mode.  Captures run
+    with the collector paused, so the capture holds and the garbage goes
+    afterwards."""
+    import gc
+    import weakref
+    from repro_torch import api
+
+    class Box:
+        pass
+
+    names, budgets, lens = ["e0", "e1", "e2"], (3, 3, 3), (8, 8, 8)
+    old, _ = _serve(serving, _requests(names, budgets, lens),
+                    decode_chunk=4)
+    holder = [old._chunker._graphs]
+    assert holder[0]
+    old._chunker._graphs = {}
+    del old
+    gone = []
+    model, base, reg = serving
+    eng = api.serve(model, base, reg, max_batch=3, cache_len=64,
+                    decode_chunk=4)
+    run = eng._chunker._run
+
+    def drop_then_run(*args, **kwargs):
+        if holder:                  # first call: inside the first capture
+            box = Box()
+            box.graphs, box.cycle = holder.pop(), box
+            gone.append(weakref.ref(box))
+            del box                 # a young cycle only the collector frees
+            _ = [[] for _ in range(5000)]   # allocations that would run it
+        return run(*args, **kwargs)
+
+    eng._chunker._run = drop_then_run
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        reqs = _requests(names, budgets, lens)
+        eng.run(reqs)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert gone and eng.swap_summary()["graph_captures"] >= 1
+    _, want = _serve(serving, _requests(names, budgets, lens),
+                     decode_chunk=4)
+    assert [r.out_tokens for r in reqs] == want
+    gc.collect()
+    assert gone[0]() is None

@@ -37,8 +37,11 @@ def _forbidden(name: str) -> bool:
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert {"repro_torch.serve.engine",
-            "repro_torch.serve.scheduler"} <= set(mods)
+    assert {"repro_torch.serve.engine", "repro_torch.serve.scheduler",
+            "repro_torch.transport.backends", "repro_torch.transport.retry",
+            "repro_torch.transport.chaos",
+            "repro_torch.transport.replication",
+            "repro_torch.distributed.fault"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if "

@@ -19,7 +19,9 @@ from repro_torch import api as tapi
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.convert import params_from_jax
 from repro_torch.models import build as t_build
-from repro_torch.serve import BASE, Request
+from repro_torch.expert import PACKED
+from repro_torch.serve import BASE, ExpertUnavailable, Request
+from repro_torch.transport import InMemoryTransport
 
 RT = Runtime(attn_chunk_q=16, attn_chunk_k=16, remat_policy="none")
 
@@ -127,18 +129,50 @@ def test_mixed_wave_equals_sequential_and_solo(setup):
         assert solo.out_tokens == r.out_tokens, r.uid
 
 
-def test_unknown_expert_fails_only_its_requests(setup):
-    cfg, _, _, _, model, tbase, treg = setup
+@pytest.mark.parametrize("store", ["local", "remote"])
+def test_unknown_expert_fails_only_its_requests(setup, store):
+    """On a local store an unknown expert raises ``KeyError``, in the port
+    as in the reference.  On a remote store whose transport lacks the name
+    the fetch ends in a terminal ``ExpertUnavailable``: only its request
+    fails, and the others get the local registry's tokens."""
+    cfg, api, base, jreg, model, tbase, treg = setup
     prompts = _prompts(cfg, 4, (6, 6, 6))
-    reqs = [Request(uid=i, expert=n, prompt=p, max_new_tokens=2)
-            for i, (n, p) in enumerate(zip(["e0", "nope", "e1"], prompts))]
-    tapi.serve(model, tbase, treg, max_batch=4,
-               cache_len=16).run(reqs)
+    names = ["e0", "nope", "e1"]
+
+    def mk():
+        return [Request(uid=i, expert=n, prompt=p, max_new_tokens=2)
+                for i, (n, p) in enumerate(zip(names, prompts))]
+
+    if store == "local":
+        jr = [JRequest(uid=i, expert=n, prompt=jnp.asarray(p, jnp.int32),
+                       max_new_tokens=2)
+              for i, (n, p) in enumerate(zip(names, prompts))]
+        with pytest.raises(KeyError):
+            rapi.serve(api, RT, base, jreg, max_batch=4,
+                       cache_len=16).run(jr)
+        for degrade in ("request", "raise"):
+            with pytest.raises(KeyError):
+                tapi.serve(model, tbase, treg, max_batch=4, cache_len=16,
+                           degrade=degrade).run(mk())
+        return
+    tr = InMemoryTransport()
+    for n in ("e0", "e1"):
+        tapi.publish(treg.get(n), tr, rep=PACKED)
+    rreg = tapi.registry(transport=tr, device="cpu")
+    reqs = mk()
+    eng = tapi.serve(model, tbase, rreg, max_batch=4, cache_len=16)
+    eng.run(reqs)
     assert [r.status for r in reqs] == ["done", "failed", "done"]
-    assert "nope" in reqs[1].error and reqs[1].out_tokens == []
-    assert all(len(r.out_tokens) == 2 for r in (reqs[0], reqs[2]))
-    with pytest.raises(KeyError):
-        tapi.serve(model, tbase, treg, degrade="raise").run(
+    assert "nope" in reqs[1].error and "unavailable" in reqs[1].error
+    assert reqs[1].out_tokens == []
+    assert eng.swap_summary()["failed"] == 1
+    want = mk()
+    tapi.serve(model, tbase, treg, max_batch=4, cache_len=16).run(
+        [want[0], want[2]])
+    assert [reqs[0].out_tokens, reqs[2].out_tokens] == \
+        [want[0].out_tokens, want[2].out_tokens]
+    with pytest.raises(ExpertUnavailable, match="nope"):
+        tapi.serve(model, tbase, rreg, degrade="raise").run(
             [Request(uid=9, expert="nope", prompt=prompts[0])])
 
 
