@@ -106,6 +106,28 @@ failure with a non-zero exit:
      per expert (PACKED, GOLOMB, DENSE reckoned), one expert's HTTP
      fetch, CRC-and-decode and host-to-device seconds, the cold and warm
      first token of a remote request, remote against prefetch seconds;
+  3k. kill and resume (``durability_path``): phase 3d's 16 requests
+     served with a journal and a snapshot after every chunk, served again
+     and crashed from a chunk hook at the first chunk where rows admitted
+     after the last snapshot are in flight, then resumed on the same warm
+     engine (no capture, every kept buffer at its address) and on a
+     fresh one; phase 3p's 24 requests paged, sampled (T 0.8, top_k 40)
+     under affinity, likewise (no KV block in use after the resume); the
+     crash journaled only, resumed through ``api.serve(resume=True)`` (no
+     snapshot step); a finished run resumed from its journal alone (no
+     wave) and another seed refused ("sampling mismatch"); the base saved
+     with ``checkpoint.manager.save``, the experts published as PACKED
+     blobs, and ``repro_torch.serve.restart_child`` killed by SIGKILL at
+     the same chunk, its run resumed here.  In bf16 rows continued from
+     a restored wave are bitwise the uninterrupted run's, and a row served
+     again from its prompt equals it or parts first at a near-tie (on a
+     sampled engine, of the draw's scores); on an f32 copy every stream
+     is bitwise and every resume completes.  Kernel 1 launches in every
+     resume, the sampler in sampled ones.  Reported: journal bytes per
+     record, snapshot bytes, commit and device-to-host seconds,
+     ``resume_seconds``, ``first_resumed_token_s``, the ``RecoveryPlan``,
+     the child's seconds, and phase 3d's warm tokens/s with no journal,
+     the journal alone and a snapshot every 1 and 4 chunks;
   4. check the result: tokens in range; one expert's planes bitwise equal
      to the plain compression of its tau (and one warm compression of it
      profiled: device ms by pass and the host share); every row's tokens
@@ -1146,10 +1168,13 @@ def near_tie(torch, engine, r, tokens, other, what, gate=True):
     """Where two streams of request ``r`` first part, both candidates must
     lie within about one bf16 ulp of the top logit's own value (2**-7 *
     |top|, one ulp at least and under two), recomputed by a prefill over
-    the prompt and the common tokens before the divergence.  Returns the
-    divergence (``within`` says whether it met the rule), or None when
-    the streams are equal; with ``gate`` a divergence beyond the rule
-    fails the run."""
+    the prompt and the common tokens before the divergence.  On a sampled
+    engine the scores are the draw's (the scaled, top-k masked logits
+    plus the gumbel noise of the request's stream at that token) and the
+    ulp is divided by the temperature.  Returns the divergence
+    (``within`` says whether it met the rule), or None when the streams
+    are equal; with ``gate`` a divergence beyond the rule fails the
+    run."""
     if tokens == other:
         return None
     s = next(i for i, (a, b) in enumerate(zip(tokens, other)) if a != b)
@@ -1162,8 +1187,16 @@ def near_tie(torch, engine, r, tokens, other, what, gate=True):
         eid=torch.full((1,), engine.slot_of(r.expert), dtype=torch.int32,
                        device=engine.dev))
     lg = logits[0, -1].float()
+    tol = 2.0 ** -7 * abs(float(lg.max()))
+    samp = engine.cfg.sampling
+    if not samp.greedy:
+        from repro_torch.kernels.sample import scale_and_mask
+        from repro_torch.serve.sampling import fold_in, gumbel, row_keys
+        key = fold_in(row_keys(samp.seed, [r.uid]), torch.tensor([s]))
+        lg = (scale_and_mask(lg[None].cpu(), samp.temperature, samp.top_k)
+              + gumbel(key, lg.numel()))[0]
+        tol /= max(samp.temperature, 1e-6)
     top = float(lg.max())
-    tol = 2.0 ** -7 * abs(top)
     gaps = (top - float(lg[tokens[s]]), top - float(lg[other[s]]))
     entry = {"uid": r.uid, "step": s, "tokens": (tokens[s], other[s]),
              "gaps": gaps, "top": top, "tol": tol,
@@ -2893,6 +2926,461 @@ def remote_path(torch, api, model, base, reg, experts, reqs, greqs,
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 3k: kill and resume (journal, snapshots, resume, a SIGKILL child)
+# ---------------------------------------------------------------------------
+
+DURABLE = dict(max_batch=4, cache_len=256, decode_chunk=8)
+
+
+class Crashed(Exception):
+    pass
+
+
+def journal_frames(path) -> list:
+    """(kind, bytes) of every record of a journal file, its 8-byte frame
+    header included."""
+    import struct
+    with open(path, "rb") as f:
+        data = f.read()
+    out, pos = [], 4
+    while pos + 8 <= len(data):
+        n, _ = struct.unpack_from("<II", data, pos)
+        out.append((json.loads(data[pos + 8:pos + 8 + n])["k"], 8 + n))
+        pos += 8 + n
+    return out
+
+
+def kill_chunk(snap_dir) -> int:
+    """From the journal of an uninterrupted run: the first chunk k (counted
+    from the run's first) such that rows were admitted at chunk k - 1's
+    boundary, after its snapshot (so they are served again from their
+    prompts), a row that emitted in chunk k - 1 is still unfinished (so it
+    continues from the restored KV), and requests remain after chunk k."""
+    from repro_torch.serve import journal as journal_mod
+    recs = journal_mod.read_records(
+        os.path.join(snap_dir, journal_mod.JOURNAL_NAME))
+    budget = {d["uid"]: d["max_new"] for d in recs[0]["d"]["requests"]}
+    total, chunk, first = {}, None, None
+    admitted, live, unfinished = set(), {}, {}
+    for rec in recs[1:]:
+        if rec["k"] == "chunk":
+            chunk = rec["d"]["i"]
+            first = chunk if first is None else first
+            for row in rec["d"]["rows"]:
+                total[row["uid"]] = row["total"]
+            live[chunk] = any(total[row["uid"]] < budget[row["uid"]]
+                              for row in rec["d"]["rows"])
+            unfinished[chunk] = any(total.get(u, 0) < b
+                                    for u, b in budget.items())
+        elif rec["k"] == "admit" and chunk is not None:
+            admitted.add(chunk)
+    for k in sorted(unfinished):
+        if k - 1 in admitted and live.get(k - 1) and unfinished[k]:
+            return k - first + 1
+    raise CheckFailed("phase 3k: no chunk of the run has an admission after "
+                      "its last snapshot with rows in flight")
+
+
+def kept_ptrs(engine) -> dict:
+    """Every kept buffer's address (the tensors a decode graph reads)."""
+    from repro_torch import tree as tree_util
+    return {f"{kind}{rows}/{path}": t.data_ptr()
+            for kind, states in (("dense", engine._states),
+                                 ("paged", engine._paged_states))
+            for rows, st in states.items()
+            for path, t in tree_util.flatten_with_paths(st)}
+
+
+def crash_run(engine, reqs, rel: int) -> None:
+    """Serve ``reqs`` on ``engine``, crashing from a chunk hook at the
+    run's chunk ``rel``."""
+    kill = engine._chunk_idx + rel
+
+    def crash(i):
+        if i == kill:
+            raise Crashed(f"crash at chunk {i}")
+
+    engine.chunk_hooks.append(crash)
+    try:
+        engine.run(reqs)
+        raise CheckFailed(f"phase 3k: the crash at chunk {rel} never came")
+    except Crashed:
+        pass
+    finally:
+        engine.chunk_hooks.remove(crash)
+
+
+def continued_uids(snap_dir) -> set:
+    """Requests of the last snapshot's wave still unfinished in the
+    journal: ``resume()`` continues them from the restored KV."""
+    from repro_torch.serve import journal as journal_mod
+    from repro_torch.serve.snapshot import load_snapshot
+    st = journal_mod.replay(os.path.join(snap_dir, journal_mod.JOURNAL_NAME))
+    if not st.snapshots:
+        return set()
+    snap = load_snapshot(snap_dir, int(st.snapshots[-1]["step"]))
+    budget = {d["uid"]: d["max_new"] for d in st.meta["requests"]}
+    return {u for u in snap.row_uids
+            if len(st.tokens.get(u, [])) < budget[u] and u not in st.failed}
+
+
+def checked_resume(torch, resume, snap_dir, want: dict, exact: bool,
+                   what: str) -> dict:
+    """Run ``resume()`` (a call that resumes an engine from ``snap_dir``)
+    against the uninterrupted run's tokens ``want``.  ``exact`` (an f32
+    copy): the resume completes and every stream is bitwise ``want``.
+    Otherwise (bf16): rows continued from the restored wave are bitwise
+    ``want``; a row served again from its prompt runs at other positions
+    and may part from ``want``: where it parts inside its journaled
+    prefix (the journal's prefix check then raises) the parting must be
+    a near-tie (:func:`near_tie`, a gate); past the prefix it is
+    reported.  Kernel 1 must launch at least once a chunk, the sampler
+    when sampled.  Returns the numbers."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServeEngine
+    seen = {}
+    verify, orig_resume = ServeEngine._verify_journal_prefix, ServeEngine.resume
+
+    def spy(requests, state):
+        seen["requests"] = requests
+        return verify(requests, state)
+
+    def recorded(self):
+        seen["engine"], seen["n0"] = self, len(self.wave_log)
+        return orig_resume(self)
+
+    from repro_torch.serve import journal as journal_mod
+    cont = continued_uids(snap_dir)
+    journaled = {u: len(t) for u, t in journal_mod.replay(os.path.join(
+        snap_dir, journal_mod.JOURNAL_NAME)).tokens.items()}
+    before = ops.launch_counts()
+    ServeEngine._verify_journal_prefix = staticmethod(spy)
+    ServeEngine.resume = recorded
+    raised = None
+    try:
+        resume()
+    except RuntimeError as e:
+        if exact or "diverged from the journal" not in str(e):
+            raise
+        raised = str(e)
+    finally:
+        ServeEngine._verify_journal_prefix = staticmethod(verify)
+        ServeEngine.resume = orig_resume
+    torch.cuda.synchronize()
+    engine = seen["engine"]
+    launches = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    chunks = sum(w["chunks"] for w in engine.wave_log[seen["n0"]:])
+    check(launches["ternary_matmul_grouped"] >= chunks,
+          f"{what}: kernel 1 launched {launches['ternary_matmul_grouped']} "
+          f"times over {chunks} chunks")
+    if not engine.cfg.sampling.greedy and chunks:
+        check(launches["sample_tokens"] > 0,
+              f"{what}: the sampler was not launched")
+    out = {"completed": raised is None, "prefix_check": raised,
+           "continued": sorted(cont), "parted": [], "chunks": chunks,
+           "launches": {k: v for k, v in launches.items() if v}}
+    for r in seen["requests"]:
+        check(r.status == "done", f"{what}: request {r.uid} ended "
+              f"{r.status}: {r.error}")
+        if exact or r.uid in cont:
+            check(r.out_tokens == want[r.uid], f"{what}: request {r.uid}"
+                  f"{' (continued)' if r.uid in cont else ''} differs from "
+                  f"the uninterrupted run: {r.out_tokens} vs {want[r.uid]}")
+            continue
+        entry = near_tie(torch, engine, r, want[r.uid], r.out_tokens,
+                         f"{what}: uninterrupted and resumed", gate=False)
+        if entry is not None:
+            entry["journaled"] = journaled.get(r.uid, 0)
+            check(entry["within"] or entry["step"] >= entry["journaled"],
+                  f"{what}: request {r.uid} parts from its journaled "
+                  f"tokens beyond a near-tie: {entry}")
+            out["parted"].append(entry)
+    if raised is not None:
+        log(f"  {what}: the prefix check raised ({raised}); each parted row "
+            "is a near-tie")
+    else:
+        rs = engine.recovery_stats
+        out.update(resume_s=rs["resume_seconds"],
+                   first_resumed_token_s=rs.get("first_resumed_token_s"),
+                   plan=rs["plan"].as_dict())
+    return out
+
+
+def durability_case(torch, api, model, base, reg, kw, traffic, d, exact,
+                    what, fresh_engine):
+    """Cases (a) and (b) on one model copy: the traffic served
+    uninterrupted on an engine journaling into ``d`` with a snapshot after
+    every chunk; a second run crashed from a chunk hook at the chunk
+    :func:`kill_chunk` picks; ``resume()`` on the same, now warm, engine
+    (gates: no capture, every kept buffer at its address, no KV block in
+    use) and, with ``fresh_engine``, on a fresh engine.  Returns
+    (numbers, uninterrupted tokens, kill chunk)."""
+    full = dict(kw, snapshot_dir=d, snapshot_every_chunks=1)
+    eng = api.serve(model, base, reg, **full)
+    clean = fresh(traffic, 0)
+    eng.run(clean)
+    want = {r.uid: r.out_tokens for r in clean}
+    frames = journal_frames(os.path.join(d, "journal.bin"))
+    rel = kill_chunk(d)
+    crash_run(eng, fresh(traffic, 0), rel)
+    ptrs, c0 = kept_ptrs(eng), eng.swap_summary()["graph_captures"]
+    warm = checked_resume(torch, lambda: eng.resume(), d, want, exact,
+                          f"{what}, warm resume")
+    after, s = kept_ptrs(eng), eng.swap_summary()
+    check({k: after[k] for k in ptrs} == ptrs,
+          f"{what}: the warm resume moved a kept buffer")
+    warm["captures"] = s["graph_captures"] - c0
+    check(warm["captures"] == 0,
+          f"{what}: the warm resume captured {warm['captures']} graphs")
+    check(s["kv"]["blocks_in_use"] == 0, f"{what}: {s['kv']['blocks_in_use']}"
+          " KV blocks in use after the resume")
+    out = {"kill_chunk": rel, "warm": warm, "journal_bytes": {
+        k: [b for kind, b in frames if kind == k]
+        for k in ("run_start", "sched", "admit", "chunk", "snap")}}
+    if fresh_engine:
+        eng2 = api.serve(model, base, reg, **full)
+        out["fresh"] = checked_resume(torch, lambda: eng2.resume(), d,
+                                      want, exact, f"{what}, fresh resume")
+        check(eng2.swap_summary()["kv"]["blocks_in_use"] == 0,
+              f"{what}: KV blocks in use after the fresh resume")
+    for k in ("warm", "fresh"):
+        p = out.get(k, {}).get("plan")
+        check(p is None or (p["snapshot_step"] is not None
+                            and p["replayed_rows"] > 0
+                            and p["reprefilled_rows"] > 0),
+              f"{what}, {k}: the resume restored no wave or served no row "
+              f"again: {p}")
+    return out, want, rel
+
+
+def spawn_child(torch, setup, snap, rel, what) -> dict:
+    """The SIGKILL child on the card: returns its seconds; gates: killed
+    by SIGKILL, ``rel`` chunks journaled, no clean end."""
+    import signal
+    from repro_torch.serve import journal as journal_mod
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serve.restart_child", snap,
+         setup, str(rel)], env=env, capture_output=True, text=True,
+        timeout=300)
+    child_s = time.monotonic() - t0
+    check(proc.returncode == -signal.SIGKILL,
+          f"{what}: the child ended with {proc.returncode}, not SIGKILL: "
+          f"{proc.stderr[-3000:]}")
+    st = journal_mod.replay(os.path.join(snap, journal_mod.JOURNAL_NAME))
+    check(st.chunks == rel and not st.clean_end and st.snapshots,
+          f"{what}: the child journaled {st.chunks} chunks and "
+          f"{len(st.snapshots)} snapshots, clean end {st.clean_end}")
+    return {"child_s": child_s, "journaled_chunks": st.chunks,
+            "journal_records": st.n_records}
+
+
+def warm_rate(torch, engine, reqs, reps=2) -> dict:
+    """Tokens/s of warm runs of ``reqs`` on ``engine`` (after a cold one):
+    end to end, and decode (the waves' time past their prefills)."""
+    engine.run(fresh(reqs, 0))
+    ends, decs = [], []
+    for _ in range(reps):
+        n0 = len(engine.wave_log)
+        rr = fresh(reqs, 0)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        engine.run(rr)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        waves = engine.wave_log[n0:]
+        ends.append(sum(r.max_new_tokens for r in rr) / wall)
+        decs.append(sum(w["tokens"] - w["rows"] for w in waves)
+                    / sum(w["seconds"] - w["prefill_s"] for w in waves))
+    return {"tokens_per_s": ends, "decode_tokens_per_s": decs}
+
+
+def durability_path(torch, api, model, base, reg, experts, cfg, seed, units,
+                    tmp):
+    """Phase 3k: kill and resume at full width.  The main path, driven
+    with the launch counts set to 0 just before it and read just after,
+    in bf16:
+
+    (a) phase 3d's 16 refill requests (``max_batch`` 4, ``cache_len`` 256,
+        ``decode_chunk`` 8) served uninterrupted with a snapshot after
+        every chunk, served again and crashed from a chunk hook where rows
+        admitted after the last snapshot are in flight, then ``resume()``
+        (i) on the same warm engine (0 captures, every kept buffer at its
+        address) and (ii) on a fresh engine;
+    (b) phase 3p's 24 closed requests, paged (block 16), affinity,
+        sampled (T 0.8, top_k 40), likewise, resumed warm (0 KV blocks in
+        use after it);
+    (c) the crash of (a) journaled only (``snapshot_every_chunks=0``),
+        resumed through ``api.serve(resume=True)``: no snapshot step;
+    (d) a finished run resumed from its journal alone (no wave), and a
+        resume with another seed refused ("sampling mismatch");
+    (e) the base saved with ``checkpoint.manager.save`` and the experts
+        published as PACKED blobs; ``repro_torch.serve.restart_child``
+        serves (a)'s traffic and dies by SIGKILL at (a)'s chunk; resumed
+        in this process;
+    and phase 3d's traffic timed with no journal, the journal alone and a
+    snapshot every 1 and 4 chunks.  In bf16 rows continued from a
+    restored wave must equal the uninterrupted run bitwise; a row served
+    again from its prompt runs at other positions and may part at a
+    near-tie (a gate), which the journal's prefix check reports by
+    raising.  Then (a), (b), (c) and (e) on an f32 copy, where every
+    stream must equal the uninterrupted run bitwise and every resume
+    complete.  Returns (launches, numbers)."""
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels import ops
+    from repro_torch.models import build as build_model
+    from repro_torch.serve import snapshot as snap_mod
+    from repro_torch.serve.restart_child import write_setup
+    reqs = refill_requests(torch, cfg, seed)
+    preqs = paged_traffic(cfg, seed)
+    pkw = dict(PAGED, kv_layout="paged", scheduler="affinity", top_k=40,
+               **SAMPLING)
+    snaps = []
+    write, save = snap_mod.write_snapshot, snap_mod.manager.save
+
+    def timed_save(state, d, step, extra_meta=None):
+        t0 = time.monotonic()
+        path = save(state, d, step, extra_meta=extra_meta)
+        snaps[-1].update(commit_s=time.monotonic() - t0, bytes=sum(
+            os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)))
+        return path
+
+    def timed_write(engine, **kw):
+        snaps.append({"layout": engine.cfg.kv_layout,
+                      "dtype": str(engine.base["embed"].dtype)})
+        t0 = time.monotonic()
+        path = write(engine, **kw)
+        snaps[-1]["total_s"] = time.monotonic() - t0
+        return path
+
+    snap_mod.write_snapshot, snap_mod.manager.save = timed_write, timed_save
+    out = {}
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out["a"], want, rel = durability_case(
+            torch, api, model, base, reg, DURABLE, reqs,
+            os.path.join(tmp, "a"), False, "3k (a) dense greedy bf16", True)
+        out["b"], pwant, _ = durability_case(
+            torch, api, model, base, reg, pkw, preqs,
+            os.path.join(tmp, "b"), False,
+            "3k (b) paged sampled affinity bf16", False)
+        # (c)
+        dc = os.path.join(tmp, "c")
+        crash_run(api.serve(model, base, reg, snapshot_dir=dc, **DURABLE),
+                  fresh(reqs, 0), rel)
+        out["c"] = checked_resume(
+            torch, lambda: api.serve(model, base, reg, snapshot_dir=dc,
+                                     resume=True, **DURABLE),
+            dc, want, False, "3k (c) journal only bf16")
+        check(out["c"].get("plan") is None
+              or out["c"]["plan"]["snapshot_step"] is None,
+              f"3k (c): a snapshot step without snapshots: {out['c']}")
+        # (d)
+        dd = os.path.join(tmp, "d")
+        jeng = api.serve(model, base, reg, snapshot_dir=dd, **DURABLE)
+        done = fresh(reqs, 0)
+        jeng.run(done)
+        check({r.uid: r.out_tokens for r in done} == want,
+              "3k (d): a journaled run gave other tokens than (a)'s")
+        eng = api.serve(model, base, reg, snapshot_dir=dd, **DURABLE)
+        got = eng.resume()
+        plan = eng.recovery_stats["plan"].as_dict()
+        check({r.uid: r.out_tokens for r in got} == want
+              and len(eng.wave_log) == 0 and plan["snapshot_step"] is None
+              and plan["replayed_rows"] == plan["reprefilled_rows"] == 0,
+              f"3k (d): a finished run did not resume from its journal "
+              f"alone: {plan}, {len(eng.wave_log)} waves")
+        bad = dict(pkw, seed=SAMPLING["seed"] + 1)
+        try:
+            api.serve(model, base, reg, snapshot_dir=os.path.join(tmp, "b"),
+                      **bad).resume()
+            raise CheckFailed("3k (d): a resume with another seed ran")
+        except ValueError as e:
+            check("sampling mismatch" in str(e), f"3k (d): {e}")
+        out["d"] = {"plan": plan, "mismatch": "refused"}
+        # (e)
+        setup = os.path.join(tmp, "setup")
+        ts = time.monotonic()
+        write_setup(setup, arch="qwen2_5_3b", n_units=units, base=base,
+                    experts=experts, requests=reqs, engine_kw=DURABLE,
+                    registry_kw={"device_cache_bytes": 16 << 30})
+        setup_s = time.monotonic() - ts
+        base_bytes = sum(os.path.getsize(os.path.join(setup, "base", x, f))
+                         for x in os.listdir(os.path.join(setup, "base"))
+                         for f in os.listdir(os.path.join(setup, "base", x)))
+        de = os.path.join(tmp, "e")
+        out["e"] = spawn_child(torch, setup, de, rel, "3k (e) bf16")
+        out["e"].update(setup_s=setup_s, base_bytes=base_bytes)
+        eng = api.serve(model, base, reg, snapshot_dir=de,
+                        snapshot_every_chunks=1, **DURABLE)
+        out["e"]["resume"] = checked_resume(
+            torch, lambda: eng.resume(), de, want, False, "3k (e) SIGKILL child bf16")
+        # decode tokens/s: no journal, the journal alone, a snapshot every
+        # 1 and every 4 chunks
+        rates = {}
+        for name, kw in (("none", {}),
+                         ("journal", dict(snapshot_dir=os.path.join(
+                             tmp, "r1"))),
+                         ("snapshot_every_1", dict(snapshot_dir=os.path.join(
+                             tmp, "r2"), snapshot_every_chunks=1)),
+                         ("snapshot_every_4", dict(snapshot_dir=os.path.join(
+                             tmp, "r3"), snapshot_every_chunks=4))):
+            rates[name] = warm_rate(torch, api.serve(model, base, reg,
+                                                     **DURABLE, **kw), reqs)
+        out["rates"] = rates
+        torch.cuda.synchronize()
+        out["path_s"] = time.monotonic() - t0
+        launches = ops.launch_counts()
+        for name in ("ternary_matmul_grouped", "sample_tokens"):
+            check(launches[name] > 0,
+                  f"kernel {name} was not launched on the durability path")
+
+        # the f32 copy: every stream bitwise, every resume complete
+        model32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+        base32 = tree_util.tree_map(lambda t: t.float(), base)
+        f32 = {}
+        f32["a"], want32, rel32 = durability_case(
+            torch, api, model32, base32, reg, DURABLE, reqs,
+            os.path.join(tmp, "a32"), True, "3k (a) dense greedy f32", True)
+        check(rel32 == rel, f"3k: the f32 run's kill chunk {rel32} is not "
+              f"bf16's {rel}")
+        f32["b"], _, _ = durability_case(
+            torch, api, model32, base32, reg, pkw, preqs,
+            os.path.join(tmp, "b32"), True,
+            "3k (b) paged sampled affinity f32", False)
+        dc32 = os.path.join(tmp, "c32")
+        crash_run(api.serve(model32, base32, reg, snapshot_dir=dc32,
+                            **DURABLE), fresh(reqs, 0), rel)
+        f32["c"] = checked_resume(
+            torch, lambda: api.serve(model32, base32, reg, snapshot_dir=dc32,
+                                     resume=True, **DURABLE),
+            dc32, want32, True, "3k (c) journal only f32")
+        check(f32["c"]["plan"]["snapshot_step"] is None,
+              f"3k (c) f32: {f32['c']['plan']}")
+        setup32 = os.path.join(tmp, "setup32")
+        write_setup(setup32, arch="qwen2_5_3b", n_units=units, base=base,
+                    experts=experts, requests=reqs, engine_kw=DURABLE,
+                    dtype="float32",
+                    registry_kw={"device_cache_bytes": 16 << 30})
+        de32 = os.path.join(tmp, "e32")
+        f32["e"] = spawn_child(torch, setup32, de32, rel, "3k (e) f32")
+        eng = api.serve(model32, base32, reg, snapshot_dir=de32,
+                        snapshot_every_chunks=1, **DURABLE)
+        f32["e"]["resume"] = checked_resume(
+            torch, lambda: eng.resume(), de32, want32, True,
+            "3k (e) SIGKILL child f32")
+        out["f32"] = f32
+        del model32, base32, eng
+    finally:
+        snap_mod.write_snapshot, snap_mod.manager.save = write, save
+    out["snapshots"] = snaps
+    return launches, out
+
+
 def attention_step_ms(torch, cfg):
     """Device ms of one decode step's attention, every layer, by CUDA
     graph: the paged write, gather attention and normalisation against
@@ -3130,6 +3618,18 @@ def main(argv=None) -> int:
         check(remote_launches[name] > 0,
               f"kernel {name} was not launched on the remote paths")
 
+    log("phase 3k: kill and resume (journal, a snapshot per chunk, "
+        "resume warm and fresh, paged sampled affinity, journal only, a "
+        "SIGKILL child; bf16, then an f32 copy)")
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="_artifacts_", dir=ROOT) as tmp:
+        durable_launches, durable = durability_path(
+            torch, api, model, base, reg, experts, cfg, args.seed,
+            args.units, tmp)
+    durable["phase_s"] = time.monotonic() - t0
+    log(f"  launches on the durability path: {durable_launches}; phase 3k "
+        f"took {durable['phase_s']:.1f} s")
+
     log("phase 4: checks")
     for r in reqs:
         check(len(r.out_tokens) == r.max_new_tokens
@@ -3260,11 +3760,11 @@ def main(argv=None) -> int:
         # each kernel's launches on the paths that run it: the mixed path,
         # the merge path, the merged ensemble, the artifact path, the
         # refill path, the two wide configurations, the sampled paths, the
-        # paged path and the remote paths
+        # paged path, the remote paths and the durability path
         n_launch = (launches[name] + merge_launches[name]
                     + ens_launches[name] + art_launches[name]
                     + refill_launches[name] + paged_launches[name]
-                    + remote_launches[name]
+                    + remote_launches[name] + durable_launches[name]
                     + sum(c[name] for c in wide_launches.values())
                     + sum(c[name] for c in sampled_launches.values()))
         entry = {"name": name, "route": "cuda", "source": src,
@@ -3315,13 +3815,14 @@ def main(argv=None) -> int:
                           "merge": graph_stats(gengine),
                           "refill": graph_stats(rengine)},
                "wide_configs": wide, "sampled": sampled, "paged": paged,
-               "remote": remote,
+               "remote": remote, "durable": durable,
                "params_m": n_params / 1e6}
     details.update(kernels=kernels, numbers=numbers, launches={
         "mixed_path": launches, "merge_path": merge_launches,
         "ensemble": ens_launches, "ensemble_loop_check": check_launches,
         "artifact_path": art_launches, "refill_path": refill_launches,
         "paged_path": paged_launches, "remote_path": remote_launches,
+        "durable_path": durable_launches,
         "ternary_matvec_check": matvec_launches,
         **{f"{a}_path": c for a, c in wide_launches.items()},
         **{f"sampled_top_k_{k}_path": c
@@ -3525,6 +4026,52 @@ def main(argv=None) -> int:
         f"{co['remote_seconds']:.3f} against prefetch_seconds "
         f"{co['prefetch_seconds']:.3f}")
     log(f"phase 3r took {remote['phase_s']:.1f} s {tag}")
+    dk = durable
+    jb = dk["a"]["journal_bytes"]
+    log(f"phase 3k journal {tag}: {len(jb['chunk'])} chunk records of "
+        f"{min(jb['chunk'])}-{max(jb['chunk'])} bytes (mean "
+        f"{sum(jb['chunk']) / len(jb['chunk']):.1f}), run_start "
+        f"{jb['run_start'][0]} bytes, admit {min(jb['admit'])}-"
+        f"{max(jb['admit'])}, snap {min(jb['snap'])}-{max(jb['snap'])}")
+    for key in sorted({(x["layout"], x["dtype"]) for x in dk["snapshots"]}):
+        xs = [x for x in dk["snapshots"] if (x["layout"], x["dtype"]) == key]
+        commit = sorted(x["commit_s"] for x in xs)
+        d2h = sorted(x["total_s"] - x["commit_s"] for x in xs)
+        log(f"phase 3k snapshots {key[0]} {key[1]} {tag}: {len(xs)}, "
+            f"{xs[0]['bytes']} bytes each; commit (npz + manifest + "
+            f"rename) s median {commit[len(xs) // 2]:.4f} (min "
+            f"{commit[0]:.4f}, max {commit[-1]:.4f}); device-to-host copy "
+            f"and metadata s median {d2h[len(xs) // 2]:.4f}")
+    for name, r in (("(a) dense bf16 warm", dk["a"]["warm"]),
+                    ("(a) dense bf16 fresh", dk["a"]["fresh"]),
+                    ("(b) paged sampled bf16 warm", dk["b"]["warm"]),
+                    ("(c) journal only bf16", dk["c"]),
+                    ("(e) SIGKILL child bf16", dk["e"]["resume"]),
+                    ("(a) dense f32 warm", dk["f32"]["a"]["warm"]),
+                    ("(a) dense f32 fresh", dk["f32"]["a"]["fresh"]),
+                    ("(b) paged sampled f32 warm", dk["f32"]["b"]["warm"]),
+                    ("(c) journal only f32", dk["f32"]["c"]),
+                    ("(e) SIGKILL child f32", dk["f32"]["e"]["resume"])):
+        parted = ", ".join(f"uid {e['uid']} at token {e['step']}"
+                           for e in r["parted"]) or "none"
+        times = (f"resume_seconds {r['resume_s']:.3f}, "
+                 f"first_resumed_token_s {r['first_resumed_token_s']:.3f}, "
+                 f"plan {r['plan']}" if r["completed"] else
+                 "the prefix check raised (near-tie)")
+        log(f"phase 3k {name} {tag}: completed {r['completed']}; {times}; "
+            f"{len(r['continued'])} rows continued bitwise; parted from the "
+            f"uninterrupted run: {parted}")
+    log(f"phase 3k SIGKILL child {tag}: base checkpoint "
+        f"{dk['e']['base_bytes']} bytes, setup (save + publish) "
+        f"{dk['e']['setup_s']:.1f} s; child {dk['e']['child_s']:.1f} s "
+        f"(f32 {dk['f32']['e']['child_s']:.1f} s) to its SIGKILL at chunk "
+        f"{dk['a']['kill_chunk']}")
+    log(f"phase 3k phase 3d's traffic, warm tokens/s end to end / decode "
+        f"{tag}: " + "; ".join(
+            f"{k} " + ", ".join(f"{a:.1f} / {b:.1f}" for a, b in zip(
+                v["tokens_per_s"], v["decode_tokens_per_s"]))
+            for k, v in dk["rates"].items()))
+    log(f"phase 3k took {dk['phase_s']:.1f} s {tag}")
     log(f"grouped kernel: empty expert slots cost {tag}: "
         f"{report['ternary_matmul_grouped']['slot_padding_ms_per_wave']:.3f}"
         " ms per wave")

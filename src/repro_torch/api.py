@@ -137,19 +137,38 @@ def serve(model, base_params: dict, reg, cfg=None, **engine_kw):
     ``"fifo"``, ``"priority"`` or ``"affinity"``, ``kv_layout`` =
     ``"dense"`` or ``"paged"`` with ``kv_block_size`` and ``kv_blocks``,
     ...); ``temperature``, ``top_k`` and ``seed`` build its
-    ``SamplingConfig``."""
+    ``SamplingConfig`` (pass them or ``sampling=``, not both).
+
+    ``snapshot_dir=`` arms crash consistency: every ``run()`` writes a
+    CRC-framed journal there (admissions, scheduler decisions, each
+    chunk's tokens, flushed at every chunk boundary), and
+    ``snapshot_every_chunks=N`` commits an atomic snapshot of the wave
+    (KV, pending tokens, allocator state) every N chunks.
+    ``resume=True`` rebuilds a killed run instead of returning an idle
+    engine: it replays the journal, restores the latest snapshot into the
+    engine's kept buffers, fetches the experts through the registry, and
+    serves every unfinished request to the tokens of the uninterrupted
+    run; they land in ``engine.resumed_requests``, the timing and the
+    ``RecoveryPlan`` in ``engine.recovery_stats``."""
     from repro_torch.serve.decode_loop import SamplingConfig
     from repro_torch.serve.engine import EngineConfig, ServeEngine
+    do_resume = engine_kw.pop("resume", False)
     samp = {k: engine_kw.pop(k) for k in ("temperature", "top_k", "seed")
             if k in engine_kw}
     if samp:
+        if "sampling" in engine_kw:
+            raise ValueError("pass either sampling= or flat "
+                             "temperature/top_k/seed, not both")
         base = cfg.sampling if cfg is not None else SamplingConfig()
         engine_kw["sampling"] = dataclasses.replace(base, **samp)
     if cfg is None:
         cfg = EngineConfig(**engine_kw)
     elif engine_kw:
         cfg = dataclasses.replace(cfg, **engine_kw)
-    return ServeEngine(model, base_params, reg, cfg)
+    eng = ServeEngine(model, base_params, reg, cfg)
+    if do_resume:
+        eng.resume()
+    return eng
 
 
 def load(path: str, name: Optional[str] = None, device="cuda") -> Expert:

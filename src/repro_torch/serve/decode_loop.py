@@ -67,6 +67,18 @@ class SamplingConfig:
     def greedy(self) -> bool:
         return self.temperature <= 0.0
 
+    def to_meta(self) -> dict:
+        """JSON form for the serve journal: the sampled-stream contract is
+        exactly these three numbers, so ``resume()`` can refuse a
+        mismatched engine before it emits a token."""
+        return {"temperature": self.temperature, "top_k": self.top_k,
+                "seed": self.seed}
+
+    @classmethod
+    def from_meta(cls, d: dict) -> "SamplingConfig":
+        return cls(temperature=float(d["temperature"]),
+                   top_k=int(d["top_k"]), seed=int(d["seed"]))
+
 
 def select_tokens(logits: torch.Tensor, keys: torch.Tensor,
                   gen: torch.Tensor, sampling: SamplingConfig) -> torch.Tensor:

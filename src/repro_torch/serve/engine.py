@@ -70,14 +70,26 @@ others serve as if it had not been asked for.  ``degrade="raise"``
 propagates the error, and an unknown expert of a local store raises
 ``KeyError``, as in the reference.
 
-Options of the reference engine that the port does not serve yet raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+With ``snapshot_dir=`` every :meth:`ServeEngine.run` writes a
+write-ahead journal there (:mod:`repro_torch.serve.journal`: the request
+manifest, scheduler decisions, admissions and each chunk's tokens,
+flushed to the OS at every chunk boundary), and ``snapshot_every_chunks=N``
+commits an atomic snapshot of the wave every N chunks
+(:mod:`repro_torch.serve.snapshot`).  :meth:`ServeEngine.resume` rebuilds a
+killed run from them: rows of the snapshotted wave continue from its KV,
+restored into the kept buffers in place (so a warm engine replays its
+graphs without a capture), every other unfinished request is served
+again from its prompt, and every journaled token must come out again.
+
+A mesh (serving across several GPUs) raises ``NotImplementedError``
+naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 import time
 from collections import defaultdict, deque
 from typing import Any, Optional
@@ -85,8 +97,11 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.distributed.fault import RecoveryPlan
 from repro_torch.models.delta import SlotOverlay, plan_overlay
 from repro_torch.serve import decode_loop, paged_kv
+from repro_torch.serve import journal as journal_mod
+from repro_torch.serve import snapshot as snapshot_mod
 from repro_torch.serve.decode_loop import SamplingConfig, select_tokens
 from repro_torch.serve.expert_cache import (BASE, ExpertRegistry,
                                             ExpertUnavailable, as_registry)
@@ -111,8 +126,10 @@ class Request:
     error: Optional[str] = None
     priority: int = 1          # lower value = more urgent class
     deadline_s: Optional[float] = None   # absolute SLO deadline (EDF tiebreak)
-    # engine clock: seconds since run() began (time.monotonic based)
+    # engine clock: seconds since run() began (time.monotonic based);
+    # t_wall is the one epoch stamp, taken at run(), for external logs
     arrival_s: float = 0.0     # open-loop arrival offset; 0 = already queued
+    t_wall: Optional[float] = None       # epoch seconds at arrival
     t_admit_s: Optional[float] = None    # first placed into a wave
     t_first_s: Optional[float] = None    # first token selected
     t_done_s: Optional[float] = None     # generation budget exhausted
@@ -138,6 +155,10 @@ class EngineConfig:
     # so that a full batch at cache_len never waits for blocks
     kv_blocks: Optional[int] = None
     mesh: Optional[Any] = None
+    # crash consistency: a directory arms the write-ahead journal of every
+    # run() and receives the snapshots; snapshot_every_chunks=N commits one
+    # every N chunks (0: the journal only, and resume serves again from
+    # the prompts)
     snapshot_dir: Optional[str] = None
     snapshot_every_chunks: int = 0
 
@@ -145,9 +166,6 @@ class EngineConfig:
 def _unsupported(cfg: EngineConfig) -> Optional[str]:
     if cfg.mesh is not None:
         return "mesh=: serving across GPUs comes with ROADMAP queue 1, item 10"
-    if cfg.snapshot_dir is not None or cfg.snapshot_every_chunks:
-        return ("snapshot_dir=: journal, snapshots and resume come with "
-                "ROADMAP queue 1, item 9")
     return None
 
 
@@ -202,6 +220,14 @@ class ServeEngine:
                            else ecfg.max_batch * self._max_blocks + 1)
         if ecfg.kv_layout == "paged" and self._kv_blocks < 2:
             raise ValueError("kv_blocks must be >= 2 (block 0 is reserved)")
+        if ecfg.snapshot_dir is not None and not ecfg.decode_chunk:
+            raise ValueError("snapshot_dir needs the compiled decode loop "
+                             "(journal/snapshot commit at chunk "
+                             "boundaries); set decode_chunk > 0")
+        if ecfg.snapshot_every_chunks < 0:
+            raise ValueError("snapshot_every_chunks must be >= 0")
+        if ecfg.snapshot_every_chunks and ecfg.snapshot_dir is None:
+            raise ValueError("snapshot_every_chunks needs snapshot_dir")
         self.api = api
         self.base = base_params
         self.registry = as_registry(registry, base_params["embed"].device)
@@ -237,6 +263,13 @@ class ServeEngine:
         self._adm_wait: dict[int, list] = defaultdict(list)  # by priority
         self._kv_in_use = 0                  # pool blocks in use (paged)
         self._kv_peak = 0
+        # crash consistency (serve/journal.py, serve/snapshot.py)
+        self._journal = None                 # JournalWriter while run() lives
+        self._chunk_idx = 0                  # global chunk count = snap step
+        self.chunk_hooks: list = []          # called (chunk_idx) after a flush
+        self._recovery_t0: Optional[float] = None
+        self.recovery_stats: dict = {}
+        self.resumed_requests: list = []
 
     # ---------------- merged parameters ----------------
 
@@ -360,20 +393,299 @@ class ServeEngine:
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
 
-    def run(self, requests: list[Request]) -> list[Request]:
+    def run(self, requests: list[Request],
+            scheduling: Optional[str] = None) -> list[Request]:
         """Serve every request to its budget; tokens land in
-        ``Request.out_tokens``."""
-        self._t0 = time.monotonic()
-        pending = [r for r in requests if r.status == PENDING]
-        if self.cfg.scheduling == "grouped" or self._plan is None:
-            self._run_grouped(pending)
-        else:
-            self._run_mixed(pending)
+        ``Request.out_tokens``.  ``scheduling`` ("mixed" or "grouped")
+        overrides ``cfg.scheduling`` for this run.  With ``snapshot_dir``
+        the run is journaled (and snapshotted) there."""
+        mode = scheduling or self.cfg.scheduling
+        if mode not in ("mixed", "grouped"):
+            raise ValueError('scheduling must be "mixed" or "grouped", '
+                             f"got {mode!r}")
+        self._t0 = time.monotonic()      # engine clock zero for arrivals
+        wall = time.time()               # the one epoch stamp per run
+        for r in requests:
+            if r.t_wall is None:
+                r.t_wall = wall + r.arrival_s
+        self._open_journal(requests, mode)
+        try:
+            pending = [r for r in requests if r.status == PENDING]
+            if mode == "grouped" or self._plan is None:
+                self._run_grouped(pending)
+            else:
+                self._run_mixed(pending)
+            for r in requests:
+                if r.status == PENDING:
+                    r.status = DONE
+            self._journal_append("run_end", {"requests": len(requests)},
+                                 flush=True)
+        finally:
+            self._close_journal()
+        self._export_gauges()
+        return requests
+
+    # ---------------- write-ahead journal ----------------
+
+    def _journal_append(self, kind: str, data: dict,
+                        flush: bool = False) -> None:
+        if self._journal is not None:
+            self._journal.append(kind, data, t=self._now())
+            if flush:
+                self._journal.flush()
+
+    def _journal_admit(self, r: Request, j: int) -> None:
+        self._journal_append("admit", {
+            "uid": r.uid, "expert": r.expert, "slot": j,
+            "arrival_s": r.arrival_s, "prompt_len": len(r.prompt)})
+
+    def _run_meta(self, requests: list[Request], mode: str) -> dict:
+        """The ``run_start`` record: everything needed to rebuild every
+        request from the journal alone, prompts included (a resumed
+        process has no other source for them)."""
+        return {
+            "sampling": self.cfg.sampling.to_meta(),
+            "scheduler": self.cfg.scheduler,
+            "scheduling": mode,
+            "kv_layout": self.cfg.kv_layout,
+            "decode_chunk": self.cfg.decode_chunk,
+            "max_batch": self.cfg.max_batch,
+            "cache_len": self.cfg.cache_len,
+            "wall": time.time(),
+            "requests": [{
+                "uid": r.uid, "expert": r.expert,
+                "prompt": [int(t) for t in
+                           torch.as_tensor(r.prompt).reshape(-1).tolist()],
+                "max_new": r.max_new_tokens, "priority": r.priority,
+                "deadline_s": r.deadline_s, "arrival_s": r.arrival_s,
+                "t_wall": r.t_wall,
+            } for r in requests],
+        }
+
+    def _open_journal(self, requests: list[Request], mode: str) -> None:
+        if self.cfg.snapshot_dir is None:
+            return
+        path = os.path.join(self.cfg.snapshot_dir, journal_mod.JOURNAL_NAME)
+        self._journal = journal_mod.JournalWriter(path, fresh=True)
+        self._journal.append("run_start", self._run_meta(requests, mode))
+        self._journal.sync()
+
+    def _close_journal(self) -> None:
+        if self._journal is not None:
+            self._journal.close()
+            self._journal = None
+
+    # ---------------- kill-restart recovery ----------------
+
+    def resume(self) -> list[Request]:
+        """Recover a killed run from ``snapshot_dir``'s journal (and its
+        latest snapshot, if any) and serve it to completion.
+
+        1. Replay the journal: which requests existed, what each had
+           emitted, which finished or failed (no ``run_end``: a crash).
+        2. Restore the last snapshot's wave (KV and pending tokens at a
+           chunk boundary, the paged allocator's free list) into the
+           kept buffers and continue it.
+        3. Serve every other unfinished request again from its prompt (its
+           KV postdates the snapshot, or it was never admitted): its
+           stream is keyed by (seed, uid), so it regenerates.
+
+        Every journaled token must come out again
+        (:meth:`_verify_journal_prefix` raises otherwise).  Experts are
+        fetched through the registry's tiers; an unavailable one fails
+        its requests as in a live run.  The resumed run writes no journal
+        and no snapshot.  Returns the rebuilt requests (also in
+        ``resumed_requests``); ``recovery_stats`` holds ``resume_seconds``,
+        ``first_resumed_token_s`` and the
+        :class:`~repro_torch.distributed.fault.RecoveryPlan`.
+        """
+        cfg = self.cfg
+        if cfg.snapshot_dir is None:
+            raise ValueError("resume() needs EngineConfig.snapshot_dir")
+        if self._plan is None:
+            raise ValueError("resume() supports the mixed overlay path "
+                             "only (this model family is not coverable)")
+        t_resume0 = time.monotonic()
+        self._recovery_t0 = t_resume0
+        self.recovery_stats = {}
+        state = journal_mod.replay(os.path.join(cfg.snapshot_dir,
+                                                journal_mod.JOURNAL_NAME))
+        meta = state.meta
+        if SamplingConfig.from_meta(meta["sampling"]) != cfg.sampling:
+            raise ValueError(
+                "resume(): sampling mismatch — journaled "
+                f"{meta['sampling']}, engine {cfg.sampling.to_meta()}; "
+                "token streams would diverge")
+        if meta.get("scheduling") == "grouped":
+            raise ValueError("resume() supports mixed scheduling only")
+        if meta["scheduler"] != cfg.scheduler:
+            raise ValueError(f"resume(): scheduler mismatch — journaled "
+                             f"{meta['scheduler']!r}, engine "
+                             f"{cfg.scheduler!r}")
+        if meta["kv_layout"] != cfg.kv_layout:
+            raise ValueError(f"resume(): kv_layout mismatch — journaled "
+                             f"{meta['kv_layout']!r}, engine "
+                             f"{cfg.kv_layout!r}")
+        snap = None
+        if state.snapshots:
+            snap = snapshot_mod.load_snapshot(
+                cfg.snapshot_dir, int(state.snapshots[-1]["step"]))
+
+        # every request from the run_start manifest, then the journaled
+        # facts (tokens, terminal states)
+        requests = [Request(
+            uid=int(d["uid"]), expert=d["expert"],
+            prompt=torch.as_tensor(d["prompt"], dtype=torch.int32),
+            max_new_tokens=int(d["max_new"]),
+            priority=int(d.get("priority", 1)),
+            deadline_s=d.get("deadline_s"),
+            arrival_s=float(d.get("arrival_s", 0.0)),
+            t_wall=d.get("t_wall")) for d in meta["requests"]]
+        by_uid = {r.uid: r for r in requests}
+        snap_uids = set(snap.row_uids) if snap is not None else set()
+        reserve: list[Request] = []
+        for r in requests:
+            toks = state.tokens.get(r.uid, [])
+            if r.uid in state.failed:
+                r.status, r.error = FAILED, state.failed[r.uid]
+                r.out_tokens = list(toks)
+            elif len(toks) >= r.max_new_tokens:
+                r.status = DONE
+                r.out_tokens = list(toks[:r.max_new_tokens])
+            elif r.uid in snap_uids:
+                # continues from the restored KV; the tokens past the
+                # snapshot regenerate (checked against the journal below)
+                r.out_tokens = list(toks[:snap.emitted[r.uid]])
+            else:
+                # admitted after the snapshot, or never: served again from
+                # its prompt
+                r.out_tokens = []
+                reserve.append(r)
+
+        self._t0 = time.monotonic()        # the resumed run's clock zero
+        sched = make_scheduler(cfg.scheduler)
+        self._sched = sched
+        if cfg.kv_layout == "paged":
+            self._validate_paged(reserve)
+        for r in reserve:
+            if r.status == PENDING:
+                # arrivals count from the original clock zero; anything
+                # due at the crash is due now
+                r.arrival_s = max(0.0, r.arrival_s - state.last_t)
+                sched.push(r)
+        if snap is not None:
+            resident = [n for n in snap.meta.get("resident", ())
+                        if n != BASE]
+            if resident:
+                try:          # warm the device cache; opportunistic
+                    self.registry.prefetch(resident)
+                except ExpertUnavailable:
+                    pass
+        continued = demoted = 0
+        if snap is not None and any(by_uid[u].status == PENDING
+                                    for u in snap_uids):
+            continued, demoted = self._resume_wave(snap, by_uid, sched)
+        self._drain(sched)
         for r in requests:
             if r.status == PENDING:
                 r.status = DONE
+        self._verify_journal_prefix(requests, state)
+        self.recovery_stats.update({
+            "resume_seconds": time.monotonic() - t_resume0,
+            "plan": RecoveryPlan(
+                snapshot_step=snap.step if snap is not None else None,
+                journal_records=state.n_records,
+                replayed_rows=continued,
+                reprefilled_rows=len(reserve) + demoted)})
+        self._recovery_t0 = None
+        self.resumed_requests = requests
         self._export_gauges()
         return requests
+
+    def _resume_wave(self, snap, by_uid: dict, sched) -> tuple:
+        """Restore the snapshotted wave (KV, pending tokens, rows, paged
+        allocator) into the kept buffers and run it to its end through
+        the chunk loop, refilling its slots from ``sched``.  The snapshot
+        was taken before the refills of its chunk boundary, so the wave
+        refills before its first chunk, as the interrupted run did: the
+        resumed run then repeats its schedule (the same admissions at the
+        same wave positions and the same graphs; the reference launches a
+        chunk first).  Returns
+        (continued, demoted) row counts: when an expert of the wave
+        cannot be fetched, its rows fail and every other unfinished row
+        is demoted to a serve from its prompt."""
+        t0, g0 = time.monotonic(), self._graph_counts()
+        experts = list(snap.meta["experts"])
+        live = [u for u in snap.row_uids if by_uid[u].status == PENDING]
+        try:
+            overlay = self._overlay_for(tuple(experts))
+        except ExpertUnavailable as e:
+            demoted = 0
+            for u in live:
+                r = by_uid[u]
+                if r.expert == e.name:
+                    self._fail([r], e)
+                else:
+                    r.out_tokens = []
+                    sched.push(r)
+                    demoted += 1
+            return 0, demoted
+        if overlay is None:
+            raise RuntimeError("resume(): snapshotted wave is not "
+                               "coverable by the zero-merge overlay")
+        rows = [by_uid[u] for u in snap.row_uids]
+        self._mark_admitted(rows)
+        # the expert ids are this engine's slots, not the writer's order
+        slot = {e: self.slot_of(e) for e in experts}
+        st = snap.device_state(self)
+        st["eid"].copy_(torch.as_tensor([slot[r.expert] for r in rows],
+                                        dtype=torch.int32))
+        st["keys"].copy_(self._keys(rows))
+        cur = int(snap.meta["cur"])
+        if self.cfg.kv_layout == "paged":
+            alloc = paged_kv.BlockAllocator.from_state(
+                self._kv_blocks, self._bs, snap.meta["alloc_free"])
+            row_blocks = {int(j): [int(b) for b in bl]
+                          for j, bl in snap.meta["row_blocks"].items()}
+            self._kv_in_use = alloc.in_use
+            self._kv_peak = max(self._kv_peak, alloc.peak_in_use)
+            try:
+                admitted, chunks = self._chunk_loop(
+                    rows, experts, slot, overlay, st, sched, cur,
+                    alloc=alloc, row_blocks=row_blocks, restored=True)
+            finally:
+                for j in list(row_blocks):
+                    alloc.free(row_blocks.pop(j))
+                self._kv_in_use = alloc.in_use
+                assert alloc.in_use == 0, (
+                    f"paged KV leak on resume: {alloc.in_use} blocks "
+                    "still allocated at wave teardown")
+        else:
+            admitted, chunks = self._chunk_loop(rows, experts, slot,
+                                                overlay, st, sched, cur,
+                                                restored=True)
+        self.wave_log.append(self._log(t0, g0, rows, admitted, chunks, cur,
+                                       0.0, experts=len(experts),
+                                       resumed=True))
+        return len(live), 0
+
+    @staticmethod
+    def _verify_journal_prefix(requests: list[Request], state) -> None:
+        """Every journaled token must be a prefix of the resumed stream: a
+        mismatch means the restored state or the refetched experts
+        diverged, and the resume must fail loudly rather than return other
+        tokens."""
+        for r in requests:
+            if r.status == FAILED:
+                continue
+            pre = [int(t) for t in
+                   state.tokens.get(r.uid, [])][:r.max_new_tokens]
+            got = [int(t) for t in r.out_tokens[:len(pre)]]
+            if got != pre:
+                raise RuntimeError(
+                    f"resume(): request {r.uid} diverged from the "
+                    f"journal (journaled {pre[:8]}, regenerated "
+                    f"{got[:8]})")
 
     # ---------------- graceful degradation ----------------
 
@@ -388,6 +700,8 @@ class ServeEngine:
             self.failed_total += 1
             self._ring_append("failed", {"uid": r.uid, "expert": r.expert,
                                          "error": str(err)})
+            self._journal_append("fail", {"uid": r.uid, "expert": r.expert,
+                                          "error": str(err)}, flush=True)
 
     def _ring_append(self, name: str, item: dict) -> None:
         """Append to one of the bounded logs, counting evictions."""
@@ -431,6 +745,7 @@ class ServeEngine:
             self._validate_paged(requests)
         sched = make_scheduler(self.cfg.scheduler)
         self._sched = sched
+        sched.on_decision = lambda d: self._journal_append("sched", d)
         for r in requests:
             if r.status == PENDING:
                 sched.push(r)
@@ -656,6 +971,7 @@ class ServeEngine:
                         self._admit_row(nxt, j, cur, st, overlay)
                     self._mark_admitted([nxt])
                     self._mark_first([nxt])
+                    self._journal_admit(nxt, j)
                     refilled.append(j)
                     admitted = True
                     break             # slot j filled; on to the next
@@ -701,25 +1017,63 @@ class ServeEngine:
         _, _, buf = self._chunk_fn(params, overlay, eid, st["tok"],
                                    st["cache"], rem, st["gen"], st["keys"])
         buf = buf.cpu().tolist()              # one host read per chunk
+        flushed = []
         for j, r in enumerate(rows):
             n = min(K, rem[j])
             if n:
-                r.out_tokens.extend(buf[j][:n])
+                toks = buf[j][:n]
+                r.out_tokens.extend(toks)
                 self._mark_done(r)
+                flushed.append({"uid": r.uid, "n": n, "toks": toks,
+                                "total": len(r.out_tokens)})
+        self._chunk_idx += 1
+        # the chunk boundary is the journal's sync point: the tokens reach
+        # the OS before the next launch, so a kill costs at most one chunk
+        self._journal_append("chunk", {"i": self._chunk_idx,
+                                       "rows": flushed}, flush=True)
+        if (self._recovery_t0 is not None
+                and "first_resumed_token_s" not in self.recovery_stats):
+            self.recovery_stats["first_resumed_token_s"] = (
+                time.monotonic() - self._recovery_t0)
+        for hook in list(self.chunk_hooks):
+            hook(self._chunk_idx)
         return decode_loop.host_decode_steps(max(rem), K), True
 
+    def _maybe_snapshot(self, rows, experts, st, cur, alloc=None,
+                        row_blocks=None) -> None:
+        """Commit a snapshot at the configured chunk cadence (the
+        post-flush state is the exact restart point)."""
+        every = self.cfg.snapshot_every_chunks
+        if (self._journal is None or not every
+                or self._chunk_idx % every != 0):
+            return
+        snapshot_mod.write_snapshot(self, rows=rows, experts=experts,
+                                    cache=st["cache"], tok=st["tok"],
+                                    cur=cur, alloc=alloc,
+                                    row_blocks=row_blocks)
+
     def _chunk_loop(self, rows, experts, slot, overlay, st, sched,
-                    cur: int, alloc=None, row_blocks=None) -> tuple:
-        """The chunked wave driver (dense and paged): a chunk, its flush,
-        then refills of finished slots.  A newcomer's first token stays on
-        the device as the pending token the next chunk emits first.
-        Returns (admitted (request, wave position) pairs, chunks)."""
+                    cur: int, alloc=None, row_blocks=None,
+                    restored: bool = False) -> tuple:
+        """The chunked wave driver (dense and paged): a chunk, its flush
+        and journal record, a snapshot at the configured cadence, then
+        refills of finished slots.  A newcomer's first token stays on the
+        device as the pending token the next chunk emits first.  A
+        ``restored`` wave (a snapshot: the state after a flush, before its
+        refills) refills first.  Returns (admitted (request, wave
+        position) pairs, chunks)."""
         admitted, chunks = [], 0
         while True:
-            steps, launched = self._drive_chunk(self.base, overlay,
-                                                st["eid"], st, rows)
-            cur += steps                      # host mirror of the position
-            chunks += int(launched)
+            if restored:
+                restored = False
+            else:
+                steps, launched = self._drive_chunk(self.base, overlay,
+                                                    st["eid"], st, rows)
+                cur += steps                  # host mirror of the position
+                chunks += int(launched)
+                if launched:
+                    self._maybe_snapshot(rows, experts, st, cur, alloc=alloc,
+                                         row_blocks=row_blocks)
             done = self._done_rows(rows)
             if sched is not None and sched.pending() and self._can_admit():
                 rows, experts, overlay, refilled = self._try_admissions(
@@ -739,6 +1093,8 @@ class ServeEngine:
         self._sync()
         prefill_s = time.monotonic() - t0
         self._mark_first(wave)
+        for j, r in enumerate(wave):
+            self._journal_admit(r, j)
         admitted, chunks = self._chunk_loop(list(wave), experts, slot,
                                             overlay, st, sched, cur)
         self.wave_log.append(self._log(t0, g0, wave, admitted, chunks, cur,
@@ -834,6 +1190,8 @@ class ServeEngine:
         self._sync()
         prefill_s = time.monotonic() - t0
         self._mark_first(wave)
+        for j, r in enumerate(wave):
+            self._journal_admit(r, j)
         self._kv_in_use = alloc.in_use
         self._kv_peak = max(self._kv_peak, alloc.peak_in_use)
         try:

@@ -38,6 +38,7 @@ reference's stacked buffers and their LRU have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 import time
 import warnings
@@ -401,7 +402,7 @@ class RemoteExpertStore(ExpertStore):
         local = set(super().names())
         try:
             remote = set(self.transport.names())
-        except (TransportError, OSError):   # e.g. HTTP cannot enumerate
+        except Exception:       # e.g. HTTP backends cannot enumerate
             remote = set()
         return sorted(local | remote)
 
@@ -449,6 +450,10 @@ class DeviceCache:
 
     def resident_bytes(self) -> int:
         return sum(self._sizes.values())
+
+    def resident(self) -> list[str]:
+        """Names of the trees on the device, least recently used first."""
+        return list(self._cache)
 
     def _drop_tree(self, name: str) -> None:
         self._cache.pop(name)
@@ -777,3 +782,11 @@ def as_registry(obj, device="cuda") -> ExpertRegistry:
         return ExpertRegistry(store=obj, device=device)
     raise TypeError(f"expected ExpertRegistry or ExpertStore, "
                     f"got {type(obj).__name__}")
+
+
+def uncompressed_baseline_bytes(art) -> int:
+    """What the same swap would cost without ComPEFT (bf16 dense): an
+    :class:`~repro_torch.expert.Expert` or a tree of packed leaves."""
+    packed = art.packed if not isinstance(art, dict) else art
+    leaves = tree_util.leaves(packed, is_leaf=lambda x: hasattr(x, "pos"))
+    return sum(math.prod(p.shape) * 2 for p in leaves)

@@ -980,3 +980,73 @@ def test_capture_survives_cyclic_garbage_holding_graphs(serving):
     assert [r.out_tokens for r in reqs] == want
     gc.collect()
     assert gone[0]() is None
+
+
+# ---------------------------------------------------------------------------
+# Durability: a resume restores into the kept buffers
+# ---------------------------------------------------------------------------
+
+# budgets such that a row ends at chunk 2 (decode_chunk 2): its slot is
+# refilled after the last snapshot before a crash at chunk 3
+DURABLE = (REFILL[0], (4, 8, 6, 5, 7, 6, 4), REFILL[2])
+
+
+def _kept_ptrs(eng):
+    from repro_torch import tree as tree_util
+    return {f"{kind}{rows}/{path}": t.data_ptr()
+            for kind, states in (("dense", eng._states),
+                                 ("paged", eng._paged_states))
+            for rows, st in states.items()
+            for path, t in tree_util.flatten_with_paths(st)}
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_warm_resume_restores_in_place_without_capture(serving, tmp_path,
+                                                       layout):
+    """A crash at the third chunk of a run, then ``resume()`` on the same
+    warm engine: every kept buffer keeps its address, no graph is
+    captured, kernel 1 (and the sampler, paged and sampled) runs, the f32
+    tokens equal the uninterrupted run's and no block is left in use; a
+    fresh engine resumes to the same tokens."""
+    from repro_torch import api
+    model, base, reg = serving
+    kw = dict(max_batch=3, cache_len=64, decode_chunk=2,
+              snapshot_dir=str(tmp_path / "snap"), snapshot_every_chunks=1)
+    if layout == "paged":
+        kw.update(PAGED, scheduler="affinity", temperature=0.8, top_k=5,
+                  seed=3)
+    eng = api.serve(model, base, reg, **kw)
+    clean = _requests(*DURABLE)
+    eng.run(clean)
+    want = {r.uid: r.out_tokens for r in clean}
+    kill = eng._chunk_idx + 3
+
+    def crash(i):
+        if i == kill:
+            raise RuntimeError("injected crash")
+
+    eng.chunk_hooks.append(crash)
+    with pytest.raises(RuntimeError, match="injected crash"):
+        eng.run(_requests(*DURABLE))
+    eng.chunk_hooks.clear()
+    ptrs = _kept_ptrs(eng)
+    before = eng.swap_summary()["graph_captures"]
+    ops.reset_launch_counts()
+    out = eng.resume()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert {r.uid: r.out_tokens for r in out} == want
+    after = _kept_ptrs(eng)
+    assert {k: after[k] for k in ptrs} == ptrs
+    s = eng.swap_summary()
+    assert s["graph_captures"] == before
+    assert s["kv"]["blocks_in_use"] == 0
+    assert launches["ternary_matmul_grouped"] > 0
+    if layout == "paged":
+        assert launches["sample_tokens"] > 0
+    plan = eng.recovery_stats["plan"]
+    assert plan.snapshot_step == kill - 1
+    assert plan.replayed_rows > 0 and plan.reprefilled_rows > 0
+    fresh = api.serve(model, base, reg, **kw)
+    assert {r.uid: r.out_tokens for r in fresh.resume()} == want
+    assert fresh.swap_summary()["kv"]["blocks_in_use"] == 0

@@ -32,7 +32,9 @@ def _sources():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")      # repro_torch is allowed
+    # repro_torch is allowed; ml_dtypes comes with JAX, which the card's
+    # machine does not have
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -41,11 +43,14 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.transport.backends", "repro_torch.transport.retry",
             "repro_torch.transport.chaos",
             "repro_torch.transport.replication",
-            "repro_torch.distributed.fault"} <= set(mods)
+            "repro_torch.distributed.fault", "repro_torch.serve.journal",
+            "repro_torch.serve.snapshot", "repro_torch.checkpoint.manager",
+            "repro_torch.serve.restart_child"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if "
-            "m.split('.')[0] in ('jax', 'jaxlib', 'repro'))))")
+            "m.split('.')[0] in ('jax', 'jaxlib', 'repro', "
+            "'ml_dtypes'))))")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=300, check=True)
@@ -65,6 +70,19 @@ def test_no_jax_or_repro_import_statements(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_serve_exports_every_name_of_the_reference():
+    """``repro_torch.serve`` exports every name of ``repro.serve``: the
+    schedulers, the paged-KV helpers, the journal and the snapshots."""
+    import repro.serve as jserve
+    import repro_torch.serve as tserve
+    missing = [n for n in jserve.__all__ if not hasattr(tserve, n)]
+    assert missing == []
+    assert set(jserve.__all__) <= set(tserve.__all__)
+    from repro_torch.serve import (FIFOScheduler, JournalWriter,  # noqa
+                                   load_snapshot,
+                                   uncompressed_baseline_bytes)
 
 
 def test_cuda_entry_points_raise_without_a_card():

@@ -1,10 +1,13 @@
 """Serving in the port: greedy token streams identical to the reference
 ``ServeEngine`` (mixed FIFO waves, ``continuous=False``) on the smoke
 configs of qwen2.5-3b, llama-7b and gemma2-9b, the
-mixed-wave-equals-sequential contract, and the options the port does not
-serve yet.  Slot refill and the eager loop are held in
+mixed-wave-equals-sequential contract, the options the port does not
+serve yet, the durability options' checks, ``t_wall`` and
+``run(scheduling=)``.  Slot refill and the eager loop are held in
 ``test_torch_admission.py``, sampled decoding in
 ``test_torch_sampling.py``."""
+
+import time
 
 import jax
 import jax.numpy as jnp
@@ -177,11 +180,81 @@ def test_unknown_expert_fails_only_its_requests(setup, store):
 
 
 @pytest.mark.parametrize("option", [
-    {"kv_layout": "paged", "mesh": object()},
-    {"scheduler": "affinity", "snapshot_dir": "snapshots"},
-    {"mesh": object()}, {"snapshot_dir": "snapshots"},
-    {"scheduler": "priority", "snapshot_every_chunks": 2}])
+    {"kv_layout": "paged", "mesh": object()}, {"mesh": object()}])
 def test_unported_options_raise(setup, option):
     _, _, _, _, model, tbase, treg = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tapi.serve(model, tbase, treg, **option)
+
+
+@pytest.mark.parametrize("option,match", [
+    ({"scheduler": "affinity", "snapshot_dir": "snapshots",
+      "decode_chunk": 0}, "compiled decode loop"),
+    ({"snapshot_every_chunks": 2}, "needs snapshot_dir"),
+    ({"scheduler": "priority", "snapshot_dir": "snapshots",
+      "snapshot_every_chunks": -1}, "must be >= 0")])
+def test_snapshot_options_checked(setup, option, match):
+    """The reference's own checks of the durability options, with its
+    messages: a journal needs chunk boundaries, a cadence needs a
+    directory and cannot be negative."""
+    _, api, base, jreg, model, tbase, treg = setup
+    with pytest.raises(ValueError, match=match):
+        rapi.serve(api, RT, base, jreg, **option)
+    with pytest.raises(ValueError, match=match):
+        tapi.serve(model, tbase, treg, **option)
+
+
+def test_serve_refuses_sampling_and_flat_knobs(setup):
+    """``sampling=`` and flat ``temperature``/``top_k``/``seed`` together
+    raise, in the port as in the reference."""
+    from repro.serve import SamplingConfig as JSampling
+    from repro_torch.serve import SamplingConfig
+    _, api, base, jreg, model, tbase, treg = setup
+    with pytest.raises(ValueError, match="not both"):
+        rapi.serve(api, RT, base, jreg, sampling=JSampling(), seed=3)
+    with pytest.raises(ValueError, match="not both"):
+        tapi.serve(model, tbase, treg, sampling=SamplingConfig(), seed=3)
+
+
+def test_run_stamps_t_wall(setup):
+    """``run()`` stamps each request's ``t_wall`` (epoch seconds at its
+    arrival) unless it carries one, as the reference does."""
+    cfg, _, _, _, model, tbase, treg = setup
+    p = _prompts(cfg, 6, (5, 5))
+    reqs = [Request(uid=0, expert="e0", prompt=p[0], max_new_tokens=2,
+                    arrival_s=0.25),
+            Request(uid=1, expert="e1", prompt=p[1], max_new_tokens=2,
+                    t_wall=123.0)]
+    t0 = time.time()
+    tapi.serve(model, tbase, treg, max_batch=2, cache_len=16).run(reqs)
+    assert t0 + 0.25 <= reqs[0].t_wall <= time.time() + 0.25
+    assert reqs[1].t_wall == 123.0
+
+
+@pytest.mark.parametrize("cfg_mode,run_mode", [("mixed", "grouped"),
+                                               ("grouped", "mixed")])
+def test_run_scheduling_overrides_config(setup, cfg_mode, run_mode):
+    """``run(requests, scheduling=)`` serves this run by the given mode
+    whatever ``cfg.scheduling`` says: tokens equal to the reference
+    engine's run in the same mode."""
+    cfg, api, base, jreg, model, tbase, treg = setup
+    prompts = _prompts(cfg, 7, (6, 8, 7, 6))
+    names = ["e0", "e1", "e0", BASE]
+    jr = [JRequest(uid=i, expert=n, prompt=jnp.asarray(p, jnp.int32),
+                   max_new_tokens=3)
+          for i, (n, p) in enumerate(zip(names, prompts))]
+    rapi.serve(api, RT, base, jreg, max_batch=4, cache_len=24,
+               scheduling=cfg_mode).run(jr, scheduling=run_mode)
+    tr = [Request(uid=i, expert=n, prompt=p, max_new_tokens=3)
+          for i, (n, p) in enumerate(zip(names, prompts))]
+    eng = tapi.serve(model, tbase, treg, max_batch=4, cache_len=24,
+                     scheduling=cfg_mode)
+    eng.run(tr, scheduling=run_mode)
+    assert [r.out_tokens for r in tr] == [r.out_tokens for r in jr]
+    s = eng.swap_summary()
+    if run_mode == "grouped":
+        assert s["n_waves"] == 0 and s["n_batches"] > 0
+    else:
+        assert s["n_waves"] > 0 and s["n_batches"] == 0
+    with pytest.raises(ValueError, match="scheduling"):
+        eng.run(tr, scheduling="nope")

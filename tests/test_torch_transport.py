@@ -379,3 +379,32 @@ def test_concurrent_gets_under_a_cold_budget():
     assert errors == []
     assert reg.store.cold_resident_bytes() <= budget
     assert reg.store.cold_evictions > 0
+
+
+def test_remote_names_over_a_transport_that_cannot_enumerate():
+    """A transport without ``_names`` (the base raises
+    ``NotImplementedError``): the remote store lists its local names, in
+    the port as in the reference."""
+    from repro.serve.expert_cache import RemoteExpertStore as JStore
+    from repro_torch.serve import RemoteExpertStore
+
+    class Bare(ttp.ExpertTransport):
+        pass
+
+    class JBare(jtp.ExpertTransport):
+        pass
+
+    j, p = pair("local")
+    tstore, jstore = RemoteExpertStore(Bare()), JStore(JBare())
+    assert tstore.names() == jstore.names() == []
+    tstore.put(p)
+    jstore.put(j)
+    assert tstore.names() == jstore.names() == ["local"]
+
+
+def test_uncompressed_baseline_bytes_equal_the_reference():
+    from repro.serve import uncompressed_baseline_bytes as jbytes
+    from repro_torch.serve import uncompressed_baseline_bytes as tbytes
+    j, p = pair("base")
+    assert tbytes(p) == jbytes(j) == 2 * (256 * 192 + 192 * 70)
+    assert tbytes(p.packed) == jbytes(j.packed)
