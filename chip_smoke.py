@@ -128,6 +128,23 @@ failure with a non-zero exit:
      ``resume_seconds``, ``first_resumed_token_s``, the ``RecoveryPlan``,
      the child's seconds, and phase 3d's warm tokens/s with no journal,
      the journal alone and a snapshot every 1 and 4 chunks;
+  3t. produce an expert (``training_path``): ``train_loop`` with AdamW,
+     20 steps of 8 x 64 tokens of task 1 from the base (the mean loss of
+     the last 5 below the first 5's); Adafactor with a checkpoint every 5
+     steps and failures injected at steps 7 and 13, every leaf of the
+     final state bitwise an uninterrupted run's (train steps run under
+     deterministic algorithms); the trained tau compressed to PACKED,
+     its planes bitwise the plain compression's, its held-out
+     ``eval_loss`` below the base's, served mixed with e0-e3 and BASE in
+     phase 3's 8 requests (e1 replaced by it) with the row-independence
+     and solo gates; a rank-8 LoRA trained by SGD, compressed with
+     ``kind="lora"`` and reconstructed (base, fine-tuned, reconstructed
+     ``eval_loss`` reported); ``compress_leaf_for_allgather`` over the
+     fine-tune's gradients, each leaf's plane density within 0.5 points
+     of 0.05 and the error feedback bitwise ``g - s * signs``; reported:
+     train step ms, tokens/s and model FLOP utilisation (AdamW and
+     Adafactor), peak memory, checkpoint save and restore seconds, the
+     compress seconds and the served wave's decode tokens/s;
   4. check the result: tokens in range; one expert's planes bitwise equal
      to the plain compression of its tau (and one warm compression of it
      profiled: device ms by pass and the host share); every row's tokens
@@ -167,6 +184,7 @@ run that fails prints no such line.  Details go to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -3381,6 +3399,403 @@ def durability_path(torch, api, model, base, reg, experts, cfg, seed, units,
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 3t: produce an expert (train, restart, compress, serve), LoRA and
+# gradient compression
+# ---------------------------------------------------------------------------
+
+
+TRAIN = dict(seq_len=64, global_batch=8, task_id=1)   # 512 tokens a step
+TRAIN_STEPS = 20          # (a): AdamW
+RESTART_STEPS = 15        # (b): Adafactor, failures at 7 and 13
+LORA_STEPS = 20           # (d): SGD on a rank-8 LoRA
+LORA_LR = 0.05
+GRAD_DENSITY = 0.05       # (e)
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
+BF16_PEAK_FLOPS = 989e12
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def step_numbers(hist, n_params, tokens) -> dict:
+    """A run's step times (host clock, each ending with its loss on the
+    host): median and minimum over the steps after the first two (which
+    pay one-time setup), tokens/s and the model FLOP utilisation 6 N
+    tokens / step time against the dense bf16 peak."""
+    secs = sorted(h["sec"] for h in hist[2:])
+    med = secs[len(secs) // 2]
+    return {"step_ms_median": med * 1e3, "step_ms_min": secs[0] * 1e3,
+            "tokens_per_s": tokens / med,
+            "mfu": 6 * n_params * tokens / med / BF16_PEAK_FLOPS,
+            "losses": [h["loss"] for h in hist]}
+
+
+def profile_train_step(torch, model, tcfg, state, batch, out_dir) -> dict:
+    """torch.profiler over one warm train step from ``state`` (its result
+    dropped): the forward and backward, a synchronisation, then the
+    optimizer update, so each kernel falls in one part.  Device ms by
+    part and family (cuBLAS GEMM or other), launches, wall and the idle
+    share; the full table goes to chiprun_out/profile_train_step.txt."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.train.train_step import (_apply_optimizer,
+                                              _microbatch_grads,
+                                              deterministic)
+    dev = batch["tokens"].device
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        with deterministic(dev):
+            with record_function("forward_backward"):
+                _, grads = _microbatch_grads(model, state["params"], batch,
+                                             tcfg.microbatches)
+                torch.cuda.synchronize()
+            with record_function("optimizer_update"):
+                new, _ = _apply_optimizer(state, grads, tcfg)
+                torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    del new, grads
+    t_upd = min((ev.time_range.start for ev in prof.events()
+                 if ev.name == "optimizer_update"
+                 and ev.device_type.name == "CPU"), default=None)
+    fams = ("cuBLAS GEMM", "other PyTorch kernels")
+    parts = {ph: {f: 0.0 for f in fams} for ph in ("forward_backward",
+                                                  "optimizer_update")}
+    counts = {ph: 0 for ph in parts}
+    for ev in prof.events():
+        if ev.device_type.name != "CUDA" or ev.name in parts:
+            continue
+        name = ev.name.lower()
+        fam = fams[0] if any(k in name for k in (
+            "gemm", "cutlass", "xmma", "sm90", "nvjet")) else fams[1]
+        ph = ("optimizer_update" if t_upd is not None
+              and ev.time_range.start >= t_upd else "forward_backward")
+        parts[ph][fam] += ev.time_range.elapsed_us() / 1e3
+        counts[ph] += 1
+    kernels = sorted((ev for ev in prof.key_averages()
+                      if ev.device_type.name == "CUDA"
+                      and ev.key not in parts),
+                     key=lambda ev: -ev.self_device_time_total)
+    with open(os.path.join(out_dir, "profile_train_step.txt"), "w") as f:
+        f.write("device_ms\tlaunches\tkernel\n")
+        for ev in kernels:
+            f.write(f"{ev.self_device_time_total / 1e3:.3f}\t{ev.count}\t"
+                    f"{ev.key}\n")
+    busy = sum(sum(v.values()) for v in parts.values())
+
+    def median_step_ms(det: bool) -> float:
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            with (deterministic(dev) if det else contextlib.nullcontext()):
+                _, g = _microbatch_grads(model, state["params"], batch,
+                                         tcfg.microbatches)
+                n, _ = _apply_optimizer(state, g, tcfg)
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+            del g, n
+        return sorted(times)[1]
+
+    # what the deterministic mode costs a step (the same step without it)
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall_ms, "device_ms": parts,
+           "launches": counts,
+           "step_ms_deterministic": median_step_ms(True),
+           "step_ms_nondeterministic": median_step_ms(False)}
+    log("  profiled train step: wall {:.1f} ms, device busy {:.1f} ms "
+        "(idle {:.1%}); ".format(wall_ms, busy, out["idle_share"])
+        + "; ".join(f"{ph} " + ", ".join(f"{f} {v:.2f} ms" for f, v in
+                                          parts[ph].items())
+                    + f" ({counts[ph]} launches)" for ph in parts)
+        + "; a step {:.2f} ms deterministic, {:.2f} ms without".format(
+            out["step_ms_deterministic"], out["step_ms_nondeterministic"]))
+    return out
+
+
+def training_phase(torch, api, model, base, experts, reqs, cfg, seed, dev):
+    """Phase 3t as a path: every launch count set to 0 just before and
+    read just after; the compression and serving kernels must launch."""
+    from repro_torch.kernels import ops
+    log("phase 3t: produce an expert (AdamW fine-tune, Adafactor restart, "
+        "compress and serve the trained tau, LoRA, gradient compression)")
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="_artifacts_", dir=ROOT) as tmp:
+        trained = training_path(torch, api, model, base, experts, reqs, cfg,
+                                seed, dev, tmp)
+    trained["phase_s"] = time.monotonic() - t0
+    launches = ops.launch_counts()
+    log(f"  launches on the training path: {launches}; phase 3t took "
+        f"{trained['phase_s']:.1f} s")
+    for name in MIXED_PATH_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the training path")
+    return trained, launches
+
+
+def training_path(torch, api, model, base, experts, reqs, cfg, seed, dev,
+                  tmp):
+    """Phase 3t.  (a) ``train_loop`` with AdamW for TRAIN_STEPS steps on
+    task 1 (batch 8 x 64) from the base: the mean loss of the last 5
+    steps below the first 5's.  (b) Adafactor, ``ckpt_every=5``, a
+    ``FailureInjector`` at steps 7 and 13: every leaf of the final state
+    bitwise an uninterrupted run's; one save and one restore of its state
+    timed.  (c) tau = theta_ft - theta_init compressed by
+    ``api.compress(...).as_(PACKED)`` (kernels 3a, 3, 2): planes bitwise
+    the plain compression's; held-out ``eval_loss`` of the fine-tune below
+    the base's; the training state freed, then phase 3's 8 requests with
+    e1 replaced by the trained expert served mixed over e0-e3 and BASE
+    (kernel 1): row independence bitwise, solo serves up to a near-tie,
+    a warm run repeating its tokens.  (d) a rank-8 LoRA trained by
+    ``apply_lora`` and autograd (LORA_STEPS SGD steps), compressed with
+    ``kind="lora"`` and reconstructed; base, fine-tuned and reconstructed
+    ``eval_loss`` reported.  (e) ``compress_leaf_for_allgather`` (exact
+    threshold, density 0.05) over the fine-tune's gradients of one batch:
+    each leaf's plane density within 0.5 points of 0.05, the error
+    feedback bitwise ``g - s * signs`` of its own planes.  Returns the
+    numbers."""
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core import gradient_compression as gc
+    from repro_torch.core.packing import popcount
+    from repro_torch.data.pipeline import eval_loss, make_batch_for
+    from repro_torch.distributed.fault import FailureInjector
+    from repro_torch.expert import DENSE, PACKED
+    from repro_torch.peft import LoraConfig, apply_lora, init_lora
+    from repro_torch.train import (LoopConfig, TrainConfig,
+                                   init_train_state, make_train_step,
+                                   train_loop)
+    from repro_torch.train.train_step import deterministic, value_and_grad
+    out: dict = {}
+    cuda = dev.type == "cuda"
+    n_params = sum(t.numel() for t in tree_util.leaves(base))
+    tokens = TRAIN["seq_len"] * TRAIN["global_batch"]
+
+    def clone(tree):
+        return tree_util.tree_map(lambda t: t.clone(), tree)
+
+    def quiet(_msg):
+        pass
+
+    log(f"  (a) AdamW, {TRAIN_STEPS} steps of {TRAIN['global_batch']} x "
+        f"{TRAIN['seq_len']} tokens on task {TRAIN['task_id']}")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(optimizer="adamw", peak_lr=1e-3, warmup_steps=3,
+                       total_steps=TRAIN_STEPS)
+    state, hist = train_loop(
+        model, tcfg, LoopConfig(total_steps=TRAIN_STEPS, log_every=5,
+                                **TRAIN),
+        make_train_step(model, tcfg),
+        state=init_train_state(clone(base), tcfg),
+        log=lambda m: log(f"    {m}"))
+    out["adamw"] = step_numbers(hist, n_params, tokens)
+    if cuda:
+        out["adamw"]["peak_memory_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = out["adamw"]["losses"]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    log(f"  loss curve: {', '.join(f'{x:.3f}' for x in losses)}")
+    check(last < first, f"phase 3t (a): the loss did not fall (first 5 "
+          f"{first:.4f}, last 5 {last:.4f})")
+    if cuda:
+        out["adamw"]["profile"] = profile_train_step(
+            torch, model, tcfg, state,
+            make_batch_for(cfg, TRAIN_STEPS, device=dev, **TRAIN),
+            os.path.join(ROOT, "chiprun_out"))
+    ft = state["params"]
+    del state
+
+    log(f"  (b) Adafactor, {RESTART_STEPS} steps, checkpoints every 5, "
+        "failures at steps 7 and 13")
+    fcfg = TrainConfig(optimizer="adafactor", peak_lr=1e-3, warmup_steps=3,
+                       total_steps=RESTART_STEPS)
+    fstep = make_train_step(model, fcfg)
+    kw = dict(total_steps=RESTART_STEPS, ckpt_every=5, log_every=1000,
+              **TRAIN)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sa, ha = train_loop(model, fcfg, LoopConfig(**kw), fstep,
+                        state=init_train_state(clone(base), fcfg), log=quiet)
+    out["adafactor"] = step_numbers(ha, n_params, tokens)
+    if cuda:
+        out["adafactor"]["peak_memory_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+    msgs: list = []
+    sb, hb = train_loop(model, fcfg, LoopConfig(
+        ckpt_dir=os.path.join(tmp, "restart"), **kw), fstep,
+        injector=FailureInjector(fail_at_steps=(7, 13)),
+        state=init_train_state(clone(base), fcfg), log=msgs.append)
+    check(sum("restored to step" in m for m in msgs) == 2,
+          f"phase 3t (b): expected two restores, the loop logged {msgs}")
+    n_leaves = 0
+    for (path, a), (_, b) in zip(tree_util.flatten_with_paths(sa),
+                                 tree_util.flatten_with_paths(sb)):
+        check(torch.equal(a, b), f"phase 3t (b): {path} of the restarted "
+              "run differs from the uninterrupted run's")
+        n_leaves += 1
+    log(f"  restarted run ({len(hb)} steps run, 2 restores) bitwise the "
+        f"uninterrupted run over {n_leaves} leaves")
+    timed = os.path.join(tmp, "timed")
+    sync(torch, dev)
+    t0 = time.monotonic()
+    saved = ckpt.save(sb, timed, RESTART_STEPS)
+    save_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    back = ckpt.restore(sb, timed, device=dev)
+    sync(torch, dev)
+    restore_s = time.monotonic() - t0
+    for (path, a), (_, b) in zip(tree_util.flatten_with_paths(sb),
+                                 tree_util.flatten_with_paths(back)):
+        check(torch.equal(a, b), f"phase 3t (b): {path} restored otherwise")
+    out["checkpoint"] = {
+        "save_s": save_s, "restore_s": restore_s,
+        "bytes": sum(os.path.getsize(os.path.join(saved, f))
+                     for f in os.listdir(saved)),
+        "restarted_steps_run": len(hb)}
+    del sa, sb, back
+
+    log("  (c) compress the trained tau, serve it beside e0-e3")
+    sync(torch, dev)
+    t0 = time.monotonic()
+    ex = api.compress(base, ft, name="trained", density=0.1, device=dev)
+    ex.as_(PACKED)
+    sync(torch, dev)
+    out["compress_s"] = time.monotonic() - t0
+    out["planes"] = planes_check(torch, ex)
+    recon = tree_util.tree_map(lambda b, t: (b.float() + t).to(b.dtype),
+                               base, ex.to_dense_tau())
+    ev = {"base": eval_loss(model, base, cfg, TRAIN["task_id"]),
+          "fine-tuned": eval_loss(model, ft, cfg, TRAIN["task_id"]),
+          "ComPEFT reconstructed": eval_loss(model, recon, cfg,
+                                             TRAIN["task_id"])}
+    del recon
+    out["eval_loss_full"] = ev
+    log("  held-out eval_loss on task 1: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ev.items()))
+    check(ev["fine-tuned"] < ev["base"], f"phase 3t (c): the fine-tune's "
+          f"eval_loss {ev['fine-tuned']:.4f} is not below the base's "
+          f"{ev['base']:.4f}")
+    ex.drop(DENSE)
+
+    log(f"  (e) gradient compression over the fine-tune's gradients "
+        f"(exact threshold, density {GRAD_DENSITY})")
+    batch = make_batch_for(cfg, TRAIN_STEPS, device=dev, **TRAIN)
+    with deterministic(dev):
+        _, grads = value_and_grad(
+            lambda p, b: model.loss_and_logits(p, b)[0], ft, batch)
+    del ft
+    gcfg = gc.GradCompressionConfig(density=GRAD_DENSITY,
+                                    exact_threshold=True)
+    dens, gauss, sizes = {}, {}, {}
+    sync(torch, dev)
+    t0 = time.monotonic()
+    for path, g in tree_util.flatten_with_paths(grads):
+        err0 = torch.zeros(g.shape, dtype=torch.float32, device=dev)
+        pos, neg, scale, err = gc.compress_leaf_for_allgather(g, err0, gcfg)
+        d = float(popcount(pos).sum() + popcount(neg).sum()) / g.numel()
+        # one element of a leaf under 1000 is more than 0.1 point
+        check(g.numel() < 1000 or abs(d - GRAD_DENSITY) <= 0.005,
+              f"phase 3t (e): {path}: plane density {d:.5f}, want "
+              f"{GRAD_DENSITY} +- 0.005")
+        signs = gc._unpack_planes(pos, neg, g.shape[-1])
+        check(torch.equal(err, (g.float() + err0) - signs * scale),
+              f"phase 3t (e): {path}: error feedback is not g - s * signs")
+        dens[path], sizes[path] = d, g.numel()
+        g32 = g.float()
+        thr = gc.gaussian_topk_threshold(g32, GRAD_DENSITY)
+        gauss[path] = float((g32.abs() >= thr).float().mean())
+        del pos, neg, err, signs, g32
+    sync(torch, dev)
+    out["grad_compression"] = {
+        "seconds": time.monotonic() - t0, "density_exact": dens,
+        "density_gaussian": gauss,
+        "worst_exact_pp": 100 * max(
+            abs(d - GRAD_DENSITY) for p, d in dens.items()
+            if sizes[p] >= 1000), "sizes": sizes}
+    del grads
+    log(f"  {len(dens)} leaves: plane density (leaves of 1000 or more) "
+        f"within {out['grad_compression']['worst_exact_pp']:.3f} points of "
+        f"{GRAD_DENSITY}; error feedback bitwise; the Gaussian threshold "
+        f"keeps {min(gauss.values()):.4f}-{max(gauss.values()):.4f}")
+    if cuda:
+        torch.cuda.empty_cache()
+
+    treg = api.registry(device=dev, device_cache_bytes=16 << 30,
+                        experts=[*experts, ex])
+    engine = api.serve(model, base, treg, max_batch=4, cache_len=128,
+                       decode_chunk=8, continuous=False)
+    treqs = [dataclasses.replace(r, expert="trained" if r.expert == "e1"
+                                 else r.expert)
+             for r in fresh(reqs, 5000)]
+    engine.run(treqs)
+    for r in treqs:
+        check(len(r.out_tokens) == r.max_new_tokens
+              and all(0 <= t < cfg.vocab for t in r.out_tokens),
+              f"phase 3t request {r.uid}: bad tokens {r.out_tokens}")
+    for w in (treqs[:4], treqs[4:]):
+        row_independence_check(torch, engine, w)
+    log("  every row's tokens bitwise unchanged when the other rows of its "
+        "wave carry BASE")
+    out["solo"] = solo_check(torch, engine, treqs)
+    timed_reqs = fresh(treqs, 200)
+    n0 = len(engine.wave_log)
+    sync(torch, dev)
+    engine.run(timed_reqs)
+    check([r.out_tokens for r in timed_reqs] == [r.out_tokens
+                                                 for r in treqs],
+          "phase 3t: a second run of the same requests gave other tokens")
+    waves = engine.wave_log[n0:]
+    out["decode_tokens_per_s"] = (
+        sum(w["tokens"] - w["rows"] for w in waves)
+        / sum(w["seconds"] - w["prefill_s"] for w in waves))
+    del engine, treg
+
+    log(f"  (d) LoRA rank 8, {LORA_STEPS} SGD steps (lr {LORA_LR}) on task "
+        f"{TRAIN['task_id']}")
+    lcfg = LoraConfig(rank=8, alpha=16.0)
+    lora0 = init_lora(torch.Generator(device=dev).manual_seed(seed + 11),
+                      base, lcfg)
+
+    def lora_loss(lp, b):
+        return model.loss_and_logits(apply_lora(base, lp, lcfg), b)[0]
+
+    lora, lora_losses = lora0, []
+    sync(torch, dev)
+    t0 = time.monotonic()
+    for s in range(LORA_STEPS):
+        b = make_batch_for(cfg, s, device=dev, **TRAIN)
+        loss, g = value_and_grad(lora_loss, lora, b)
+        lora = tree_util.tree_map(lambda p, gg: p - LORA_LR * gg, lora, g)
+        lora_losses.append(float(loss))
+    lora_s = (time.monotonic() - t0) / LORA_STEPS
+    log(f"  LoRA loss curve: {', '.join(f'{x:.3f}' for x in lora_losses)}")
+    lex = api.compress(lora0, lora, name="trained-lora", kind="lora",
+                       density=0.1, device=dev)
+    tau_hat = dict(tree_util.flatten_with_paths(lex.to_dense_tau()))
+    lora_hat = tree_util.unflatten_like(lora0, [
+        (l.float() + tau_hat[p]).to(l.dtype)
+        for p, l in tree_util.flatten_with_paths(lora0)])
+    lev = {name: eval_loss(model, apply_lora(base, lp, lcfg), cfg,
+                           TRAIN["task_id"])
+           for name, lp in (("base", lora0), ("fine-tuned", lora),
+                            ("ComPEFT reconstructed", lora_hat))}
+    log("  LoRA held-out eval_loss: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in lev.items()))
+    out["lora"] = {"losses": lora_losses, "eval_loss": lev,
+                   "step_ms": lora_s * 1e3,
+                   "n_adapters": len(lora0),
+                   "packed_bytes": lex.nbytes(PACKED)}
+    del lora0, lora, lora_hat, lex, tau_hat
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
 def attention_step_ms(torch, cfg):
     """Device ms of one decode step's attention, every layer, by CUDA
     graph: the paged write, gather attention and normalisation against
@@ -3431,9 +3846,11 @@ def main(argv=None) -> int:
     ap.add_argument("--units", type=int, default=4,
                     help="repeat units (layers) of qwen2.5-3b, 1..36")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--stop-after", choices=("kernels", "all"),
-                    default="all", help="end after phase 2 (a first build "
-                    "and correctness check of new kernels)")
+    ap.add_argument("--stop-after", choices=("kernels", "training", "all"),
+                    default="all", help="end after phase 2 (kernels: a "
+                    "first build and correctness check of new kernels), or "
+                    "after phases 3 and 3t (training: a quick check of the "
+                    "training path)")
     args = ap.parse_args(argv)
     if not 1 <= args.units <= 36:
         ap.error("--units must be in 1..36")
@@ -3528,6 +3945,17 @@ def main(argv=None) -> int:
     for name in MIXED_PATH_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the mixed path")
+
+    if args.stop_after == "training":
+        trained, train_launches = training_phase(
+            torch, api, model, base, experts, reqs, cfg, args.seed, dev)
+        with open(os.path.join(out_dir, "chip_smoke_training.json"),
+                  "w") as f:
+            json.dump({"gpu": gpu, "trained": trained,
+                       "launches": train_launches}, f, indent=1)
+        log(json.dumps({k: v for k, v in trained.items()
+                        if k != "grad_compression"}))
+        return 0
 
     log("phase 3b: merge path (the same 8 requests by merge-on-swap, then "
         "a merged ensemble of e0-e2)")
@@ -3629,6 +4057,10 @@ def main(argv=None) -> int:
     durable["phase_s"] = time.monotonic() - t0
     log(f"  launches on the durability path: {durable_launches}; phase 3k "
         f"took {durable['phase_s']:.1f} s")
+
+    trained, train_launches = training_phase(torch, api, model, base,
+                                             experts, reqs, cfg, args.seed,
+                                             dev)
 
     log("phase 4: checks")
     for r in reqs:
@@ -3760,11 +4192,13 @@ def main(argv=None) -> int:
         # each kernel's launches on the paths that run it: the mixed path,
         # the merge path, the merged ensemble, the artifact path, the
         # refill path, the two wide configurations, the sampled paths, the
-        # paged path, the remote paths and the durability path
+        # paged path, the remote paths, the durability path and the
+        # training path
         n_launch = (launches[name] + merge_launches[name]
                     + ens_launches[name] + art_launches[name]
                     + refill_launches[name] + paged_launches[name]
                     + remote_launches[name] + durable_launches[name]
+                    + train_launches[name]
                     + sum(c[name] for c in wide_launches.values())
                     + sum(c[name] for c in sampled_launches.values()))
         entry = {"name": name, "route": "cuda", "source": src,
@@ -3815,14 +4249,14 @@ def main(argv=None) -> int:
                           "merge": graph_stats(gengine),
                           "refill": graph_stats(rengine)},
                "wide_configs": wide, "sampled": sampled, "paged": paged,
-               "remote": remote, "durable": durable,
+               "remote": remote, "durable": durable, "trained": trained,
                "params_m": n_params / 1e6}
     details.update(kernels=kernels, numbers=numbers, launches={
         "mixed_path": launches, "merge_path": merge_launches,
         "ensemble": ens_launches, "ensemble_loop_check": check_launches,
         "artifact_path": art_launches, "refill_path": refill_launches,
         "paged_path": paged_launches, "remote_path": remote_launches,
-        "durable_path": durable_launches,
+        "durable_path": durable_launches, "training_path": train_launches,
         "ternary_matvec_check": matvec_launches,
         **{f"{a}_path": c for a, c in wide_launches.items()},
         **{f"sampled_top_k_{k}_path": c
@@ -4072,6 +4506,39 @@ def main(argv=None) -> int:
                 v["tokens_per_s"], v["decode_tokens_per_s"]))
             for k, v in dk["rates"].items()))
     log(f"phase 3k took {dk['phase_s']:.1f} s {tag}")
+    tr = trained
+    for opt in ("adamw", "adafactor"):
+        x = tr[opt]
+        log(f"phase 3t {opt} train step {tag}: median {x['step_ms_median']:.2f}"
+            f" ms (min {x['step_ms_min']:.2f}), {x['tokens_per_s']:.1f} "
+            f"tokens/s, MFU {100 * x['mfu']:.2f}% of the dense bf16 peak "
+            f"(6 N tokens, N {n_params / 1e6:.1f} M), peak memory "
+            f"{x['peak_memory_gib']:.2f} GiB")
+    pr = tr["adamw"]["profile"]
+    log(f"phase 3t profiled AdamW step {tag}: wall {pr['wall_ms']:.1f} ms, "
+        f"device busy {pr['device_busy_ms']:.1f} ms (idle "
+        f"{100 * pr['idle_share']:.1f}%); " + "; ".join(
+            f"{ph} " + ", ".join(f"{f} {v:.2f} ms" for f, v in d.items())
+            for ph, d in pr["device_ms"].items())
+        + f"; deterministic {pr['step_ms_deterministic']:.2f} ms, without "
+        f"{pr['step_ms_nondeterministic']:.2f} ms")
+    log(f"phase 3t losses {tag}: AdamW " + ", ".join(
+        f"{v:.3f}" for v in tr["adamw"]["losses"]) + "; LoRA " + ", ".join(
+        f"{v:.3f}" for v in tr["lora"]["losses"]))
+    ck = tr["checkpoint"]
+    log(f"phase 3t checkpoint {tag}: {ck['bytes']} bytes, save "
+        f"{ck['save_s']:.3f} s, restore {ck['restore_s']:.3f} s")
+    log(f"phase 3t trained expert {tag}: compress {tr['compress_s']:.3f} s; "
+        "eval_loss " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                 tr["eval_loss_full"].items())
+        + f"; served wave decode {tr['decode_tokens_per_s']:.1f} tokens/s")
+    log(f"phase 3t LoRA {tag}: {tr['lora']['step_ms']:.2f} ms a step; "
+        "eval_loss " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                 tr["lora"]["eval_loss"].items()))
+    log(f"phase 3t gradient compression {tag}: "
+        f"{tr['grad_compression']['seconds']:.3f} s over the tree; worst "
+        f"density {tr['grad_compression']['worst_exact_pp']:.3f} points off")
+    log(f"phase 3t took {tr['phase_s']:.1f} s {tag}")
     log(f"grouped kernel: empty expert slots cost {tag}: "
         f"{report['ternary_matmul_grouped']['slot_padding_ms_per_wave']:.3f}"
         " ms per wave")

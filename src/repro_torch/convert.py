@@ -26,12 +26,14 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     """
     device = resolve_device(device)
     a = np.asarray(a)
+    shape = a.shape               # ascontiguousarray makes a 0-d array 1-d
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
-        return t.view(torch.bfloat16).to(device)
+        return t.view(torch.bfloat16).reshape(shape).to(device)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).reshape(
+        shape).to(device)
 
 
 def params_from_jax(tree, device="cuda"):

@@ -159,9 +159,9 @@ def compress(tau: dict, cfg: CompressionConfig | None = None) -> dict:
     cfg = cfg or CompressionConfig()
     flat = tree_util.flatten_with_paths(tau)
     pairs = _leaf_thresholds([l for _, l in flat], cfg)
-    return tree_util.unflatten_paths({
-        path: compress_leaf(leaf, cfg, threshold=thr, scale=sigma)
-        for (path, leaf), (thr, sigma) in zip(flat, pairs)})
+    return tree_util.unflatten_like(tau, [
+        compress_leaf(leaf, cfg, threshold=thr, scale=sigma)
+        for (_, leaf), (thr, sigma) in zip(flat, pairs)])
 
 
 def compress_packed_exact(tau: dict, cfg: CompressionConfig | None = None
@@ -182,7 +182,7 @@ def compress_packed_exact(tau: dict, cfg: CompressionConfig | None = None
         out[path] = PackedTernary(pos=pos.reshape(-1), neg=neg.reshape(-1),
                                   scale=scale, shape=tuple(leaf.shape),
                                   orig_dtype=leaf.dtype)
-    return tree_util.unflatten_paths(out)
+    return tree_util.unflatten_like(tau, list(out.values()))
 
 
 def decompress(compressed: dict) -> dict:
@@ -279,7 +279,7 @@ def compress_packed(tau: dict, cfg: CompressionConfig | None = None, *,
             pos=pos[r0:r1].reshape(-1)[:nw], neg=neg[r0:r1].reshape(-1)[:nw],
             scale=scales[i if cfg.per_tensor else 0],
             shape=tuple(leaf.shape), orig_dtype=leaf.dtype)
-    packed = tree_util.unflatten_paths(out)
+    packed = tree_util.unflatten_like(tau, list(out.values()))
     return (packed, stats) if return_stats else packed
 
 

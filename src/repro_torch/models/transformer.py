@@ -1,7 +1,8 @@
 """Decoder-only LM for attention-only patterns, in PyTorch.
 
-Port of the serving half of ``repro/models/transformer.py``: parameter
-init, token embedding, logits, the dense ring-buffer decode cache, prompt
+Port of ``repro/models/transformer.py`` for these patterns: parameter
+init, token embedding, logits, the training forward (autograd through the
+prefill's block code), the dense ring-buffer decode cache, prompt
 prefill and the one-token decode step.  Parameters are nested dicts with
 the reference's paths and layouts; block leaves carry the unit axis in
 front, and a Python loop over units takes the place of ``lax.scan``.
@@ -212,6 +213,54 @@ def logits_of(params, x, cfg, delta=None, eid=None):
     else:
         dl = delta_proj(x, delta.get("lm_head"), eid)
     return softcap(add_delta(logits, dl), cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def _units_of(blocks: dict, n_units: int) -> list[dict]:
+    """The stacked block tree cut into one tree per unit.  ``unbind``
+    gives views whose backward stacks the units' gradients into one
+    tensor per leaf (indexing each unit would add a full-size zero
+    gradient per unit)."""
+    parts = {p: l.unbind(0) for p, l in tree_util.flatten_with_paths(blocks)}
+    return [tree_util.unflatten_paths({p: v[u] for p, v in parts.items()})
+            for u in range(n_units)]
+
+
+def _train_unit(x, unit_params, cfg, positions):
+    for i, b in enumerate(cfg.pattern):
+        x = _prefill_block(x, unit_params[f"block{i}"], b, cfg, positions,
+                           {}, None, None)[0]
+    return x
+
+
+def forward_train(params, tokens, cfg, remat_policy: str = "none"):
+    """tokens [B, T] -> (logits [B, T, V], aux_loss): the whole sequence
+    through every unit, differentiable by autograd (the reference's
+    ``forward_train`` over ``_apply_block_train``).  The attention-only
+    families have no auxiliary loss, so ``aux`` is 0.
+
+    ``remat_policy="unit"`` recomputes each unit's activations in the
+    backward pass (``torch.utils.checkpoint``), the counterpart of the
+    reference's ``jax.checkpoint`` of its unit scan body; ``"none"``
+    keeps them."""
+    _check_attention_only(cfg)
+    if remat_policy not in ("none", "unit"):
+        raise ValueError(f"unknown remat_policy {remat_policy!r}")
+    x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    for unit_params in _units_of(params["blocks"], cfg.n_units):
+        if remat_policy == "unit":
+            from torch.utils.checkpoint import checkpoint
+            x = checkpoint(_train_unit, x, unit_params, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _train_unit(x, unit_params, cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits_of(params, x, cfg), aux
 
 
 # ---------------------------------------------------------------------------

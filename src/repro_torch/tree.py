@@ -57,3 +57,18 @@ def unflatten_paths(flat: dict[str, Any]) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = leaf
     return out
+
+
+def unflatten_like(like: Tree, leaves_: list,
+                   is_leaf: Optional[Callable] = None) -> Tree:
+    """A tree of ``like``'s structure holding ``leaves_`` in
+    :func:`flatten_with_paths` order (inverse of :func:`leaves`; keys may
+    hold ``"/"``, as LoRA trees' path keys do)."""
+    it = iter(leaves_)
+
+    def build(node):
+        if isinstance(node, dict) and not (is_leaf and is_leaf(node)):
+            return {k: build(node[k]) for k in sorted(node)}
+        return None if node is None else next(it)
+
+    return build(like)

@@ -1050,3 +1050,67 @@ def test_warm_resume_restores_in_place_without_capture(serving, tmp_path,
     fresh = api.serve(model, base, reg, **kw)
     assert {r.uid: r.out_tokens for r in fresh.resume()} == want
     assert fresh.swap_summary()["kv"]["blocks_in_use"] == 0
+
+
+# ---------------------------------------------------------------------------
+# Training on the card: a deterministic step, gradient compression
+# ---------------------------------------------------------------------------
+
+
+def _train_setup(dev, opt):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build
+    from repro_torch.train import TrainConfig, init_train_state
+    cfg = dataclasses.replace(get_smoke_config("qwen2_5_3b", n_units=2),
+                              dtype="bfloat16")
+    api = build(cfg)
+    tcfg = TrainConfig(optimizer=opt, peak_lr=1e-2, warmup_steps=1,
+                       total_steps=10)
+    return cfg, api, tcfg, init_train_state(api.init(seed=0, device=dev),
+                                            tcfg)
+
+
+@pytest.mark.parametrize("opt", ["adamw", "adafactor"])
+def test_train_steps_replay_bitwise(dev, opt):
+    """Three bf16 train steps twice from the same state on the card (the
+    embedding and gather backwards under deterministic algorithms): every
+    parameter and optimizer leaf bitwise equal, the loss finite, and the
+    deterministic mode restored after each step."""
+    from repro_torch import tree as tree_util
+    from repro_torch.data.pipeline import make_batch_for
+    from repro_torch.train import make_train_step
+    cfg, api, tcfg, state0 = _train_setup(dev, opt)
+    step = make_train_step(api, tcfg)
+    runs = []
+    for _ in range(2):
+        state = state0
+        for s in range(3):
+            state, m = step(state, make_batch_for(cfg, s, 32, 8, 1,
+                                                  device=dev))
+            assert torch.isfinite(m["loss"])
+        runs.append(state)
+    assert not torch.are_deterministic_algorithms_enabled()
+    for a, b in zip(tree_util.leaves(runs[0]), tree_util.leaves(runs[1])):
+        assert torch.equal(a, b)
+
+
+def test_compress_leaf_for_allgather_on_the_card(dev):
+    """``compress_leaf_for_allgather`` on a CUDA gradient: planes bitwise
+    the CPU's (exact threshold, bitwise on both), scale within 1e-6
+    relative, the error feedback ``g - s * signs`` bitwise its own planes'
+    reconstruction, and the plane density within 0.5 points of 0.05."""
+    from repro_torch.core import gradient_compression as gc
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = torch.randn((64, 2048), generator=gen, device=dev)
+    e = 0.1 * torch.randn((64, 2048), generator=gen, device=dev)
+    cfg = gc.GradCompressionConfig(density=0.05, exact_threshold=True)
+    pos, neg, scale, err = gc.compress_leaf_for_allgather(g, e, cfg)
+    cpos, cneg, cscale, _ = gc.compress_leaf_for_allgather(g.cpu(), e.cpu(),
+                                                           cfg)
+    assert torch.equal(pos.cpu(), cpos) and torch.equal(neg.cpu(), cneg)
+    assert abs(float(scale) - float(cscale)) <= 1e-6 * float(cscale)
+    signs = gc._unpack_planes(pos, neg, 2048)
+    assert torch.equal(err, (g + e) - signs * scale)
+    density = float((signs != 0).float().mean())
+    assert abs(density - 0.05) <= 0.005

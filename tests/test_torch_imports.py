@@ -1,6 +1,6 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and CUDA entry points never fall back to
-the CPU."""
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/torch/``) import neither JAX nor the JAX
+package, and CUDA entry points never fall back to the CPU."""
 
 import ast
 import json
@@ -27,6 +27,9 @@ def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    ex = os.path.join(ROOT, "examples", "torch")
+    out += sorted(os.path.join(ex, f) for f in os.listdir(ex)
+                  if f.endswith(".py"))
     return out
 
 
@@ -45,7 +48,13 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.transport.replication",
             "repro_torch.distributed.fault", "repro_torch.serve.journal",
             "repro_torch.serve.snapshot", "repro_torch.checkpoint.manager",
-            "repro_torch.serve.restart_child"} <= set(mods)
+            "repro_torch.serve.restart_child", "repro_torch.prng",
+            "repro_torch.data.pipeline", "repro_torch.optim.schedules",
+            "repro_torch.optim.adamw", "repro_torch.optim.adafactor",
+            "repro_torch.train.train_step", "repro_torch.train.trainer",
+            "repro_torch.peft.lora", "repro_torch.peft.ia3",
+            "repro_torch.peft.task_vector",
+            "repro_torch.core.gradient_compression"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if "
