@@ -1,18 +1,22 @@
 """Architecture registry of the PyTorch port: maps --arch ids to configs.
 
 A copy of the JAX package's registry, cut to the architectures the port
-serves so far.  The config modules themselves are copies too, so the port
-never imports the JAX package.
+serves so far: the dense configs on the zero-merge overlay, the MoE
+configs by merge-on-swap.  The config modules themselves are copies too,
+so the port never imports the JAX package.
 """
 
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ("qwen2_5_3b", "gemma2_9b", "llama_7b")
+ARCHS = ("llama4_maverick_400b", "mixtral_8x7b", "qwen2_5_3b", "qwen3_32b",
+         "qwen1_5_110b", "gemma2_9b", "llama_7b")
 
-_ALIASES = {"qwen2.5-3b": "qwen2_5_3b", "gemma2-9b": "gemma2_9b",
-            "llama-7b": "llama_7b"}
+_ALIASES = {"llama4-maverick-400b-a17b": "llama4_maverick_400b",
+            "mixtral-8x7b": "mixtral_8x7b", "qwen2.5-3b": "qwen2_5_3b",
+            "qwen3-32b": "qwen3_32b", "qwen1.5-110b": "qwen1_5_110b",
+            "gemma2-9b": "gemma2_9b", "llama-7b": "llama_7b"}
 
 
 def normalize(arch: str) -> str:

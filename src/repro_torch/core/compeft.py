@@ -255,7 +255,9 @@ def compress_packed(tau: dict, cfg: CompressionConfig | None = None, *,
         n_seg, seg_ids = len(leaves), row_seg
     else:       # one global threshold and scale over the whole vector
         n_seg, seg_ids = 1, torch.zeros_like(row_seg)
-        seg_count = seg_count.sum(dtype=torch.int32, dim=0, keepdim=True)
+        # int64: a whole model can pass 2**31 elements (qwen1.5-110b's
+        # unit holds 3.85 B)
+        seg_count = seg_count.sum(dtype=torch.int64, dim=0, keepdim=True)
     stats = segmented_quantile_moments(buf, seg_ids, row_valid, seg_count,
                                        cfg.density, n_seg=n_seg)
     if cfg.scale_mode == "std":

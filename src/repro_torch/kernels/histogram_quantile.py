@@ -186,7 +186,8 @@ def segmented_quantile_moments(buf, row_seg, row_valid, seg_count, density,
     """Two-pass histogram threshold + moments over a segment buffer.
 
     buf [R, C] f32 (padding zeroed); row_seg / row_valid [R] int32;
-    seg_count [S] int32 elements per segment; density the kept fraction.
+    seg_count [S] int32 or int64 elements per segment; density the kept
+    fraction.
     Returns per-segment f32 ``threshold``, ``mean``, ``std``,
     ``mean_abs``, ``max``, ``sum``, ``sumsq``, int32 ``keep``, and the
     refine sweep's window ``refine_lo`` / ``refine_width``; nothing is

@@ -184,9 +184,11 @@ def _classify(parts: list[str], core: tuple[int, ...], units: int):
 
 def plan_overlay(params: dict, cfg) -> Optional[dict]:
     """Map every base-param path to a LeafSpec, or None when the family is
-    not coverable by the zero-merge path (MoE, recurrent blocks, enc-dec,
-    cross-attention and frontends are served by merge-on-swap, which the
-    port has not reached yet)."""
+    not coverable by the zero-merge path.  The engine then serves it by
+    merge-on-swap (``ExpertRegistry.merged_params``, one expert merged at a
+    time): the port's MoE configs take that path; recurrent blocks,
+    enc-dec, cross-attention and frontends would too, but the port's model
+    does not run them yet."""
     if cfg.enc_n_units or cfg.cross_attn or cfg.frontend is not None:
         return None
     for b in cfg.pattern:

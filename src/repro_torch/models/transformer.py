@@ -10,7 +10,10 @@ The decode cache is updated in place (the wave holds its only copy), where
 the reference donates it to a functional update.  As in the reference, a
 gemma-named model (``cfg.name``) takes the (1 + scale) RMSNorm with
 zero-initialised scales, and a block with ``sandwich_norm`` normalises
-the attention and FFN outputs before each residual add.
+the attention and FFN outputs before each residual add.  An MoE block
+(mixtral, llama4's alternate layers) runs the reference's GShard FFN
+(``models/ffn.py::moe_ffn``); the training forward sums its aux loss over
+blocks and units, as the reference's unit scan does.
 """
 
 from __future__ import annotations
@@ -30,16 +33,17 @@ from repro_torch.models.common import (dense_init, dtype_of, embed_init,
 from repro_torch.models.delta import (add_delta, delta_proj,
                                       embed_delta_rows, eff_param,
                                       slice_unit, tied_logits_delta)
-from repro_torch.models.ffn import dense_ffn
+from repro_torch.models.ffn import ffn_apply
 
 
 def _check_attention_only(cfg) -> None:
     if (cfg.enc_n_units or cfg.cross_attn or cfg.frontend is not None
             or any(b.kind != "attn" for b in cfg.pattern)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention-only decoder patterns; "
-            "recurrent, enc-dec, cross-attention and frontend families come "
-            "with ROADMAP queue 1, item 12")
+            f"{cfg.name}: the port runs attention-only decoder patterns "
+            "(dense or MoE FFNs); recurrent (mamba, rwkv), enc-dec, "
+            "cross-attention and frontend families are the rest of ROADMAP "
+            "queue 1, item 12")
 
 
 def _gemma(cfg) -> bool:
@@ -97,11 +101,8 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
             attn["k_norm"] = torch.ones((U, a.head_dim), dtype=dt, device=dev)
         bp = {"pre_norm": _norm_init(cfg, d, dt, dev, U), "attn": attn}
         if b.ffn is not None:
-            f = b.ffn.d_ff
             bp["ffn_norm"] = _norm_init(cfg, d, dt, dev, U)
-            bp["ffn"] = {"wg": dense_init((U, d, f), d, dt, gen, dev),
-                         "wu": dense_init((U, d, f), d, dt, gen, dev),
-                         "wo": dense_init((U, f, d), f, dt, gen, dev)}
+            bp["ffn"] = _init_ffn(b.ffn, d, U, dt, gen, dev)
         if b.sandwich_norm:
             bp["post_attn_norm"] = torch.zeros((U, d), dtype=dt, device=dev)
             if b.ffn is not None:
@@ -110,6 +111,28 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
         blocks[f"block{i}"] = bp
     params["blocks"] = blocks
     return params
+
+
+def _init_ffn(f, d: int, U: int, dt, gen, dev) -> dict:
+    """One block's FFN leaves with the unit axis in front: the gated MLP,
+    or an MoE's f32 router, expert stacks [U, E, ...] and the optional
+    shared expert (the reference's ``init_ffn``)."""
+    if f.moe is None:
+        return {"wg": dense_init((U, d, f.d_ff), d, dt, gen, dev),
+                "wu": dense_init((U, d, f.d_ff), d, dt, gen, dev),
+                "wo": dense_init((U, f.d_ff, d), f.d_ff, dt, gen, dev)}
+    mo = f.moe
+    E, fe = mo.n_experts, mo.d_ff_expert
+    p = {"router": dense_init((U, d, E), d, torch.float32, gen, dev),
+         "wg_e": dense_init((U, E, d, fe), d, dt, gen, dev),
+         "wu_e": dense_init((U, E, d, fe), d, dt, gen, dev),
+         "wo_e": dense_init((U, E, fe, d), fe, dt, gen, dev)}
+    if mo.shared_expert_dff:
+        fs = mo.shared_expert_dff
+        p.update(wg_s=dense_init((U, d, fs), d, dt, gen, dev),
+                 wu_s=dense_init((U, d, fs), d, dt, gen, dev),
+                 wo_s=dense_init((U, fs, d), fs, dt, gen, dev))
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -128,13 +151,14 @@ def _norm(x, bp, name, cfg, dp, eid):
 
 
 def _apply_ffn(x, bp, b, cfg, dp, eid):
+    """x + the block's FFN output -> (x, aux)."""
     if b.ffn is None:
-        return x
+        return x, 0.0
     h = _norm(x, bp, "ffn_norm", cfg, dp, eid)
-    out = dense_ffn(h, bp["ffn"], b.ffn, dp=dp.get("ffn"), eid=eid)
+    out, aux = ffn_apply(h, bp["ffn"], b.ffn, dp=dp.get("ffn"), eid=eid)
     if b.sandwich_norm:
         out = _norm(out, bp, "post_ffn_norm", cfg, dp, eid)
-    return x + out
+    return x + out, aux
 
 
 def _attn_residual(x, o, bp, b, cfg, dp, eid):
@@ -153,7 +177,8 @@ def _prefill_block(x, bp, b, cfg, positions, dp, eid, kv_start):
     o = flash_attention(q, k, v, b.attn, causal=b.attn.causal,
                         kv_start=kv_start)
     x = _attn_residual(x, o, bp, b, cfg, dp, eid)
-    return _apply_ffn(x, bp, b, cfg, dp, eid), (k, v)
+    x, aux = _apply_ffn(x, bp, b, cfg, dp, eid)
+    return x, (k, v), aux
 
 
 def _decode_block(x, bp, b, cfg, st, cur, dp, eid, start, paged=None):
@@ -182,7 +207,7 @@ def _decode_block(x, bp, b, cfg, st, cur, dp, eid, start, paged=None):
         o = decode_attention(q, st["k"], st["v"], st["pos"], cur, b.attn,
                              start=start).to(q.dtype)
     x = _attn_residual(x, o, bp, b, cfg, dp, eid)
-    return _apply_ffn(x, bp, b, cfg, dp, eid)
+    return _apply_ffn(x, bp, b, cfg, dp, eid)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -231,17 +256,21 @@ def _units_of(blocks: dict, n_units: int) -> list[dict]:
 
 
 def _train_unit(x, unit_params, cfg, positions):
+    """One unit's blocks -> (x, the unit's aux: 0.0 without an MoE)."""
+    aux = 0.0
     for i, b in enumerate(cfg.pattern):
-        x = _prefill_block(x, unit_params[f"block{i}"], b, cfg, positions,
-                           {}, None, None)[0]
-    return x
+        x, _, a = _prefill_block(x, unit_params[f"block{i}"], b, cfg,
+                                 positions, {}, None, None)
+        aux = aux + a
+    return x, aux
 
 
 def forward_train(params, tokens, cfg, remat_policy: str = "none"):
     """tokens [B, T] -> (logits [B, T, V], aux_loss): the whole sequence
     through every unit, differentiable by autograd (the reference's
-    ``forward_train`` over ``_apply_block_train``).  The attention-only
-    families have no auxiliary loss, so ``aux`` is 0.
+    ``forward_train`` over ``_apply_block_train``).  ``aux`` (f32) sums
+    the MoE blocks' load-balancing losses over blocks and units, in the
+    reference's order; it is 0 for a dense config.
 
     ``remat_policy="unit"`` recomputes each unit's activations in the
     backward pass (``torch.utils.checkpoint``), the counterpart of the
@@ -252,14 +281,16 @@ def forward_train(params, tokens, cfg, remat_policy: str = "none"):
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for unit_params in _units_of(params["blocks"], cfg.n_units):
         if remat_policy == "unit":
             from torch.utils.checkpoint import checkpoint
-            x = checkpoint(_train_unit, x, unit_params, cfg, positions,
-                           use_reentrant=False)
+            x, a = checkpoint(_train_unit, x, unit_params, cfg, positions,
+                              use_reentrant=False)
         else:
-            x = _train_unit(x, unit_params, cfg, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _train_unit(x, unit_params, cfg, positions)
+        if torch.is_tensor(a):        # a dense unit's 0.0 adds nothing
+            aux = aux + a
     return logits_of(params, x, cfg), aux
 
 
@@ -371,9 +402,10 @@ def prefill(params, tokens, cfg, cache_len: int, delta=None,
         unit_delta = slice_unit(dblocks, u) if dblocks is not None else {}
         for i, b in enumerate(cfg.pattern):
             name = f"block{i}"
-            x, (k, v) = _prefill_block(x, unit_params[name], b, cfg,
-                                       positions, unit_delta.get(name) or {},
-                                       eid, start)
+            x, (k, v), _ = _prefill_block(x, unit_params[name], b, cfg,
+                                          positions,
+                                          unit_delta.get(name) or {}, eid,
+                                          start)
             layer = cache["layers"][name]
             S = layer["k"].shape[2]
             layer["k"][u], layer["pos"][u] = _ring_fill(k, S)

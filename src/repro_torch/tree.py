@@ -18,19 +18,23 @@ def _path_str(keys) -> str:
     return "/".join(str(k) for k in keys)
 
 
+def _walk(node, keys, is_leaf, out) -> None:
+    if isinstance(node, dict) and not (is_leaf and is_leaf(node)):
+        for k in sorted(node):
+            _walk(node[k], keys + (k,), is_leaf, out)
+    elif node is not None:
+        out.append((_path_str(keys), node))
+
+
 def flatten_with_paths(tree: Tree, is_leaf: Optional[Callable] = None
                        ) -> list[tuple[str, Any]]:
-    """[(path, leaf)] in JAX's dict order (sorted keys, depth first)."""
+    """[(path, leaf)] in JAX's dict order (sorted keys, depth first).
+
+    The walk is a module-level function: a recursive closure would sit in
+    a reference cycle with the list it fills, which would keep every leaf
+    alive (device memory included) until Python's cyclic collector ran."""
     out: list[tuple[str, Any]] = []
-
-    def walk(node, keys):
-        if isinstance(node, dict) and not (is_leaf and is_leaf(node)):
-            for k in sorted(node):
-                walk(node[k], keys + (k,))
-        elif node is not None:
-            out.append((_path_str(keys), node))
-
-    walk(tree, ())
+    _walk(tree, (), is_leaf, out)
     return out
 
 
@@ -64,11 +68,12 @@ def unflatten_like(like: Tree, leaves_: list,
     """A tree of ``like``'s structure holding ``leaves_`` in
     :func:`flatten_with_paths` order (inverse of :func:`leaves`; keys may
     hold ``"/"``, as LoRA trees' path keys do)."""
-    it = iter(leaves_)
+    return _build(like, iter(leaves_), is_leaf)
 
-    def build(node):
-        if isinstance(node, dict) and not (is_leaf and is_leaf(node)):
-            return {k: build(node[k]) for k in sorted(node)}
-        return None if node is None else next(it)
 
-    return build(like)
+def _build(node, it, is_leaf):
+    """:func:`unflatten_like`'s walk (module level, so no reference cycle
+    holds the leaves)."""
+    if isinstance(node, dict) and not (is_leaf and is_leaf(node)):
+        return {k: _build(node[k], it, is_leaf) for k in sorted(node)}
+    return None if node is None else next(it)

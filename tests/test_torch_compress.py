@@ -87,3 +87,26 @@ def test_compress_cuda_without_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         tapi.compress({"w": torch.zeros(64)}, density=0.1)
+
+
+def test_dropped_task_vector_is_freed_without_the_cyclic_collector():
+    """With Python's cyclic collector off, a task vector dropped after its
+    compression (and the tree walks over it) is freed at once: no
+    reference cycle holds its leaves, which on the card are gigabytes."""
+    import gc
+    import weakref
+    g = torch.Generator().manual_seed(3)
+    tau = {"a": {"w": torch.randn(64, 96, generator=g)},
+           "b": torch.randn(300, generator=g)}
+    ex = tapi.compress(tau, density=0.1, device="cpu")
+    refs = [weakref.ref(leaf) for leaf in tree_util.leaves(tau)]
+    assert len(tree_util.flatten_with_paths(tau)) == 2
+    rebuilt = tree_util.unflatten_like(tau, tree_util.leaves(tau))
+    gc.disable()
+    try:
+        ex.as_(PACKED)
+        del tau, rebuilt
+        ex.drop(DENSE)
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()

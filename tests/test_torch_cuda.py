@@ -1114,3 +1114,106 @@ def test_compress_leaf_for_allgather_on_the_card(dev):
     assert torch.equal(err, (g + e) - signs * scale)
     density = float((signs != 0).float().mean())
     assert abs(density - 0.05) <= 0.005
+
+
+# ---------------------------------------------------------------------------
+# The MoE configs by merge-on-swap, and qwen3's q/k norms under the overlay
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 8, 256, 448), torch.bfloat16),     # an expert stack [U, E, d, f]
+    ((2, 4096, 8), torch.float32)])         # mixtral's router, f32
+def test_unpack_add_many_on_moe_leaves(dev, shape, dtype):
+    """Kernel 4 through ``ops.apply_ternary_delta_many_flat`` on planes
+    from the compression kernels, one expert and two: bitwise the plain
+    merge (``unpack_add_many_ref``)."""
+    from repro_torch.core.compeft import CompressionConfig, compress_packed
+    gen = torch.Generator(device=dev).manual_seed(21)
+    base = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    pts = [compress_packed({"w": 0.01 * torch.randn(
+        shape, generator=gen, device=dev)}, CompressionConfig(
+            density=0.1))["w"] for _ in range(2)]
+    for sel in (pts[:1], pts):
+        before = ops.launch_counts()["unpack_add_many"]
+        got = ops.apply_ternary_delta_many_flat(base, sel)
+        assert ops.launch_counts()["unpack_add_many"] == before + 1
+        with ops.plain_versions():
+            want = ops.apply_ternary_delta_many_flat(base, sel)
+        assert got.dtype == dtype and torch.equal(_bits(got), _bits(want))
+        assert not torch.equal(got, base)
+
+
+def _smoke_serving(arch, head_dim_32=False):
+    from arch_cases import head_dim_32 as widen
+    from repro_torch import api, tree as tree_util
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build
+    cfg = get_smoke_config(arch, n_units=2)
+    model = build(widen(cfg) if head_dim_32 else cfg)
+    base = model.init(seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    experts = [api.compress(base, tree_util.tree_map(
+        lambda l: (l.float() + 0.03 * torch.randn(
+            l.shape, generator=gen, device="cuda")).to(l.dtype), base),
+        name=f"e{i}", density=0.2) for i in range(3)]
+    return model, base, api.registry(experts=experts)
+
+
+@pytest.fixture(scope="module")
+def moe_serving():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
+    return _smoke_serving("mixtral_8x7b")
+
+
+# prompts past mixtral's smoke window of 32
+MOE_REQS = (["e0", "e1", "__base__", "e2", "e0", "e1"], (3, 5, 4, 6, 2, 5),
+            (34, 40, 36, 44, 35, 38))
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_moe_graph_chunk_equals_eager_chunks(moe_serving, K):
+    """mixtral (no overlay plan) served with mixed scheduling falls back
+    to merge-on-swap: one kernel-4 merge per leaf per distinct expert, its
+    decode chunks CUDA graphs whose tokens equal the same chunks run
+    eagerly and the eager per-token loop."""
+    from repro_torch import api
+    model, base, reg = moe_serving
+    n0 = ops.launch_counts()["unpack_add_many"]
+    eng, toks = _serve(moe_serving, _requests(*MOE_REQS), decode_chunk=K)
+    s = eng.swap_summary()
+    assert eng._plan is None and s["n_waves"] == 0 and s["n_swaps"] == 3
+    assert ops.launch_counts()["unpack_add_many"] > n0
+    assert s["graph_captures"] >= 1 and s["graph_replays"] >= s["graphs"]
+    eager = _eager_chunks(api.serve(model, base, reg, max_batch=3,
+                                    cache_len=64, decode_chunk=K), K)
+    reqs = _requests(*MOE_REQS)
+    eager.run(reqs)
+    assert [r.out_tokens for r in reqs] == toks
+    assert eager.swap_summary()["graph_captures"] == 0
+    assert _serve(moe_serving, _requests(*MOE_REQS), decode_chunk=0)[1] == \
+        toks
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_qk_norm_overlay_graph_chunk_equals_eager_chunks(dev, paged):
+    """qwen3's q/k norms (heads of 32, so the overlay covers them) with
+    their per-row deltas inside the graphed decode chunk, dense and paged:
+    tokens equal the same chunks run eagerly (the CPU tests hold the
+    deltas against the reference)."""
+    from repro_torch import api
+    model, base, reg = _smoke_serving("qwen3_32b", head_dim_32=True)
+    kw = dict(max_batch=3, cache_len=64, decode_chunk=4)
+    if paged:
+        kw.update(PAGED)
+    reqs = _requests(*REFILL)
+    eng = api.serve(model, base, reg, **kw)
+    assert eng._plan is not None
+    eng.run(reqs)
+    toks = [r.out_tokens for r in reqs]
+    assert eng.swap_summary()["graph_captures"] >= 1
+    eager = _eager_chunks(api.serve(model, base, reg, **kw), 4)
+    again = _requests(*REFILL)
+    eager.run(again)
+    assert [r.out_tokens for r in again] == toks

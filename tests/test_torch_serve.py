@@ -1,6 +1,8 @@
 """Serving in the port: greedy token streams identical to the reference
 ``ServeEngine`` (mixed FIFO waves, ``continuous=False``) on the smoke
-configs of qwen2.5-3b, llama-7b and gemma2-9b, the
+configs of qwen2.5-3b, llama-7b, gemma2-9b, qwen3-32b and qwen1.5-110b,
+and by merge-on-swap on the MoE configs mixtral-8x7b and llama4-maverick
+(whose FFNs no overlay covers), the
 mixed-wave-equals-sequential contract, the options the port does not
 serve yet, the durability options' checks, ``t_wall`` and
 ``run(scheduling=)``.  Slot refill and the eager loop are held in
@@ -13,13 +15,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
+from arch_cases import MOE_ARCHS, smoke_configs
 
 from repro import api as rapi
-from repro.configs import get_smoke_config
 from repro.models import Runtime, build
 from repro.serve import Request as JRequest
 from repro_torch import api as tapi
-from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.convert import params_from_jax
 from repro_torch.models import build as t_build
 from repro_torch.expert import PACKED
@@ -28,6 +30,17 @@ from repro_torch.transport import InMemoryTransport
 
 RT = Runtime(attn_chunk_q=16, attn_chunk_k=16, remat_policy="none")
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Smoke-size tensors gain nothing from torch's thread pool, and six
+    test workers each spinning a pool of every core's threads slow each
+    other several times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 _SETUPS: dict = {}
 
@@ -44,7 +57,7 @@ def setup():
 
 
 def _build_setup(arch):
-    cfg = get_smoke_config(arch, n_units=1)
+    cfg, tcfg = smoke_configs(arch, n_units=1)
     api = build(cfg)
     base = api.init(jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
@@ -59,7 +72,7 @@ def _build_setup(arch):
                       density=0.2, device="cpu") for i, t in enumerate(taus)])
     tbase = params_from_jax(jax.tree_util.tree_map(np.asarray, base),
                             device="cpu")
-    model = t_build(t_smoke(arch, n_units=1))
+    model = t_build(tcfg)
     return cfg, api, base, jreg, model, tbase, treg
 
 
@@ -72,15 +85,26 @@ def _prompts(cfg, seed, lens):
 # smoke window of 32, so the window binds in prefill and in decode)
 LENGTHS = {"qwen2_5_3b": ((5, 9, 7, 12, 6, 8), 48),
            "llama_7b": ((5, 9, 7, 12, 6, 8), 48),
-           "gemma2_9b": ((35, 41, 37, 44, 36, 40), 64)}
+           "gemma2_9b": ((35, 41, 37, 44, 36, 40), 64),
+           "qwen3_32b": ((5, 9, 7, 12, 6, 8), 48),
+           "qwen1_5_110b": ((5, 9, 7, 12, 6, 8), 48),
+           "mixtral_8x7b": ((35, 41, 37, 44, 36, 40), 64),
+           "llama4_maverick_400b": ((5, 9, 7, 12, 6, 8), 48)}
 
 
 @pytest.mark.parametrize("arch,chunk", [
     pytest.param("qwen2_5_3b", 3, id="3"),
     pytest.param("qwen2_5_3b", 8, id="8"),
     pytest.param("llama_7b", 3, id="llama_7b-3"),
-    pytest.param("gemma2_9b", 8, id="gemma2_9b-8")])
+    pytest.param("gemma2_9b", 8, id="gemma2_9b-8"),
+    pytest.param("qwen3_32b", 3, id="qwen3_32b-3"),
+    pytest.param("qwen1_5_110b", 8, id="qwen1_5_110b-8"),
+    pytest.param("mixtral_8x7b", 3, id="mixtral_8x7b-3"),
+    pytest.param("llama4_maverick_400b", 8, id="llama4_maverick_400b-8")])
 def test_greedy_tokens_identical_to_reference_engine(arch, chunk):
+    """The same tokens as the reference engine; the MoE configs have no
+    overlay plan in either package, so both serve them by merge-on-swap
+    (one merge per distinct expert, no mixed wave)."""
     cfg, api, base, jreg, model, tbase, treg = _setup(arch)
     lens, cache_len = LENGTHS[arch]
     prompts = _prompts(cfg, 1, lens)
@@ -88,8 +112,9 @@ def test_greedy_tokens_identical_to_reference_engine(arch, chunk):
     jr = [JRequest(uid=i, expert=n, prompt=jnp.asarray(p, jnp.int32),
                    max_new_tokens=3 + i)
           for i, (n, p) in enumerate(zip(names, prompts))]
-    rapi.serve(api, RT, base, jreg, max_batch=4, cache_len=cache_len,
-               continuous=False, decode_chunk=chunk).run(jr)
+    jeng = rapi.serve(api, RT, base, jreg, max_batch=4, cache_len=cache_len,
+                      continuous=False, decode_chunk=chunk)
+    jeng.run(jr)
     tr = [Request(uid=i, expert=n, prompt=p, max_new_tokens=3 + i)
           for i, (n, p) in enumerate(zip(names, prompts))]
     eng = tapi.serve(model, tbase, treg, max_batch=4, cache_len=cache_len,
@@ -98,7 +123,38 @@ def test_greedy_tokens_identical_to_reference_engine(arch, chunk):
     for a, b in zip(jr, tr):
         assert b.out_tokens == a.out_tokens, b.uid
         assert b.status == "done"
-    assert eng.swap_summary()["n_waves"] == 2
+    summary, jsummary = eng.swap_summary(), jeng.swap_summary()
+    if arch in MOE_ARCHS:
+        assert eng._plan is None and jeng._plan is None
+        assert summary["n_waves"] == jsummary["n_waves"] == 0
+        assert summary["n_swaps"] == jsummary["n_swaps"] == 3
+    else:
+        assert summary["n_waves"] == 2
+
+
+@pytest.mark.parametrize("arch", ["qwen3_32b", "qwen1_5_110b"])
+def test_paged_refill_tokens_identical_to_reference_engine(arch):
+    """The overlay's q/k-norm (qwen3) and QKV-bias (qwen1.5) deltas on the
+    paged path: paged KV (blocks of 8), slot refill and chunks of 2, the
+    same tokens and admissions as the reference engine."""
+    cfg, api, base, jreg, model, tbase, treg = _setup(arch)
+    lens, cache_len = LENGTHS[arch]
+    prompts = _prompts(cfg, 2, lens)
+    names = ["e0", "e1", "e2", BASE, "e1", "e2"]
+    kw = dict(max_batch=3, cache_len=cache_len, kv_layout="paged",
+              kv_block_size=8, decode_chunk=2)
+    jr = [JRequest(uid=i, expert=n, prompt=jnp.asarray(p, jnp.int32),
+                   max_new_tokens=2 + i % 3)
+          for i, (n, p) in enumerate(zip(names, prompts))]
+    jeng = rapi.serve(api, RT, base, jreg, **kw)
+    jeng.run(jr)
+    tr = [Request(uid=i, expert=n, prompt=p, max_new_tokens=2 + i % 3)
+          for i, (n, p) in enumerate(zip(names, prompts))]
+    eng = tapi.serve(model, tbase, treg, **kw)
+    eng.run(tr)
+    assert [r.out_tokens for r in tr] == [r.out_tokens for r in jr]
+    assert eng.swap_summary()["admitted"] == jeng.swap_summary()["admitted"]
+    assert eng.swap_summary()["admitted"] >= 1
 
 
 def test_mixed_wave_equals_sequential_and_solo(setup):
