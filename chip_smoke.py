@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py [--units 4] [--seed 0]
-                          [--stop-after kernels|training|configs|all]
+                          [--stop-after kernels|training|configs|mesh|all]
 
 At the full width of qwen2.5-3b (d_model 2048, 16 q / 2 kv heads of 128,
 QKV bias, swiglu d_ff 11008, vocab 151936, tied embeddings, rope theta
@@ -82,6 +82,30 @@ failure with a non-zero exit:
      reported), graph chunks bitwise eager ones, a warm run repeating
      its tokens; decode tokens/s, swap seconds against the merge's byte
      bound, kernel 4 on the widest leaf and one profiled 4-row batch;
+  3m. the serving mesh at full width (``mesh_path``), each rank a process
+     that this script starts as ``chip_smoke.py --mesh-child SPEC`` (one
+     torch thread of work a rank; the experts' planes handed over in a
+     git-ignored ``_artifacts_*`` directory): mesh (2, 1), two ranks on
+     the card over gloo with eager chunks, serves phase 3's 8 requests
+     greedy and sampled (T 0.8, top_k 40) and paged (chunks of 4), each
+     bitwise the mesh-free run's in bf16 with no capture and no KV block
+     left, and crashes a paged run at chunk 2 with a snapshot per chunk;
+     mesh (1, 2), two ranks over gloo (vocab-parallel embed and head,
+     batch-sharded KV), bitwise the mesh-free run on an f32 copy and, in
+     bf16, phase 3's tokens or parting first at a near-tie; mesh (1, 1)
+     under NCCL with graphed chunks, bitwise phase 3's, phase 3d's and the
+     paged tokens, and the (2, 1) snapshot resumed (continued rows
+     bitwise, no block left); with more than one card, (2, 1) and (1, 2)
+     one rank a card under NCCL; then the compressed multi-pod train step
+     (qwen2.5-3b at 1 unit, 3 AdamW steps of 4 x 64 tokens) as 1 NCCL pod
+     and as 2 gloo pods on the card, parameters, error feedback and losses
+     bitwise a one-process oracle.  Every rank's tokens must equal rank
+     0's, and a failed rank fails the run.  Reported per run: ranks,
+     backend, cards, decode tokens/s of a warm run and the collectives'
+     device and host ms a decode step from ``torch.profiler``; kernels 1
+     and S must launch under the mesh (rank 0's counts join the
+     ``kernels`` line as ``launches_mesh``).  ``--stop-after mesh`` ends
+     after phases 3, 3d and 3m;
   3s. phase 3d's 16 requests sampled at temperature 0.8, top_k 40 and 0
      (``sampled_path``, uids kept): graph chunks bitwise the same chunks
      run eagerly, requests placed alike bitwise at ``decode_chunk`` 0, 1
@@ -4280,19 +4304,527 @@ def attention_step_ms(torch, cfg):
             "dense": graph_ms(torch, dense) * layers, "layers": layers}
 
 
+# ---------------------------------------------------------------------------
+# phase 3m: the serving mesh and the multi-pod train step, one process a rank
+# ---------------------------------------------------------------------------
+
+MESH_TRAFFIC = {
+    # phase 3's waves: continuous=False, so the mesh runs are comparable
+    "p3": dict(max_batch=4, cache_len=128, decode_chunk=8, continuous=False),
+    # phase 3d's refill traffic
+    "refill": dict(max_batch=4, cache_len=256, decode_chunk=8),
+    # phase 3's requests paged, chunks of 4 (a crash at chunk 2 leaves
+    # rows of the snapshotted wave unfinished)
+    "paged": dict(max_batch=4, cache_len=128, decode_chunk=4,
+                  kv_layout="paged", kv_block_size=16),
+}
+MESH_SAMPLED = dict(temperature=0.8, top_k=40)
+MESH_KILL_AT = 2
+MESH_TRAIN = dict(seq_len=64, global_batch=4, task_id=1)
+MESH_TRAIN_STEPS = 3
+
+
+class MeshCrash(Exception):
+    pass
+
+
+def traffic_rows(reqs) -> list:
+    return [[r.uid, r.expert, [int(t) for t in
+                               torch_list(r.prompt)], r.max_new_tokens]
+            for r in reqs]
+
+
+def torch_list(t) -> list:
+    return t.reshape(-1).tolist() if hasattr(t, "reshape") else list(t)
+
+
+def mesh_setup(torch, experts, traffic: dict, tmp) -> str:
+    """What every rank loads: the experts' packed planes (host copies)
+    and the traffic (uids, experts, prompts, budgets)."""
+    d = os.path.join(tmp, "mesh_setup")
+    os.makedirs(d)
+    torch.save({ex.name: {"kind": ex.kind, "density": ex.density,
+                          "alpha": ex.alpha,
+                          "packed": {p: dataclasses.replace(
+                              pt, pos=pt.pos.cpu(), neg=pt.neg.cpu(),
+                              scale=pt.scale.cpu())
+                              for p, pt in ex.packed.items()}}
+                for ex in experts}, os.path.join(d, "experts.pt"))
+    with open(os.path.join(d, "traffic.json"), "w") as f:
+        json.dump(traffic, f)
+    return d
+
+
+def tree_digest(torch, tree) -> dict:
+    """{path: sha256 of the leaf's bytes}: bitwise equality of two trees
+    held in different processes."""
+    import hashlib
+    from repro_torch import tree as tree_util
+    out = {}
+    for path, t in tree_util.flatten_with_paths(tree):
+        raw = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+        out[path] = hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+    return out
+
+
+def collectives_of(prof) -> dict:
+    """The collectives' self device and host time in a profile (NCCL
+    kernels, or the c10d ops around gloo's host exchange), and calls."""
+    keys = ("allreduce", "all_reduce", "allgather", "all_gather", "nccl")
+    dev_us = cpu_us = calls = 0.0
+    for e in prof.key_averages():
+        if any(k in e.key.lower() for k in keys):
+            dev_us += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+            cpu_us += e.self_cpu_time_total
+            calls += e.count
+    return {"device_ms": dev_us / 1e3, "host_ms": cpu_us / 1e3,
+            "calls": int(calls)}
+
+
+def mesh_serve_case(torch, api, model, base, experts, traffic, case, mesh,
+                    dev, rank) -> dict:
+    """One engine of a rank over one case's traffic: its tokens, launch
+    counts and gauges; ``timed`` adds a warm run (decode tokens/s) and a
+    profiled one (the collectives' ms per decode step)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request
+    m, b = f32_copy(torch, model, base) if case.get("f32") else (model,
+                                                                 base)
+    kw = dict(MESH_TRAFFIC[case["traffic"]], **case.get("engine", {}))
+    if case.get("snapshot_dir"):
+        kw.update(snapshot_dir=case["snapshot_dir"], snapshot_every_chunks=1)
+    reg = api.registry(device=dev, device_cache_bytes=16 << 30,
+                       experts=experts, mesh=mesh)
+    eng = api.serve(m, b, reg, mesh=mesh, **kw)
+
+    def requests(uid0=0):
+        return [Request(uid=uid0 + u, expert=e, prompt=torch.as_tensor(p),
+                        max_new_tokens=n)
+                for u, e, p, n in traffic[case["traffic"]]]
+    out = {"name": case["name"], "rank": rank}
+    ops.reset_launch_counts()
+    if case.get("op") == "crash":
+        def hook(i):
+            if i == MESH_KILL_AT:
+                raise MeshCrash(f"injected crash at chunk {i}")
+        eng.chunk_hooks.append(hook)
+        try:
+            eng.run(requests())
+        except MeshCrash:
+            out["crashed"] = True
+        check(out.get("crashed", False), f"{case['name']}: no crash came")
+        done = []
+    elif case.get("op") == "resume":
+        done = eng.resume()
+        out["continued"] = [u for w in eng.wave_log if w.get("resumed")
+                            for u in w["uids"]]
+        out["plan"] = dataclasses.asdict(eng.recovery_stats["plan"])
+    else:
+        done = eng.run(requests())
+    torch.cuda.synchronize(dev)
+    out["launches"] = ops.launch_counts()
+    out["tokens"] = {str(r.uid): [int(t) for t in r.out_tokens]
+                     for r in done}
+    out["status"] = sorted({r.status for r in done})
+    s = eng.swap_summary()
+    out["summary"] = {k: s.get(k) for k in (
+        "graph_captures", "graph_replays", "kv", "mesh", "shards",
+        "n_expert_shards", "admitted")}
+    if case.get("timed"):
+        w0 = len(eng.wave_log)
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        eng.run(requests(10000))
+        torch.cuda.synchronize(dev)
+        waves = eng.wave_log[w0:]
+        out["warm_s"] = time.monotonic() - t0
+        out["decode_tokens_per_s"] = (
+            sum(w["tokens"] - w["rows"] for w in waves)
+            / sum(w["seconds"] - w["prefill_s"] for w in waves))
+        from torch.profiler import ProfilerActivity, profile
+        w0 = len(eng.wave_log)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.run(requests(20000))
+            torch.cuda.synchronize(dev)
+        steps = sum((w["tokens"] - w["rows"]) / w["rows"]
+                    for w in eng.wave_log[w0:])
+        c = collectives_of(prof)
+        out["collectives"] = dict(
+            c, decode_steps=steps,
+            device_ms_per_step=c["device_ms"] / max(steps, 1),
+            host_ms_per_step=c["host_ms"] / max(steps, 1))
+    eng.registry.close()
+    del eng, reg, m, b
+    free_all(torch)
+    return out
+
+
+def mesh_train_child(torch, spec, dev) -> dict:
+    """The compressed multi-pod step, this rank one pod of a
+    ("pod", "data", "model") = (world, 1, 1) mesh: digests of the
+    parameters and the rank's error feedback after the steps, and the
+    losses."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.gradient_compression import GradCompressionConfig
+    from repro_torch.data.pipeline import make_batch_for
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build as build_model
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    cfg = dataclasses.replace(get_config("qwen2_5_3b"), n_units=1)
+    model = build_model(cfg)
+    params = model.init(seed=spec["seed"], device=dev)
+    tcfg = mesh_tcfg(TrainConfig, GradCompressionConfig)
+    state = init_train_state(params, tcfg, multi_pod=True)
+    step = make_train_step(model, tcfg, mesh=make_production_mesh(
+        multi_pod=True, device="cuda"))
+    torch.set_grad_enabled(True)
+    losses, secs = [], []
+    for s in range(MESH_TRAIN_STEPS):
+        batch = make_batch_for(cfg, s, device=dev, **MESH_TRAIN)
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        secs.append(time.monotonic() - t0)
+    return {"params": tree_digest(torch, state["params"]),
+            "ef": tree_digest(torch, state["ef"]), "losses": losses,
+            "step_s": secs}
+
+
+def mesh_tcfg(TrainConfig, GradCompressionConfig):
+    return TrainConfig(optimizer="adamw", peak_lr=1e-3, warmup_steps=3,
+                       total_steps=20, grad_compression=GradCompressionConfig(
+                           enabled=True, density=0.05))
+
+
+def mesh_child(spec_path: str) -> int:
+    """One rank of a phase 3m run (``--mesh-child SPEC``): joins the
+    world, builds the mesh, serves its cases (or runs the multi-pod
+    step) and writes its results beside the spec."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import api, tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.expert import Expert
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models import build as build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.set_grad_enabled(False)
+    dev = torch.device("cuda", spec["device_index"])
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        spec["backend"], init_method=f"tcp://127.0.0.1:{spec['port']}",
+        rank=spec["rank"], world_size=spec["world"])
+    try:
+        if spec["op"] == "train":
+            res = mesh_train_child(torch, spec, dev)
+        else:
+            mesh = make_serve_mesh(tuple(spec["shape"]), device="cuda")
+            cfg = dataclasses.replace(get_config("qwen2_5_3b"),
+                                      n_units=spec["units"])
+            model = build_model(cfg)
+            base = model.init(seed=spec["seed"], device=dev)
+            saved = torch.load(os.path.join(spec["setup"], "experts.pt"),
+                               weights_only=False)
+            experts = [Expert.from_packed(
+                name, e["kind"], tree_util.unflatten_paths({
+                    p: dataclasses.replace(pt, pos=pt.pos.to(dev),
+                                           neg=pt.neg.to(dev),
+                                           scale=pt.scale.to(dev))
+                    for p, pt in e["packed"].items()}),
+                density=e["density"], alpha=e["alpha"])
+                for name, e in saved.items()]
+            with open(os.path.join(spec["setup"], "traffic.json")) as f:
+                traffic = json.load(f)
+            res = [mesh_serve_case(torch, api, model, base, experts,
+                                   traffic, case, mesh, dev, spec["rank"])
+                   for case in spec["cases"]]
+        with open(spec["out"], "w") as f:
+            json.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(torch, spec: dict, world: int, backend: str, devices: list,
+              tmp, what: str, timeout: int = 600) -> list:
+    """Start ``world`` ranks of ``spec`` (``chip_smoke.py --mesh-child``),
+    rank r on card ``devices[r]``, and wait for all: a rank that fails
+    fails the run.  Returns every rank's results, in rank order."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    kids, outs = [], []
+    for r in range(world):
+        path = os.path.join(tmp, f"{what}_rank{r}.json")
+        outs.append(path + ".out")
+        with open(path, "w") as f:
+            json.dump(dict(spec, rank=r, world=world, port=port,
+                           backend=backend, device_index=devices[r],
+                           out=outs[-1]), f)
+        kids.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-child",
+             path], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    errs = []
+    try:
+        for k in kids:
+            _, err = k.communicate(timeout=timeout)
+            errs.append((k.returncode, err))
+    finally:
+        for k in kids:
+            if k.poll() is None:
+                k.kill()
+                k.wait()
+    for r, (rc, err) in enumerate(errs):
+        check(rc == 0, f"phase 3m {what}: rank {r} ended with {rc}: "
+              f"{err[-3000:]}")
+    res = []
+    for o in outs:
+        with open(o) as f:
+            res.append(json.load(f))
+    return res
+
+
+def multipod_oracle(torch, seed, n_pods, dev) -> dict:
+    """The multi-pod step's one-process version
+    (``train_step.pods_in_one_process``) over the same steps; digests and
+    losses as :func:`mesh_train_child` gives them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import gradient_compression as gc
+    from repro_torch.data.pipeline import make_batch_for
+    from repro_torch.models import build as build_model
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.train import train_step as ts
+    cfg = dataclasses.replace(get_config("qwen2_5_3b"), n_units=1)
+    model = build_model(cfg)
+    tcfg = mesh_tcfg(TrainConfig, gc.GradCompressionConfig)
+    state = init_train_state(model.init(seed=seed, device=dev), tcfg,
+                             multi_pod=True)
+    efs = [state["ef"]] * n_pods
+    losses = []
+    with torch.enable_grad():
+        for s in range(MESH_TRAIN_STEPS):
+            batch = make_batch_for(cfg, s, device=dev, **MESH_TRAIN)
+            state, efs, loss, _ = ts.pods_in_one_process(model, tcfg, state,
+                                                         efs, batch)
+            losses.append(float(loss))
+    out = {"params": tree_digest(torch, state["params"]),
+           "ef": [tree_digest(torch, e) for e in efs], "losses": losses}
+    del state, efs
+    free_all(torch)
+    return out
+
+
+def mesh_path(torch, api, model, base, reg, experts, engine, reqs, rreqs,
+              seed, units, tmp) -> tuple[dict, dict]:
+    """Phase 3m: the port's serving mesh at full width, one process a
+    rank.  Returns (report, kernel launches on the mesh runs: rank 0's,
+    summed over the serving cases)."""
+    from repro_torch.kernels import ops
+    n_cards = torch.cuda.device_count()
+    traffic = {"p3": traffic_rows(reqs), "refill": traffic_rows(rreqs),
+               "paged": traffic_rows(reqs)}
+    setup = mesh_setup(torch, experts, traffic, tmp)
+    spec = {"op": "serve", "setup": setup, "seed": seed, "units": units}
+    out: dict = {"cards": n_cards}
+
+    # the mesh-free references beside phase 3's own tokens
+    def mesh_free(traffic_name, f32=False, **kw):
+        m, b = f32_copy(torch, model, base) if f32 else (model, base)
+        e = api.serve(m, b, reg, **dict(MESH_TRAFFIC[traffic_name], **kw))
+        rr = [dataclasses.replace(r, out_tokens=[], status="pending",
+                                  t_admit_s=None, t_first_s=None,
+                                  t_done_s=None) for r in
+              (reqs if traffic_name != "refill" else rreqs)]
+        e.run(rr)
+        toks = {str(r.uid): [int(t) for t in r.out_tokens] for r in rr}
+        del e, m, b
+        free_all(torch)
+        return toks
+    want = {"p3": {str(r.uid): list(r.out_tokens) for r in reqs},
+            "refill": {str(r.uid): list(r.out_tokens) for r in rreqs},
+            "p3s": mesh_free("p3", **MESH_SAMPLED),
+            "paged": mesh_free("paged"),
+            "p3_f32": mesh_free("p3", f32=True)}
+    launches = {k: 0 for k in ops.launch_counts()}
+
+    def take(res, what):
+        for case in res[0]:
+            for k, n in case["launches"].items():
+                launches[k] += n
+        for r, per in enumerate(res[1:], 1):
+            for a, b in zip(res[0], per):
+                check(a["tokens"] == b["tokens"], f"phase 3m {what}: rank "
+                      f"{r}'s {a['name']} tokens differ from rank 0's")
+        return {c["name"]: c for c in res[0]}
+
+    def report(what, world, backend, cards, cases):
+        for name, c in cases.items():
+            line = f"phase 3m {what} {name}: {world} ranks, {backend}, " \
+                   f"cards {cards}; graph captures " \
+                   f"{c['summary']['graph_captures']}"
+            if "decode_tokens_per_s" in c:
+                co = c["collectives"]
+                line += (f"; decode {c['decode_tokens_per_s']:.1f} tokens/s;"
+                         f" collectives {co['device_ms_per_step']:.3f} device"
+                         f" ms / {co['host_ms_per_step']:.3f} host ms a "
+                         f"decode step ({co['calls']} calls)")
+            log(f"{line} [{gpu_line()}]")
+        out[what] = {"ranks": world, "backend": backend, "cards": cards,
+                     "cases": cases}
+
+    snap = os.path.join(tmp, "mesh_snap")
+    log("  (a) mesh (2, 1): two ranks on the card over gloo, eager chunks")
+    cases = take(run_ranks(torch, dict(spec, shape=[2, 1], cases=[
+        {"name": "p3", "traffic": "p3", "timed": True},
+        {"name": "p3s", "traffic": "p3", "engine": MESH_SAMPLED},
+        {"name": "paged", "traffic": "paged"},
+        {"name": "crash", "traffic": "paged", "op": "crash",
+         "snapshot_dir": snap}]), 2, "gloo", [0, 0], tmp, "mesh21"),
+        "mesh (2, 1)")
+    for name, ref in (("p3", "p3"), ("p3s", "p3s"), ("paged", "paged")):
+        check(cases[name]["tokens"] == want[ref], f"phase 3m mesh (2, 1) "
+              f"{name}: tokens differ from the mesh-free run's (bf16)")
+        check(cases[name]["summary"]["graph_captures"] == 0,
+              f"phase 3m mesh (2, 1) {name}: a gloo mesh captured a graph")
+    check(cases["paged"]["summary"]["kv"]["blocks_in_use"] == 0,
+          "phase 3m mesh (2, 1): KV blocks left in use")
+    check([s["resident_experts"] for s in cases["p3"]["summary"]["shards"]]
+          != [0, 0], "phase 3m mesh (2, 1): no expert on the shards")
+    log("  mesh (2, 1): phase 3's tokens bitwise (greedy and sampled, "
+        "bf16), the paged run's bitwise, no capture, shards "
+        f"{[s['resident_experts'] for s in cases['p3']['summary']['shards']]}")
+    report("mesh (2, 1)", 2, "gloo", [0, 0], cases)
+
+    log("  (b) mesh (1, 2): two ranks on the card over gloo, vocab-parallel "
+        "head, batch-sharded KV")
+    cases = take(run_ranks(torch, dict(spec, shape=[1, 2], cases=[
+        {"name": "p3", "traffic": "p3", "timed": True},
+        {"name": "p3_f32", "traffic": "p3", "f32": True}]), 2, "gloo",
+        [0, 0], tmp, "mesh12"), "mesh (1, 2)")
+    check(cases["p3_f32"]["tokens"] == want["p3_f32"], "phase 3m mesh "
+          "(1, 2): f32 tokens differ from the mesh-free f32 run's")
+    ties = []
+    for r in reqs:
+        e = near_tie(torch, engine, r, list(r.out_tokens),
+                     cases["p3"]["tokens"][str(r.uid)],
+                     "mesh (1, 2) and mesh-free (bf16)")
+        if e is not None:
+            ties.append(e)
+    out["mesh12_bf16_near_ties"] = ties
+    log(f"  mesh (1, 2): f32 tokens bitwise; bf16: "
+        f"{len(reqs) - len(ties)} of {len(reqs)} streams bitwise, "
+        f"{len(ties)} part at near-ties")
+    report("mesh (1, 2)", 2, "gloo", [0, 0], cases)
+
+    log("  (c) mesh (1, 1) under NCCL: one rank, graphed chunks; the (2, 1) "
+        "snapshot resumed")
+    cases = take(run_ranks(torch, dict(spec, shape=[1, 1], cases=[
+        {"name": "p3", "traffic": "p3", "timed": True},
+        {"name": "refill", "traffic": "refill"},
+        {"name": "paged", "traffic": "paged"},
+        {"name": "resume", "traffic": "paged", "op": "resume",
+         "snapshot_dir": snap}]), 1, "nccl", [0], tmp, "mesh11"),
+        "mesh (1, 1)")
+    for name in ("p3", "refill", "paged"):
+        check(cases[name]["tokens"] == want[name], f"phase 3m mesh (1, 1) "
+              f"{name}: tokens differ from the mesh-free run's (bf16)")
+        check(cases[name]["summary"]["graph_captures"] > 0,
+              f"phase 3m mesh (1, 1) {name}: no graph was captured")
+    res = cases["resume"]
+    check(res["status"] == ["done"] and res["continued"],
+          f"phase 3m resume: {res['status']}, continued {res['continued']}")
+    for u in res["continued"]:
+        check(res["tokens"][str(u)] == want["paged"][str(u)],
+              f"phase 3m resume: continued row {u} differs (bf16)")
+    same = sum(res["tokens"][u] == t for u, t in want["paged"].items())
+    check(res["summary"]["kv"]["blocks_in_use"] == 0,
+          "phase 3m resume: KV blocks left in use")
+    out["resume"] = {"continued": res["continued"], "plan": res["plan"],
+                     "streams_equal": same}
+    log(f"  mesh (1, 1): phase 3's, 3d's and the paged tokens bitwise with "
+        f"graphs; the (2, 1) snapshot resumed: rows {res['continued']} "
+        f"continued bitwise, {same} of {len(want['paged'])} streams equal "
+        "the uninterrupted run's")
+    report("mesh (1, 1)", 1, "nccl", [0], cases)
+
+    if n_cards > 1:
+        log("  (d) one rank per card under NCCL: meshes (2, 1) and (1, 2)")
+        for shape, name, ref in (((2, 1), "p3", "p3"),
+                                 ((1, 2), "p3_f32", "p3_f32")):
+            what = f"mesh {shape} nccl"
+            cases = take(run_ranks(torch, dict(spec, shape=list(shape),
+                                               cases=[{
+                                                   "name": name,
+                                                   "traffic": "p3",
+                                                   "f32": name == "p3_f32",
+                                                   "timed": True}]),
+                                   2, "nccl", [0, 1], tmp,
+                                   f"mesh{shape[0]}{shape[1]}nccl"), what)
+            check(cases[name]["tokens"] == want[ref],
+                  f"phase 3m {what}: tokens differ from the mesh-free run's")
+            report(what, 2, "nccl", [0, 1], cases)
+
+    log("  (e) the compressed multi-pod step: 1 NCCL pod, 2 gloo pods on the "
+        f"card ({MESH_TRAIN_STEPS} AdamW steps of {MESH_TRAIN['global_batch']}"
+        f" x {MESH_TRAIN['seq_len']} tokens, 1 unit)")
+    train = {}
+    for pods, backend in ((1, "nccl"), (2, "gloo")):
+        res = run_ranks(torch, {"op": "train", "seed": seed}, pods, backend,
+                        [0] * pods, tmp, f"train{pods}")
+        oracle = multipod_oracle(torch, seed, pods, torch.device("cuda"))
+        for r, got in enumerate(res):
+            check(got["params"] == oracle["params"],
+                  f"phase 3m multi-pod ({pods} {backend}): rank {r}'s "
+                  "parameters differ from the oracle's")
+            check(got["ef"] == oracle["ef"][r],
+                  f"phase 3m multi-pod ({pods} {backend}): rank {r}'s "
+                  "error feedback differs from the oracle's")
+            check(got["losses"] == oracle["losses"],
+                  f"phase 3m multi-pod ({pods} {backend}): losses "
+                  f"{got['losses']} != {oracle['losses']}")
+        train[f"{pods}_{backend}"] = {"losses": res[0]["losses"],
+                                      "step_s": res[0]["step_s"]}
+        log(f"phase 3m multi-pod {pods} {backend} pod(s): parameters, error "
+            f"feedback and losses bitwise the oracle; step seconds "
+            f"{[round(x, 3) for x in res[0]['step_s']]} [{gpu_line()}]")
+    out["multipod"] = train
+    for name in ("ternary_matmul_grouped", "sample_tokens"):
+        check(launches[name] > 0, f"phase 3m: {name} was not launched "
+              "under the mesh")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--units", type=int, default=4,
                     help="repeat units (layers) of qwen2.5-3b, 1..36")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh-child", help=argparse.SUPPRESS)
     ap.add_argument("--stop-after",
-                    choices=("kernels", "training", "configs", "all"),
+                    choices=("kernels", "training", "configs", "mesh",
+                             "all"),
                     default="all", help="end after phase 2 (kernels: a "
                     "first build and correctness check of new kernels), "
                     "after phases 3 and 3t (training: a quick check of the "
                     "training path), or after phases 3 and 3e (configs: a "
-                    "quick check of the full-width configurations)")
+                    "quick check of the full-width configurations; mesh: "
+                    "after phases 3, 3d and 3m)")
     args = ap.parse_args(argv)
+    if args.mesh_child:
+        return mesh_child(args.mesh_child)
     if not 1 <= args.units <= 36:
         ap.error("--units must be in 1..36")
 
@@ -4455,6 +4987,24 @@ def main(argv=None) -> int:
     check(refill_launches["ternary_matmul_grouped"] > 0,
           "ternary_matmul_grouped was not launched on the refill path")
     refill["f32"] = f32_refill(torch, api, model, base, reg, rreqs)
+
+    log("phase 3m: the serving mesh (ranks as processes: (2, 1) and (1, 2) "
+        "over gloo on the card, (1, 1) under NCCL) and the compressed "
+        "multi-pod step")
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="_artifacts_", dir=ROOT) as tmp:
+        mesh, mesh_launches = mesh_path(torch, api, model, base, reg,
+                                        experts, engine, reqs, rreqs,
+                                        args.seed, args.units, tmp)
+    mesh["phase_s"] = time.monotonic() - t0
+    log(f"  launches on the mesh runs (rank 0): "
+        f"{ {k: v for k, v in mesh_launches.items() if v} }; phase 3m took "
+        f"{mesh['phase_s']:.1f} s [{gpu}]")
+    if args.stop_after == "mesh":
+        with open(os.path.join(out_dir, "chip_smoke_mesh.json"), "w") as f:
+            json.dump({"gpu": gpu, "mesh": mesh,
+                       "launches": mesh_launches}, f, indent=1)
+        return 0
 
     wide, wide_launches = wide_phase(torch, api, args.seed, dev, out_dir)
 
@@ -4637,12 +5187,13 @@ def main(argv=None) -> int:
         # the merge path, the merged ensemble, the artifact path, the
         # refill path, phase 3e's configurations (the MoE one by
         # merge-on-swap), the sampled paths, the paged path, the remote
-        # paths, the durability path and the training path
+        # paths, the durability path, the training path and the mesh
+        # runs (rank 0's)
         n_launch = (launches[name] + merge_launches[name]
                     + ens_launches[name] + art_launches[name]
                     + refill_launches[name] + paged_launches[name]
                     + remote_launches[name] + durable_launches[name]
-                    + train_launches[name]
+                    + train_launches[name] + mesh_launches[name]
                     + sum(c[name] for c in wide_launches.values())
                     + sum(c[name] for c in sampled_launches.values()))
         entry = {"name": name, "route": "cuda", "source": src,
@@ -4650,7 +5201,7 @@ def main(argv=None) -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                 "shape": r["shape"]}
+                 "shape": r["shape"], "launches_mesh": mesh_launches[name]}
         if name == "unpack_add":
             entry["check_launches"] = check_launches[name]
         if name == "ternary_matmul":
@@ -4694,6 +5245,7 @@ def main(argv=None) -> int:
                           "refill": graph_stats(rengine)},
                "wide_configs": wide, "sampled": sampled, "paged": paged,
                "remote": remote, "durable": durable, "trained": trained,
+               "mesh": mesh,
                "params_m": n_params / 1e6}
     details.update(kernels=kernels, numbers=numbers, launches={
         "mixed_path": launches, "merge_path": merge_launches,

@@ -12,6 +12,12 @@
                        max_batch=4, cache_len=128, decode_chunk=8)
     engine.run(requests)
 
+    # several GPUs: one process per rank, every rank runs the same calls
+    from repro_torch.launch.mesh import make_serve_mesh
+    mesh = make_serve_mesh((2, 2))         # (expert, model)
+    reg = api.registry(experts=[ex], mesh=mesh)
+    engine = api.serve(model, base_params, reg, mesh=mesh)
+
     # another host: publish over a transport, serve from a remote registry
     from repro_torch.transport import LocalTransport
     tr = LocalTransport("/shared/experts")
@@ -91,7 +97,7 @@ def registry(store=None, *, cold_golomb: bool = False,
              quarantine_probe_s: Optional[float] = None,
              replicas=None, replication_factor: Optional[int] = None,
              hedge_ms: Optional[float] = None, device="cuda",
-             experts: Sequence[Expert] = ()):
+             experts: Sequence[Expert] = (), mesh=None):
     """A fresh :class:`~repro_torch.serve.expert_cache.ExpertRegistry`
     whose device tier lives on ``device``.  ``cold_golomb=True`` keeps only
     Golomb streams in the cold tier and decodes them on promotion.
@@ -108,7 +114,15 @@ def registry(store=None, *, cold_golomb: bool = False,
     quarantine for ``quarantine_probe_s``; ``cold_budget_bytes`` bounds
     the cold cache of fetched blobs.  A fetch that still fails raises
     :class:`~repro_torch.serve.ExpertUnavailable`, which the engine turns
-    into a ``failed`` request."""
+    into a ``failed`` request.
+
+    ``mesh=`` (from :func:`repro_torch.launch.mesh.make_serve_mesh`)
+    builds the device tier for a serving mesh: ``device_cache_bytes``
+    becomes a **per-shard** budget (each rank pays the packed trees in
+    full; the expert-parallel slots are the engine's, outside it), and
+    ``reg.device().shard_summary()`` reports each shard's experts and
+    bytes against it.  :func:`serve` builds the tier on its own mesh,
+    which wins where the two differ."""
     from repro_torch.serve.expert_cache import (DEFAULT_DEVICE_BYTES,
                                                 DEFAULT_QUARANTINE_AFTER,
                                                 DEFAULT_QUARANTINE_PROBE_S,
@@ -118,7 +132,7 @@ def registry(store=None, *, cold_golomb: bool = False,
         device_cache_bytes=device_cache_bytes or DEFAULT_DEVICE_BYTES,
         transport=transport, cold_budget_bytes=cold_budget_bytes,
         retry=retry, replicas=replicas,
-        replication_factor=replication_factor, hedge_ms=hedge_ms,
+        replication_factor=replication_factor, hedge_ms=hedge_ms, mesh=mesh,
         quarantine_after=(DEFAULT_QUARANTINE_AFTER if quarantine_after is None
                           else quarantine_after),
         quarantine_probe_s=(DEFAULT_QUARANTINE_PROBE_S
@@ -149,7 +163,20 @@ def serve(model, base_params: dict, reg, cfg=None, **engine_kw):
     engine's kept buffers, fetches the experts through the registry, and
     serves every unfinished request to the tokens of the uninterrupted
     run; they land in ``engine.resumed_requests``, the timing and the
-    ``RecoveryPlan`` in ``engine.recovery_stats``."""
+    ``RecoveryPlan`` in ``engine.recovery_stats``.
+
+    ``mesh=`` (a serving mesh, :func:`repro_torch.launch.mesh.
+    make_serve_mesh`) serves across several GPUs, one process per rank,
+    every rank calling ``serve`` and ``run`` with the same arguments and
+    requests: the expert slots are expert-parallel along "expert"; the
+    embedding and head vocab-parallel and the KV batch-sharded along
+    "model" (paged: the block pool sharded by block).  Every shard
+    computes whole output elements, so the token streams, greedy or
+    seeded-sampled, are those of ``mesh=None``; ``swap_summary()`` adds
+    ``mesh`` and per-shard ``shards`` gauges.  Under NCCL each decode
+    chunk is one CUDA graph; a gloo mesh runs it eagerly.  Rank 0 writes
+    the journal and snapshots, which resume onto any mesh shape or
+    ``mesh=None``."""
     from repro_torch.serve.decode_loop import SamplingConfig
     from repro_torch.serve.engine import EngineConfig, ServeEngine
     do_resume = engine_kw.pop("resume", False)

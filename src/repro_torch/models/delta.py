@@ -16,6 +16,15 @@ Block-level deltas carry the unit axis in front, like the parameters;
 :class:`SlotOverlay` is the serving engine's overlay: a fixed number of
 expert slots at fixed addresses, filled by copy, so the engine's CUDA
 graphs read every expert set through the same tensors.
+
+On a serving mesh with an "expert" axis the projection and embedding
+planes are expert-parallel (:class:`ExpertShard`): a rank holds a
+contiguous block of the slots, runs the grouped kernel over its own slots
+only (a row whose expert lives on another shard takes slot -1, whose
+delta the kernel makes 0) and sums the delta over the axis before it is
+added to the base product.  Every element then sums one term and exact
+zeros, so the result is the single-device one.  The small vector leaves
+stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -29,6 +38,22 @@ import torch
 from repro_torch import tree as tree_util
 from repro_torch.core.packing import LANE, lane_shifts, stacked_bytes
 from repro_torch.kernels.ref import dense_of_planes
+
+
+@dataclasses.dataclass
+class ExpertShard:
+    """The slots ``[lo, hi)`` a rank holds of an expert-parallel stack,
+    and the mesh (a :class:`~repro_torch.distributed.collectives.
+    ServeComm`) whose "expert" axis sums the deltas."""
+
+    lo: int
+    hi: int
+    comm: Any
+
+    def local_eid(self, eid: torch.Tensor) -> torch.Tensor:
+        """Global slot ids -> this shard's (-1 for another shard's)."""
+        e = eid.to(torch.int32)
+        return torch.where((e >= self.lo) & (e < self.hi), e - self.lo, -1)
 
 
 @dataclasses.dataclass
@@ -46,6 +71,7 @@ class MatmulDelta:
     scales: torch.Tensor
     n_out: int = 0
     transpose: bool = False
+    shard: Optional[ExpertShard] = None
 
 
 @dataclasses.dataclass
@@ -56,6 +82,7 @@ class EmbedDelta:
     pos: torch.Tensor
     neg: torch.Tensor
     scales: torch.Tensor
+    shard: Optional[ExpertShard] = None
 
 
 @dataclasses.dataclass
@@ -91,9 +118,13 @@ def delta_proj(x: torch.Tensor, md: Optional[MatmulDelta],
     from repro_torch.kernels.ops import grouped_delta_matmul
     B, T, K = x.shape
     rows = x.reshape(B * T, K)
+    if md.shard is not None:
+        eid = md.shard.local_eid(eid)
     eid_rows = torch.repeat_interleave(eid.to(torch.int32), T)
     d = grouped_delta_matmul(rows, md.pos, md.neg, md.scales, eid_rows,
                              transpose_rhs=md.transpose, n_out=md.n_out)
+    if md.shard is not None:
+        d = md.shard.comm.reduce_experts(d.contiguous())
     return d.reshape(B, T, md.n_out)
 
 
@@ -121,6 +152,11 @@ def embed_delta_rows(ed: Optional[EmbedDelta], tokens: torch.Tensor,
     """Per-(row, token) embedding delta: f32 [B, T, d] or None."""
     if ed is None or eid is None:
         return None
+    mine = None
+    if ed.shard is not None:
+        eid = ed.shard.local_eid(eid)
+        mine = eid >= 0
+        eid = eid.clamp(min=0)
     e = eid.to(torch.int64)[:, None]                        # [B, 1]
     pw = ed.pos[e, tokens]                                  # [B, T, W]
     nw = ed.neg[e, tokens]
@@ -128,7 +164,11 @@ def embed_delta_rows(ed: Optional[EmbedDelta], tokens: torch.Tensor,
     pb = ((pw[..., None] >> shifts) & 1).to(torch.float32)
     nb = ((nw[..., None] >> shifts) & 1).to(torch.float32)
     delta = (pb - nb).reshape(pw.shape[:2] + (-1,))[..., :d_model]
-    return delta * ed.scales[e][..., None]
+    delta = delta * ed.scales[e][..., None]
+    if mine is None:
+        return delta
+    delta = torch.where(mine[:, None, None], delta, 0.0)
+    return ed.shard.comm.reduce_experts(delta.contiguous())
 
 
 def tied_logits_delta(x: torch.Tensor, ed: Optional[EmbedDelta],
@@ -139,7 +179,7 @@ def tied_logits_delta(x: torch.Tensor, ed: Optional[EmbedDelta],
     if ed is None or eid is None:
         return None
     md = MatmulDelta(pos=ed.pos, neg=ed.neg, scales=ed.scales, n_out=vocab,
-                     transpose=True)
+                     transpose=True, shard=ed.shard)
     return delta_proj(x, md, eid)
 
 
@@ -210,7 +250,8 @@ def plan_overlay(params: dict, cfg) -> Optional[dict]:
     return plan
 
 
-def build_overlay(plan: dict, stacks: dict) -> Optional[dict]:
+def build_overlay(plan: dict, stacks: dict,
+                  shard: Optional[ExpertShard] = None) -> Optional[dict]:
     """Shape stacked plane buffers into an overlay tree.
 
     ``stacks`` is {path: (pos [E, W], neg [E, W], scales [E], shape)} as
@@ -218,7 +259,8 @@ def build_overlay(plan: dict, stacks: dict) -> Optional[dict]:
     nested dict mirroring the parameter tree, or None when a delta lands
     on a path the plan cannot express.  Projection planes stay packed
     (views of the stack, no copy); only the small vector leaves are
-    unpacked, with their scale folded in.
+    unpacked, with their scale folded in.  ``shard`` marks the projection
+    and embedding stacks as one rank's block of expert-parallel slots.
     """
     for path in stacks:
         if path not in plan:
@@ -239,17 +281,19 @@ def build_overlay(plan: dict, stacks: dict) -> Optional[dict]:
             V, d = spec.core
             flat[path] = EmbedDelta(pos=pos.reshape(E, V, d // LANE),
                                     neg=neg.reshape(E, V, d // LANE),
-                                    scales=scales)
+                                    scales=scales, shard=shard)
         else:
             shape = (E, max(spec.units, 1), spec.k, spec.n // LANE)
             p, q = pos.reshape(shape), neg.reshape(shape)
             if spec.units:
                 flat[path] = MatmulDelta(
                     pos=p.transpose(0, 1), neg=q.transpose(0, 1),
-                    scales=scales[None].expand(spec.units, E), n_out=spec.n)
+                    scales=scales[None].expand(spec.units, E), n_out=spec.n,
+                    shard=shard)
             else:
                 flat[path] = MatmulDelta(pos=p[:, 0], neg=q[:, 0],
-                                         scales=scales, n_out=spec.n)
+                                         scales=scales, n_out=spec.n,
+                                         shard=shard)
     return tree_util.unflatten_paths(flat)
 
 
@@ -268,12 +312,27 @@ class SlotOverlay:
     The buffers cover every leaf that any expert placed so far carries; an
     expert with a leaf none carried before reallocates them (a new
     ``overlay`` object) and refills every held slot.
+
+    With ``comm`` (a serving mesh) the slot count is padded to a multiple
+    of the "expert" axis, and this rank holds the projection and
+    embedding planes of its block ``[lo, hi)`` of the slots only; a pad
+    slot holds zeros, so it adds exact zeros.  A new expert then takes a
+    free slot on the shard that holds the fewest experts, so the shards
+    fill evenly.
     """
 
-    def __init__(self, plan: dict, n_slots: int, device):
+    def __init__(self, plan: dict, n_slots: int, device, comm=None):
         self.plan = plan
-        self.n_slots = n_slots
         self.dev = torch.device(device)
+        self.comm = comm
+        self.n_shards = comm.n_expert if comm is not None else 1
+        if comm is not None:
+            n_slots, self.lo, self.hi = comm.slot_range(n_slots)
+        else:
+            self.lo, self.hi = 0, n_slots
+        self.n_slots = n_slots
+        self.shard = (ExpertShard(self.lo, self.hi, comm)
+                      if self.n_shards > 1 else None)
         self.names: list[Optional[str]] = [None] * n_slots
         self._lru: list[int] = []        # held slots, least recent first
         self.stacks: dict = {}
@@ -283,6 +342,29 @@ class SlotOverlay:
 
     def slot_of(self, name: str) -> Optional[int]:
         return self.names.index(name) if name in self.names else None
+
+    def shard_names(self) -> list[list[str]]:
+        """The experts held by each shard's block of slots."""
+        per = self.n_slots // self.n_shards
+        return [[n for n in self.names[k * per:(k + 1) * per]
+                 if n is not None] for k in range(self.n_shards)]
+
+    def _take_free(self, free: list, names: list) -> int:
+        if self.n_shards == 1:
+            return free.pop(0)
+        per = self.n_slots // self.n_shards
+        load = [sum(n is not None for n in names[k * per:(k + 1) * per])
+                for k in range(self.n_shards)]
+        s = min(free, key=lambda s: (load[s // per], s))
+        free.remove(s)
+        return s
+
+    def _local(self, path: str, s: int) -> Optional[int]:
+        """Slot ``s``'s row in this rank's stack of ``path`` (None: on
+        another shard)."""
+        if self.plan[path].kind == "vector":
+            return s
+        return s - self.lo if self.lo <= s < self.hi else None
 
     def nbytes(self) -> int:
         return stacked_bytes(self.stacks)
@@ -309,7 +391,8 @@ class SlotOverlay:
             raise ValueError(f"{len(want)} experts for {self.n_slots} slots")
         names = list(self.names)
         for n in new:
-            names[free.pop(0) if free else victims.pop(0)] = n
+            names[self._take_free(free, names) if free
+                  else victims.pop(0)] = n
         leaves = {p: (pt.pos.numel(), tuple(pt.shape))
                   for pk in packs.values() for p, pt in pk.items()}
         grow = any(p not in self.stacks for p in leaves)
@@ -334,29 +417,34 @@ class SlotOverlay:
         return self.overlay
 
     def _allocate(self, leaves: dict) -> None:
-        E = self.n_slots
+        def rows(p):
+            return (self.n_slots if self.plan[p].kind == "vector"
+                    else self.hi - self.lo)
         self.stacks = {
-            p: (torch.zeros((E, W), dtype=torch.int32, device=self.dev),
-                torch.zeros((E, W), dtype=torch.int32, device=self.dev),
-                torch.zeros((E,), dtype=torch.float32, device=self.dev),
+            p: (torch.zeros((rows(p), W), dtype=torch.int32, device=self.dev),
+                torch.zeros((rows(p), W), dtype=torch.int32, device=self.dev),
+                torch.zeros((rows(p),), dtype=torch.float32, device=self.dev),
                 shape) for p, (W, shape) in sorted(leaves.items())}
-        self.overlay = build_overlay(self.plan, self.stacks)
+        self.overlay = build_overlay(self.plan, self.stacks, self.shard)
         self._vectors = {p: vd for p, vd in tree_util.flatten_with_paths(
             self.overlay) if isinstance(vd, VectorDelta)}
 
     def _fill(self, s: int, packed: dict) -> None:
         for p, (pos, neg, scales, shape) in self.stacks.items():
             pt = packed.get(p)
-            if pt is None:
-                pos[s].zero_()
-                neg[s].zero_()
-                scales[s].zero_()
-                continue
-            if tuple(pt.shape) != shape:
+            if pt is not None and tuple(pt.shape) != shape:
                 raise ValueError(f"{p}: shape {pt.shape} != {shape}")
-            pos[s].copy_(pt.pos.reshape(-1))
-            neg[s].copy_(pt.neg.reshape(-1))
-            scales[s].copy_(pt.scale.to(torch.float32).reshape(()))
+            i = self._local(p, s)
+            if i is None:
+                continue
+            if pt is None:
+                pos[i].zero_()
+                neg[i].zero_()
+                scales[i].zero_()
+                continue
+            pos[i].copy_(pt.pos.reshape(-1))
+            neg[i].copy_(pt.neg.reshape(-1))
+            scales[i].copy_(pt.scale.to(torch.float32).reshape(()))
         one = build_overlay(self.plan, {
             p: (pos[s:s + 1], neg[s:s + 1], scales[s:s + 1], shape)
             for p, (pos, neg, scales, shape) in self.stacks.items()

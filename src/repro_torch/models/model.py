@@ -41,8 +41,8 @@ class ModelApi:
     loss_and_logits: Callable   # (params, batch) -> (loss, (logits, aux))
     forward: Callable         # (params, batch) -> (logits, aux)
     prefill: Callable         # (params, batch, cache_len, delta=, eid=, start=,
-    #                            cache=)
-    decode_step: Callable     # (params, token, cache, delta=, eid=)
+    #                            cache=, comm=, shard_rows=)
+    decode_step: Callable     # (params, token, cache, delta=, eid=, comm=)
     init_decode_cache: Callable   # (batch, cache_len, device=) -> cache
 
 
@@ -60,13 +60,14 @@ def build(cfg, remat_policy: str = "none") -> ModelApi:
         return loss, (logits, aux)
 
     def prefill_fn(params, batch, cache_len: int, delta=None, eid=None,
-                   start=None, cache=None):
+                   start=None, cache=None, comm=None, shard_rows=False):
         return tf.prefill(params, batch["tokens"], cfg, cache_len,
-                          delta=delta, eid=eid, start=start, cache=cache)
+                          delta=delta, eid=eid, start=start, cache=cache,
+                          comm=comm, shard_rows=shard_rows)
 
-    def decode_fn(params, token, cache, delta=None, eid=None):
+    def decode_fn(params, token, cache, delta=None, eid=None, comm=None):
         return tf.decode_step(params, token, cache, cfg, delta=delta,
-                              eid=eid)
+                              eid=eid, comm=comm)
 
     def init_cache(batch: int, cache_len: int, device="cuda"):
         return tf.init_decode_cache(cfg, batch, cache_len, device=device)

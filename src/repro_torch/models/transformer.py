@@ -14,6 +14,18 @@ the attention and FFN outputs before each residual add.  An MoE block
 (mixtral, llama4's alternate layers) runs the reference's GShard FFN
 (``models/ffn.py::moe_ffn``); the training forward sums its aux loss over
 blocks and units, as the reference's unit scan does.
+
+The serving functions take ``comm`` (a
+:class:`~repro_torch.distributed.collectives.ServeComm`) on a serving
+mesh.  The embedding and the head are then vocab-parallel along "model"
+when the parameters are (the engine holds ``embed`` rows and ``lm_head``
+columns cut by :func:`repro_torch.distributed.sharding.shard_params`):
+the lookup sums the ranks' masked rows, and the head computes this
+rank's vocab slice of the logits for every row, which the token select
+gathers.  With a "model" axis the decode step (and a prefill asked for
+it) runs only this rank's rows (:class:`~repro_torch.distributed.
+collectives.RowLayout`) against a cache of those rows, and gathers the
+final hidden rows before the head.
 """
 
 from __future__ import annotations
@@ -215,9 +227,13 @@ def _decode_block(x, bp, b, cfg, st, cur, dp, eid, start, paged=None):
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(params, tokens, cfg, delta=None, eid=None):
+def embed_tokens(params, tokens, cfg, delta=None, eid=None, comm=None):
     tokens = tokens.to(torch.int64)
-    x = params["embed"][tokens]
+    table = params["embed"]
+    if comm is not None and table.shape[0] != cfg.vocab:
+        x = comm.vocab_embed(table, tokens)
+    else:
+        x = table[tokens]
     if delta is not None:
         x = add_delta(x, embed_delta_rows(delta.get("embed"), tokens, eid,
                                           cfg.d_model))
@@ -226,7 +242,9 @@ def embed_tokens(params, tokens, cfg, delta=None, eid=None):
     return x
 
 
-def logits_of(params, x, cfg, delta=None, eid=None):
+def logits_of(params, x, cfg, delta=None, eid=None, comm=None):
+    """Logits of the final hidden ``x``; a vocab-sharded head gives this
+    rank's vocab slice (its expert delta is computed whole and cut)."""
     delta = delta or {}
     x = rms_norm(x, eff_param(params["final_norm"], delta.get("final_norm"),
                               eid), cfg.rms_eps, _gemma(cfg))
@@ -237,6 +255,9 @@ def logits_of(params, x, cfg, delta=None, eid=None):
         dl = tied_logits_delta(x, delta.get("embed"), eid, cfg.vocab)
     else:
         dl = delta_proj(x, delta.get("lm_head"), eid)
+    if dl is not None and logits.shape[-1] != cfg.vocab:
+        lo, hi = comm.vocab_range()
+        dl = dl[..., lo:hi]
     return softcap(add_delta(logits, dl), cfg.logit_softcap)
 
 
@@ -320,7 +341,8 @@ def init_decode_cache(cfg, batch: int, cache_len: int, dtype=None,
             "cur": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def decode_step(params, token, cache, cfg, delta=None, eid=None):
+def decode_step(params, token, cache, cfg, delta=None, eid=None,
+                comm=None):
     """token [B, 1] -> (logits [B, 1, V], cache).
 
     Dense ring: ``cache["cur"]`` is the position of this token, a 0-d
@@ -329,10 +351,16 @@ def decode_step(params, token, cache, cfg, delta=None, eid=None):
     position is ``cache["lens"]``, which advances in place by
     ``cache["active"]``, so finished rows freeze.  The step reads no host
     value, so a CUDA graph can replay it; the cache tensors are written in
-    place.
+    place.  With ``comm`` on a "model" axis the cache holds this rank's
+    rows only, and the logits are this rank's vocab slice.
     """
-    x = embed_tokens(params, token, cfg, delta=delta, eid=eid)
+    x = embed_tokens(params, token, cfg, delta=delta, eid=eid, comm=comm)
     x = x.to(dtype_of(cfg))
+    lay = comm.rows_for(x.shape[0], x.device) if comm is not None else None
+    eid_all = eid
+    if lay is not None:
+        x = lay.local(x)
+        eid = lay.local(eid) if eid is not None else None
     paged = "tables" in cache          # block-table KV (serve/paged_kv.py)
     if paged:
         cur = None
@@ -350,7 +378,9 @@ def decode_step(params, token, cache, cfg, delta=None, eid=None):
             x = _decode_block(x, unit_params[name], b, cfg, st, cur,
                               unit_delta.get(name) or {}, eid, start,
                               paged=pg)
-    logits = logits_of(params, x, cfg, delta=delta, eid=eid)
+    if lay is not None:
+        x = comm.gather_rows(x, lay)
+    logits = logits_of(params, x, cfg, delta=delta, eid=eid_all, comm=comm)
     if paged:
         cache["lens"].add_(cache["active"].to(torch.int32))
     else:
@@ -378,7 +408,8 @@ def _ring_fill(full: torch.Tensor, S: int):
 
 def prefill(params, tokens, cfg, cache_len: int, delta=None,
             eid=None, start: Optional[torch.Tensor] = None,
-            cache: Optional[dict] = None):
+            cache: Optional[dict] = None, comm=None,
+            shard_rows: bool = False):
     """Run the whole prompt; returns (last-token logits [B, 1, V], cache).
 
     ``start`` ([B] int32, optional) marks each row's first real token:
@@ -387,12 +418,23 @@ def prefill(params, tokens, cfg, cache_len: int, delta=None,
     :func:`init_decode_cache` at this batch and ``cache_len``, optional)
     is filled in place, every tensor of it rewritten, so a caller that
     keeps its cache at fixed addresses (the engine, for its CUDA graphs)
-    gets it back there; without it a fresh cache is made.
+    gets it back there; without it a fresh cache is made.  ``comm`` (a
+    serving mesh) makes the embedding and head vocab-parallel; with
+    ``shard_rows`` each rank runs only its rows and ``cache`` holds
+    those, else every rank runs every row.
     """
     _check_attention_only(cfg)
-    x = embed_tokens(params, tokens, cfg, delta=delta, eid=eid)
+    x = embed_tokens(params, tokens, cfg, delta=delta, eid=eid, comm=comm)
     B, T = tokens.shape
     positions = torch.arange(T, device=x.device)[None, :]
+    lay = (comm.rows_for(B, x.device)
+           if comm is not None and shard_rows else None)
+    eid_all = eid
+    if lay is not None:
+        x = lay.local(x)
+        eid = lay.local(eid) if eid is not None else None
+        start = lay.local(start, fill=0) if start is not None else None
+        B = lay.R
     dblocks = delta.get("blocks") if delta is not None else None
     if cache is None:
         cache = init_decode_cache(cfg, B, cache_len, dtype=dtype_of(cfg),
@@ -418,4 +460,8 @@ def prefill(params, tokens, cfg, cache_len: int, delta=None,
         cache["start"].copy_(start)
     else:
         cache["start"] = start.to(torch.int32)
-    return logits_of(params, x[:, -1:], cfg, delta=delta, eid=eid), cache
+    x = x[:, -1:]
+    if lay is not None:
+        x = comm.gather_rows(x, lay)
+    return logits_of(params, x, cfg, delta=delta, eid=eid_all,
+                     comm=comm), cache

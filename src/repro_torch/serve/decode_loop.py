@@ -35,6 +35,15 @@ i), not on the chunk size, the slot or the admission time.  The per-row
 keys and stream positions ``gen`` are caller buffers like ``tok``: a chunk
 advances ``gen`` in place at every decode step, and a graph holds no
 generator state.
+
+On a serving mesh (``comm``) every rank runs the same chunk: the vocab
+slices of the logits are gathered into ``[B, V]`` before the argmax or
+the sampler, so every rank selects the same tokens, and ``tok``, ``gen``
+and ``keys`` hold every row on every rank.  Under NCCL the chunk, its
+collectives included, is one CUDA graph (the warm-up step before the
+capture also warms the communicators); gloo's collectives cannot be
+captured, so a gloo mesh on the card runs the chunk eagerly and counts no
+capture.
 """
 
 from __future__ import annotations
@@ -81,7 +90,8 @@ class SamplingConfig:
 
 
 def select_tokens(logits: torch.Tensor, keys: torch.Tensor,
-                  gen: torch.Tensor, sampling: SamplingConfig) -> torch.Tensor:
+                  gen: torch.Tensor, sampling: SamplingConfig,
+                  comm=None) -> torch.Tensor:
     """logits [B, V] -> next token [B] int32, on the device.
 
     Greedy: the first maximum, as ``jnp.argmax`` picks.  Sampled, in the
@@ -91,7 +101,10 @@ def select_tokens(logits: torch.Tensor, keys: torch.Tensor,
     ``fold_in(keys[b], gen[b])`` (keys [B, 2] and gen [B] int64, see
     :mod:`repro_torch.serve.sampling`); the first maximum wins.  The whole
     sampled branch is the ``sample_tokens`` kernel on the card, one launch
-    on the logits as they come (f32 or bf16)."""
+    on the logits as they come (f32 or bf16).  With ``comm`` the logits
+    are this rank's vocab slice, gathered here first."""
+    if comm is not None:
+        logits = comm.gather_vocab(logits)
     if sampling.greedy:
         return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
     return ops.kernel("sample_tokens")(logits.contiguous(), keys, gen,
@@ -118,10 +131,12 @@ class DecodeChunk:
     ``capture_s`` and ``replays`` count the CUDA graphs' work.
     """
 
-    def __init__(self, api, chunk: int, sampling: SamplingConfig):
+    def __init__(self, api, chunk: int, sampling: SamplingConfig,
+                 comm=None):
         self.api = api
         self.chunk = chunk
         self.sampling = sampling
+        self.comm = comm
         self._graphs: dict = {}
         self._stream = None
         self.captures = 0
@@ -131,11 +146,13 @@ class DecodeChunk:
     def __call__(self, params, overlay, eid, tok, cache,
                  remaining: list[int], gen, keys):
         steps = host_decode_steps(max(remaining), self.chunk)
-        if tok.device.type == "cuda":
+        if tok.device.type == "cuda" and (self.comm is None
+                                          or self.comm.capturable):
             buf = self._replay(params, overlay, eid, tok, cache, remaining,
                                gen, keys, steps)
         else:
-            rem = torch.as_tensor(remaining, dtype=torch.int32)
+            rem = torch.as_tensor(remaining, dtype=torch.int32,
+                                  device=tok.device)
             buf = self._run(params, overlay, eid, tok, cache, rem, gen, keys,
                             steps)
         return tok, cache, buf
@@ -151,14 +168,21 @@ class DecodeChunk:
                 # paged KV: a row whose budget just ran dry turns inactive,
                 # so decode_step sends its writes to the trash block and
                 # freezes its position (in place, inside the graph)
-                cache["active"].copy_(rem > 0)
+                cache["active"].copy_(self._local_rows(rem > 0))
             if i < steps:
                 logits, _ = self.api.decode_step(params, tok, cache,
-                                                 delta=overlay, eid=eid)
+                                                 delta=overlay, eid=eid,
+                                                 comm=self.comm)
                 tok.copy_(select_tokens(logits[:, -1], keys, gen,
-                                        self.sampling)[:, None])
+                                        self.sampling, self.comm)[:, None])
                 gen.add_(1)
         return torch.stack(emitted, dim=1)
+
+    def _local_rows(self, flags: torch.Tensor) -> torch.Tensor:
+        """A [B] row vector cut to this rank's rows (pad rows False)."""
+        lay = (self.comm.rows_for(flags.shape[0], flags.device)
+               if self.comm is not None else None)
+        return flags if lay is None else lay.local(flags, fill=False)
 
     def _replay(self, params, overlay, eid, tok, cache, remaining, gen, keys,
                 steps):
@@ -191,10 +215,11 @@ class DecodeChunk:
                 logits, _ = self.api.decode_step(
                     params, tok.clone(),
                     tree_util.tree_map(lambda t: t.clone(), cache),
-                    delta=overlay, eid=eid)
+                    delta=overlay, eid=eid, comm=self.comm)
                 select_tokens(logits[:, -1], keys, gen.clone(),
-                              self.sampling)
+                              self.sampling, self.comm)
         torch.cuda.current_stream(dev).wait_stream(stream)
+        self._local_rows(rem > 0)     # the row layout's index tensors
         before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
@@ -221,7 +246,8 @@ class DecodeChunk:
                 "capture_s": self.capture_s, "replays": self.replays}
 
 
-def make_decode_chunk(api, chunk: int, sampling: SamplingConfig
-                      ) -> DecodeChunk:
-    """The K-step wave loop body for one engine (:class:`DecodeChunk`)."""
-    return DecodeChunk(api, chunk, sampling)
+def make_decode_chunk(api, chunk: int, sampling: SamplingConfig,
+                      comm=None) -> DecodeChunk:
+    """The K-step wave loop body for one engine (:class:`DecodeChunk`);
+    ``comm`` runs it on a serving mesh."""
+    return DecodeChunk(api, chunk, sampling, comm)

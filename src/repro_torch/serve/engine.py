@@ -81,8 +81,24 @@ restored into the kept buffers in place (so a warm engine replays its
 graphs without a capture), every other unfinished request is served
 again from its prompt, and every journaled token must come out again.
 
-A mesh (serving across several GPUs) raises ``NotImplementedError``
-naming the ROADMAP item that brings it.
+With ``mesh=`` (a serving mesh, :func:`repro_torch.launch.mesh.
+make_serve_mesh`, axes ("expert", "model")) the engine is one rank of an
+SPMD group: every rank runs this host loop on the same requests and holds
+its shard as local tensors (:mod:`repro_torch.distributed.sharding`).  The
+"expert" axis cuts the expert slots (each rank contracts its own slots and
+the deltas are summed over the axis); the "model" axis cuts the embedding
+rows and head columns (vocab-parallel, the logits gathered before the
+token select) and, where a wave's batch divides over the axis, the KV by
+batch rows (row ``j`` on model rank ``j % n``; paged: each rank a shard
+of the block pool and its own allocator); a wave that does not divide
+runs every row on every rank.  Prefills run every row on every rank and
+keep each rank's rows; decode steps run only those.  Every rank selects
+the same tokens, so the token streams are the mesh-free engine's.
+Under NCCL the decode chunk is one CUDA graph; gloo collectives cannot
+be captured, so a gloo mesh runs the chunk eagerly
+(``swap_summary()["graph_captures"]`` stays 0).  Rank 0 alone writes the
+journal and the snapshots, which hold logical (unsharded) arrays, so a
+run resumes onto any mesh shape or none.
 """
 
 from __future__ import annotations
@@ -97,7 +113,12 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.distributed.collectives import ServeComm
 from repro_torch.distributed.fault import RecoveryPlan
+from repro_torch.distributed.sharding import (local_shard,
+                                              serve_param_pspec,
+                                              serve_row_shards,
+                                              shard_params)
 from repro_torch.models.delta import SlotOverlay, plan_overlay
 from repro_torch.serve import decode_loop, paged_kv
 from repro_torch.serve import journal as journal_mod
@@ -154,6 +175,9 @@ class EngineConfig:
     # pool blocks, the reserved trash block included; None sizes the pool
     # so that a full batch at cache_len never waits for blocks
     kv_blocks: Optional[int] = None
+    # serving mesh (repro_torch.launch.mesh.make_serve_mesh, axes
+    # ("expert", "model")): expert slots expert-parallel, embed and head
+    # vocab-parallel and KV batch-sharded along "model"; None is one device
     mesh: Optional[Any] = None
     # crash consistency: a directory arms the write-ahead journal of every
     # run() and receives the snapshots; snapshot_every_chunks=N commits one
@@ -161,12 +185,6 @@ class EngineConfig:
     # the prompts)
     snapshot_dir: Optional[str] = None
     snapshot_every_chunks: int = 0
-
-
-def _unsupported(cfg: EngineConfig) -> Optional[str]:
-    if cfg.mesh is not None:
-        return "mesh=: serving across GPUs comes with ROADMAP queue 1, item 10"
-    return None
 
 
 def _check_paged(mcfg, ecfg: EngineConfig) -> None:
@@ -192,13 +210,12 @@ def _check_paged(mcfg, ecfg: EngineConfig) -> None:
 
 
 class ServeEngine:
-    """Single-device engine over an :class:`ExpertRegistry`."""
+    """Engine over an :class:`ExpertRegistry`, on one device or as one
+    rank of a serving mesh (``EngineConfig.mesh``).  ``base_params`` is
+    the logical tree; on a mesh the engine keeps this rank's shard."""
 
     def __init__(self, api, base_params: dict,
                  registry: ExpertRegistry, ecfg: EngineConfig):
-        why = _unsupported(ecfg)
-        if why is not None:
-            raise NotImplementedError(why)
         if ecfg.scheduling not in ("mixed", "grouped"):
             raise ValueError('scheduling must be "mixed" or "grouped", '
                              f"got {ecfg.scheduling!r}")
@@ -229,6 +246,14 @@ class ServeEngine:
         if ecfg.snapshot_every_chunks and ecfg.snapshot_dir is None:
             raise ValueError("snapshot_every_chunks needs snapshot_dir")
         self.api = api
+        self.mesh = ecfg.mesh
+        self.comm = None
+        self._logical_base = base_params
+        if self.mesh is not None:
+            # checks the axes; vocab-parallel embed / lm_head, everything
+            # else replicated (a contraction-dim cut would reorder sums)
+            self.comm = ServeComm(self.mesh, api.cfg.vocab)
+            base_params = shard_params(base_params, self.mesh)
         self.base = base_params
         self.registry = as_registry(registry, base_params["embed"].device)
         self.cfg = ecfg
@@ -236,16 +261,17 @@ class ServeEngine:
         if base_params["embed"].device.type != self.dev.type:
             raise ValueError(f"base params lie on {base_params['embed'].device}"
                              f" but the registry serves on {self.dev}")
-        self.cache = self.registry.device(ecfg.device_cache_bytes)
+        self.cache = self.registry.device(ecfg.device_cache_bytes,
+                                          mesh=self.mesh)
         # None: a family outside the overlay, served by merge-on-swap
-        self._plan = plan_overlay(base_params, api.cfg)
+        self._plan = plan_overlay(self._logical_base, api.cfg)
         self._slots: Optional[SlotOverlay] = None   # made at the first wave
         self._states: dict[int, dict] = {}          # batch rows -> buffers
         self._paged_states: dict[int, dict] = {}    # the same, paged KV
         self._merged_name: Optional[str] = None
         self._merged_params: Optional[dict] = None  # made at the first swap
         self._chunker = (decode_loop.make_decode_chunk(
-            api, ecfg.decode_chunk, ecfg.sampling)
+            api, ecfg.decode_chunk, ecfg.sampling, comm=self.comm)
             if ecfg.decode_chunk else None)
         self._chunk_fn = self._chunker
         self._t0 = time.monotonic()
@@ -265,6 +291,7 @@ class ServeEngine:
         self._kv_peak = 0
         # crash consistency (serve/journal.py, serve/snapshot.py)
         self._journal = None                 # JournalWriter while run() lives
+        self._journaling = False             # every rank: run() journals
         self._chunk_idx = 0                  # global chunk count = snap step
         self.chunk_hooks: list = []          # called (chunk_idx) after a flush
         self._recovery_t0: Optional[float] = None
@@ -287,8 +314,8 @@ class ServeEngine:
             self._merged_params = tree_util.tree_map(torch.empty_like,
                                                      self.base)
         self._merged_name = None             # the tree is rewritten below
-        self.registry.merged_params(self.base, [expert],
-                                    out=self._merged_params)
+        self.registry.merged_params(self._logical_base, [expert],
+                                    out=self._merged_params, cut=self._cut)
         self._sync()
         self._merged_name = expert
         self._ring_append("swap", {"expert": expert,
@@ -300,8 +327,17 @@ class ServeEngine:
                                ) -> dict:
         """Merged-ensemble mode: W_base + sum_e w_e * Delta_e in one sweep
         per leaf (``unpack_add_many``), bitwise equal to applying the
-        weight-scaled experts one at a time."""
-        return self.registry.merged_params(self.base, experts, weights)
+        weight-scaled experts one at a time.  On a mesh: this rank's shard
+        of the merged tree."""
+        return self.registry.merged_params(self._logical_base, experts,
+                                           weights, cut=self._cut)
+
+    def _cut(self, path: str, leaf: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a logical leaf (the leaf on one device)."""
+        if self.mesh is None:
+            return leaf
+        return local_shard(leaf, serve_param_pspec(path, tuple(leaf.shape),
+                                                   self.mesh), self.mesh)
 
     # ---------------- expert slots ----------------
 
@@ -312,7 +348,8 @@ class ServeEngine:
         wave then merges).  An unknown expert raises ``KeyError``."""
         if self._slots is None:
             self._slots = SlotOverlay(self._plan, self.cfg.max_stack,
-                                      self.dev)
+                                      self.dev, comm=self.comm)
+            self.cache.slots = self._slots     # the per-shard gauges
         held = sum(self._slots.slot_of(n) is not None
                    for n in dict.fromkeys(experts))
         fills = self._slots.fills
@@ -346,9 +383,11 @@ class ServeEngine:
         prefill and admission (a CUDA graph reads them by address)."""
         st = self._states.get(rows)
         if st is None:
-            cache = self.api.init_decode_cache(rows, self.cfg.cache_len,
+            lay = self._layout(rows)
+            local = rows if lay is None else lay.R      # this rank's rows
+            cache = self.api.init_decode_cache(local, self.cfg.cache_len,
                                                device=self.dev)
-            cache["start"] = torch.zeros((rows,), dtype=torch.int32,
+            cache["start"] = torch.zeros((local,), dtype=torch.int32,
                                          device=self.dev)
             st = self._states[rows] = self._row_buffers(rows, cache)
         return st
@@ -361,9 +400,60 @@ class ServeEngine:
         if st is None:
             cache = paged_kv.init_paged_cache(
                 self.api.cfg, rows, self._kv_blocks, self._bs,
-                self._max_blocks, device=self.dev)
+                self._max_blocks, device=self.dev, mesh=self.mesh)
             st = self._paged_states[rows] = self._row_buffers(rows, cache)
         return st
+
+    def _layout(self, rows: int):
+        """The row layout of a ``rows``-row wave on this rank (None: every
+        rank holds every row)."""
+        return (self.comm.rows_for(rows, self.dev)
+                if self.comm is not None else None)
+
+    def _row_shards(self, rows: int) -> int:
+        """The "model" shards a ``rows``-row wave's rows are cut into (1:
+        every rank runs every row)."""
+        return serve_row_shards(self.mesh, rows) if self.mesh is not None \
+            else 1
+
+    def _new_alloc(self, rows: int):
+        """A fresh host allocator over the pool of a ``rows``-row wave: one
+        per "model" shard where the serve rules cut the wave's rows (row
+        ``j``'s blocks from ``alloc.owner(j)``), else the one pool."""
+        n = self._row_shards(rows)
+        if n > 1:
+            return paged_kv.ShardedBlockAllocator(
+                paged_kv.shard_pool_blocks(self._kv_blocks, n,
+                                           self._max_blocks), self._bs, n)
+        return paged_kv.BlockAllocator(self._kv_blocks, self._bs)
+
+    def _place_wave(self, wave: list) -> tuple:
+        """Allocate each request's blocks in wave order, on its row's
+        shard -> (allocator, row -> blocks, the requests that fit).  When
+        the requests that fit are fewer and the serve rules cut a wave of
+        that size otherwise, they are placed again under its layout (the
+        set only shrinks, so this ends)."""
+        while True:
+            alloc = self._new_alloc(len(wave))
+            row_blocks: dict[int, list] = {}
+            kept = []
+            for r in wave:
+                _, need = paged_kv.blocks_for(len(r.prompt),
+                                              r.max_new_tokens, self._bs)
+                blocks = alloc.alloc(need, shard=alloc.owner(len(kept)))
+                if blocks is not None:
+                    row_blocks[len(kept)] = blocks
+                    kept.append(r)
+            if (len(kept) == len(wave) or not kept
+                    or self._row_shards(len(kept)) == alloc.n_shards):
+                return alloc, row_blocks, kept
+            wave = kept
+
+    def _free_rows(self, alloc, row_blocks: dict, js) -> None:
+        for j in list(js):
+            if j in row_blocks:
+                alloc.free(row_blocks.pop(j), shard=alloc.owner(j))
+        self._kv_in_use = alloc.in_use
 
     # ---------------- engine clock ----------------
 
@@ -462,8 +552,16 @@ class ServeEngine:
             } for r in requests],
         }
 
+    def _writer(self) -> bool:
+        """Whether this rank writes the journal and the snapshots (rank 0
+        of a mesh; the only rank without one)."""
+        return self.comm is None or self.comm.rank == 0
+
     def _open_journal(self, requests: list[Request], mode: str) -> None:
         if self.cfg.snapshot_dir is None:
+            return
+        self._journaling = True
+        if not self._writer():
             return
         path = os.path.join(self.cfg.snapshot_dir, journal_mod.JOURNAL_NAME)
         self._journal = journal_mod.JournalWriter(path, fresh=True)
@@ -471,6 +569,7 @@ class ServeEngine:
         self._journal.sync()
 
     def _close_journal(self) -> None:
+        self._journaling = False
         if self._journal is not None:
             self._journal.close()
             self._journal = None
@@ -505,6 +604,9 @@ class ServeEngine:
         if self._plan is None:
             raise ValueError("resume() supports the mixed overlay path "
                              "only (this model family is not coverable)")
+        if self.comm is not None:
+            # rank 0 may still be writing the crashed run's last records
+            torch.distributed.barrier()
         t_resume0 = time.monotonic()
         self._recovery_t0 = t_resume0
         self.recovery_stats = {}
@@ -637,16 +739,12 @@ class ServeEngine:
         self._mark_admitted(rows)
         # the expert ids are this engine's slots, not the writer's order
         slot = {e: self.slot_of(e) for e in experts}
-        st = snap.device_state(self)
+        st, alloc, row_blocks = snapshot_mod.restore(snap, self)
         st["eid"].copy_(torch.as_tensor([slot[r.expert] for r in rows],
                                         dtype=torch.int32))
         st["keys"].copy_(self._keys(rows))
         cur = int(snap.meta["cur"])
         if self.cfg.kv_layout == "paged":
-            alloc = paged_kv.BlockAllocator.from_state(
-                self._kv_blocks, self._bs, snap.meta["alloc_free"])
-            row_blocks = {int(j): [int(b) for b in bl]
-                          for j, bl in snap.meta["row_blocks"].items()}
             self._kv_in_use = alloc.in_use
             self._kv_peak = max(self._kv_peak, alloc.peak_in_use)
             try:
@@ -654,9 +752,7 @@ class ServeEngine:
                     rows, experts, slot, overlay, st, sched, cur,
                     alloc=alloc, row_blocks=row_blocks, restored=True)
             finally:
-                for j in list(row_blocks):
-                    alloc.free(row_blocks.pop(j))
-                self._kv_in_use = alloc.in_use
+                self._free_rows(alloc, row_blocks, list(row_blocks))
                 assert alloc.in_use == 0, (
                     f"paged KV leak on resume: {alloc.in_use} blocks "
                     "still allocated at wave teardown")
@@ -850,7 +946,8 @@ class ServeEngine:
             eid = st["eid"]
         logits, _ = self.api.prefill(params, {"tokens": toks},
                                      self.cfg.cache_len, delta=overlay,
-                                     eid=eid, start=start, cache=st["cache"])
+                                     eid=eid, start=start, cache=st["cache"],
+                                     comm=self.comm, shard_rows=True)
         st["keys"].copy_(self._keys(reqs))
         st["gen"].zero_()
         st["tok"].copy_(self._select(logits, st))
@@ -866,7 +963,8 @@ class ServeEngine:
         under its kept key at its kept ``gen``; row ``j`` alone if given."""
         rows = slice(None) if j is None else slice(j, j + 1)
         return select_tokens(logits[:, -1], st["keys"][rows],
-                             st["gen"][rows], self.cfg.sampling)[:, None]
+                             st["gen"][rows], self.cfg.sampling,
+                             self.comm)[:, None]
 
     def _set_gen(self, st: dict, rows: list[Request], pending: int) -> None:
         """Each row's stream position for its next draw: the tokens it has
@@ -887,11 +985,11 @@ class ServeEngine:
                 or len(r.out_tokens) >= r.max_new_tokens]
 
     def _admission_block_reason(self, nxt: Request, cur: int, slot: dict,
-                                alloc=None) -> Optional[str]:
-        """Why ``nxt`` cannot be placed into a finished slot now (None:
+                                alloc=None, j: int = 0) -> Optional[str]:
+        """Why ``nxt`` cannot be placed into finished slot ``j`` now (None:
         placeable).  Dense slots are hostage to the wave position: no
         left-pad down, no ring wrap.  Paged slots need only free blocks
-        (``alloc``, the wave's allocator)."""
+        (``alloc``, the wave's allocator, on the shard of row ``j``)."""
         if nxt.expert not in slot and len(slot) >= self.cfg.max_stack:
             return "stack"
         if alloc is None:
@@ -902,7 +1000,7 @@ class ServeEngine:
         else:
             _, need = paged_kv.blocks_for(len(nxt.prompt),
                                           nxt.max_new_tokens, self._bs)
-            if need > alloc.available:
+            if need > alloc.available_on(alloc.owner(j)):
                 return "kv_blocks"
         return None
 
@@ -919,10 +1017,7 @@ class ServeEngine:
         sched.release(self._now())
         refilled = []
         if alloc is not None:
-            for j in done:
-                if j in row_blocks:
-                    alloc.free(row_blocks.pop(j))
-            self._kv_in_use = alloc.in_use
+            self._free_rows(alloc, row_blocks, done)
         blocked = False
         for j in done:
             if blocked:
@@ -932,7 +1027,7 @@ class ServeEngine:
                 admitted = rescan = False
                 for nxt in sched.candidates(slot):
                     reason = self._admission_block_reason(nxt, cur, slot,
-                                                          alloc)
+                                                          alloc, j)
                     if reason is not None:
                         if sched.strict_fifo:
                             blocked = True
@@ -994,12 +1089,15 @@ class ServeEngine:
             self.base, {"tokens": toks.to(self.dev)}, self.cfg.cache_len,
             delta=overlay, eid=st["eid"][j:j + 1],
             start=torch.full((1,), row_start, dtype=torch.int32,
-                             device=self.dev))
+                             device=self.dev), comm=self.comm)
         cache = st["cache"]
-        for name, layer in cache["layers"].items():
-            for k in ("k", "v"):
-                layer[k][:, j].copy_(row_cache["layers"][name][k][:, 0])
-        cache["start"][j] = row_start
+        lay = self._layout(st["tok"].shape[0])
+        jl = j if lay is None else lay.local_index(j)
+        if jl is not None:                  # this rank runs row j
+            for name, layer in cache["layers"].items():
+                for k in ("k", "v"):
+                    layer[k][:, jl].copy_(row_cache["layers"][name][k][:, 0])
+            cache["start"][jl] = row_start
         st["keys"][j].copy_(self._keys([r])[0])
         st["gen"][j] = 0
         st["tok"][j].copy_(self._select(logits, st, j)[0])
@@ -1044,7 +1142,7 @@ class ServeEngine:
         """Commit a snapshot at the configured chunk cadence (the
         post-flush state is the exact restart point)."""
         every = self.cfg.snapshot_every_chunks
-        if (self._journal is None or not every
+        if (not self._journaling or not every
                 or self._chunk_idx % every != 0):
             return
         snapshot_mod.write_snapshot(self, rows=rows, experts=experts,
@@ -1116,22 +1214,37 @@ class ServeEngine:
         toks, start = self._pad_prompts(reqs, lp)
         logits, row_cache = self.api.prefill(
             self.base, {"tokens": toks}, lp, delta=overlay,
-            eid=st["eid"][jsa], start=start)
-        nbp = lp // self._bs
-        ptab = torch.as_tensor([row_blocks[j][:nbp] for j in js],
-                               dtype=torch.int64)
-        tables = torch.full((len(js), self._max_blocks), -1,
-                            dtype=torch.int32)
-        for i, j in enumerate(js):
-            tables[i, :len(row_blocks[j])] = torch.as_tensor(row_blocks[j])
-        paged_kv.insert_prefill_rows(
-            st["cache"], row_cache["layers"], jsa, ptab.to(dev),
-            tables.to(dev), torch.full((len(js),), lp, dtype=torch.int32,
-                                       device=dev), start)
+            eid=st["eid"][jsa], start=start, comm=self.comm)
+        # on a "model" axis each rank scatters the rows it runs, into its
+        # shard of the pool (row_blocks hold the owner shard's block ids)
+        lay = self._layout(st["tok"].shape[0])
+        mine = [(i, j if lay is None else lay.local_index(j))
+                for i, j in enumerate(js)]
+        mine = [(i, jl) for i, jl in mine if jl is not None]
+        if mine:
+            ii = torch.as_tensor([i for i, _ in mine], dtype=torch.int64,
+                                 device=dev)
+            layers = {name: {k: t.index_select(1, ii) for k, t in l.items()}
+                      for name, l in row_cache["layers"].items()}
+            nbp = lp // self._bs
+            ptab = torch.as_tensor([row_blocks[js[i]][:nbp] for i, _ in mine],
+                                   dtype=torch.int64)
+            tables = torch.full((len(mine), self._max_blocks), -1,
+                                dtype=torch.int32)
+            for r, (i, _) in enumerate(mine):
+                tables[r, :len(row_blocks[js[i]])] = torch.as_tensor(
+                    row_blocks[js[i]])
+            paged_kv.insert_prefill_rows(
+                st["cache"], layers,
+                torch.as_tensor([jl for _, jl in mine], dtype=torch.int64,
+                                device=dev), ptab.to(dev), tables.to(dev),
+                torch.full((len(mine),), lp, dtype=torch.int32, device=dev),
+                start.index_select(0, ii))
         st["keys"].index_copy_(0, jsa, self._keys(reqs).to(dev))
         first = select_tokens(logits[:, -1], st["keys"][jsa],
                               torch.zeros((len(js),), dtype=torch.int64,
-                                          device=dev), self.cfg.sampling)
+                                          device=dev), self.cfg.sampling,
+                              self.comm)
         st["tok"].index_copy_(0, jsa, first[:, None])
 
     def _admit_row_paged(self, r: Request, j: int, st: dict, overlay: dict,
@@ -1141,7 +1254,7 @@ class ServeEngine:
         ring to wrap: the feasibility check already found the blocks."""
         lp, need = paged_kv.blocks_for(len(r.prompt), r.max_new_tokens,
                                        self._bs)
-        row_blocks[j] = alloc.alloc(need)
+        row_blocks[j] = alloc.alloc(need, shard=alloc.owner(j))
         self._kv_in_use = alloc.in_use
         self._kv_peak = max(self._kv_peak, alloc.peak_in_use)
         self._paged_prefill([r], [j], lp, st, overlay, row_blocks)
@@ -1154,25 +1267,22 @@ class ServeEngine:
         back to the pool, and any queued request whose blocks fit is
         placeable.  A wave larger than the pool re-queues its overflow."""
         t0, g0 = time.monotonic(), self._graph_counts()
-        alloc = paged_kv.BlockAllocator(self._kv_blocks, self._bs)
-        row_blocks: dict[int, list] = {}
-        kept, buckets = [], []
+        alloc, row_blocks, kept = self._place_wave(wave)
+        held = {id(r) for r in kept}
         for r in wave:
-            lp, need = paged_kv.blocks_for(len(r.prompt), r.max_new_tokens,
-                                           self._bs)
-            blocks = alloc.alloc(need)
-            if blocks is None:
+            if id(r) not in held:
                 # the pool is smaller than the wave: the overflow re-enters
                 # through a later wave or a slot refill
                 sched.push(r)
-                continue
-            row_blocks[len(kept)] = blocks
-            kept.append(r)
-            buckets.append(lp)
         if not kept:
             return
+        # the allocator's shards are those of the wave's KV (row j's blocks
+        # lie in the pool of the rank that runs row j)
+        assert alloc.n_shards == self._row_shards(len(kept))
         requeued = len(wave) - len(kept)
         wave = kept
+        buckets = [paged_kv.blocks_for(len(r.prompt), r.max_new_tokens,
+                                       self._bs)[0] for r in wave]
         self._mark_admitted(wave)
         slot = {e: self.slot_of(e) for e in experts}
         st = self._paged_state(len(wave))
@@ -1201,9 +1311,7 @@ class ServeEngine:
         finally:
             # every live row's blocks go back on any exit, and the
             # allocator must balance: a leak would starve later waves
-            for j in list(row_blocks):
-                alloc.free(row_blocks.pop(j))
-            self._kv_in_use = alloc.in_use
+            self._free_rows(alloc, row_blocks, list(row_blocks))
             assert alloc.in_use == 0, (
                 f"paged KV leak: {alloc.in_use} blocks still allocated at "
                 "wave teardown")
@@ -1245,7 +1353,8 @@ class ServeEngine:
             if len(done) == len(rows):
                 break
             logits, _ = self.api.decode_step(self.base, tok, st["cache"],
-                                             delta=overlay, eid=st["eid"])
+                                             delta=overlay, eid=st["eid"],
+                                             comm=self.comm)
             self._set_gen(st, rows, 0)
             tok.copy_(self._select(logits, st))
             cur += 1
@@ -1276,7 +1385,8 @@ class ServeEngine:
                         self._mark_done(r)
                 if len(self._done_rows(reqs)) == len(reqs):
                     break
-                logits, _ = self.api.decode_step(params, tok, st["cache"])
+                logits, _ = self.api.decode_step(params, tok, st["cache"],
+                                                 comm=self.comm)
                 self._set_gen(st, reqs, 0)
                 tok.copy_(self._select(logits, st))
         self.batch_log.append(self._log(t0, g0, reqs, [], chunks, T,
@@ -1335,6 +1445,9 @@ class ServeEngine:
                  graph_capture_s=g["capture_s"], graph_replays=g["replays"],
                  stack_hit_rate=hits / max(hits + builds, 1),
                  scheduler=self._scheduler_stats(), kv=self._kv_stats())
+        if self.mesh is not None:
+            s["mesh"] = dict(self.comm.shape)
+            s["shards"] = self.cache.shard_summary()
         return s
 
     def _export_gauges(self) -> None:
@@ -1347,3 +1460,5 @@ class ServeEngine:
                                                  + s.stack_builds, 1),
             "scheduler": self._scheduler_stats(),
             "kv": self._kv_stats()}
+        if self.mesh is not None:
+            self.cache.gauges["shards"] = self.cache.shard_summary()

@@ -33,6 +33,12 @@ its experts through the serving engine's expert slots
 (:class:`~repro_torch.models.delta.SlotOverlay`), filled by copy from the
 trees here; the slots are the engine's and outside this budget, so the
 reference's stacked buffers and their LRU have no counterpart here.
+
+On a serving mesh (``mesh=``) the budget is per shard.  The packed trees
+are the staging tier of every rank, so each shard pays them in full; the
+expert-parallel buffers are the engine's slots, cut along "expert", and
+:meth:`DeviceCache.shard_summary` reads their layout (the engine attaches
+them as ``slots``).
 """
 
 from __future__ import annotations
@@ -58,6 +64,8 @@ from repro_torch.transport.retry import ExpertNotFound
 from repro_torch.transport.wire import TransportError, WireFormatError
 
 BASE = "__base__"   # pseudo-expert: serve the unmodified base weights
+
+_UNSET = object()   # device(mesh=) default: the tier's, else the registry's
 
 DEFAULT_DEVICE_BYTES = 1 << 28
 
@@ -116,8 +124,7 @@ class SwapStats:
                                      # of the transport's ledger)
     straggler_flags: int = 0        # promotions flagged slow vs the EWMA
     straggler_recommendation: str = "healthy"   # StragglerMonitor verdict
-    n_expert_shards: int = 1        # one card: serving across GPUs comes
-                                    # with ROADMAP queue 1, item 10
+    n_expert_shards: int = 1        # the serving mesh's "expert" axis
 
     def as_dict(self):
         return dataclasses.asdict(self)
@@ -420,19 +427,36 @@ def _on_host(packed: dict) -> bool:
 
 class DeviceCache:
     """LRU cache of packed bitplane trees on one device under a byte
-    budget, with the prefetch pipeline in front of it."""
+    budget, with the prefetch pipeline in front of it.
+
+    With ``mesh=`` (a serving mesh from :func:`repro_torch.launch.mesh.
+    make_serve_mesh`) ``capacity_bytes`` is a **per-shard** budget: every
+    rank stages the packed trees in full, so a shard pays
+    :meth:`resident_bytes` and eviction starts when it is over its budget.
+    The stacked buffers are the engine's slots (``slots``, attached by the
+    engine), outside the budget as on one device, so the shard count
+    changes no eviction; ``mesh=None`` keeps the single-device accounting
+    (shard count 1)."""
 
     PREFETCH_WORKERS = 4  # concurrent fetch -> decode stages (pipeline depth)
 
-    def __init__(self, store: ExpertStore, capacity_bytes: int, device):
+    def __init__(self, store: ExpertStore, capacity_bytes: int, device,
+                 mesh=None):
         self.store = store
         self.capacity = capacity_bytes
         self.dev = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            from repro_torch.launch.mesh import mesh_axes
+            self.n_shards = mesh_axes(mesh).get("expert", 1)
+        else:
+            self.n_shards = 1
+        self.slots = None      # the engine's SlotOverlay, once it has one
         self._cache: OrderedDict[str, dict] = OrderedDict()
         self._sizes: dict[str, int] = {}
         self._pending: dict[str, Future] = {}
         self._pool: Optional[ThreadPoolExecutor] = None
-        self.stats = SwapStats()
+        self.stats = SwapStats(n_expert_shards=self.n_shards)
         # promotion-latency health: every fetch/decode stage (worker or
         # synchronous) feeds the EWMA; the monitor's recommendation
         # surfaces in SwapStats and registry.health()
@@ -451,6 +475,25 @@ class DeviceCache:
     def resident_bytes(self) -> int:
         return sum(self._sizes.values())
 
+    def shard_resident_bytes(self) -> int:
+        """Bytes under ONE shard's budget, the reference's name for them:
+        :meth:`resident_bytes`, since the stacked slots, of which a shard
+        holds ``1/n``, are the engine's and lie outside the budget."""
+        return self.resident_bytes()
+
+    def shard_summary(self) -> list[dict]:
+        """Per-shard gauges: the experts each shard's block of the
+        engine's slots holds, the slot bytes a shard holds, the packed
+        tree bytes and the shard's budget."""
+        held = (self.slots.shard_names() if self.slots is not None
+                else [[] for _ in range(self.n_shards)])
+        stack = self.slots.nbytes() if self.slots is not None else 0
+        return [{"shard": k, "resident_experts": len(held[k]),
+                 "stack_bytes": stack,
+                 "tree_bytes": self.resident_bytes(),
+                 "capacity_bytes": self.capacity}
+                for k in range(self.n_shards)]
+
     def resident(self) -> list[str]:
         """Names of the trees on the device, least recently used first."""
         return list(self._cache)
@@ -461,7 +504,8 @@ class DeviceCache:
         self.stats.evictions += 1
 
     def _enforce_budget(self) -> None:
-        """Evict least-recently-used trees until within budget."""
+        """Evict least-recently-used trees until every shard is within
+        its budget."""
         while self._cache and self.resident_bytes() > self.capacity:
             self._drop_tree(next(iter(self._cache)))
 
@@ -565,7 +609,8 @@ class DeviceCache:
                                          scale=pt.scale.to(self.dev))
                   for p, pt in host_packed.items()}
         size = tree_packed_bytes(packed)
-        while self._cache and self.resident_bytes() + size > self.capacity:
+        while (self._cache
+               and self.resident_bytes() + size > self.capacity):
             self._drop_tree(next(iter(self._cache)))
         self._cache[name] = packed
         self._sizes[name] = size
@@ -606,7 +651,8 @@ class ExpertRegistry:
     transport's :class:`~repro_torch.transport.RetryPolicy`;
     ``quarantine_after`` / ``quarantine_probe_s`` set the per-expert
     health account; ``cold_budget_bytes`` bounds the cold cache of fetched
-    blobs.
+    blobs.  ``mesh=`` (a serving mesh) makes the device tier's budget a
+    per-shard one (:class:`DeviceCache`).
     """
 
     def __init__(self, store: Optional[ExpertStore] = None, *,
@@ -617,7 +663,8 @@ class ExpertRegistry:
                  quarantine_after: int = DEFAULT_QUARANTINE_AFTER,
                  quarantine_probe_s: float = DEFAULT_QUARANTINE_PROBE_S,
                  replicas=None, replication_factor: Optional[int] = None,
-                 hedge_ms: Optional[float] = None, device="cuda"):
+                 hedge_ms: Optional[float] = None, device="cuda",
+                 mesh=None):
         if store is not None and (transport is not None
                                   or replicas is not None):
             raise ValueError("pass either store= or transport=/replicas=, "
@@ -643,6 +690,7 @@ class ExpertRegistry:
         self.store = store
         self.device_cache_bytes = device_cache_bytes
         self.dev = resolve_device(device)
+        self.mesh = mesh
         self._device: Optional[DeviceCache] = None
 
     # ---- library management -------------------------------------------
@@ -676,13 +724,25 @@ class ExpertRegistry:
         return self.store.nbytes(name)
 
     # ---- device tier ---------------------------------------------------
-    def device(self, capacity_bytes: Optional[int] = None) -> DeviceCache:
+    def device(self, capacity_bytes: Optional[int] = None,
+               mesh=_UNSET) -> DeviceCache:
         """The device tier (created on first call); an explicit
-        ``capacity_bytes`` sets or retargets its budget."""
+        ``capacity_bytes`` sets or retargets its budget.  Without
+        ``mesh=`` the tier is returned as it is, or made on the registry's
+        mesh; an explicit ``mesh=`` other than the tier's rebuilds it (its
+        budget is per shard of that mesh).  So an engine that builds the
+        tier on its own mesh stays its owner: the engine's later fetches
+        go through the same tier."""
+        if mesh is _UNSET:
+            mesh = (self._device.mesh if self._device is not None
+                    else self.mesh)
+        if self._device is not None and mesh is not self._device.mesh:
+            self._device.close()
+            self._device = None
         if self._device is None:
             self._device = DeviceCache(
                 self.store, capacity_bytes or self.device_cache_bytes,
-                self.dev)
+                self.dev, mesh=mesh)
         elif (capacity_bytes is not None
               and capacity_bytes != self._device.capacity):
             self._device.capacity = capacity_bytes
@@ -741,7 +801,7 @@ class ExpertRegistry:
         return self.store.publish(expert, rep=rep)
 
     def merged_params(self, base: dict, names, weights=None,
-                      out: Optional[dict] = None) -> dict:
+                      out: Optional[dict] = None, cut=None) -> dict:
         """``W_base + sum_e w_e * Delta_e`` with ONE fused sweep per leaf.
 
         Each leaf that any named expert carries goes through
@@ -751,7 +811,9 @@ class ExpertRegistry:
         name this is the merge-on-swap promotion.  ``out`` (a tree shaped
         like ``base``) takes every merged leaf, and every other leaf of the
         base, by copy, and is returned: a caller whose CUDA graphs read
-        the parameters by address keeps them at one place across swaps."""
+        the parameters by address keeps them at one place across swaps.
+        ``cut(path, leaf)`` maps each merged logical leaf to what ``out``
+        holds of it (a rank's shard on a serving mesh)."""
         names = [names] if isinstance(names, str) else list(names)
         w = list(weights) if weights is not None else [1.0] * len(names)
         if len(w) != len(names):
@@ -764,6 +826,8 @@ class ExpertRegistry:
             pts = [(pk[path], wi) for pk, wi in zip(packs, w) if path in pk]
             flat[path] = leaf if not pts else apply_ternary_delta_many_flat(
                 leaf, [pt for pt, _ in pts], [wi for _, wi in pts])
+            if cut is not None:
+                flat[path] = cut(path, flat[path])
             if dst is not None:
                 dst[path].copy_(flat.pop(path))
         return out if out is not None else tree_util.unflatten_paths(flat)

@@ -24,6 +24,18 @@ Where the reference updates a donated cache functionally, the port writes
 the pools and row vectors **in place** (:func:`insert_prefill_rows`), so a
 CUDA graph of the decode chunk reads them at the same addresses from one
 wave to the next.
+
+On a serving mesh with a "model" axis of ``n`` ranks, a wave whose rows
+the serve rules cut (:func:`repro_torch.distributed.sharding.
+serve_row_shards`) has its pool sharded by block: each rank holds a pool
+of :func:`shard_pool_blocks` blocks with its own trash block, and the
+rows it runs (row ``j`` on rank ``j % n``) take their blocks from it. A
+wave whose rows stay whole keeps the whole pool on every rank.
+:class:`ShardedBlockAllocator` keeps every shard's free list on every
+rank (the host loop is the same on all of them), so each admission
+decision is the owner shard's and every rank makes it alike. Logically,
+block ``b`` of shard ``k`` is block ``k * NBs + b`` of one pool of ``n *
+NBs`` blocks (``NBs`` blocks a shard), which is what a snapshot holds.
 """
 
 from __future__ import annotations
@@ -35,7 +47,8 @@ import torch
 from repro_torch.models.common import dtype_of
 
 __all__ = ["TRASH_BLOCK", "round_up", "blocks_for", "BlockAllocator",
-           "init_paged_cache", "insert_prefill_rows"]
+           "ShardedBlockAllocator", "shard_pool_blocks", "init_paged_cache",
+           "insert_prefill_rows"]
 
 # block 0 is never handed out: dead rows' writes are redirected to it and
 # gathers of unallocated table entries are clamped onto it (then masked)
@@ -80,14 +93,23 @@ class BlockAllocator:
     def in_use(self) -> int:
         return (self.n_blocks - 1) - len(self._free)
 
-    def alloc(self, n: int) -> Optional[list]:
+    n_shards = 1
+
+    def owner(self, j: int) -> int:
+        """The shard whose pool serves batch row ``j``: the one pool."""
+        return 0
+
+    def available_on(self, shard: int = 0) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int, shard: int = 0) -> Optional[list]:
         if n > len(self._free):
             return None
         out = [self._free.pop() for _ in range(n)]
         self.peak_in_use = max(self.peak_in_use, self.in_use)
         return out
 
-    def free(self, blocks) -> None:
+    def free(self, blocks, shard: int = 0) -> None:
         for b in blocks:
             if not (0 < b < self.n_blocks):
                 raise ValueError(f"freeing invalid block id {b}")
@@ -115,14 +137,90 @@ class BlockAllocator:
         return a
 
 
+def shard_pool_blocks(n_blocks: int, n_shards: int, max_blocks: int) -> int:
+    """Blocks of one shard's pool, its trash block included: the
+    ``n_blocks - 1`` usable blocks of the logical pool split over
+    ``n_shards``, rounded up, but never fewer than one row of
+    ``max_blocks`` can use of the logical pool, so a request the mesh-free
+    pool can place fits its row's shard."""
+    if n_shards == 1:
+        return n_blocks
+    usable = n_blocks - 1
+    return max(-(-usable // n_shards), min(usable, max_blocks)) + 1
+
+
+class ShardedBlockAllocator:
+    """One :class:`BlockAllocator` per "model" shard, of ``n_blocks`` each
+    (local ids, each shard's block 0 its trash block).  ``alloc``,
+    ``free`` and ``available_on`` take the shard; ``in_use`` and
+    ``peak_in_use`` count every shard.  :meth:`state` gives the free
+    lists in logical ids (block ``b`` of shard ``k`` is ``k * n_blocks +
+    b``)."""
+
+    def __init__(self, n_blocks: int, block_size: int, n_shards: int):
+        self.n_blocks = n_blocks
+        self.block_size = block_size
+        self.n_shards = n_shards
+        self.shards = [BlockAllocator(n_blocks, block_size)
+                       for _ in range(n_shards)]
+        self.peak_in_use = 0
+        self.shard_peaks = [0] * n_shards
+
+    @property
+    def available(self) -> int:
+        return sum(a.available for a in self.shards)
+
+    @property
+    def in_use(self) -> int:
+        return sum(a.in_use for a in self.shards)
+
+    def owner(self, j: int) -> int:
+        """The shard whose pool serves batch row ``j`` (the rank that runs
+        it, :class:`repro_torch.distributed.collectives.RowLayout`)."""
+        from repro_torch.distributed.collectives import row_owner
+        return row_owner(j, self.n_shards)
+
+    def available_on(self, shard: int = 0) -> int:
+        return self.shards[shard].available
+
+    def alloc(self, n: int, shard: int = 0) -> Optional[list]:
+        out = self.shards[shard].alloc(n)
+        self.peak_in_use = max(self.peak_in_use, self.in_use)
+        self.shard_peaks[shard] = max(self.shard_peaks[shard],
+                                      self.shards[shard].in_use)
+        return out
+
+    def free(self, blocks, shard: int = 0) -> None:
+        self.shards[shard].free(blocks)
+
+    def global_ids(self, blocks, shard: int) -> list:
+        return [shard * self.n_blocks + int(b) for b in blocks]
+
+    def state(self) -> list:
+        """Every shard's free list in exact order, in logical ids."""
+        return [b for k, a in enumerate(self.shards)
+                for b in self.global_ids(a.state(), k)]
+
+
 def init_paged_cache(cfg, batch: int, n_blocks: int, block_size: int,
-                     max_blocks: int, dtype=None, device="cuda") -> dict:
+                     max_blocks: int, dtype=None, device="cuda",
+                     mesh=None) -> dict:
     """Empty paged decode state (pure-attention patterns only).
 
     :func:`repro_torch.models.transformer.decode_step` dispatches on the
     presence of ``"tables"``: it then writes and attends through the
     block tables at per-row positions ``lens`` instead of the dense
-    ring's shared ``cur``."""
+    ring's shared ``cur``.  With ``mesh`` (a serving mesh) the state is
+    one rank's: where the serve rules cut a ``batch``-row wave's rows
+    (:func:`repro_torch.distributed.sharding.serve_row_shards`), the rows
+    it runs and its shard of an ``n_blocks`` pool
+    (:func:`shard_pool_blocks`); else every row and the whole pool."""
+    if mesh is not None:
+        from repro_torch.distributed.collectives import local_row_count
+        from repro_torch.distributed.sharding import serve_row_shards
+        n = serve_row_shards(mesh, batch)
+        batch = local_row_count(batch, n)
+        n_blocks = shard_pool_blocks(n_blocks, n, max_blocks)
     dtype = dtype or dtype_of(cfg)
     layers = {}
     for i, b in enumerate(cfg.pattern):

@@ -10,9 +10,15 @@ forward (cuBLAS products on the card).  On the card the step runs under
 and of the loss's gather would otherwise accumulate with atomics, and a
 restarted run must replay its steps bit for bit.
 
-The multi-pod step, whose gradients cross pods as packed ternary planes
-(:mod:`repro_torch.core.gradient_compression`), comes with serving and
-training across several GPUs (ROADMAP queue 1, item 10).
+The multi-pod step (a mesh with a "pod" axis and compression on) is SPMD
+by process, one rank a pod: each rank takes its ``P("pod")`` slice of the
+global batch on dim 0, computes its gradients, and the gradients cross
+pods as packed ternary planes with error feedback
+(:func:`repro_torch.core.gradient_compression.compressed_cross_pod_mean`,
+each rank with its own error state).  The pods' losses are averaged in
+rank order, and every rank applies the same update.  Data and model
+parallelism inside a pod (the reference's training sharding rules) are
+not ported: a mesh with a "data" or "model" axis above 1 raises.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import tree as tree_util
-from repro_torch.core.gradient_compression import GradCompressionConfig
+from repro_torch.core.gradient_compression import (
+    GradCompressionConfig, _unpack_planes, compress_leaf_for_allgather,
+    compressed_cross_pod_mean)
 from repro_torch.models.common import _DTYPES
 from repro_torch.optim import adafactor, adamw, schedules
 
@@ -146,24 +154,94 @@ def _apply_optimizer(state, grads, tcfg: TrainConfig):
     return out, metrics
 
 
-def _axis_names(mesh) -> tuple:
-    names = getattr(mesh, "mesh_dim_names", None)
-    return tuple(names if names is not None
-                 else getattr(mesh, "axis_names", ()))
+def _has_pod_axis(mesh) -> bool:
+    """Whether a training mesh has a "pod" axis; its other axes must be
+    1."""
+    from repro_torch.launch.mesh import mesh_axes
+    axes = mesh_axes(mesh)
+    inner = {a: n for a, n in axes.items() if a != "pod" and n > 1}
+    if inner:
+        raise NotImplementedError(
+            f"training mesh axes {inner}: data and model parallelism inside "
+            "a pod (the training sharding rules) come with ROADMAP queue 1, "
+            "item 13; the port's multi-pod step runs one rank per pod")
+    return "pod" in axes
+
+
+def pod_mean(values: list) -> torch.Tensor:
+    """The mean of the pods' values, summed in rank order."""
+    acc = values[0]
+    for v in values[1:]:
+        acc = acc + v
+    return acc / len(values)
+
+
+def pod_slice(batch: PyTree, pod: int, n_pods: int) -> PyTree:
+    """Pod ``pod``'s ``P("pod")`` slice of a global batch: its contiguous
+    block of dim 0.  A batch that does not divide over the pods raises,
+    as the reference's sharding does."""
+    def cut(x):
+        if x.shape[0] % n_pods:
+            raise ValueError(f"a global batch of {x.shape[0]} rows does not "
+                             f"divide over {n_pods} pods")
+        per = x.shape[0] // n_pods
+        return x.narrow(0, pod * per, per)
+    return tree_util.tree_map(cut, batch)
+
+
+def pods_in_one_process(api, tcfg: TrainConfig, state: dict, efs: list,
+                        batch: PyTree) -> tuple:
+    """The compressed multi-pod step of ``len(efs)`` pods in one process,
+    the plain version the SPMD step is held to: each pod's gradients on
+    its slice in turn, every leaf compressed with the pod's error state
+    as :func:`compressed_cross_pod_mean` does and the reconstructions
+    summed in pod order, one update.  -> (new state, new error states,
+    pod-mean loss, planes), ``planes[p]`` pod ``p``'s (pos, neg, scale)
+    per leaf in the order the step compresses them."""
+    n_pods = len(efs)
+    dev = tree_util.leaves(state["params"])[0].device
+    planes = [[] for _ in range(n_pods)]
+
+    def leaf(*ge):
+        gs, es = ge[:n_pods], ge[n_pods:]
+        g0 = gs[0]
+        n_last = g0.shape[-1] if g0.ndim else 1
+        acc = torch.zeros(g0.shape if g0.ndim else (1,), dtype=torch.float32,
+                          device=g0.device)
+        errs = []
+        for p, (g, e) in enumerate(zip(gs, es)):
+            pos, neg, scale, err = compress_leaf_for_allgather(
+                g if g.ndim else g.reshape(1), e if e.ndim else e.reshape(1),
+                tcfg.grad_compression)
+            planes[p].append((pos, neg, scale))
+            errs.append(err.to(e.dtype).reshape(e.shape))
+            acc = acc + _unpack_planes(pos, neg, n_last) * scale
+        return (acc / n_pods).reshape(g0.shape).to(g0.dtype), errs
+
+    with deterministic(dev):
+        pods = [_microbatch_grads(api, state["params"],
+                                  pod_slice(batch, p, n_pods),
+                                  tcfg.microbatches) for p in range(n_pods)]
+        out = tree_util.tree_map(leaf, *[g for _, g in pods], *efs)
+        new_state, _ = _apply_optimizer(
+            state, tree_util.tree_map(lambda o: o[0], out), tcfg)
+    errs = tree_util.tree_map(lambda o: o[1], out)
+    new_efs = [tree_util.tree_map(lambda es, p=p: es[p], errs)
+               for p in range(n_pods)]
+    return new_state, new_efs, pod_mean([loss for loss, _ in pods]), planes
 
 
 def make_train_step(api, tcfg: TrainConfig, mesh=None) -> Callable:
     """-> step_fn(state, batch) -> (new_state, metrics).
 
     ``batch`` leaves have the global batch at dim 0 and lie on the
-    parameters' device.  A ``mesh`` with a ``"pod"`` axis and compression
-    enabled asks for the compressed multi-pod step, which is not ported
-    yet."""
-    if (mesh is not None and "pod" in _axis_names(mesh)
-            and tcfg.grad_compression.enabled):
-        raise NotImplementedError(
-            "the compressed multi-pod train step comes with training "
-            "across several GPUs (ROADMAP queue 1, item 10)")
+    parameters' device.  A ``mesh`` with a ``"pod"`` axis (from
+    :func:`repro_torch.launch.mesh.make_production_mesh`, one rank a pod)
+    and compression enabled gives the compressed multi-pod step: every
+    rank calls it with the same global batch and its own ``state`` (its
+    ``"ef"`` is the rank's error feedback)."""
+    use_comp = (mesh is not None and _has_pod_axis(mesh)
+                and tcfg.grad_compression.enabled)
 
     def plain_step(state, batch):
         dev = tree_util.leaves(state["params"])[0].device
@@ -174,4 +252,25 @@ def make_train_step(api, tcfg: TrainConfig, mesh=None) -> Callable:
         metrics["loss"] = loss
         return new_state, metrics
 
-    return plain_step
+    if not use_comp:
+        return plain_step
+    import torch.distributed as dist
+    group = mesh.get_group("pod")
+    n_pods, me = dist.get_world_size(group), mesh.get_local_rank("pod")
+
+    def pod_step(state, batch):
+        dev = tree_util.leaves(state["params"])[0].device
+        with deterministic(dev):
+            loss, grads = _microbatch_grads(
+                api, state["params"], pod_slice(batch, me, n_pods),
+                tcfg.microbatches)
+            mean_grads, new_ef = compressed_cross_pod_mean(
+                grads, state["ef"], tcfg.grad_compression, group=group)
+            losses = [torch.empty_like(loss) for _ in range(n_pods)]
+            dist.all_gather(losses, loss.contiguous(), group=group)
+            new_state, metrics = _apply_optimizer(state, mean_grads, tcfg)
+        new_state["ef"] = new_ef
+        metrics["loss"] = pod_mean(losses)
+        return new_state, metrics
+
+    return pod_step

@@ -721,7 +721,7 @@ def test_failing_capture_raises(serving, monkeypatch):
     and no chunk runs as the Python loop instead."""
     from repro_torch.serve import decode_loop
 
-    def reads_host(logits, keys, gen, sampling):
+    def reads_host(logits, keys, gen, sampling, comm=None):
         int(logits.sum())
         return torch.argmax(logits.float(), dim=-1).to(torch.int32)
 
@@ -1217,3 +1217,41 @@ def test_qk_norm_overlay_graph_chunk_equals_eager_chunks(dev, paged):
     again = _requests(*REFILL)
     eager.run(again)
     assert [r.out_tokens for r in again] == toks
+
+
+@pytest.fixture
+def one_rank_mesh():
+    """A (1, 1) serving mesh under NCCL (a one-rank world on a free
+    localhost port), torn down after."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_serve_mesh
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
+    started = not dist.is_initialized()
+    mesh = make_serve_mesh((1, 1), device="cuda")
+    yield mesh
+    if started:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("layout,sampled", [("dense", False),
+                                            ("paged", False),
+                                            ("dense", True)])
+def test_one_rank_nccl_mesh_tokens_equal_mesh_free(serving, one_rank_mesh,
+                                                   layout, sampled):
+    """The mesh code path on the card: a (1, 1) NCCL mesh captures its
+    decode chunks and gives the mesh-free engine's tokens bitwise."""
+    kw = dict(decode_chunk=4, kv_layout=layout)
+    if sampled:
+        kw.update(temperature=0.8, top_k=5, seed=7)
+    _, want = _serve(serving, _requests(*REFILL), **kw)
+    eng, got = _serve(serving, _requests(*REFILL), mesh=one_rank_mesh, **kw)
+    assert got == want
+    s = eng.swap_summary()
+    assert s["mesh"] == {"expert": 1, "model": 1}
+    assert s["graph_captures"] > 0 and s["kv"]["blocks_in_use"] == 0
+    assert [x["capacity_bytes"] for x in s["shards"]] == [
+        eng.cache.capacity]
+    # the shared registry was made without a mesh: the engine's tier, on
+    # its mesh, stays the registry's through the run
+    assert eng.cache is eng.registry.device()

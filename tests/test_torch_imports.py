@@ -58,7 +58,9 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.models.ffn", "repro_torch.configs.qwen3_32b",
             "repro_torch.configs.qwen1_5_110b",
             "repro_torch.configs.mixtral_8x7b",
-            "repro_torch.configs.llama4_maverick_400b"} <= set(mods)
+            "repro_torch.configs.llama4_maverick_400b",
+            "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.collectives"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if "
@@ -214,3 +216,19 @@ def test_chip_smoke_alone_fails(tmp_path):
                          timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_mesh_modules_export_the_serving_mesh():
+    """The serving mesh's modules and the package's new exports."""
+    import repro_torch.distributed as d
+    from repro_torch.launch import mesh
+    from repro_torch.serve.paged_kv import __all__ as paged_all
+    assert {"ServeComm", "RowLayout", "local_shard", "shard_params",
+            "serve_param_shardings", "serve_stack_shardings",
+            "serve_kv_sharding", "serve_row_shards", "ElasticPlan",
+            "FailureInjector", "SimulatedFailure",
+            "StragglerMonitor"} <= set(d.__all__)
+    assert all(hasattr(d, n) for n in d.__all__)
+    assert {"make_serve_mesh", "make_production_mesh",
+            "mesh_axes"} <= set(dir(mesh))
+    assert {"ShardedBlockAllocator", "shard_pool_blocks"} <= set(paged_all)

@@ -238,8 +238,10 @@ def test_unknown_expert_fails_only_its_requests(setup, store):
 @pytest.mark.parametrize("option", [
     {"kv_layout": "paged", "mesh": object()}, {"mesh": object()}])
 def test_unported_options_raise(setup, option):
+    """Serving meshes are ported (tests/test_torch_mesh_serve.py); a mesh
+    without the ("expert", "model") axes raises the reference's error."""
     _, _, _, _, model, tbase, treg = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=r"needs \('expert', 'model'\) axes"):
         tapi.serve(model, tbase, treg, **option)
 
 

@@ -368,13 +368,21 @@ def test_train_state_checkpoint_crosses_packages(tmp_path, opt, writer):
 
 
 def test_pod_mesh_step_names_its_item():
+    """The multi-pod step runs one rank a pod (tests/test_torch_multipod.py
+    holds it over gloo); a "data" axis inside the pod is not ported and
+    names its ROADMAP item."""
     class PodMesh:
         mesh_dim_names = ("pod", "data")
+        shape = (2, 2)
     _, tt, _ = _loop_setup()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         make_train_step(t_build(t_smoke("qwen2_5_3b")), tt, mesh=PodMesh())
+
+    class OnePerPod:
+        mesh_dim_names = ("pod", "data")
+        shape = (2, 1)
     # compression off: the plain step, as in the reference
     make_train_step(t_build(t_smoke("qwen2_5_3b")), dataclasses.replace(
         tt, grad_compression=dataclasses.replace(tt.grad_compression,
                                                  enabled=False)),
-        mesh=PodMesh())
+        mesh=OnePerPod())
