@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py [--units 4] [--seed 0]
-                          [--stop-after kernels|training|configs|mesh|all]
+                          [--stop-after kernels|training|configs|families|
+                                        mesh|all]
 
 At the full width of qwen2.5-3b (d_model 2048, 16 q / 2 kv heads of 128,
 QKV bias, swiglu d_ff 11008, vocab 151936, tied embeddings, rope theta
@@ -82,6 +83,33 @@ failure with a non-zero exit:
      reported), graph chunks bitwise eager ones, a warm run repeating
      its tokens; decode tokens/s, swap seconds against the merge's byte
      bound, kernel 4 on the widest leaf and one profiled 4-row batch;
+  3f. the families outside the overlay (``merge_path``), each served by
+     merge-on-swap through ``api.serve(..., scheduling="mixed")`` (no
+     overlay plan, kernel 4 once per leaf per distinct expert): rwkv6-3b
+     (rwkv blocks, 8 of 32 units), seamless-m4t-medium (all 12 encoder
+     and 12 decoder units; zero stub frames [4, 1024, 1024], a cross-KV
+     of 1024 source positions) and internvl2-1b (all 24 units; a
+     256-position zero ``mm_embeds`` prefix in a ``cache_len`` of 384)
+     at full width, and jamba-1.5-large (mamba, attention and MoE blocks)
+     at smoke size: 4 experts compressed (e0's planes bitwise the plain
+     compression), phase 3's 8 requests (``max_batch=4``,
+     ``decode_chunk=8``, ``continuous=False``); gates: no plan, one merge
+     per distinct expert, merged trees bitwise the plain merge, the first
+     decode step's logits within 2**-7 of the plain merge's, kernels 2,
+     3, 3a and 4 launched, graph chunks bitwise the same chunks run
+     eagerly, a warm run repeating its tokens, rows bitwise independent
+     of their neighbours' prompts of the same lengths, unpadded rows
+     equal to their solo serves up to a near-tie (on an f32 copy where
+     bf16 parts beyond it); reported: compress and swap seconds per
+     expert (swaps beside the merge's byte bound), prefill ms per batch,
+     decode tokens/s, peak memory, one profiled batch, and the share of a
+     decode step (rwkv, jamba) or a prefill (seamless's encoder) that
+     the plain recurrent scans or the encoder take; then one jamba mamba
+     block at full width (d_model 8192, d_inner 16384, d_state 16,
+     dt_rank 512; f32) on 4 rows: a 64-token chunked prefill and 16
+     decode steps against one chunked forward over the 80 tokens, within
+     1e-4 of the largest |output| (``mamba_module_check``).
+     ``--stop-after families`` ends after phases 3 and 3f;
   3m. the serving mesh at full width (``mesh_path``), each rank a process
      that this script starts as ``chip_smoke.py --mesh-child SPEC`` (one
      torch thread of work a rank; the experts' planes handed over in a
@@ -1265,8 +1293,8 @@ def near_tie(torch, engine, r, tokens, other, what, gate=True):
             eid=torch.full((1,), engine.slot_of(r.expert),
                            dtype=torch.int32, device=engine.dev))
     logits, _ = engine.api.prefill(
-        params, {"tokens": ctx[None].to(engine.dev)}, engine.cfg.cache_len,
-        **kw)
+        params, {"tokens": ctx[None].to(engine.dev),
+                 **engine._frontend_stub(1)}, engine.cfg.cache_len, **kw)
     lg = logits[0, -1].float()
     tol = 2.0 ** -7 * abs(float(lg.max()))
     samp = engine.cfg.sampling
@@ -2275,19 +2303,24 @@ def merged_logits_check(torch, reg, engine, reqs):
     logit's value; the merge's own effect (the same step on the base) is
     logged beside."""
     from repro_torch.kernels import ops
+    from repro_torch.serve.engine import _row_mask_ok
     api, expert = engine.api, reqs[0].expert
     toks, start = engine._pad_prompts(reqs)
+    # the engine's merge-path prefill: its stub modality input, and
+    # ``start`` only where its rules pass it
+    batch = {"tokens": toks, **engine._frontend_stub(len(reqs))}
+    start = start if _row_mask_ok(api.cfg) else None
+    L = engine.cfg.cache_len
     out = []
     for plain in (False, True):
         with ops.plain_versions() if plain else contextlib.nullcontext():
             params = reg.merged_params(engine.base, [expert])
-        logits, cache = api.prefill(params, {"tokens": toks}, 128,
-                                    start=start)
+        logits, cache = api.prefill(params, batch, L, start=start)
         tok = torch.argmax(logits[:, -1].float(), dim=-1).to(
             torch.int32)[:, None]
         out.append(api.decode_step(params, tok, cache)[0].float())
         del params, cache
-    lb, cache = api.prefill(engine.base, {"tokens": toks}, 128, start=start)
+    lb, cache = api.prefill(engine.base, batch, L, start=start)
     tok = torch.argmax(lb[:, -1].float(), dim=-1).to(torch.int32)[:, None]
     lb = api.decode_step(engine.base, tok, cache)[0].float()
     lk, lp = out
@@ -2343,13 +2376,14 @@ def moe_row_checks(torch, engine, reqs, gate_solo=True) -> dict:
         f"batch carry other prompts of the same lengths; solo serves of the "
         f"{len(unpadded)} unpadded rows "
         f"({'gated' if gate_solo else 'reported'}), then of the {len(padded)} "
-        "padded ones (reported: their pad tokens take capacity slots)")
+        "padded ones (reported: a padded row depends on its padding)")
     return {"unpadded_solo": solo_check(torch, engine, unpadded,
                                         gate=gate_solo),
             "padded_solo": solo_check(torch, engine, padded, gate=False)}
 
 
-def moe_f32_rows(torch, api, model, base, reg, reqs) -> dict:
+def moe_f32_rows(torch, api, model, base, reg, reqs,
+                 cache_len: int = 128) -> dict:
     """:func:`moe_row_checks` on an f32 copy of the MoE model (the weights
     widened, the same experts, merged into f32 by kernel 4), with the
     unpadded rows' solo gate.  In bf16 an ulp of a solo serve's other
@@ -2360,7 +2394,7 @@ def moe_f32_rows(torch, api, model, base, reg, reqs) -> dict:
     is freed before it returns."""
     model32, base32 = f32_copy(torch, model, base)
     eng = api.serve(model32, base32, reg, scheduling="mixed", max_batch=4,
-                    cache_len=128, decode_chunk=8, continuous=False)
+                    cache_len=cache_len, decode_chunk=8, continuous=False)
     rr = fresh(reqs, 7000)
     eng.run(rr)
     out = moe_row_checks(torch, eng, rr)
@@ -2376,55 +2410,208 @@ def moe_f32_rows(torch, api, model, base, reg, reqs) -> dict:
 def moe_path(torch, api, arch, units, seed, dev, out_dir):
     """Phase 3e's MoE case: ``arch`` (mixtral-8x7b) at full width, ``units``
     of its depth, random weights from ``seed``, which the zero-merge
-    overlay does not cover, so ``api.serve(..., scheduling="mixed")``
-    serves it by merge-on-swap (``ExpertRegistry.merged_params``, kernel 4
-    once per leaf per distinct expert; the f32 router too).  With the
-    launch counts set to 0 just before and read just after: 4 experts
-    compressed (e0's planes bitwise the plain compression), phase 3's 8
-    greedy requests served (``max_batch=4``, ``cache_len=128``,
-    ``decode_chunk=8``, ``continuous=False``).  The gates: no overlay plan;
-    one merge per distinct expert served (the reference's ``n_swaps``) and
-    no mixed wave; every expert's merged tree bitwise the plain merge
-    (``unpack_add_many_ref``); the first decode step's logits on the
-    merged params within 2**-7 of the plain merge's; each row bitwise
-    independent of its batch neighbours' prompts and, unpadded, equal to
-    its solo serve up to the near-tie rule (:func:`moe_row_checks`; the
-    solo gate on an f32 copy, :func:`moe_f32_rows`); the
-    decode chunks' CUDA graphs bitwise the same
-    chunks run eagerly; a warm run repeating its tokens; at least one
-    kernel-4 launch.  Reported: decode tokens/s, swap seconds per expert
-    against the merge's byte bound, kernel 4 on the widest leaf, and one
-    profiled batch of 4 rows with its swap.  Everything it made is freed
-    before it returns (numbers, launches)."""
+    overlay does not cover, so it is served by merge-on-swap (the f32
+    router merged too): :func:`merge_path` with the unpadded rows' solo
+    gate on an f32 copy (``moe_f32_rows``)."""
+    from repro_torch.configs import get_config
+    return merge_path(torch, api, arch, dataclasses.replace(
+        get_config(arch), n_units=units), 128, seed, dev, out_dir,
+        solo_on_f32=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3f: the families outside the overlay
+# ---------------------------------------------------------------------------
+
+# (arch, units, cache_len) at full width, depth cut to fit the phase's time
+# beside the others: rwkv6-3b 8 of 32 units (0.98 B parameters),
+# seamless-m4t-medium whole (12 encoder + 12 decoder units, 0.98 B),
+# internvl2-1b whole (24 units, 0.49 B; its 256-position mm prefix sits in
+# the cache ahead of the prompt, so the ring holds 384)
+FAMILY_CONFIGS = (("rwkv6_3b", 8, 128), ("seamless_m4t_medium", 12, 128),
+                  ("internvl2_1b", 24, 384))
+# jamba-1.5-large: one full-width unit of 8 blocks holds 45.2 B parameters
+# (90 GB in bf16), so it runs at smoke size (2 units)
+FAMILY_SMOKE = ("jamba_1_5_large_398b", 2, 128)
+MERGE_PATH_KERNELS = ("pack_ternary_planes_segmented",
+                      "segment_hist_moments", "segment_absmax",
+                      "unpack_add_many")
+
+
+def merge_row_gates(torch, api, model, base, reg, engine, reqs,
+                    cache_len: int, solo_on_f32: bool) -> dict:
+    """:func:`moe_row_checks` in the model's dtype with the solo serves
+    reported; then the same checks on an f32 copy with the unpadded rows'
+    solo gate (:func:`moe_f32_rows`), with ``solo_on_f32`` always, else
+    only where an unpadded row parts from its solo serve beyond a
+    near-tie.  The MoE path sets ``solo_on_f32``: in bf16 an ulp of the
+    solo serve's other batch shape can flip a top-2 choice whose router
+    probabilities nearly tie, after which the row runs other experts and
+    its tokens part by more than a near-tie (mixtral's request 4 did, see
+    :func:`moe_f32_rows`), so its solo gate is always the f32 copy's."""
+    out = {"bf16": moe_row_checks(torch, engine, reqs, gate_solo=False)}
+    beyond = [e for e in out["bf16"]["unpadded_solo"]["near_tie"]
+              if not e["within"]]
+    if beyond:
+        log(f"  {len(beyond)} unpadded rows part from their solo serves "
+            "beyond a near-tie: the solo gate runs on an f32 copy")
+    if beyond or solo_on_f32:
+        out["f32"] = moe_f32_rows(torch, api, model, base, reg, reqs,
+                                  cache_len)
+    return out
+
+
+def recurrent_share(torch, model, base, cfg, cache_len: int) -> dict:
+    """Device ms of one decode step of 4 rows (one CUDA graph of 8 steps
+    replayed, ``graph_ms``) against the recurrent blocks' time mixers
+    alone (the rwkv time mix or the mamba mixer of every unit, their
+    projections included) and their scans alone (the chunk-1 step of the
+    rwkv recurrence or of the selective scan on inputs of the step's
+    shapes), each timed the same way."""
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import rwkv as rwkv_mod
+    dev = base["embed"].device
+    g = torch.Generator().manual_seed(11)
+    toks = torch.randint(2, cfg.vocab, (4, 32), generator=g).to(dev)
+    logits, cache = model.prefill(base, {"tokens": toks}, cache_len)
+    tok = torch.argmax(logits[:, -1].float(), dim=-1).to(torch.int32)[:, None]
+    step_ms = graph_ms(torch, lambda: model.decode_step(base, tok, cache),
+                       n=8, replays=3)
+    d, U, f32 = cfg.d_model, cfg.n_units, torch.float32
+    x = torch.randn((4, 1, d), generator=g).to(dev, base["embed"].dtype)
+    mixers, cores = [], []
+    for i, b in enumerate(cfg.pattern):
+        name, bp = f"block{i}", base["blocks"][f"block{i}"]
+        st = cache["layers"][name]
+        for u in range(U):
+            p = {k: t[u] for k, t in bp[b.kind].items()}
+            if b.kind == "rwkv":
+                mixers.append(lambda p=p, b=b, u=u, st=st:
+                              rwkv_mod.rwkv_time_mix(
+                                  x, p, b.rwkv, state=(st["S"][u],
+                                                       st["tm"][u]),
+                                  chunk=1, impl="einsum"))
+            elif b.kind == "mamba":
+                mixers.append(lambda p=p, b=b, u=u, st=st:
+                              mamba_mod.mamba_decode_step(
+                                  x, p, b.mamba, (st["h"][u],
+                                                  st["conv"][u])))
+        if b.kind == "rwkv":
+            dh = b.rwkv.head_dim
+            r, k, v = (torch.randn((4, 1, d // dh, dh), generator=g).to(dev)
+                       for _ in range(3))
+            w = -torch.rand((4, 1, d // dh, dh), generator=g).to(dev)
+            ce = torch.zeros_like(w)     # a chunk of 1: ce = ci - log w = 0
+            S0 = st["S"][0]
+            uu = bp["rwkv"]["u"][0].reshape(d // dh, dh).to(f32)
+            cores += [lambda r=r, k=k, v=v, w=w, ce=ce, S0=S0, uu=uu:
+                      rwkv_mod._chunk_step(S0, r, k, v, w, ce, uu,
+                                           "einsum")] * U
+        elif b.kind == "mamba":
+            din, ds = b.mamba.expand * d, b.mamba.d_state
+            dt, xa = (torch.rand((4, 1, din), generator=g).to(dev)
+                      for _ in range(2))
+            bb, cc = (torch.randn((4, 1, ds), generator=g).to(dev)
+                      for _ in range(2))
+            A = -torch.rand((din, ds), generator=g).to(dev)
+            h0 = st["h"][0]
+            cores += [lambda dt=dt, xa=xa, bb=bb, cc=cc, A=A, h0=h0:
+                      mamba_mod._ssm_chunk(h0, dt, xa, bb, cc, A)] * U
+
+    def run_all(fns):
+        for fn in fns:
+            fn()
+
+    mixer_ms = graph_ms(torch, lambda: run_all(mixers), n=4, replays=3)
+    core_ms = graph_ms(torch, lambda: run_all(cores), n=4, replays=3)
+    out = {"decode_step_ms": step_ms, "mixers_ms": mixer_ms,
+           "scans_ms": core_ms, "mixer_share": mixer_ms / step_ms,
+           "scan_share": core_ms / step_ms, "blocks": len(mixers)}
+    log(f"  one decode step of 4 rows {step_ms:.3f} ms (graph replay); "
+        f"the {len(mixers)} recurrent mixers alone {mixer_ms:.3f} ms "
+        f"({100 * out['mixer_share']:.1f}%), their scans alone "
+        f"{core_ms:.3f} ms ({100 * out['scan_share']:.1f}%)")
+    del cache
+    return out
+
+
+def encoder_share(torch, model, base, cfg, cache_len: int) -> dict:
+    """Milliseconds of a 4-row prefill of 64-token prompts over zero stub
+    frames against its encoder alone (``cuda_ms``, 3 calls each)."""
+    from repro_torch.models import transformer as tf
+    dev = base["embed"].device
+    g = torch.Generator().manual_seed(12)
+    fe = cfg.frontend
+    frames = torch.zeros((4, fe.n_tokens, fe.embed_dim), device=dev)
+    batch = {"tokens": torch.randint(2, cfg.vocab, (4, 64),
+                                     generator=g).to(dev), "frames": frames}
+    prefill_ms = cuda_ms(torch, lambda: model.prefill(base, batch,
+                                                      cache_len), 3)
+    enc_ms = cuda_ms(torch, lambda: tf.encode(base, frames, cfg), 3)
+    log(f"  a 4-row prefill over {fe.n_tokens} stub frames {prefill_ms:.2f} "
+        f"ms, its encoder alone {enc_ms:.2f} ms "
+        f"({100 * enc_ms / prefill_ms:.1f}%)")
+    return {"prefill_ms": prefill_ms, "encoder_ms": enc_ms,
+            "encoder_share": enc_ms / prefill_ms}
+
+
+def merge_path(torch, api, arch, cfg, cache_len, seed, dev, out_dir,
+               solo_on_f32=False):
+    """A configuration no overlay plan covers (an MoE, recurrent, enc-dec
+    or frontend family), ``cfg`` of ``arch`` with random weights from
+    ``seed``, served through ``api.serve(..., scheduling="mixed")`` by
+    merge-on-swap (``ExpertRegistry.merged_params``, kernel 4 once per
+    leaf per distinct expert).  With the launch counts set to 0 just
+    before and read just after: 4 experts compressed (e0's planes bitwise
+    the plain compression) and phase 3's 8 greedy requests served
+    (``max_batch=4``, ``cache_len``, ``decode_chunk=8``,
+    ``continuous=False``; a frontend family on the zero stub inputs the
+    engine feeds it).  The gates: no overlay plan; one merge per distinct
+    expert served (the reference's ``n_swaps``) and no mixed wave; every
+    expert's merged tree bitwise the plain merge (``unpack_add_many_ref``);
+    the first decode step's logits on the merged params within 2**-7 of
+    the plain merge's; each row bitwise independent of its batch
+    neighbours' prompts and, unpadded, equal to its solo serve up to the
+    near-tie rule (:func:`merge_row_gates`); the decode chunks' CUDA graphs
+    bitwise the same chunks run eagerly; a warm run repeating its tokens;
+    kernels 2, 3, 3a and 4 launched.  Reported: compress seconds, decode
+    tokens/s, prefill ms per batch, swap seconds per expert against the
+    merge's byte bound, kernel 4 on the widest leaf, one profiled batch of
+    4 rows with its swap, and for a recurrent or enc-dec model the share
+    of a decode step its scans take or of a prefill its encoder takes.
+    Everything it made is freed before it returns (numbers, launches)."""
     from repro_torch import tree as tree_util
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build as build_model
     from repro_torch.serve import BASE
     held = torch.cuda.memory_allocated()
-    cfg = dataclasses.replace(get_config(arch), n_units=units)
+    full = get_config(arch)
+    smoke = cfg.d_model != full.d_model
     model = build_model(cfg)
     base = model.init(seed=seed, device=dev)
     n_params = sum(t.numel() for t in tree_util.leaves(base))
-    log(f"  {arch}: {n_params / 1e6:.1f} M params, {units} of "
-        f"{get_config(arch).n_units} units, full width; "
-        f"{held / 2 ** 30:.2f} GiB held by earlier phases")
+    log(f"  {arch}: {n_params / 1e6:.1f} M params, {cfg.n_units} units"
+        + (" (smoke size)" if smoke else
+           f" of {full.n_units}, full width")
+        + f"; {held / 2 ** 30:.2f} GiB held by earlier phases")
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     experts, compress_s, planes, peak0 = compress_experts(torch, api, base,
                                                           seed, dev)
     reg = api.registry(device=dev, device_cache_bytes=16 << 30,
                        experts=experts)
-    engine = api.serve(model, base, reg, scheduling="mixed", max_batch=4,
-                       cache_len=128, decode_chunk=8, continuous=False)
+    kw = dict(scheduling="mixed", max_batch=4, cache_len=cache_len,
+              decode_chunk=8, continuous=False)
+    engine = api.serve(model, base, reg, **kw)
     reqs = make_requests(torch, cfg, seed)
     engine.run(reqs)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak = max(peak0, torch.cuda.max_memory_allocated())
-    log(f"  launches on the {arch} path: {launches}")
-    for name in ("pack_ternary_planes_segmented", "segment_hist_moments",
-                 "segment_absmax", "unpack_add_many"):
+    log(f"  launches on the {arch} path: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for name in MERGE_PATH_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the {arch} path")
     check(engine._plan is None, f"{arch}: the engine planned an overlay")
@@ -2444,8 +2631,8 @@ def moe_path(torch, api, arch, units, seed, dev, out_dir):
         f"for experts {', '.join(served)}, 0 mixed waves; swap s "
         + ", ".join(f"{x['expert']} {x['seconds']:.4f}" for x in swaps)
         + f" (bound {bound:.3f} ms: {nbytes / 1e9:.2f} GB read and written)")
-    out = {"params_m": n_params / 1e6, "units": units,
-           "compress_s_per_expert": compress_s,
+    out = {"params_m": n_params / 1e6, "units": cfg.n_units, "smoke": smoke,
+           "cache_len": cache_len, "compress_s_per_expert": compress_s,
            "peak_memory_gib": peak / 2 ** 30,
            "held_on_entry_gib": held / 2 ** 30, "planes_e0": planes,
            "swap_s": swaps, "swap_bytes": nbytes, "swap_bound_ms": bound,
@@ -2453,12 +2640,10 @@ def moe_path(torch, api, arch, units, seed, dev, out_dir):
     merged_params_check(torch, reg, base, [f"e{i}" for i in range(4)])
     out["logits"] = merged_logits_check(
         torch, reg, engine, [r for r in reqs if r.expert == "e0"])
-    out["rows"] = moe_row_checks(torch, engine, reqs, gate_solo=False)
-    out["f32"] = moe_f32_rows(torch, api, model, base, reg, reqs)
+    out["rows"] = merge_row_gates(torch, api, model, base, reg, engine,
+                                  reqs, cache_len, solo_on_f32)
     # the graphs against the same chunks run eagerly
-    eager = eager_chunks(torch, api.serve(
-        model, base, reg, scheduling="mixed", max_batch=4, cache_len=128,
-        decode_chunk=8, continuous=False))
+    eager = eager_chunks(torch, api.serve(model, base, reg, **kw))
     ereqs = fresh(reqs, 500)
     eager.run(ereqs)
     check([r.out_tokens for r in ereqs] == [r.out_tokens for r in reqs],
@@ -2480,7 +2665,7 @@ def moe_path(torch, api, arch, units, seed, dev, out_dir):
     out["prefill_ms_per_batch"] = [b["prefill_s"] * 1e3 for b in batches]
     out["batch_rows"] = [b["rows"] for b in batches]
     out["graphs"] = graph_stats(engine)
-    # kernel 4 on the widest leaf (an expert stack), beside its bound
+    # kernel 4 on the widest leaf, beside its bound
     pk = reg.fetch_packed("e1")
     path, leaf = max(tree_util.flatten_with_paths(base),
                      key=lambda kv: kv[1].numel())
@@ -2503,12 +2688,103 @@ def moe_path(torch, api, arch, units, seed, dev, out_dir):
     engine.run(fresh(reqs[2:3], 850))
     out["profile"] = profile_wave(torch, engine, wave, out_dir,
                                   f"profile_{arch}")
+    if any(b.kind != "attn" for b in cfg.pattern):
+        out["recurrent"] = recurrent_share(torch, model, base, cfg,
+                                           cache_len)
+    if cfg.enc_n_units:
+        out["encoder"] = encoder_share(torch, model, base, cfg, cache_len)
     log(f"  {arch}: decode {out['decode_tokens_per_s']:.1f} tokens/s (rows "
-        f"per batch {out['batch_rows']}, chunk 8), peak memory "
-        f"{out['peak_memory_gib']:.2f} GiB")
+        f"per batch {out['batch_rows']}, chunk 8), prefill ms "
+        + ", ".join(f"{x:.1f}" for x in out["prefill_ms_per_batch"])
+        + f", peak memory {out['peak_memory_gib']:.2f} GiB, compress s "
+        + ", ".join(f"{x:.3f}" for x in compress_s))
     del engine, reg, experts, base, model, pk, pt, leaf
     free_all(torch)
     return out, launches
+
+
+def mamba_module_check(torch, dev, seed) -> dict:
+    """One jamba mamba block at full width (d_model 8192, d_inner 16384,
+    d_state 16, d_conv 4, dt_rank 512), f32 weights and states, 4 rows:
+    a 64-token chunked prefill followed by 16 decode steps against one
+    chunked forward over all 80 tokens, every output and the final state
+    within 1e-4 of the largest |value| (the two sum the scan in other
+    orders), both timed (``cuda_ms``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import transformer as tf
+    cfg = get_config("jamba_1_5_large_398b")
+    b = next(b for b in cfg.pattern if b.kind == "mamba")
+    m = dataclasses.replace(b.mamba, dt_rank=b.mamba.dt_rank
+                            or -(-cfg.d_model // 16))
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    p = {k: v[0] for k, v in tf._init_mamba(m, cfg.d_model, 1, torch.float32,
+                                             gen, dev).items()}
+    x = torch.randn((4, 80, cfg.d_model), generator=gen, device=dev)
+    full, (h_full, _) = mamba_mod.mamba_forward(x, p, m)
+
+    def split_run():
+        y0, st = mamba_mod.mamba_forward(x[:, :64], p, m)
+        ys = [y0]
+        for t in range(64, 80):
+            y, st = mamba_mod.mamba_decode_step(x[:, t:t + 1], p, m, st)
+            ys.append(y)
+        return torch.cat(ys, dim=1), st
+
+    split, (h_split, _) = split_run()
+    torch.cuda.synchronize()
+    err = float((split - full).abs().max())
+    tol = 1e-4 * float(full.abs().max())
+    herr = float((h_split - h_full).abs().max())
+    htol = 1e-4 * float(h_full.abs().max())
+    check(err <= tol and herr <= htol,
+          f"mamba block at full width: prefill + decode differs from one "
+          f"forward by {err} (tol {tol}), state by {herr} (tol {htol})")
+    full_ms = cuda_ms(torch, lambda: mamba_mod.mamba_forward(x, p, m), 3)
+    prefill_ms = cuda_ms(torch, lambda: mamba_mod.mamba_forward(
+        x[:, :64], p, m), 3)
+    split_ms = cuda_ms(torch, split_run, 2)
+    step_ms = (split_ms - prefill_ms) / 16
+    out = {"d_model": cfg.d_model, "d_inner": m.expand * cfg.d_model,
+           "d_state": m.d_state, "dt_rank": m.dt_rank, "rows": 4,
+           "max_abs_err": err, "tol": tol, "state_err": herr,
+           "state_tol": htol, "forward_80_ms": full_ms,
+           "prefill_64_ms": prefill_ms, "prefill_and_16_steps_ms": split_ms,
+           "decode_step_ms": step_ms}
+    log(f"  mamba block at full width, 4 rows: 64-token prefill + 16 steps "
+        f"vs one forward over 80: max err {err:.3e} (tol {tol:.3e}), state "
+        f"{herr:.3e} (tol {htol:.3e}); forward over 80 {full_ms:.2f} ms, "
+        f"prefill of 64 {prefill_ms:.2f} ms, a decode step {step_ms:.3f} ms")
+    del p, x, full, split
+    free_all(torch)
+    return out
+
+
+def family_phase(torch, api, seed, dev, out_dir):
+    """Phase 3f: every configuration of ``FAMILY_CONFIGS`` at full width,
+    ``FAMILY_SMOKE`` at smoke size, then the full-width mamba block.
+    Returns ({arch: numbers}, {arch: launches})."""
+    fams, launches = {}, {}
+    free_all(torch)
+    from repro_torch.configs import get_config, get_smoke_config
+    for arch, units, cache_len in FAMILY_CONFIGS + (FAMILY_SMOKE,):
+        smoke = (arch, units, cache_len) == FAMILY_SMOKE
+        log(f"phase 3f: {arch} {'at smoke size' if smoke else 'at full width'}"
+            f", {units} units, by merge-on-swap (compress 4 experts, serve 8 "
+            f"requests, cache_len {cache_len})")
+        cfg = (get_smoke_config(arch, n_units=units) if smoke else
+               dataclasses.replace(get_config(arch), n_units=units))
+        t0 = time.monotonic()
+        fams[arch], launches[arch] = merge_path(
+            torch, api, arch, cfg, cache_len, seed, dev, out_dir)
+        fams[arch]["phase_s"] = time.monotonic() - t0
+    log("phase 3f: one jamba mamba block at full width")
+    t0 = time.monotonic()
+    fams["mamba_block"] = mamba_module_check(torch, dev, seed)
+    fams["mamba_block"]["phase_s"] = time.monotonic() - t0
+    log("  phase 3f took " + ", ".join(
+        f"{a} {w['phase_s']:.1f} s" for a, w in fams.items()))
+    return fams, launches
 
 
 SAMPLING = dict(temperature=0.8, seed=0)
@@ -4814,14 +5090,15 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh-child", help=argparse.SUPPRESS)
     ap.add_argument("--stop-after",
-                    choices=("kernels", "training", "configs", "mesh",
-                             "all"),
+                    choices=("kernels", "training", "configs", "families",
+                             "mesh", "all"),
                     default="all", help="end after phase 2 (kernels: a "
                     "first build and correctness check of new kernels), "
                     "after phases 3 and 3t (training: a quick check of the "
                     "training path), or after phases 3 and 3e (configs: a "
-                    "quick check of the full-width configurations; mesh: "
-                    "after phases 3, 3d and 3m)")
+                    "quick check of the full-width configurations; "
+                    "families: after phases 3 and 3f; mesh: after phases "
+                    "3, 3d and 3m)")
     args = ap.parse_args(argv)
     if args.mesh_child:
         return mesh_child(args.mesh_child)
@@ -4927,6 +5204,15 @@ def main(argv=None) -> int:
                        "launches": wide_launches}, f, indent=1)
         return 0
 
+    if args.stop_after == "families":
+        fams, fam_launches = family_phase(torch, api, args.seed, dev,
+                                          out_dir)
+        with open(os.path.join(out_dir, "chip_smoke_families.json"),
+                  "w") as f:
+            json.dump({"gpu": gpu, "families": fams,
+                       "launches": fam_launches}, f, indent=1)
+        return 0
+
     if args.stop_after == "training":
         trained, train_launches = training_phase(
             torch, api, model, base, experts, reqs, cfg, args.seed, dev)
@@ -5007,6 +5293,7 @@ def main(argv=None) -> int:
         return 0
 
     wide, wide_launches = wide_phase(torch, api, args.seed, dev, out_dir)
+    fams, fam_launches = family_phase(torch, api, args.seed, dev, out_dir)
 
     sampled, sampled_launches = {}, {}
     for top_k in (40, 0):
@@ -5186,7 +5473,8 @@ def main(argv=None) -> int:
         # each kernel's launches on the paths that run it: the mixed path,
         # the merge path, the merged ensemble, the artifact path, the
         # refill path, phase 3e's configurations (the MoE one by
-        # merge-on-swap), the sampled paths, the paged path, the remote
+        # merge-on-swap), phase 3f's families (by merge-on-swap), the
+        # sampled paths, the paged path, the remote
         # paths, the durability path, the training path and the mesh
         # runs (rank 0's)
         n_launch = (launches[name] + merge_launches[name]
@@ -5195,13 +5483,16 @@ def main(argv=None) -> int:
                     + remote_launches[name] + durable_launches[name]
                     + train_launches[name] + mesh_launches[name]
                     + sum(c[name] for c in wide_launches.values())
+                    + sum(c[name] for c in fam_launches.values())
                     + sum(c[name] for c in sampled_launches.values()))
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": n_launch,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                 "shape": r["shape"], "launches_mesh": mesh_launches[name]}
+                 "shape": r["shape"], "launches_mesh": mesh_launches[name],
+                 "launches_families": sum(c[name]
+                                          for c in fam_launches.values())}
         if name == "unpack_add":
             entry["check_launches"] = check_launches[name]
         if name == "ternary_matmul":
@@ -5243,7 +5534,8 @@ def main(argv=None) -> int:
                "graphs": {"mixed": graph_stats(engine),
                           "merge": graph_stats(gengine),
                           "refill": graph_stats(rengine)},
-               "wide_configs": wide, "sampled": sampled, "paged": paged,
+               "wide_configs": wide, "families": fams,
+               "sampled": sampled, "paged": paged,
                "remote": remote, "durable": durable, "trained": trained,
                "mesh": mesh,
                "params_m": n_params / 1e6}
@@ -5255,6 +5547,7 @@ def main(argv=None) -> int:
         "durable_path": durable_launches, "training_path": train_launches,
         "ternary_matvec_check": matvec_launches,
         **{f"{a}_path": c for a, c in wide_launches.items()},
+        **{f"{a}_path": c for a, c in fam_launches.items()},
         **{f"sampled_top_k_{k}_path": c
            for k, c in sampled_launches.items()}})
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -5285,6 +5578,41 @@ def main(argv=None) -> int:
                 f"{e['composite_ms']:.4f}; plain {e['plain_ms']:.3f}"
                 + (f"; torch.topk {e['topk_ms']:.4f}" if top_k else "")
                 + ")")
+    for arch, w in fams.items():
+        if arch == "mamba_block":
+            log(f"jamba mamba block at full width (4 rows, f32) {tag}: "
+                f"forward over 80 tokens {w['forward_80_ms']:.2f} ms, "
+                f"prefill of 64 {w['prefill_64_ms']:.2f} ms, a decode step "
+                f"{w['decode_step_ms']:.3f} ms; prefill + 16 steps vs one "
+                f"forward max err {w['max_abs_err']:.3e} (tol "
+                f"{w['tol']:.3e})")
+            continue
+        p = w["profile"]
+        log(f"{arch} ({w['units']} units, {w['params_m']:.1f} M params, "
+            f"{'smoke size' if w['smoke'] else 'full width'}, merge-on-swap)"
+            f" {tag}: decode tokens/s {w['decode_tokens_per_s']:.1f} (rows "
+            f"per batch {w['batch_rows']}); prefill ms per batch "
+            + ", ".join(f"{t:.1f}" for t in w["prefill_ms_per_batch"])
+            + "; swap s per expert " + ", ".join(
+                f"{x['expert']} {x['seconds']:.4f}" for x in w["swap_s"])
+            + f" (bound {w['swap_bound_ms']:.3f} ms); a profiled 4-row batch"
+            f" with its merge: wall {p['wall_ms']:.1f} ms, device busy "
+            f"{p['device_busy_ms']:.1f} ms, idle share "
+            f"{p['idle_share']:.3f}; compress s per expert " + ", ".join(
+                f"{t:.3f}" for t in w["compress_s_per_expert"])
+            + f"; peak memory {w['peak_memory_gib']:.2f} GiB")
+        if "recurrent" in w:
+            r = w["recurrent"]
+            log(f"{arch} decode step (4 rows, graph) {tag}: "
+                f"{r['decode_step_ms']:.3f} ms; recurrent mixers "
+                f"{r['mixers_ms']:.3f} ms ({100 * r['mixer_share']:.1f}%), "
+                f"their scans {r['scans_ms']:.3f} ms "
+                f"({100 * r['scan_share']:.1f}%)")
+        if "encoder" in w:
+            e = w["encoder"]
+            log(f"{arch} prefill (4 rows, 64 tokens) {tag}: "
+                f"{e['prefill_ms']:.2f} ms, encoder {e['encoder_ms']:.2f} ms "
+                f"({100 * e['encoder_share']:.1f}%)")
     for arch, w in wide.items():
         p = w["profile"]
         if arch == MOE_CONFIG[0]:

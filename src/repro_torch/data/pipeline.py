@@ -87,15 +87,23 @@ def make_lm_batch(step: int, dcfg: DataConfig, device="cuda") -> dict:
 
 def make_batch_for(cfg, step: int, seq_len: int, global_batch: int,
                    task_id: int = 0, device="cuda") -> dict:
-    """Family-aware batch builder.  The frontend families' stub modality
-    inputs (``mm_embeds``, ``frames``) come with their models."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: batches with modality inputs come with the "
-            "frontend families (ROADMAP queue 1, item 12)")
-    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+    """Family-aware batch builder.  A frontend family's batch holds
+    ``seq_len - n_tokens`` text tokens (at least 1) and the stub modality
+    input [B, n_tokens, embed_dim] f32, the reference's normal draw under
+    ``fold_in(PRNGKey(77 + task_id), step)``: ``frames`` for audio,
+    ``mm_embeds`` otherwise."""
+    dev = resolve_device(device)
+    n_mod = cfg.frontend.n_tokens if cfg.frontend is not None else 0
+    text_len = max(seq_len - n_mod, 1) if n_mod else seq_len
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=text_len,
                       global_batch=global_batch, task_id=task_id)
-    return make_lm_batch(step, dcfg, device=device)
+    batch = make_lm_batch(step, dcfg, device=dev)
+    if cfg.frontend is not None:
+        key = prng.fold_in(prng.prng_key(77 + task_id), step)
+        emb = prng.normal(key, (global_batch, n_mod,
+                                cfg.frontend.embed_dim)).to(dev)
+        batch["frames" if cfg.family == "audio" else "mm_embeds"] = emb
+    return batch
 
 
 def eval_loss(api, params, cfg, task_id: int, n_batches: int = 2,

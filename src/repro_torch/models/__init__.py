@@ -1,3 +1,3 @@
-from repro_torch.models.model import ModelApi, build
+from repro_torch.models.model import ModelApi, build, cross_entropy
 
-__all__ = ["ModelApi", "build"]
+__all__ = ["ModelApi", "build", "cross_entropy"]

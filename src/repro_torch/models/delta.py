@@ -226,9 +226,9 @@ def plan_overlay(params: dict, cfg) -> Optional[dict]:
     """Map every base-param path to a LeafSpec, or None when the family is
     not coverable by the zero-merge path.  The engine then serves it by
     merge-on-swap (``ExpertRegistry.merged_params``, one expert merged at a
-    time): the port's MoE configs take that path; recurrent blocks,
-    enc-dec, cross-attention and frontends would too, but the port's model
-    does not run them yet."""
+    time): the MoE configs, the recurrent ones (rwkv, jamba's mamba), the
+    enc-dec and cross-attention one (seamless) and the frontend ones
+    (seamless, internvl2) take that path, as in the reference."""
     if cfg.enc_n_units or cfg.cross_attn or cfg.frontend is not None:
         return None
     for b in cfg.pattern:

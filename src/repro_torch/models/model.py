@@ -3,10 +3,17 @@
 ``build(cfg)`` returns a :class:`ModelApi` whose members close over the
 config: ``init``, ``forward`` and ``loss_and_logits`` (train),
 ``prefill``, ``decode_step`` and ``init_decode_cache`` (serve).  Batches
-are dicts ``{"tokens": [B, T] int, "targets": [B, T] int}``; ``targets``
-uses -1 for masked positions.  The reference's ``Runtime`` is gone: the
-one training knob it carries here, ``remat_policy``, is an argument of
-:func:`build`.
+are dicts:
+
+* LM:      ``{"tokens": [B, T] int, "targets": [B, T] int}``
+* VLM:     ``+ {"mm_embeds": [B, n_patches, e]}``, the vision stub's output
+* enc-dec: ``+ {"frames": [B, S_src, e]}``, the audio stub's output
+
+``targets`` uses -1 for masked positions.  A VLM's logits cover the mm
+prefix and the text; its loss scores the text positions only.  The
+reference's ``Runtime`` is gone: the one training knob it carries here,
+``remat_policy``, is an argument of :func:`build`, and the scans' chunk
+sizes are the constants ``models.mamba.CHUNK`` and ``models.rwkv.CHUNK``.
 """
 
 from __future__ import annotations
@@ -47,23 +54,39 @@ class ModelApi:
 
 
 def build(cfg, remat_policy: str = "none") -> ModelApi:
+    is_encdec = cfg.enc_n_units > 0
+    is_vlm = cfg.frontend is not None and not is_encdec
+
     def init(seed: int = 0, device="cuda"):
         return tf.init_params(cfg, seed=seed, device=device)
 
     def forward(params, batch):
+        enc_out = (tf.encode(params, batch["frames"], cfg,
+                             remat_policy=remat_policy) if is_encdec
+                   else None)
+        mm = batch.get("mm_embeds") if is_vlm else None
         return tf.forward_train(params, batch["tokens"], cfg,
-                                remat_policy=remat_policy)
+                                remat_policy=remat_policy, mm_embeds=mm,
+                                enc_out=enc_out)
 
     def loss_and_logits(params, batch):
         logits, aux = forward(params, batch)
-        loss = cross_entropy(logits, batch["targets"]) + AUX_LOSS_WEIGHT * aux
+        targets = batch["targets"]
+        if is_vlm:
+            # the logits cover [mm prefix + text]: score the text only
+            logits = logits[:, logits.shape[1] - targets.shape[1]:]
+        loss = cross_entropy(logits, targets) + AUX_LOSS_WEIGHT * aux
         return loss, (logits, aux)
 
     def prefill_fn(params, batch, cache_len: int, delta=None, eid=None,
                    start=None, cache=None, comm=None, shard_rows=False):
+        enc_out = (tf.encode(params, batch["frames"], cfg) if is_encdec
+                   else None)
+        mm = batch.get("mm_embeds") if is_vlm else None
         return tf.prefill(params, batch["tokens"], cfg, cache_len,
                           delta=delta, eid=eid, start=start, cache=cache,
-                          comm=comm, shard_rows=shard_rows)
+                          comm=comm, shard_rows=shard_rows, mm_embeds=mm,
+                          enc_out=enc_out)
 
     def decode_fn(params, token, cache, delta=None, eid=None, comm=None):
         return tf.decode_step(params, token, cache, cfg, delta=delta,

@@ -21,7 +21,14 @@ plain PyTorch, so the port draws the reference's own bits:
   under the two keys of a split, combined modulo the span with the
   multiplier ``(2**16 mod span)**2 mod span``;
 - ``bernoulli`` is ``random.py::_bernoulli`` in its default "low" mode,
-  ``uniform < p``.
+  ``uniform < p``;
+- ``normal`` is ``random.py::_normal_real`` for f32: ``sqrt(2) *
+  erfinv(u)`` with ``u`` uniform in [nextafter(-1, 0), 1).  The bits and
+  ``u`` are the reference's, bitwise.  ``torch.erfinv`` and XLA's
+  erf_inv are two approximations: against erfinv in f64, torch's lands
+  within 1.5 f32 ulps and XLA's on the CPU within 73 (a relative 4.6e-6,
+  near zero), so tests hold a normal draw to the reference's within a
+  relative 1e-5.
 
 A key is an int64 tensor ``[..., 2]`` holding two 32-bit words, and a
 32-bit word is held in int64 masked to 32 bits, because the CPU build of
@@ -131,3 +138,13 @@ def bernoulli(key: torch.Tensor, p: float, shape: int) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, (shape,))`` (mode "low") under each
     key: key [..., 2] -> bool [..., shape]."""
     return uniform(random_bits(key, shape)) < float(np.float32(p))
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in f32 under one key [2] ->
+    [*shape] f32 (the elements drawn in row-major order)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    n = int(np.prod(shape))
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(random_bits(key, n), lo, 1.0)
+    return (float(np.float32(np.sqrt(2))) * torch.erfinv(u)).reshape(shape)

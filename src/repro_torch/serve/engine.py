@@ -187,14 +187,23 @@ class EngineConfig:
     snapshot_every_chunks: int = 0
 
 
+def _row_mask_ok(mcfg) -> bool:
+    """Whether every position of a model lives in attention KV, so that
+    left pads can be masked per row (``start``) and KV paged: not with
+    recurrent blocks, which take pads into their state, nor with a
+    frontend or an encoder, which put other positions ahead of the
+    text."""
+    return (all(b.kind == "attn" for b in mcfg.pattern)
+            and mcfg.frontend is None and not mcfg.cross_attn
+            and not mcfg.enc_n_units)
+
+
 def _check_paged(mcfg, ecfg: EngineConfig) -> None:
     """The reference's conditions for ``kv_layout="paged"``."""
     if not ecfg.decode_chunk:
         raise ValueError("kv_layout='paged' needs the chunked decode loop; "
                          "set decode_chunk > 0")
-    if (any(b.kind != "attn" for b in mcfg.pattern)
-            or mcfg.frontend is not None or mcfg.cross_attn
-            or mcfg.enc_n_units):
+    if not _row_mask_ok(mcfg):
         raise ValueError("kv_layout='paged' needs a pure-attention "
                          "decoder-only pattern (recurrent blocks and "
                          "frontends keep state outside KV)")
@@ -602,8 +611,12 @@ class ServeEngine:
         if cfg.snapshot_dir is None:
             raise ValueError("resume() needs EngineConfig.snapshot_dir")
         if self._plan is None:
+            # as in the reference: a merge-on-swap run is journaled, not
+            # resumed
             raise ValueError("resume() supports the mixed overlay path "
-                             "only (this model family is not coverable)")
+                             "only (this model family is not coverable; "
+                             "merge-on-swap runs do not resume, ROADMAP "
+                             "queue 1, item 9)")
         if self.comm is not None:
             # rank 0 may still be writing the crashed run's last records
             torch.distributed.barrier()
@@ -944,14 +957,27 @@ class ServeEngine:
         if slots is not None:
             st["eid"].copy_(torch.as_tensor(slots, dtype=torch.int32))
             eid = st["eid"]
-        logits, _ = self.api.prefill(params, {"tokens": toks},
-                                     self.cfg.cache_len, delta=overlay,
-                                     eid=eid, start=start, cache=st["cache"],
+        batch = {"tokens": toks, **self._frontend_stub(len(reqs))}
+        logits, _ = self.api.prefill(params, batch, self.cfg.cache_len,
+                                     delta=overlay, eid=eid,
+                                     start=start if _row_mask_ok(self.api.cfg)
+                                     else None, cache=st["cache"],
                                      comm=self.comm, shard_rows=True)
         st["keys"].copy_(self._keys(reqs))
         st["gen"].zero_()
         st["tok"].copy_(self._select(logits, st))
         return st, int(toks.shape[1])
+
+    def _frontend_stub(self, rows: int) -> dict:
+        """A frontend family's stub modality input for ``rows`` rows, as
+        the reference's merge path feeds it: zero ``frames`` (audio) or
+        ``mm_embeds`` (vision) of [rows, n_tokens, embed_dim] f32."""
+        fe = self.api.cfg.frontend
+        if fe is None:
+            return {}
+        key = "frames" if self.api.cfg.family == "audio" else "mm_embeds"
+        return {key: torch.zeros((rows, fe.n_tokens, fe.embed_dim),
+                                 dtype=torch.float32, device=self.dev)}
 
     def _keys(self, reqs: list[Request]) -> torch.Tensor:
         """Per-request sampling keys [B, 2] (host), from (seed, uid)."""
@@ -973,9 +999,10 @@ class ServeEngine:
                                          for r in rows], dtype=torch.int64))
 
     def _can_admit(self) -> bool:
-        # slot refill splices per-row KV; the port's families (attention
-        # only) keep all decode state per row
-        return self.cfg.continuous
+        # slot refill splices per-row KV state; only the pure-attention
+        # families keep all decode state there
+        return (self.cfg.continuous
+                and all(b.kind == "attn" for b in self.api.cfg.pattern))
 
     @staticmethod
     def _done_rows(rows: list[Request]) -> list[int]:

@@ -64,10 +64,37 @@ def port_world(setup_dir):
     return model, base, experts
 
 
+FAMILY_ARCHS = ("rwkv6_3b", "jamba_1_5_large_398b", "seamless_m4t_medium",
+                "internvl2_1b")
+
+
+def family_world(arch):
+    """(model, logical base, experts) of a family outside the overlay at
+    smoke size (1 unit), from seeded torch generators, alike in every
+    process."""
+    import torch
+    from repro_torch import api as tapi
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build
+    model = build(get_smoke_config(arch, n_units=1))
+    base = model.init(seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    taus = [tree_util.tree_map(
+        lambda l: 0.03 * torch.randn(l.shape, generator=gen), base)
+        for _ in range(2)]
+    return model, base, [tapi.compress(t, name=f"e{i}", density=0.2,
+                                       device="cpu")
+                         for i, t in enumerate(taus)]
+
+
 def serve_case(world, case: dict, mesh=None, snapshot_dir=None):
     """One engine over the traffic -> (engine, finished requests).  A
     case may set ``max_batch`` and ``kv_blocks``, and build the registry
-    without the engine's mesh (``"registry_mesh": False``)."""
+    without the engine's mesh (``"registry_mesh": False``).  A case with
+    ``"arch"`` (``world`` then :func:`family_world`'s) sends the traffic
+    to two experts, so the merge path's batches of 4 rows are cut over
+    "model"."""
     from repro_torch import api as tapi
     from repro_torch.serve import Request
     import torch
@@ -86,8 +113,11 @@ def serve_case(world, case: dict, mesh=None, snapshot_dir=None):
     eng = tapi.serve(model, base, reg, **kw)
     if case.get("op") == "resume":
         return eng, eng.resume()
+    specs = request_specs()
+    if case.get("arch"):
+        specs = [(u, f"e{u % 2}", p, n) for u, _, p, n in specs]
     reqs = [Request(uid=u, expert=e, prompt=torch.as_tensor(p),
-                    max_new_tokens=n) for u, e, p, n in request_specs()]
+                    max_new_tokens=n) for u, e, p, n in specs]
     if case.get("op") == "crash":
         def hook(i):
             if i == KILL_AT:
@@ -102,6 +132,16 @@ def serve_case(world, case: dict, mesh=None, snapshot_dir=None):
     return eng, eng.run(reqs)
 
 
+def state_rows(eng) -> dict:
+    """Per batch size, the rows this rank's kept cache holds (dim 1 of
+    its first cache leaf)."""
+    out = {}
+    for n, st in eng._states.items():
+        layer = next(iter(st["cache"]["layers"].values()))
+        out[str(n)] = int(next(iter(layer.values())).shape[1])
+    return out
+
+
 def result(eng, done) -> dict:
     s = eng.swap_summary()
     return {"tokens": {str(r.uid): [r.status, [int(t) for t in r.out_tokens]]
@@ -109,6 +149,7 @@ def result(eng, done) -> dict:
             # the engine's tier is the registry's, open, after the run
             "own_tier": (eng.cache is eng.registry.device()
                          and eng.cache.slots is eng._slots),
+            "state_rows": state_rows(eng),
             "summary": {k: s[k] for k in (
                 "n_expert_shards", "admitted", "evictions",
                 "stack_evictions", "graph_captures", "kv", "mesh", "shards")
@@ -151,14 +192,16 @@ def rank_main(argv):
                             rank=rank, world_size=world_size)
     from repro_torch.launch.mesh import make_serve_mesh
     mesh = make_serve_mesh((e, m), device="cpu")
-    world = port_world(setup_dir)
+    world = (port_world(setup_dir)
+             if any("arch" not in c for c in cases) else None)
     res = []
     for case in cases:
         if case.get("op") == "cache":
             res.append(cache_case(world, mesh))
             continue
-        eng, done = serve_case(world, case, mesh=mesh,
-                               snapshot_dir=case.get("snapshot_dir"))
+        eng, done = serve_case(
+            family_world(case["arch"]) if "arch" in case else world, case,
+            mesh=mesh, snapshot_dir=case.get("snapshot_dir"))
         res.append(result(eng, done))
         eng.registry.close()
     with open(out, "w") as f:

@@ -1255,3 +1255,63 @@ def test_one_rank_nccl_mesh_tokens_equal_mesh_free(serving, one_rank_mesh,
     # the shared registry was made without a mesh: the engine's tier, on
     # its mesh, stays the registry's through the run
     assert eng.cache is eng.registry.device()
+
+
+FAMILY_ARCHS = ("rwkv6_3b", "jamba_1_5_large_398b", "seamless_m4t_medium",
+                "internvl2_1b")
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_graph_chunk_equals_eager_chunks(dev, arch):
+    """The families outside the overlay (rwkv, jamba's mamba, seamless's
+    encoder and cross-attention, internvl2's mm prefix), served with mixed
+    scheduling by merge-on-swap: one kernel-4 merge per distinct expert;
+    their decode chunks, recurrent states and cross-KV included, CUDA
+    graphs whose tokens equal the same chunks run eagerly and the eager
+    per-token loop; a warm run captures nothing and keeps every kept
+    buffer at its address."""
+    from repro_torch import api
+    from repro_torch import tree as tree_util
+    model, base, reg = _smoke_serving(arch)
+    kw = dict(max_batch=3, cache_len=64, decode_chunk=4)
+    n0 = ops.launch_counts()["unpack_add_many"]
+    eng = api.serve(model, base, reg, **kw)
+    reqs = _requests(*MOE_REQS)
+    eng.run(reqs)
+    toks = [r.out_tokens for r in reqs]
+    s = eng.swap_summary()
+    assert eng._plan is None and s["n_waves"] == 0 and s["n_swaps"] == 3
+    assert ops.launch_counts()["unpack_add_many"] > n0
+    assert s["graph_captures"] >= 1
+    ptrs = {n: [t.data_ptr() for t in tree_util.leaves(st)]
+            for n, st in eng._states.items()}
+    again = _requests(*MOE_REQS)
+    eng.run(again)
+    assert [r.out_tokens for r in again] == toks
+    assert eng.swap_summary()["graph_captures"] == s["graph_captures"]
+    assert {n: [t.data_ptr() for t in tree_util.leaves(st)]
+            for n, st in eng._states.items()} == ptrs
+    eager = _eager_chunks(api.serve(model, base, reg, **kw), 4)
+    reqs = _requests(*MOE_REQS)
+    eager.run(reqs)
+    assert [r.out_tokens for r in reqs] == toks
+    assert eager.swap_summary()["graph_captures"] == 0
+    loop = api.serve(model, base, reg, **dict(kw, decode_chunk=0))
+    reqs = _requests(*MOE_REQS)
+    loop.run(reqs)
+    assert [r.out_tokens for r in reqs] == toks
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_merges_bitwise_plain(dev, arch):
+    """Kernel 4 merges every leaf of these families' trees (rwkv's f32
+    decay and bonus leaves, mamba's f32 A and dt bias, the encoder's and
+    the frontend projection's) bitwise as the plain version does."""
+    from repro_torch import tree as tree_util
+    _, base, reg = _smoke_serving(arch)
+    got = reg.merged_params(base, ["e1"])
+    with ops.plain_versions():
+        want = reg.merged_params(base, ["e1"])
+    for (path, g), (_, w) in zip(tree_util.flatten_with_paths(got),
+                                 tree_util.flatten_with_paths(want)):
+        assert torch.equal(_bits(g), _bits(w)), path

@@ -2,7 +2,9 @@
 package: ``repro_torch.prng``'s keys, splits, uniform, randint and
 bernoulli draws bitwise ``jax.random``'s, and ``make_batch_for`` batches
 bitwise the reference's for tasks 0, 1 and the mixture task 100 at
-several steps (tolerance: none, every comparison is exact)."""
+several steps (tolerance: none, every comparison is exact), and the
+frontend families' stub inputs from ``prng.normal`` (within a relative
+1e-5)."""
 
 import dataclasses
 
@@ -123,7 +125,46 @@ def test_batches_default_to_the_card():
         tpipe.make_batch_for(t_smoke("qwen2_5_3b"), 0, 8, 2)
 
 
-def test_frontend_batches_name_their_item():
-    cfg = dataclasses.replace(t_smoke("qwen2_5_3b"), frontend=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tpipe.make_batch_for(cfg, 0, 8, 2, device="cpu")
+@pytest.mark.parametrize("arch,key", [("internvl2_1b", "mm_embeds"),
+                                      ("seamless_m4t_medium", "frames")])
+def test_frontend_batches_name_their_item(arch, key):
+    """Frontend batches, once refused naming ROADMAP queue 1, item 12, now
+    come as the reference's: ``seq_len - n_tokens`` text tokens bitwise,
+    and the stub modality input (``mm_embeds`` for vision, ``frames`` for
+    audio) [B, n_tokens, embed_dim] f32 from the same threefry bits, its
+    uniforms bitwise and its normals within a relative 1e-5 (torch's
+    erfinv and XLA's round apart: ``repro_torch/prng.py``)."""
+    cfg, tcfg = get_smoke_config(arch), t_smoke(arch)
+    for task, step in ((0, 0), (1, 7)):
+        want = jpipe.make_batch_for(cfg, step, 32, 3, task)
+        got = tpipe.make_batch_for(tcfg, step, 32, 3, task, device="cpu")
+        assert sorted(got) == sorted(want) == sorted(["tokens", "targets",
+                                                      key])
+        for k in ("tokens", "targets"):
+            assert tuple(got[k].shape) == (3, 32 - cfg.frontend.n_tokens)
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+        assert got[key].dtype == torch.float32
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=1e-5, atol=1e-7)
+    # a sequence shorter than the prefix keeps one text token
+    assert tpipe.make_batch_for(tcfg, 0, 4, 2, device="cpu")[
+        "tokens"].shape == (2, 1)
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 5, 11), (2, 1024)])
+def test_normal_draws_match_reference(shape):
+    """``prng.normal``: the uniforms under it bitwise ``jax.random``'s, the
+    normals within a relative 1e-5 and an absolute 1e-7 (XLA's erf_inv is
+    up to 73 f32 ulps from the true value near zero, torch's within 1.5)."""
+    key = jax.random.fold_in(jax.random.PRNGKey(77), 3)
+    tkey = prng.fold_in(prng.prng_key(77), 3)
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    n = int(np.prod(shape))
+    np.testing.assert_array_equal(
+        prng.uniform(prng.random_bits(tkey, n), lo, 1.0).numpy(),
+        np.asarray(jax.random.uniform(key, (n,), minval=lo, maxval=1.0)))
+    got = prng.normal(tkey, shape)
+    assert tuple(got.shape) == shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jax.random.normal(key, shape)),
+                               rtol=1e-5, atol=1e-7)

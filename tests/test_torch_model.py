@@ -251,12 +251,30 @@ def test_aliases_resolve_to_the_reference_archs():
 
 @pytest.mark.parametrize("kind", ["mamba", "rwkv"])
 def test_other_families_are_refused_naming_item_12(kind):
-    """Recurrent blocks are not ported: init refuses them,
-    naming what is left of ROADMAP queue 1, item 12."""
-    import dataclasses
+    """Recurrent blocks, once refused naming ROADMAP queue 1, item 12, now
+    run: the smoke config of the family holding ``kind`` blocks (jamba's
+    mamba, rwkv6) initialises with them, and its prefill and a decode step
+    give finite logits and carry the block's recurrent state in the
+    cache (``tests/test_torch_families.py`` holds them to the
+    reference)."""
+    from repro_torch import tree as tree_util
     from repro_torch.configs import get_smoke_config as t_smoke
-    cfg = t_smoke("mixtral_8x7b", n_units=1)
-    cfg = dataclasses.replace(cfg, pattern=(dataclasses.replace(
-        cfg.pattern[0], kind=kind),))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_build(cfg).init(seed=0, device="cpu")
+    arch = "jamba_1_5_large_398b" if kind == "mamba" else "rwkv6_3b"
+    cfg = t_smoke(arch, n_units=1)
+    assert any(b.kind == kind for b in cfg.pattern)
+    model = t_build(cfg)
+    params = model.init(seed=0, device="cpu")
+    assert any(f"/{kind}/" in p
+               for p, _ in tree_util.flatten_with_paths(params))
+    toks = torch.arange(1, 9).reshape(1, 8)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": toks}, 16)
+        assert torch.isfinite(logits).all()
+        state = "h" if kind == "mamba" else "S"
+        name = next(n for n, layer in cache["layers"].items()
+                    if state in layer)
+        before = cache["layers"][name][state].clone()
+        assert before.abs().sum() > 0
+        logits, cache = model.decode_step(params, toks[:, -1:], cache)
+    assert torch.isfinite(logits).all()
+    assert not torch.equal(cache["layers"][name][state], before)
