@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--units 4] [--seed 0]
                           [--stop-after kernels|training|configs|families|
-                                        mesh|all]
+                                        mesh|within|all]
 
 At the full width of qwen2.5-3b (d_model 2048, 16 q / 2 kv heads of 128,
 QKV bias, swiglu d_ff 11008, vocab 151936, tied embeddings, rope theta
@@ -134,6 +134,27 @@ failure with a non-zero exit:
      and S must launch under the mesh (rank 0's counts join the
      ``kernels`` line as ``launches_mesh``).  ``--stop-after mesh`` ends
      after phases 3, 3d and 3m;
+  3w. (run right after phase 3, while this process holds least of the
+     card) training inside a pod and sequence-parallel decode
+     (``within_path``), ranks as gloo processes sharing the card, two
+     then four: the within-pod step on qwen2.5-3b at 1 unit, 3 AdamW
+     steps of 4 x 64 tokens, on (1, 2, 1) (FSDP) and (2, 2, 1) (FSDP and
+     compressed pods), every rank's blocks and the losses bitwise a
+     one-process oracle (``within_pod.within_pod_in_one_process``), and
+     (1, 1, 2) (tensor parallelism) on an f32 copy, each rank's
+     parameters within 1e-4 of the mesh-free step's; then on an f32 copy
+     at ``--units`` with e0-e3 on the overlay, sequence-parallel decode
+     of phase 3's requests in waves of 4 on (data 1, model 2) with
+     ``cache_len`` 1024 and of one 4096-token prompt on (2, 2) with
+     ``cache_len`` 8192 (the ring cut over every axis), the first decode
+     step's logits within 1e-4 of the largest |logit| of the mesh-free
+     run and the greedy tokens equal up to a near-tie; reported: step
+     seconds, state bytes a rank beside the mesh-free state's, peak
+     memory a rank, the collectives of a profiled step, decode ms a step
+     beside the mesh-free run's and the combine's; kernel 1 must launch
+     under both decode meshes (rank 0's counts join the ``kernels`` line
+     as ``launches_within``).  ``--stop-after within`` ends after phases
+     3 and 3w;
   3s. phase 3d's 16 requests sampled at temperature 0.8, top_k 40 and 0
      (``sampled_path``, uids kept): graph chunks bitwise the same chunks
      run eagerly, requests placed alike bitwise at ``decode_chunk`` 0, 1
@@ -4776,6 +4797,22 @@ def mesh_tcfg(TrainConfig, GradCompressionConfig):
                            enabled=True, density=0.05))
 
 
+def load_experts(torch, setup: str, dev) -> list:
+    """The experts :func:`mesh_setup` handed over, on ``dev``."""
+    from repro_torch import tree as tree_util
+    from repro_torch.expert import Expert
+    saved = torch.load(os.path.join(setup, "experts.pt"),
+                       weights_only=False)
+    return [Expert.from_packed(
+        name, e["kind"], tree_util.unflatten_paths({
+            p: dataclasses.replace(pt, pos=pt.pos.to(dev),
+                                   neg=pt.neg.to(dev),
+                                   scale=pt.scale.to(dev))
+            for p, pt in e["packed"].items()}),
+        density=e["density"], alpha=e["alpha"])
+        for name, e in saved.items()]
+
+
 def mesh_child(spec_path: str) -> int:
     """One rank of a phase 3m run (``--mesh-child SPEC``): joins the
     world, builds the mesh, serves its cases (or runs the multi-pod
@@ -4785,9 +4822,8 @@ def mesh_child(spec_path: str) -> int:
     import torch
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch import api, tree as tree_util
+    from repro_torch import api
     from repro_torch.configs import get_config
-    from repro_torch.expert import Expert
     from repro_torch.launch.mesh import make_serve_mesh
     from repro_torch.models import build as build_model
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4802,22 +4838,16 @@ def mesh_child(spec_path: str) -> int:
     try:
         if spec["op"] == "train":
             res = mesh_train_child(torch, spec, dev)
+        elif spec["op"] == "within":
+            res = within_child(torch, spec, dev,
+                               load_experts(torch, spec["setup"], dev))
         else:
             mesh = make_serve_mesh(tuple(spec["shape"]), device="cuda")
             cfg = dataclasses.replace(get_config("qwen2_5_3b"),
                                       n_units=spec["units"])
             model = build_model(cfg)
             base = model.init(seed=spec["seed"], device=dev)
-            saved = torch.load(os.path.join(spec["setup"], "experts.pt"),
-                               weights_only=False)
-            experts = [Expert.from_packed(
-                name, e["kind"], tree_util.unflatten_paths({
-                    p: dataclasses.replace(pt, pos=pt.pos.to(dev),
-                                           neg=pt.neg.to(dev),
-                                           scale=pt.scale.to(dev))
-                    for p, pt in e["packed"].items()}),
-                density=e["density"], alpha=e["alpha"])
-                for name, e in saved.items()]
+            experts = load_experts(torch, spec["setup"], dev)
             with open(os.path.join(spec["setup"], "traffic.json")) as f:
                 traffic = json.load(f)
             res = [mesh_serve_case(torch, api, model, base, experts,
@@ -4841,6 +4871,9 @@ def run_ranks(torch, spec: dict, world: int, backend: str, devices: list,
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    if spec["op"] == "within":
+        # four ranks and this process share the card: less reserve
+        env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     kids, outs = [], []
     for r in range(world):
         path = os.path.join(tmp, f"{what}_rank{r}.json")
@@ -4863,9 +4896,9 @@ def run_ranks(torch, spec: dict, world: int, backend: str, devices: list,
             if k.poll() is None:
                 k.kill()
                 k.wait()
-    for r, (rc, err) in enumerate(errs):
-        check(rc == 0, f"phase 3m {what}: rank {r} ended with {rc}: "
-              f"{err[-3000:]}")
+    failed = [f"rank {r} ended with {rc}: {err[-3000:]}"
+              for r, (rc, err) in enumerate(errs) if rc != 0]
+    check(not failed, f"phase 3m {what}: " + "\n".join(failed))
     res = []
     for o in outs:
         with open(o) as f:
@@ -5083,6 +5116,434 @@ def mesh_path(torch, api, model, base, reg, experts, engine, reqs, rreqs,
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3w: training inside a pod and sequence-parallel decode, one process
+# a rank
+# ---------------------------------------------------------------------------
+
+# (name, mesh shape, f32, compression): the within-pod train steps; the
+# first two run on two ranks, the last on four
+WITHIN_TRAIN = (("fsdp", (1, 2, 1), False), ("tp", (1, 1, 2), True),
+                ("pods", (2, 2, 1), False))
+WITHIN_PARAM_TOL = 1e-4      # f32, (1, 1, 2) against the mesh-free step
+SP_LOGIT_TOL = 1e-4          # of the largest |logit|, f32
+# the sequence-parallel decode cases: phase 3's 8 requests in waves of 4
+# on (data 1, model 2); one 4096-token prompt on (2, 2) (the sequence over
+# every axis, the long-context layout)
+SP_CASES = {"waves": dict(shape=(1, 2), cache_len=1024, steps=16),
+            "long": dict(shape=(2, 2), cache_len=8192, steps=32,
+                         prompt=4096, expert="e1")}
+
+
+def state_nbytes(tree) -> int:
+    from repro_torch import tree as tree_util
+    return sum(t.numel() * t.element_size()
+               for t in tree_util.leaves(tree))
+
+
+def within_train_child(torch, name, shape, f32, spec, dev) -> dict:
+    """One rank of a within-pod train step (qwen2.5-3b at 1 unit, 3 AdamW
+    steps of 4 x 64 tokens): digests of its blocks, the losses, step
+    seconds, resident state bytes beside the mesh-free state's, the
+    collectives of one more profiled step; on an f32 mesh with "model",
+    the largest parameter difference from the mesh-free step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.gradient_compression import GradCompressionConfig
+    from repro_torch.data.pipeline import make_batch_for
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build as build_model
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.train import within_pod as wp
+    from repro_torch import tree as tree_util
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed.sharding import param_shardings, shard_tree
+    cfg = dataclasses.replace(get_config("qwen2_5_3b"), n_units=1,
+                              dtype="float32" if f32 else "bfloat16")
+    model = build_model(cfg)
+    mesh = make_production_mesh(shape=shape, device="cuda")
+    tcfg = mesh_tcfg(TrainConfig, GradCompressionConfig)
+    pods = shape[0] > 1
+    torch.cuda.reset_peak_memory_stats(dev)
+    free_bytes = state_nbytes({k: v for k, v in init_train_state(
+        model.init(device="meta"), tcfg, multi_pod=pods).items()
+        if k != "step"})
+    # the rank's blocks of the parameters, and zero slots and error
+    # feedback of their shapes: the cut of a fresh logical state
+    params = model.init(seed=spec["seed"], device=dev)
+    local = init_train_state(shard_tree(params, param_shardings(
+        params, cfg, mesh), mesh), tcfg, multi_pod=pods)
+    del params
+    free_all(torch)
+    step = make_train_step(model, tcfg, mesh=mesh)
+    torch.set_grad_enabled(True)
+    losses, secs = [], []
+    batches = [make_batch_for(cfg, s, device=dev, **MESH_TRAIN)
+               for s in range(MESH_TRAIN_STEPS)]
+    for batch in batches:
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        local, met = step(local, batch)
+        losses.append(float(met["loss"]))
+        secs.append(time.monotonic() - t0)
+    out = {"name": name, "losses": losses, "step_s": secs,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "state_bytes": state_nbytes({k: v for k, v in local.items()
+                                        if k != "step"}),
+           "mesh_free_state_bytes": free_bytes,
+           "digest": tree_digest(torch, local)}
+    if shape[2] > 1:
+        plain = make_train_step(model, tcfg)
+        st = init_train_state(model.init(seed=spec["seed"], device=dev),
+                              tcfg)
+        plain_losses = []
+        for batch in batches:
+            st, met = plain(st, batch)
+            plain_losses.append(float(met["loss"]))
+        want = wp.shard_train_state(st, cfg, mesh)
+        out["plain_losses"] = plain_losses
+        out["max_param_diff"] = max(
+            float((a - b).abs().max()) for a, b in zip(
+                tree_util.leaves(local["params"]),
+                tree_util.leaves(want["params"])))
+        del st, want
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(local, batches[0])
+        torch.cuda.synchronize(dev)
+    out["collectives"] = collectives_of(prof)
+    del local
+    torch.set_grad_enabled(False)
+    free_all(torch)
+    return out
+
+
+def sp_prompts(torch, traffic, case: str, vocab: int, dev) -> list:
+    """The waves of a decode case: [(expert names, tokens [B, T]
+    left-padded with 0, start [B])]."""
+    if case == "long":
+        g = torch.Generator().manual_seed(11)
+        c = SP_CASES["long"]
+        toks = torch.randint(2, vocab, (1, c["prompt"]), generator=g)
+        return [([c["expert"]], toks.to(dev),
+                 torch.zeros(1, dtype=torch.int32, device=dev))]
+    waves = []
+    for i in range(0, len(traffic), 4):
+        rows = traffic[i:i + 4]
+        T = max(len(p) for _, _, p, _ in rows)
+        toks = torch.zeros((len(rows), T), dtype=torch.int64)
+        for j, (_, _, p, _) in enumerate(rows):
+            toks[j, T - len(p):] = torch.as_tensor(p)
+        start = torch.as_tensor([T - len(p) for _, _, p, _ in rows],
+                                dtype=torch.int32)
+        waves.append(([e for _, e, _, _ in rows], toks.to(dev),
+                      start.to(dev)))
+    return waves
+
+
+def sp_decode(torch, model, params, reg, waves, case: str, dev, mesh=None,
+              keep_logits=False) -> dict:
+    """Greedy decode of each wave on the zero-merge overlay: the prefill,
+    then ``steps`` one-token steps.  With ``mesh`` (data, model) this rank
+    prefills its rows, keeps its sequence slice of every ring and decodes
+    through the sequence-parallel attention.  -> first decode step's
+    logits, tokens, step ms, the combine's collectives (one more profiled
+    step), kernel launches."""
+    from repro_torch.distributed.collectives import (make_sp_decode_attn,
+                                                     shard_decode_cache)
+    from repro_torch.distributed.sharding import decode_layout
+    from repro_torch.kernels import ops
+    from repro_torch.models.delta import SlotOverlay, plan_overlay
+    from torch.profiler import ProfilerActivity, profile
+    c = SP_CASES[case]
+    slots = SlotOverlay(plan_overlay(params, model.cfg), 8, dev)
+    out = {"first": [], "tokens": [], "step_ms": [], "logits": []}
+    ops.reset_launch_counts()
+    for names, toks, start in waves:
+        B = toks.shape[0]
+        if mesh is not None and decode_layout(mesh, B)[0] is not None:
+            check(mesh.shape[0] == 1, "phase 3w: rows cut over 'data'")
+        overlay = slots.place(names, reg.fetch_packed)
+        eid = torch.as_tensor([slots.slot_of(n) for n in names],
+                              dtype=torch.int32, device=dev)
+        attn = (make_sp_decode_attn(mesh, B, c["cache_len"])
+                if mesh is not None else None)
+        lg, cache = model.prefill(params, {"tokens": toks}, c["cache_len"],
+                                  delta=overlay, eid=eid, start=start)
+        if mesh is not None:
+            cache = shard_decode_cache(cache, mesh, B)
+        tok = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
+        toks_out, logits = [], []
+        for s in range(c["steps"]):
+            torch.cuda.synchronize(dev)
+            t0 = time.monotonic()
+            lg, cache = model.decode_step(params, tok, cache, delta=overlay,
+                                          eid=eid, decode_attn=attn)
+            tok = lg[:, 0].argmax(-1)[:, None].to(torch.int32)
+            torch.cuda.synchronize(dev)
+            out["step_ms"].append((time.monotonic() - t0) * 1e3)
+            toks_out.append(tok[:, 0].tolist())
+            if s == 0:
+                out["first"].append(lg[:, 0].float().cpu())
+            if keep_logits:
+                logits.append(lg[:, 0].float())
+        out["tokens"].append(toks_out)
+        out["logits"].append(logits)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.decode_step(params, tok, cache, delta=overlay, eid=eid,
+                              decode_attn=attn)
+            torch.cuda.synchronize(dev)
+        out.setdefault("combine", []).append(collectives_of(prof))
+        del cache
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def within_sp_child(torch, case, spec, dev, experts) -> tuple[dict, dict]:
+    """One rank of a sequence-parallel decode case on an f32 copy of the
+    4-unit model: (JSON results, tensors: the first step's logits)."""
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build as build_model
+    mesh = make_production_mesh(shape=SP_CASES[case]["shape"],
+                                device="cuda")
+    cfg = dataclasses.replace(get_config("qwen2_5_3b"),
+                              n_units=spec["units"])
+    model = build_model(cfg)
+    m32, b32 = f32_copy(torch, model, model.init(seed=spec["seed"],
+                                                 device=dev))
+    free_all(torch)
+    reg = api.registry(device=dev, device_cache_bytes=16 << 30,
+                       experts=experts)
+    with open(os.path.join(spec["setup"], "traffic.json")) as f:
+        traffic = json.load(f)["p3"]
+    res = sp_decode(torch, m32, b32, reg,
+                    sp_prompts(torch, traffic, case, cfg.vocab, dev), case,
+                    dev, mesh=mesh)
+    first = res.pop("first")
+    res.pop("logits")
+    reg.close()
+    del m32, b32, reg
+    free_all(torch)
+    return dict(res, case=case), {"first": first}
+
+
+def within_child(torch, spec, dev, experts) -> list:
+    """A phase 3w rank: its within-pod train steps and its
+    sequence-parallel decode case, in one world."""
+    res = []
+    for name, shape, f32 in WITHIN_TRAIN:
+        if shape[0] * shape[1] * shape[2] == spec["world"]:
+            res.append(within_train_child(torch, name, shape, f32, spec,
+                                          dev))
+    for case, c in SP_CASES.items():
+        if c["shape"][0] * c["shape"][1] == spec["world"]:
+            out, tensors = within_sp_child(torch, case, spec, dev, experts)
+            torch.save(tensors, spec["out"] + f".{case}.pt")
+            res.append(out)
+    return res
+
+
+def within_oracle(torch, seed, shape, dev) -> dict:
+    """The within-pod step's one-process version
+    (``within_pod.within_pod_in_one_process``) over the same steps:
+    digests of every rank's blocks and the losses."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.gradient_compression import GradCompressionConfig
+    from repro_torch.data.pipeline import make_batch_for
+    from repro_torch.models import build as build_model
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.train import within_pod as wp
+    cfg = dataclasses.replace(get_config("qwen2_5_3b"), n_units=1,
+                              dtype="bfloat16")
+    model = build_model(cfg)
+    tcfg = mesh_tcfg(TrainConfig, GradCompressionConfig)
+    state = init_train_state(model.init(seed=seed, device=dev), tcfg,
+                             multi_pod=shape[0] > 1)
+    sizes = dict(zip(("pod", "data", "model"), shape))
+    mesh = wp.AxisSizes(sizes)
+    states = {c: wp.shard_train_state(state, cfg, mesh, dict(zip(sizes, c)))
+              for c in wp._coords(sizes)}
+    del state
+    losses = []
+    with torch.enable_grad():
+        for s in range(MESH_TRAIN_STEPS):
+            batch = make_batch_for(cfg, s, device=dev, **MESH_TRAIN)
+            res = wp.within_pod_in_one_process(model, tcfg, shape, states,
+                                               batch)
+            states = {c: r[0] for c, r in res.items()}
+            losses.append(float(res[wp._coords(sizes)[0]][1]["loss"]))
+    out = {"digest": [tree_digest(torch, states[c])
+                      for c in wp._coords(sizes)], "losses": losses}
+    del states
+    free_all(torch)
+    return out
+
+
+def sp_gates(torch, what, got_first, got_tokens, ref) -> dict:
+    """A mesh run's first decode step's logits within SP_LOGIT_TOL of the
+    largest |logit| of the mesh-free run's, and its greedy tokens equal
+    up to a near-tie: where a row first parts, both tokens within about
+    one bf16 ulp of the top logit (2**-7 * |top|) of the mesh-free step
+    there."""
+    worst, ties = 0.0, []
+    for w, (first, want) in enumerate(zip(got_first, ref["first"])):
+        err = float((first - want).abs().max())
+        worst = max(worst, err / float(want.abs().max()))
+        for b in range(want.shape[0]):
+            a = [t[b] for t in got_tokens[w]]
+            e = [t[b] for t in ref["tokens"][w]]
+            if a == e:
+                continue
+            s = next(i for i, (x, y) in enumerate(zip(a, e)) if x != y)
+            lg = ref["logits"][w][s][b]
+            top = float(lg.max())
+            gaps = (top - float(lg[a[s]]), top - float(lg[e[s]]))
+            tol = 2.0 ** -7 * abs(top)
+            ties.append({"wave": w, "row": b, "step": s, "gaps": gaps,
+                         "tol": tol})
+            check(max(gaps) <= tol, f"phase 3w {what}: wave {w} row {b} "
+                  f"parts at step {s} beyond a near-tie: {gaps} > {tol}")
+    check(worst <= SP_LOGIT_TOL, f"phase 3w {what}: first decode step's "
+          f"logits off by {worst:.3e} of the largest |logit|")
+    return {"first_logits_rel_err": worst, "near_ties": ties}
+
+
+def within_phase(torch, api, model, base, reg, experts, reqs, args):
+    """Phase 3w with its log lines and timing -> (report, launches)."""
+    log("phase 3w: training inside a pod ((1, 2, 1) FSDP, (1, 1, 2) tensor "
+        "parallelism on an f32 copy, (2, 2, 1) with compressed pods) and "
+        "sequence-parallel decode ((1, 2) and (2, 2)), ranks as gloo "
+        "processes on the card")
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="_artifacts_", dir=ROOT) as tmp:
+        within, launches = within_path(torch, api, model, base, reg,
+                                       experts, reqs, args.seed, args.units,
+                                       tmp)
+    within["phase_s"] = time.monotonic() - t0
+    log(f"  launches on the decode runs (rank 0): "
+        f"{ {k: v for k, v in launches.items() if v} }; phase 3w took "
+        f"{within['phase_s']:.1f} s [{gpu_line()}]")
+    return within, launches
+
+
+def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
+                tmp) -> tuple[dict, dict]:
+    """Phase 3w: the within-pod train step ((1, 2, 1) FSDP and (1, 1, 2)
+    tensor parallelism on two ranks, (2, 2, 1) with compressed pods on
+    four) and sequence-parallel decode ((1, 2) and (2, 2)), every rank a
+    gloo process on the card.  Returns (report, kernel launches of rank 0
+    on the decode runs)."""
+    from repro_torch.kernels import ops
+    traffic = {"p3": traffic_rows(reqs)}
+    setup = mesh_setup(torch, experts, traffic, tmp)
+    spec = {"op": "within", "setup": setup, "seed": seed, "units": units}
+    out: dict = {"gpu": gpu_line()}
+    dev = base["embed"].device
+    # the mesh-free decode references on the f32 copy
+    m32, b32 = f32_copy(torch, model, base)
+    refs = {}
+    for case in SP_CASES:
+        t0 = time.monotonic()
+        refs[case] = sp_decode(torch, m32, b32, reg, sp_prompts(
+            torch, traffic["p3"], case, model.cfg.vocab, dev), case, dev,
+            keep_logits=True)
+        out[f"{case}_mesh_free"] = {
+            "decode_ms_per_step": sum(refs[case]["step_ms"][1:])
+            / max(len(refs[case]["step_ms"]) - 1, 1),
+            "seconds": time.monotonic() - t0}
+    del m32, b32
+    free_all(torch)
+    out["parent_gib"] = {"allocated": torch.cuda.memory_allocated() / 2**30,
+                         "reserved": torch.cuda.memory_reserved() / 2**30}
+    log(f"  this process holds {out['parent_gib']} GiB while the ranks run")
+    launches = {k: 0 for k in ops.launch_counts()}
+    for world in (2, 4):
+        t0 = time.monotonic()
+        res = run_ranks(torch, spec, world, "gloo", [0] * world, tmp,
+                        f"within{world}", timeout=900)
+        out[f"world{world}_s"] = time.monotonic() - t0
+        by = [{r["name"] if "name" in r else r["case"]: r for r in rank}
+              for rank in res]
+        for name, shape, f32 in WITHIN_TRAIN:
+            if name not in by[0]:
+                continue
+            ranks = [b[name] for b in by]
+            for r in ranks[1:]:
+                check(r["losses"] == ranks[0]["losses"], f"phase 3w train "
+                      f"{shape}: ranks' losses differ")
+            rep = {"shape": list(shape), "f32": f32,
+                   "losses": ranks[0]["losses"],
+                   "step_s": [r["step_s"] for r in ranks],
+                   "state_bytes": [r["state_bytes"] for r in ranks],
+                   "peak_gib": [r["peak_gib"] for r in ranks],
+                   "mesh_free_state_bytes": ranks[0]["mesh_free_state_bytes"],
+                   "collectives": [r["collectives"] for r in ranks]}
+            if shape[2] == 1:
+                oracle = within_oracle(torch, seed, shape, dev)
+                for r, got in enumerate(ranks):
+                    check(got["digest"] == oracle["digest"][r],
+                          f"phase 3w train {shape}: rank {r}'s blocks "
+                          "differ from the oracle's")
+                check(ranks[0]["losses"] == oracle["losses"],
+                      f"phase 3w train {shape}: losses "
+                      f"{ranks[0]['losses']} != {oracle['losses']}")
+                rep["bitwise_oracle"] = True
+            else:
+                worst = max(r["max_param_diff"] for r in ranks)
+                check(worst <= WITHIN_PARAM_TOL, f"phase 3w train {shape}: "
+                      f"parameters {worst:.3e} from the mesh-free step")
+                rep["max_param_diff"] = worst
+                rep["plain_losses"] = ranks[0]["plain_losses"]
+            out[f"train_{name}"] = rep
+            log(f"phase 3w train {shape}{' f32' if f32 else ''}: losses "
+                f"{rep['losses']}; step s rank 0 "
+                f"{[round(x, 3) for x in rep['step_s'][0]]}; state bytes a "
+                f"rank {rep['state_bytes']} vs mesh-free "
+                f"{rep['mesh_free_state_bytes']}; peak GiB a rank "
+                f"{[round(x, 2) for x in rep['peak_gib']]}; "
+                + ("bitwise the oracle" if "bitwise_oracle" in rep else
+                   f"max |param diff| {rep['max_param_diff']:.3e}")
+                + f" [{gpu_line()}]")
+        for case, c in SP_CASES.items():
+            if case not in by[0]:
+                continue
+            ranks = [b[case] for b in by]
+            for r in ranks[1:]:
+                check(r["tokens"] == ranks[0]["tokens"], f"phase 3w sp "
+                      f"{case}: ranks' tokens differ")
+            firsts = [torch.load(os.path.join(
+                tmp, f"within{world}_rank{r}.json.out.{case}.pt"))["first"]
+                for r in range(world)]
+            gates = sp_gates(torch, f"sp {case} {c['shape']}", firsts[0],
+                             ranks[0]["tokens"], refs[case])
+            for f in firsts[1:]:
+                check(all(torch.equal(a, b) for a, b in zip(f, firsts[0])),
+                      f"phase 3w sp {case}: ranks' logits differ")
+            name = "ternary_matmul_grouped"
+            check(ranks[0]["launches"][name] > 0,
+                  f"phase 3w sp {case}: {name} was not launched")
+            for k, n in ranks[0]["launches"].items():
+                launches[k] += n
+            steps = ranks[0]["step_ms"]
+            rep = dict(gates, shape=list(c["shape"]), ranks=world,
+                       cache_len=c["cache_len"], steps=c["steps"],
+                       decode_ms_per_step=sum(steps) / len(steps),
+                       combine=ranks[0]["combine"],
+                       launches=ranks[0]["launches"])
+            out[f"sp_{case}"] = rep
+            log(f"phase 3w sp decode {case} on {c['shape']} ({world} ranks, "
+                f"cache_len {c['cache_len']}): first-step logits within "
+                f"{gates['first_logits_rel_err']:.2e} of the largest, "
+                f"{len(gates['near_ties'])} near-ties; decode "
+                f"{rep['decode_ms_per_step']:.2f} ms a step (mesh-free "
+                f"{out[case + '_mesh_free']['decode_ms_per_step']:.2f}); "
+                f"combine {ranks[0]['combine'][0]} [{gpu_line()}]")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--units", type=int, default=4,
@@ -5091,14 +5552,14 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-child", help=argparse.SUPPRESS)
     ap.add_argument("--stop-after",
                     choices=("kernels", "training", "configs", "families",
-                             "mesh", "all"),
+                             "mesh", "within", "all"),
                     default="all", help="end after phase 2 (kernels: a "
                     "first build and correctness check of new kernels), "
                     "after phases 3 and 3t (training: a quick check of the "
                     "training path), or after phases 3 and 3e (configs: a "
                     "quick check of the full-width configurations; "
                     "families: after phases 3 and 3f; mesh: after phases "
-                    "3, 3d and 3m)")
+                    "3, 3d and 3m; within: after phases 3 and 3w)")
     args = ap.parse_args(argv)
     if args.mesh_child:
         return mesh_child(args.mesh_child)
@@ -5222,6 +5683,17 @@ def main(argv=None) -> int:
                        "launches": train_launches}, f, indent=1)
         log(json.dumps({k: v for k, v in trained.items()
                         if k != "grad_compression"}))
+        return 0
+
+    # phase 3w before the later phases' engines fill the card: its four
+    # ranks share it with this process
+    within, within_launches = within_phase(torch, api, model, base, reg,
+                                           experts, reqs, args)
+    if args.stop_after == "within":
+        with open(os.path.join(out_dir, "chip_smoke_within.json"),
+                  "w") as f:
+            json.dump({"gpu": gpu, "within": within,
+                       "launches": within_launches}, f, indent=1)
         return 0
 
     log("phase 3b: merge path (the same 8 requests by merge-on-swap, then "
@@ -5482,6 +5954,7 @@ def main(argv=None) -> int:
                     + refill_launches[name] + paged_launches[name]
                     + remote_launches[name] + durable_launches[name]
                     + train_launches[name] + mesh_launches[name]
+                    + within_launches[name]
                     + sum(c[name] for c in wide_launches.values())
                     + sum(c[name] for c in fam_launches.values())
                     + sum(c[name] for c in sampled_launches.values()))
@@ -5491,6 +5964,7 @@ def main(argv=None) -> int:
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                  "shape": r["shape"], "launches_mesh": mesh_launches[name],
+                 "launches_within": within_launches[name],
                  "launches_families": sum(c[name]
                                           for c in fam_launches.values())}
         if name == "unpack_add":
@@ -5537,7 +6011,7 @@ def main(argv=None) -> int:
                "wide_configs": wide, "families": fams,
                "sampled": sampled, "paged": paged,
                "remote": remote, "durable": durable, "trained": trained,
-               "mesh": mesh,
+               "mesh": mesh, "within": within,
                "params_m": n_params / 1e6}
     details.update(kernels=kernels, numbers=numbers, launches={
         "mixed_path": launches, "merge_path": merge_launches,
@@ -5545,6 +6019,7 @@ def main(argv=None) -> int:
         "artifact_path": art_launches, "refill_path": refill_launches,
         "paged_path": paged_launches, "remote_path": remote_launches,
         "durable_path": durable_launches, "training_path": train_launches,
+        "within_path": within_launches,
         "ternary_matvec_check": matvec_launches,
         **{f"{a}_path": c for a, c in wide_launches.items()},
         **{f"{a}_path": c for a, c in fam_launches.items()},

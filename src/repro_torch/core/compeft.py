@@ -83,6 +83,34 @@ def _round_f32(x: Fraction) -> np.float32:
                                      int(v.view(np.int32)) & 1))
 
 
+def _quantile_points(n_el: int, density: float):
+    """(lo, hi, hw, lw) of the reference's ``jnp.quantile`` at
+    ``1 - density`` over ``n_el`` values: the two sorted positions it
+    reads and their f32 weights (its index arithmetic is f32)."""
+    f32 = np.float32
+    q = f32(min(max(1.0 - density, 0.0), 1.0))
+    n = f32(n_el)
+    q = f32(q * (n - f32(1)))
+    low, high = np.floor(q), np.ceil(q)
+    hw = f32(q - low)
+    lw = f32(f32(1) - hw)
+    # clamped in f32 as JAX does, then to the last element as its gather
+    # clamps an index past the end (f32(n - 1) rounds up to n above 2**24)
+    last = n_el - 1
+    lo = min(int(np.clip(low, f32(0), n - f32(1))), last)
+    hi = min(int(np.clip(high, f32(0), n - f32(1))), last)
+    return lo, hi, hw, lw
+
+
+def _interpolate(v_lo: float, v_hi: float, hw, lw, device) -> torch.Tensor:
+    """XLA's ``fma(hi, w, round(lo * (1 - w)))``, in exact rationals."""
+    f32 = np.float32
+    v_lo, v_hi = f32(v_lo), f32(v_hi)
+    thr = _round_f32(Fraction(float(v_hi)) * Fraction(float(hw))
+                     + Fraction(float(f32(v_lo * lw))))
+    return torch.tensor(float(thr), dtype=torch.float32, device=device)
+
+
 def _topk_threshold(mag: torch.Tensor, density: float) -> torch.Tensor:
     """Magnitude cut-off such that ~density of the entries survive: the
     reference's ``jnp.quantile(mag, 1 - density)`` (linear method) as it
@@ -93,23 +121,9 @@ def _topk_threshold(mag: torch.Tensor, density: float) -> torch.Tensor:
     host reproduces in exact rationals.  (``torch.quantile`` interpolates
     otherwise and refuses inputs above 2**24 elements.)"""
     flat = mag.reshape(-1).to(torch.float32)
-    f32 = np.float32
-    q = f32(min(max(1.0 - density, 0.0), 1.0))
-    n = f32(flat.numel())
-    q = f32(q * (n - f32(1)))
-    low, high = np.floor(q), np.ceil(q)
-    hw = f32(q - low)
-    lw = f32(f32(1) - hw)
-    # clamped in f32 as JAX does, then to the last element as its gather
-    # clamps an index past the end (f32(n - 1) rounds up to n above 2**24)
-    last = flat.numel() - 1
-    lo = min(int(np.clip(low, f32(0), n - f32(1))), last)
-    hi = min(int(np.clip(high, f32(0), n - f32(1))), last)
+    lo, hi, hw, lw = _quantile_points(flat.numel(), density)
     vals = torch.sort(flat).values[[lo, hi]].tolist()
-    v_lo, v_hi = f32(vals[0]), f32(vals[1])
-    thr = _round_f32(Fraction(float(v_hi)) * Fraction(float(hw))
-                     + Fraction(float(f32(v_lo * lw))))
-    return torch.tensor(float(thr), dtype=torch.float32, device=flat.device)
+    return _interpolate(vals[0], vals[1], hw, lw, flat.device)
 
 
 def _scale_of(tau: torch.Tensor, mode: str) -> torch.Tensor:

@@ -15,6 +15,6 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             "device='cuda' was requested but torch finds no CUDA device; "
             "pass device='cpu' to run the plain PyTorch versions")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):    # meta: shapes only
         raise ValueError(f"unsupported device {device!r}")
     return dev

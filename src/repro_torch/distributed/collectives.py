@@ -21,9 +21,20 @@ card).  Each collective keeps the single-device arithmetic exact:
   (:func:`repro_torch.distributed.sharding.serve_row_shards`), padded to
   one row count per rank, and gathered back in row order.
 
-The sequence-parallel decode of the reference (``make_sp_decode_attn``,
-``flash_combine``, ``decode_attention_partial``) and its production
-vocab-parallel lookup come with the within-pod training mesh.
+The training and decode meshes' collectives follow
+(``repro/distributed/collectives.py``'s manual regions):
+
+* :func:`flash_combine`: flash partials (o, m, l) of every sequence
+  shard all-gathered and combined in rank order, so the result is the
+  same on every rank and does not depend on a backend's reduction order.
+* :func:`make_sp_decode_attn`: sequence-parallel decode attention over a
+  ring cut by :func:`repro_torch.distributed.sharding.cache_pspec`
+  (:func:`shard_decode_cache` cuts a prefilled one): the rank that owns
+  ring slot ``cur mod S`` writes the new K/V, every rank attends over its
+  slice, and the partials are combined.
+* :func:`make_vp_embed_lookup`: the vocab-parallel lookup as an autograd
+  function (a masked lookup in the rank's rows, taken from the owner on
+  every rank; the backward a scatter-add into the rank's rows).
 """
 
 from __future__ import annotations
@@ -33,10 +44,13 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import (serve_mesh_axes,
+from repro_torch.distributed.sharding import (batch_axes, cache_pspec,
+                                              decode_layout, local_shard,
+                                              serve_mesh_axes,
                                               serve_row_shards,
                                               serve_stack_shardings)
 from repro_torch.launch.mesh import mesh_axes
+from repro_torch.models.attention import NEG_INF
 
 
 def all_gather_dim0(t: torch.Tensor, group, n: int) -> torch.Tensor:
@@ -200,3 +214,221 @@ class ServeComm:
         total = -(-n_slots // n) * n
         per = total // n
         return total, me * per, (me + 1) * per
+
+
+# ---------------------------------------------------------------------------
+# Training and decode meshes: groups over axes, rank-order reductions
+# ---------------------------------------------------------------------------
+
+
+def axes_index(mesh, axes: tuple) -> int:
+    """This rank's block over ``axes``, row-major in the mesh's order."""
+    sizes = mesh_axes(mesh)
+    i = 0
+    for a in axes:
+        i = i * sizes[a] + mesh.get_local_rank(a)
+    return i
+
+
+def gather_axes(t: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
+    """[n, *t.shape]: ``t`` of every rank that differs from this one only
+    along ``axes`` (n the product of their sizes), row-major in the
+    mesh's axis order."""
+    sizes = mesh_axes(mesh)
+    axes = tuple(a for a in mesh_axes(mesh) if a in axes)
+    out = t.contiguous()[None]
+    for a in reversed(axes):          # the last axis varies fastest
+        if sizes[a] > 1:
+            out = all_gather_dim0(out, mesh.get_group(a), sizes[a])
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return out.reshape((n,) + tuple(t.shape))
+
+
+def ordered_sum(parts: torch.Tensor) -> torch.Tensor:
+    """parts [n, ...] summed over dim 0 one after another in f32, in
+    index (rank) order."""
+    acc = parts[0].to(torch.float32, copy=True)
+    for i in range(1, parts.shape[0]):
+        acc.add_(parts[i].to(torch.float32))
+    return acc
+
+
+def combine_partials(o: torch.Tensor, m: torch.Tensor,
+                     l: torch.Tensor) -> torch.Tensor:
+    """Every shard's flash partials, stacked in rank order (o [n, B, H,
+    D], m and l [n, B, H]), combined: the reference's ``flash_combine``
+    with its sums taken in rank order."""
+    m_g = m.amax(dim=0)
+    corr = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_g))
+    l_g = ordered_sum(l * corr)
+    o_g = ordered_sum(o * corr[..., None])
+    return o_g / torch.clamp_min(l_g[..., None], 1e-30)
+
+
+def flash_combine(parts, mesh, axes: tuple) -> torch.Tensor:
+    """Combine flash partials (o [B, H, D] unnormalised, m and l [B, H],
+    f32) across the ranks along ``axes``: one all-gather of the three,
+    then :func:`combine_partials` in rank order -> [B, H, D] f32, the
+    same bits on every rank."""
+    o, m, l = parts
+    B, H, D = o.shape
+    flat = torch.cat([o.reshape(-1), m.reshape(-1), l.reshape(-1)])
+    allp = gather_axes(flat, mesh, axes)
+    n = allp.shape[0]
+    return combine_partials(allp[:, :B * H * D].reshape(n, B, H, D),
+                            allp[:, B * H * D:B * H * (D + 1)].reshape(
+                                n, B, H),
+                            allp[:, B * H * (D + 1):].reshape(n, B, H))
+
+
+def batch_axes_of(mesh) -> tuple:
+    """The batch axes of a mesh inside a pod (without "pod")."""
+    return tuple(a for a in batch_axes(mesh) if a != "pod")
+
+
+def _seq_shards(mesh, global_batch: int) -> tuple[tuple, int]:
+    """(sequence axes, their product) of :func:`decode_layout`."""
+    _, seq_axes = decode_layout(mesh, global_batch)
+    sizes = mesh_axes(mesh)
+    n = 1
+    for a in seq_axes:
+        n *= sizes[a]
+    return seq_axes, n
+
+
+def make_sp_decode_attn(mesh, global_batch: int, cache_len: int):
+    """Sequence-parallel decode attention for
+    :func:`repro_torch.models.transformer.decode_step`'s ``decode_attn``.
+
+    Each rank holds the slice of every attention ring that
+    :func:`shard_decode_cache` cut for it (sequence over "model", or over
+    every axis when the batch does not divide).  The rank owning ring
+    slot ``cur mod S`` writes the new K/V and position into its slice, the
+    others rewrite what they hold, all on the device (no host read, so a
+    CUDA graph replays the step); each rank attends over its slice, and
+    the partials are combined.  A ring whose length (``cache_len``, or a
+    sliding window's) does not divide over the sequence shards is kept
+    whole on every rank and runs local attention, as in the reference."""
+    from repro_torch.models.attention import (cache_write, decode_attention,
+                                              decode_attention_partial)
+    seq_axes, n_seq = _seq_shards(mesh, global_batch)
+    me = axes_index(mesh, seq_axes)
+
+    def sp_attn(q, k_new, v_new, st, cur, attn_cfg, start=None):
+        S_total = (min(cache_len, attn_cfg.window) if attn_cfg.window
+                   else cache_len)
+        ck, cv, pos = st["k"], st["v"], st["pos"]
+        if S_total % n_seq or n_seq == 1:
+            cache_write(ck, cv, pos, k_new, v_new, cur)
+            return decode_attention(q, ck, cv, pos, cur, attn_cfg,
+                                    start=start).to(q.dtype)
+        S_loc = S_total // n_seq
+        if ck.shape[1] != S_loc:
+            raise ValueError(f"a ring slice of {ck.shape[1]} slots; the "
+                             f"layout cuts {S_total} into {n_seq}")
+        slot = torch.remainder(cur, S_total).to(torch.int64)
+        lo = me * S_loc
+        mine = (slot >= lo) & (slot < lo + S_loc)
+        lslot = torch.clamp(slot - lo, 0, S_loc - 1).reshape(1)
+        for buf, new in ((ck, k_new), (cv, v_new)):
+            old = buf.index_select(1, lslot)
+            buf.index_copy_(1, lslot, torch.where(mine, new.to(buf.dtype),
+                                                  old))
+        old = pos.index_select(0, lslot)
+        pos.index_copy_(0, lslot, torch.where(mine, cur.reshape(1).to(
+            pos.dtype), old))
+        parts = decode_attention_partial(q, ck, cv, pos, cur, attn_cfg,
+                                         start=start)
+        return flash_combine(parts, mesh, seq_axes)[:, None].to(q.dtype)
+
+    return sp_attn
+
+
+def shard_decode_cache(cache: dict, mesh, global_batch: int,
+                       rows_local: bool = True) -> dict:
+    """This rank's part of a prefilled dense decode cache under
+    :func:`repro_torch.distributed.sharding.cache_pspec`: every attention
+    ring's K/V and ``pos`` keep the rank's sequence slice (a ring that
+    does not divide stays whole, and runs local attention).  With
+    ``rows_local`` the cache already holds only the rank's batch rows
+    (each rank prefilled its rows), else they are cut too.  Recurrent
+    states and the cross-KV are kept as they are (their sequence-parallel
+    decode is not ported); ``cur`` and ``start`` are kept."""
+    _, n_seq = _seq_shards(mesh, global_batch)
+    layers = {}
+    for name, layer in cache["layers"].items():
+        out = {}
+        for leaf, t in layer.items():
+            if leaf not in ("k", "v", "pos"):
+                out[leaf] = t
+                continue
+            shape = list(t.shape)
+            spec = list(cache_pspec(f"layers/{name}/{leaf}", tuple(shape),
+                                    mesh, global_batch))
+            seq_dim = 2 if leaf != "pos" else 1
+            if leaf != "pos" and rows_local:
+                spec[1] = None
+            if t.shape[seq_dim] % n_seq:
+                spec[seq_dim] = None
+            out[leaf] = local_shard(t, tuple(spec), mesh)
+        layers[name] = out
+    return dict(cache, layers=layers)
+
+
+# ---------------------------------------------------------------------------
+# The vocab-parallel lookup
+# ---------------------------------------------------------------------------
+
+
+class _VocabLookup(torch.autograd.Function):
+    """rows of ``tokens`` from a vocab-cut table: forward the rank's own
+    ids looked up (zeros elsewhere), then every rank takes each element
+    from the rank owning its id; backward a scatter-add of the incoming
+    gradient into the rank's rows, for the ids it owns only."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, mesh, axis):
+        rows = table.shape[0]
+        lo = mesh.get_local_rank(axis) * rows
+        ids = tokens.to(torch.int64) - lo
+        mine = (ids >= 0) & (ids < rows)
+        x = table[ids.clamp(0, rows - 1)]
+        x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+        n = mesh_axes(mesh)[axis]
+        allx = all_gather_dim0(x.reshape((1,) + tuple(x.shape)),
+                               mesh.get_group(axis), n)
+        owner = torch.clamp(tokens.to(torch.int64) // rows, 0, n - 1)
+        out = torch.gather(allx, 0, owner[None, ..., None].expand(
+            (1,) + tuple(x.shape)))[0]
+        ctx.save_for_backward(ids, mine)
+        ctx.rows = rows
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, mine = ctx.saved_tensors
+        sel = mine.reshape(-1).nonzero()[:, 0]
+        grad = torch.zeros((ctx.rows, g.shape[-1]), dtype=g.dtype,
+                           device=g.device)
+        grad.index_put_((ids.reshape(-1)[sel],),
+                        g.reshape(-1, g.shape[-1])[sel], accumulate=True)
+        return grad, None, None, None
+
+
+def make_vp_embed_lookup(mesh):
+    """The vocab-parallel embedding lookup over "model": ``lookup(table,
+    tokens)`` with ``table`` this rank's contiguous block of vocab rows
+    (:func:`repro_torch.distributed.sharding.param_pspec` cuts ``embed``
+    so when the vocab divides).  Differentiable (:class:`_VocabLookup`).
+    A mesh whose "model" axis is 1 looks up plainly."""
+    n_model = mesh_axes(mesh).get("model", 1)
+
+    def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        if n_model == 1:
+            return table[tokens.to(torch.int64)]
+        return _VocabLookup.apply(table, tokens, mesh, "model")
+
+    return lookup

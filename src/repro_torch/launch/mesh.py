@@ -86,21 +86,41 @@ def make_serve_mesh(shape=(1, 1), device="cuda"):
                             mesh_dim_names=SERVE_AXES)
 
 
-def production_shape(world: int, *, multi_pod: bool = False) -> tuple:
-    """(pod, data, model) sizes for ``world`` ranks: every rank a pod when
+def production_shape(world: int, *, multi_pod: bool = False,
+                     shape=None) -> tuple:
+    """The training mesh's sizes for ``world`` ranks: ``shape`` when
+    given, explicit (pod, data, model) sizes (or (data, model), a mesh
+    without pods) whose product is ``world``; else every rank a pod when
     ``multi_pod`` (pure data parallelism across pods, the compressed
     step's axis), else one pod of ``world`` data ranks."""
+    if shape is not None:
+        shape = tuple(int(n) for n in shape)
+        if len(shape) not in (2, 3):
+            raise ValueError("a training mesh is (pod, data, model) or "
+                             f"(data, model), got {shape!r}")
+        n = 1
+        for v in shape:
+            n *= v
+        if n != world:
+            raise ValueError(f"training mesh {shape} needs {n} ranks but "
+                             f"the world has {world}")
+        return shape
     return (world, 1, 1) if multi_pod else (1, world, 1)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+def make_production_mesh(*, multi_pod: bool = False, device="cuda",
+                         shape=None):
     """Training mesh over the world: ("pod", "data", "model") sized by
-    :func:`production_shape`.  The reference's TPU pod sizes do not carry
-    over: the world's size decides."""
+    :func:`production_shape`, or ("data", "model") for a 2-d ``shape``
+    (the reference's single-pod axes, which its decode layouts use).  The
+    reference's TPU pod sizes do not carry over: the world's size
+    decides, or ``shape`` names the sizes (the dry run's H100 meshes are
+    (32, 8) and (2, 32, 8): "model" inside one 8-card NVLink host)."""
     from torch.distributed.device_mesh import init_device_mesh
     import torch.distributed as dist
     world = (dist.get_world_size() if dist.is_initialized()
              else _ensure_world(1, device))
-    return init_device_mesh(torch.device(device).type,
-                            production_shape(world, multi_pod=multi_pod),
-                            mesh_dim_names=TRAIN_AXES)
+    sizes = production_shape(world, multi_pod=multi_pod, shape=shape)
+    names = TRAIN_AXES if len(sizes) == 3 else TRAIN_AXES[1:]
+    return init_device_mesh(torch.device(device).type, sizes,
+                            mesh_dim_names=names)

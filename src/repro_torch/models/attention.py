@@ -105,6 +105,46 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, 1, Hq, D)
 
 
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, pos: torch.Tensor,
+                             cur: torch.Tensor, cfg,
+                             start: Optional[torch.Tensor] = None):
+    """One-token attention over a (possibly sequence-cut) ring slice, as
+    flash partials for a cross-shard combine.
+
+    ``q`` [B, 1, Hq, D] (rope applied); ``k_cache``/``v_cache`` [B, S_loc,
+    Hkv, D]; ``pos`` [S_loc] absolute positions (-1 empty); ``cur`` the
+    query's position (0-d, on the device); ``start`` ([B], optional) masks
+    slots below each row's first real token.  The reference's order: the
+    score einsum, the scale, the softcap, the mask, the masked max and its
+    safe value, exp, the mask again, the sum, the einsum with V.  Returns
+    (o [B, Hq, D] unnormalised, m [B, Hq], l [B, Hq]), all f32; a row
+    that sees no slot has m = NEG_INF and l = 0."""
+    B, _, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    G = Hq // Hkv
+    qf = q.reshape(B, Hkv, G, D).to(torch.float32)
+    s = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.to(torch.float32)) \
+        * (1.0 / np.sqrt(D))
+    s = softcap(s, cfg.attn_softcap)
+    valid = (pos >= 0) & (pos <= cur)
+    if cfg.window is not None:
+        valid &= pos > (cur - cfg.window)
+    if start is not None:
+        valid = valid[None, :] & (pos[None, :] >= start.to(pos.dtype)[:, None])
+        vmask = valid[:, None, None, :]
+    else:
+        vmask = valid[None, None, None, :]
+    s = torch.where(vmask, s, NEG_INF)
+    m = s.amax(dim=-1)
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    p = torch.exp(s - m_safe[..., None])
+    p = torch.where(vmask, p, 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.to(torch.float32))
+    return o.reshape(B, Hq, D), m.reshape(B, Hq), l.reshape(B, Hq)
+
+
 def finalize_partial(o: torch.Tensor, m: torch.Tensor,
                      l: torch.Tensor) -> torch.Tensor:
     """Normalise flash partials (o [B, Hq, D], m and l [B, Hq])."""

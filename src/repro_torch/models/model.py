@@ -45,11 +45,13 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
 class ModelApi:
     cfg: object
     init: Callable            # (seed=, device=) -> params
-    loss_and_logits: Callable   # (params, batch) -> (loss, (logits, aux))
-    forward: Callable         # (params, batch) -> (logits, aux)
+    loss_and_logits: Callable   # (params, batch, run=) -> (loss, (logits,
+    #                              aux)); run: a training mesh's PodRun
+    forward: Callable         # (params, batch, run=) -> (logits, aux)
     prefill: Callable         # (params, batch, cache_len, delta=, eid=, start=,
     #                            cache=, comm=, shard_rows=)
-    decode_step: Callable     # (params, token, cache, delta=, eid=, comm=)
+    decode_step: Callable     # (params, token, cache, delta=, eid=, comm=,
+    #                            decode_attn=)
     init_decode_cache: Callable   # (batch, cache_len, device=) -> cache
 
 
@@ -60,22 +62,25 @@ def build(cfg, remat_policy: str = "none") -> ModelApi:
     def init(seed: int = 0, device="cuda"):
         return tf.init_params(cfg, seed=seed, device=device)
 
-    def forward(params, batch):
+    def forward(params, batch, run=None):
+        if run is not None:
+            params = run.top(params)
         enc_out = (tf.encode(params, batch["frames"], cfg,
-                             remat_policy=remat_policy) if is_encdec
-                   else None)
+                             remat_policy=remat_policy, run=run)
+                   if is_encdec else None)
         mm = batch.get("mm_embeds") if is_vlm else None
         return tf.forward_train(params, batch["tokens"], cfg,
                                 remat_policy=remat_policy, mm_embeds=mm,
-                                enc_out=enc_out)
+                                enc_out=enc_out, run=run)
 
-    def loss_and_logits(params, batch):
-        logits, aux = forward(params, batch)
+    def loss_and_logits(params, batch, run=None):
+        logits, aux = forward(params, batch, run=run)
         targets = batch["targets"]
         if is_vlm:
             # the logits cover [mm prefix + text]: score the text only
             logits = logits[:, logits.shape[1] - targets.shape[1]:]
-        loss = cross_entropy(logits, targets) + AUX_LOSS_WEIGHT * aux
+        ce = cross_entropy if run is None else run.cross_entropy
+        loss = ce(logits, targets) + AUX_LOSS_WEIGHT * aux
         return loss, (logits, aux)
 
     def prefill_fn(params, batch, cache_len: int, delta=None, eid=None,
@@ -88,9 +93,10 @@ def build(cfg, remat_policy: str = "none") -> ModelApi:
                           comm=comm, shard_rows=shard_rows, mm_embeds=mm,
                           enc_out=enc_out)
 
-    def decode_fn(params, token, cache, delta=None, eid=None, comm=None):
+    def decode_fn(params, token, cache, delta=None, eid=None, comm=None,
+                  decode_attn=None):
         return tf.decode_step(params, token, cache, cfg, delta=delta,
-                              eid=eid, comm=comm)
+                              eid=eid, comm=comm, decode_attn=decode_attn)
 
     def init_cache(batch: int, cache_len: int, device="cuda"):
         return tf.init_decode_cache(cfg, batch, cache_len, device=device)

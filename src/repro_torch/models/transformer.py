@@ -87,14 +87,19 @@ def _norm_init(cfg, d: int, dt, dev, units: int = 0) -> torch.Tensor:
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
-    """Random parameters from a ``torch.Generator`` seeded with ``seed``.
+    """Random parameters from a ``torch.Generator`` seeded with ``seed``
+    (``device="meta"``: the shapes and dtypes alone).
 
     The draws differ from the JAX package's threefry init; tests that
     compare the packages carry the JAX weights over with
     :mod:`repro_torch.convert` instead."""
     from repro_torch.device import resolve_device
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    if torch.device(device).type == "meta":
+        # shapes and dtypes only (the placement rules, the dry run)
+        dev, gen = torch.device("meta"), None
+    else:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
     dt = dtype_of(cfg)
     d = cfg.d_model
     params: dict = {
@@ -269,21 +274,29 @@ def _norm(x, bp, name, cfg, dp, eid):
                     _gemma(cfg))
 
 
-def _apply_ffn(x, bp, b, cfg, dp, eid):
-    """x + the block's FFN output -> (x, aux)."""
+def _apply_ffn(x, bp, b, cfg, dp, eid, tp=None):
+    """x + the block's FFN output -> (x, aux).  ``tp`` (a tensor-parallel
+    block's hooks, d_ff cut over "model") enters the FFN and sums its
+    output over "model"."""
     if b.ffn is None:
         return x, 0.0
     h = _norm(x, bp, "ffn_norm", cfg, dp, eid)
+    if tp is not None:
+        h = tp.enter(h)
     out, aux = ffn_apply(h, bp["ffn"], b.ffn, dp=dp.get("ffn"), eid=eid)
+    if tp is not None:
+        out = tp.reduce(out)
     if b.sandwich_norm:
         out = _norm(out, bp, "post_ffn_norm", cfg, dp, eid)
     return x + out, aux
 
 
-def _attn_residual(x, o, bp, b, cfg, dp, eid):
+def _attn_residual(x, o, bp, b, cfg, dp, eid, tp=None):
     """x + the output projection of attention ``o`` (normalised first in
-    a sandwich block)."""
+    a sandwich block); ``tp`` sums a head-cut projection over "model"."""
     out = out_project(o, bp["attn"], dp=dp.get("attn"), eid=eid)
+    if tp is not None:
+        out = tp.reduce(out)
     if b.sandwich_norm:
         out = _norm(out, bp, "post_attn_norm", cfg, dp, eid)
     return x + out
@@ -327,11 +340,13 @@ def _rwkv_block(x, bp, b, cfg, state, chunk: int, impl: str):
 
 
 def _apply_block(x, bp, b, cfg, positions, dp, eid, kv_start,
-                 enc_out=None):
+                 enc_out=None, tp=None):
     """One block over a whole sequence from a zero state (training and
     prefill) -> (x, aux, this block's decode state: (k, v) of an
     attention block, the final recurrent state of a mamba or rwkv
-    block)."""
+    block).  ``tp`` (:class:`repro_torch.train.within_pod.TensorParallel`)
+    runs an attention block's local heads and its FFN's d_ff slice, and
+    sums each output over "model"."""
     if b.kind == "mamba":
         return _mamba_block(x, bp, b, cfg, None, mamba_mod.CHUNK)
     if b.kind == "rwkv":
@@ -339,19 +354,25 @@ def _apply_block(x, bp, b, cfg, positions, dp, eid, kv_start,
                             rwkv_mod.IMPL)
         return x, 0.0, st
     h = _norm(x, bp, "pre_norm", cfg, dp, eid)
+    heads = tp if tp is not None and tp.heads_cut(bp["attn"], b.attn) \
+        else None
+    if heads is not None:
+        h = heads.enter(h)
     q, k, v = qkv_project(h, bp["attn"], b.attn, positions, cfg.rms_eps,
                           dp=dp.get("attn"), eid=eid)
+    if heads is not None:
+        k, v = heads.local_kv(k, v, q.shape[2], b.attn)
     o = flash_attention(q, k, v, b.attn, causal=b.attn.causal,
                         kv_start=kv_start)
-    x = _attn_residual(x, o, bp, b, cfg, dp, eid)
+    x = _attn_residual(x, o, bp, b, cfg, dp, eid, tp=heads)
     if enc_out is not None and "cross" in bp:
         x = _cross_attend(x, bp, b, cfg, *_cross_kv(enc_out, bp["cross"]))
-    x, aux = _apply_ffn(x, bp, b, cfg, dp, eid)
+    x, aux = _apply_ffn(x, bp, b, cfg, dp, eid, tp=tp)
     return x, aux, (k, v)
 
 
 def _decode_block(x, bp, b, cfg, st, cur, dp, eid, start, paged=None,
-                  cross=None):
+                  cross=None, decode_attn=None):
     """One-token step through one block, its state written in place.
 
     ``st`` holds the block's decode state for this unit (views of the
@@ -360,8 +381,10 @@ def _decode_block(x, bp, b, cfg, st, cur, dp, eid, start, paged=None,
     block-table pools: rope positions are per row (``lens``), the write
     lands in each row's current block (the trash block for inactive rows)
     and attention gathers each row's blocks.  Without it the dense ring at
-    the shared position ``cur`` is used.  ``cross`` is this unit's cross
-    (k, v) of an enc-dec decoder."""
+    the shared position ``cur`` is used, written and attended by
+    ``decode_attn`` when given (the sequence-parallel attention of
+    :func:`repro_torch.distributed.collectives.make_sp_decode_attn`).
+    ``cross`` is this unit's cross (k, v) of an enc-dec decoder."""
     if b.kind in _STATE_NAMES:
         names = _STATE_NAMES[b.kind]
         old = tuple(st[n] for n in names)
@@ -387,6 +410,8 @@ def _decode_block(x, bp, b, cfg, st, cur, dp, eid, start, paged=None,
         o, m, l = paged_attention_partial(q, st["k"], st["v"], tables, lens,
                                           start, b.attn)
         o = finalize_partial(o, m, l)[:, None].to(q.dtype)
+    elif decode_attn is not None:
+        o = decode_attn(q, k, v, st, cur, b.attn, start)
     else:
         cache_write(st["k"], st["v"], st["pos"], k, v, cur)
         o = decode_attention(q, st["k"], st["v"], st["pos"], cur, b.attn,
@@ -403,12 +428,16 @@ def _decode_block(x, bp, b, cfg, st, cur, dp, eid, start, paged=None,
 
 
 def embed_tokens(params, tokens, cfg, delta=None, eid=None, comm=None,
-                 mm_embeds=None):
+                 mm_embeds=None, run=None):
     """Token embeddings [B, T, d]; a vision frontend's ``mm_embeds`` [B, n,
-    e] are projected by ``frontend_proj`` and prepended ([B, n + T, d])."""
+    e] are projected by ``frontend_proj`` and prepended ([B, n + T, d]).
+    ``run`` (a training mesh's) looks the tokens up in a vocab-cut
+    table."""
     tokens = tokens.to(torch.int64)
     table = params["embed"]
-    if comm is not None and table.shape[0] != cfg.vocab:
+    if run is not None:
+        x = run.embed(table, tokens)
+    elif comm is not None and table.shape[0] != cfg.vocab:
         x = comm.vocab_embed(table, tokens)
     else:
         x = table[tokens]
@@ -423,12 +452,14 @@ def embed_tokens(params, tokens, cfg, delta=None, eid=None, comm=None,
     return x
 
 
-def logits_of(params, x, cfg, delta=None, eid=None, comm=None):
+def logits_of(params, x, cfg, delta=None, eid=None, comm=None, run=None):
     """Logits of the final hidden ``x``; a vocab-sharded head gives this
     rank's vocab slice (its expert delta is computed whole and cut)."""
     delta = delta or {}
     x = rms_norm(x, eff_param(params["final_norm"], delta.get("final_norm"),
                               eid), cfg.rms_eps, _gemma(cfg))
+    if run is not None:
+        x = run.head_input(x)
     B, T, d = x.shape
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = (x.reshape(B * T, d) @ head).reshape(B, T, -1)
@@ -457,28 +488,40 @@ def _units_of(blocks: dict, n_units: int) -> list[dict]:
             for u in range(n_units)]
 
 
-def _train_unit(x, unit_params, cfg, pattern, positions, enc_out):
-    """One unit's blocks -> (x, the unit's aux: 0.0 without an MoE)."""
+def _train_unit(x, unit_params, cfg, pattern, positions, enc_out, run=None,
+                stack="blocks"):
+    """One unit's blocks -> (x, the unit's aux: 0.0 without an MoE).
+    ``run`` (a training mesh's) first gathers the unit's leaves from this
+    rank's blocks, and brings its tensor-parallel hooks."""
+    tp = None
+    if run is not None:
+        unit_params = run.unit(stack, unit_params)
+        tp = run.tp
     aux = 0.0
     for i, b in enumerate(pattern):
         x, a, _ = _apply_block(x, unit_params[f"block{i}"], b, cfg,
-                               positions, {}, None, None, enc_out=enc_out)
+                               positions, {}, None, None, enc_out=enc_out,
+                               tp=tp)
         aux = aux + a
     return x, aux
 
 
 def _run_units(x, blocks, cfg, pattern, n_units: int, remat_policy: str,
-               enc_out=None):
-    """Every unit of a stack over the whole sequence -> (x, aux f32)."""
+               enc_out=None, run=None, stack="blocks"):
+    """Every unit of a stack over the whole sequence -> (x, aux f32).
+    Under a training mesh's ``run`` every unit is recomputed in the
+    backward pass, so the leaves it gathered are dropped after its
+    forward (FSDP)."""
     if remat_policy not in ("none", "unit"):
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for unit_params in _units_of(blocks, n_units):
-        if remat_policy == "unit":
+        if remat_policy == "unit" or run is not None:
             from torch.utils.checkpoint import checkpoint
             x, a = checkpoint(_train_unit, x, unit_params, cfg, pattern,
-                              positions, enc_out, use_reentrant=False)
+                              positions, enc_out, run, stack,
+                              use_reentrant=False)
         else:
             x, a = _train_unit(x, unit_params, cfg, pattern, positions,
                                enc_out)
@@ -488,7 +531,7 @@ def _run_units(x, blocks, cfg, pattern, n_units: int, remat_policy: str,
 
 
 def forward_train(params, tokens, cfg, remat_policy: str = "none",
-                  mm_embeds=None, enc_out=None):
+                  mm_embeds=None, enc_out=None, run=None):
     """tokens [B, T] -> (logits [B, T(+mm), V], aux_loss): the whole
     sequence through every unit, differentiable by autograd (the
     reference's ``forward_train`` over ``_apply_block_train``).  ``aux``
@@ -502,21 +545,27 @@ def forward_train(params, tokens, cfg, remat_policy: str = "none",
     backward pass (``torch.utils.checkpoint``), the counterpart of the
     reference's ``jax.checkpoint`` of its unit scan body; ``"none"``
     keeps them.  Either way the chunked mamba and rwkv scans checkpoint
-    each chunk step, as the reference does."""
-    x = embed_tokens(params, tokens, cfg, mm_embeds=mm_embeds)
+    each chunk step, as the reference does.
+
+    ``run`` (:class:`repro_torch.train.within_pod.PodRun`) runs the
+    forward on this rank's blocks of a training mesh: ``params`` holds
+    the top-level leaves as the run gathered them and the stacked block
+    leaves as the rank's blocks, gathered unit by unit."""
+    x = embed_tokens(params, tokens, cfg, mm_embeds=mm_embeds, run=run)
     x, aux = _run_units(x, params["blocks"], cfg, cfg.pattern, cfg.n_units,
-                        remat_policy, enc_out=enc_out)
-    return logits_of(params, x, cfg), aux
+                        remat_policy, enc_out=enc_out, run=run)
+    return logits_of(params, x, cfg, run=run), aux
 
 
-def encode(params, frames, cfg, remat_policy: str = "none"):
+def encode(params, frames, cfg, remat_policy: str = "none", run=None):
     """The encoder of an enc-dec model: stub frames [B, S_src, e] (the
     modality frontend's precomputed embeddings) projected by
     ``frontend_proj``, then every encoder unit (non-causal attention),
     then ``enc_final_norm`` -> [B, S_src, d]."""
     x = _proj(frames.to(dtype_of(cfg)), params["frontend_proj"])
     x, _ = _run_units(x, params["enc_blocks"], cfg, cfg.enc_pattern,
-                      cfg.enc_n_units, remat_policy)
+                      cfg.enc_n_units, remat_policy, run=run,
+                      stack="enc_blocks")
     return rms_norm(x, params["enc_final_norm"], cfg.rms_eps)
 
 
@@ -586,7 +635,7 @@ def _init_unit_states(cfg, b, batch: int, dtype, device) -> dict:
 
 
 def decode_step(params, token, cache, cfg, delta=None, eid=None,
-                comm=None):
+                comm=None, decode_attn=None):
     """token [B, 1] -> (logits [B, 1, V], cache).
 
     Dense ring: ``cache["cur"]`` is the position of this token, a 0-d
@@ -597,7 +646,11 @@ def decode_step(params, token, cache, cfg, delta=None, eid=None,
     value, so a CUDA graph can replay it; the cache tensors (recurrent
     states included) are written in place, and the cross-KV is read.
     With ``comm`` on a "model" axis the cache holds this rank's rows
-    only, and the logits are this rank's vocab slice.
+    only, and the logits are this rank's vocab slice.  ``decode_attn``
+    (the reference's ``Runtime.decode_attn``) takes each attention
+    block's dense-ring write and attention: ``decode_attn(q, k, v, st,
+    cur, attn_cfg, start) -> o [B, 1, Hq, D]`` in q's dtype, ``st`` the
+    unit's {"k", "v", "pos"} views, written in place.
     """
     x = embed_tokens(params, token, cfg, delta=delta, eid=eid, comm=comm)
     x = x.to(dtype_of(cfg))
@@ -625,7 +678,7 @@ def decode_step(params, token, cache, cfg, delta=None, eid=None,
                   if cross is not None and b.kind == "attn" else None)
             x = _decode_block(x, unit_params[name], b, cfg, st, cur,
                               unit_delta.get(name) or {}, eid, start,
-                              paged=pg, cross=ck)
+                              paged=pg, cross=ck, decode_attn=decode_attn)
     if lay is not None:
         x = comm.gather_rows(x, lay)
     logits = logits_of(params, x, cfg, delta=delta, eid=eid_all, comm=comm)

@@ -44,21 +44,52 @@ def init(params: PyTree, cfg: AdafactorConfig) -> PyTree:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def _means(shards, spec):
+    """(mean over one dim, mean over the whole leaf) of this rank's block
+    of a leaf placed by ``spec``: a dim cut over the mesh sums each
+    block's partial in rank order (:class:`repro_torch.train.within_pod.
+    Shards`) and divides by the logical length; an uncut dim, or no
+    mesh, takes ``torch.mean``."""
+    def mean_dim(x, dim, entry, keepdim=False):
+        n = 1 if shards is None else shards.blocks(entry)
+        if n == 1:
+            return torch.mean(x, dim=dim, keepdim=keepdim)
+        part = torch.sum(x, dim=dim, keepdim=keepdim)
+        return shards.total(part, (entry,)) / (x.shape[dim] * n)
+
+    def mean_all(x):
+        if shards is None:
+            return torch.mean(x)
+        n = 1
+        for entry in spec:
+            n *= shards.blocks(entry)
+        if n == 1:
+            return torch.mean(x)
+        return shards.total(torch.sum(x), spec) / (x.numel() * n)
+    return mean_dim, mean_all
+
+
 @torch.no_grad()
 def update(grads: PyTree, state: PyTree, params: PyTree, lr: torch.Tensor,
-           cfg: AdafactorConfig):
-    """-> (new_params, new_state, metrics)."""
+           cfg: AdafactorConfig, shards=None, specs=None):
+    """-> (new_params, new_state, metrics).  ``shards``/``specs``: the
+    leaves are this rank's blocks of a training mesh; the factored means
+    and the update's RMS then reduce across the blocks in rank order
+    (:func:`_means`)."""
     f32 = torch.float32
     count = state["count"] + 1
     beta2 = 1.0 - torch.pow(count.to(f32), -cfg.decay)
 
-    def upd(g, slot, p):
+    def upd(g, slot, p, spec):
+        mean_dim, mean_all = _means(shards, spec)
         g32 = g.to(f32)
         g2 = g32 * g32 + cfg.eps
         if "vr" in slot:
-            vr = beta2 * slot["vr"] + (1 - beta2) * torch.mean(g2, dim=-1)
-            vc = beta2 * slot["vc"] + (1 - beta2) * torch.mean(g2, dim=-2)
-            denom = torch.clamp_min(torch.mean(vr, dim=-1, keepdim=True),
+            vr = beta2 * slot["vr"] + (1 - beta2) * mean_dim(g2, -1,
+                                                             spec[-1])
+            vc = beta2 * slot["vc"] + (1 - beta2) * mean_dim(g2, -2,
+                                                             spec[-2])
+            denom = torch.clamp_min(mean_dim(vr, -1, spec[-2], keepdim=True),
                                     cfg.eps)
             v_hat = (vr[..., None] * vc[..., None, :]) / denom[..., None]
             new_slot = {"vr": vr, "vc": vc}
@@ -66,14 +97,16 @@ def update(grads: PyTree, state: PyTree, params: PyTree, lr: torch.Tensor,
             v_hat = beta2 * slot["v"] + (1 - beta2) * g2
             new_slot = {"v": v_hat}
         u = g32 / torch.sqrt(v_hat + cfg.eps)
-        rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
+        rms_u = torch.sqrt(mean_all(u * u) + 1e-30)
         u = u / torch.clamp_min(rms_u / cfg.clip_threshold, 1.0)
         newp = p.to(f32) - lr * u
         if cfg.weight_decay and p.ndim >= 2:
             newp = newp - lr * cfg.weight_decay * p.to(f32)
         return newp.to(p.dtype), new_slot
 
-    out = tree_util.tree_map(upd, grads, state["slots"], params)
+    if specs is None:
+        specs = tree_util.tree_map(lambda g: (None,) * g.dim(), grads)
+    out = tree_util.tree_map(upd, grads, state["slots"], params, specs)
     new_params = tree_util.tree_map(lambda o: o[0], out)
     new_slots = tree_util.tree_map(lambda o: o[1], out)
     return new_params, {"slots": new_slots, "count": count}, {}

@@ -16,9 +16,10 @@ global batch on dim 0, computes its gradients, and the gradients cross
 pods as packed ternary planes with error feedback
 (:func:`repro_torch.core.gradient_compression.compressed_cross_pod_mean`,
 each rank with its own error state).  The pods' losses are averaged in
-rank order, and every rank applies the same update.  Data and model
-parallelism inside a pod (the reference's training sharding rules) are
-not ported: a mesh with a "data" or "model" axis above 1 raises.
+rank order, and every rank applies the same update.  A mesh with a
+"data" or "model" axis above 1 runs the step inside a pod on the
+reference's training rules, each rank on its blocks of the state
+(:mod:`repro_torch.train.within_pod`).
 """
 
 from __future__ import annotations
@@ -109,13 +110,16 @@ def value_and_grad(loss_fn: Callable, params: PyTree, *args):
     return loss.detach(), tree_util.unflatten_like(req, grads)
 
 
-def _microbatch_grads(api, params, batch, n_micro: int):
+def _microbatch_grads(api, params, batch, n_micro: int, run=None):
     """Accumulated (mean) grads + loss over n_micro sequential
-    microbatches (the sums in f32)."""
+    microbatches (the sums in f32).  ``run``: a training mesh's
+    (:class:`repro_torch.train.within_pod.PodRun`); ``params`` are then
+    this rank's blocks, and so are the gradients."""
 
     def loss_fn(p, mb):
-        loss, _ = api.loss_and_logits(p, mb)
-        return loss
+        if run is None:
+            return api.loss_and_logits(p, mb)[0]
+        return api.loss_and_logits(p, mb, run=run)[0]
 
     if n_micro == 1:
         return value_and_grad(loss_fn, params, batch)
@@ -138,14 +142,17 @@ def _microbatch_grads(api, params, batch, n_micro: int):
     return lsum * inv, grads
 
 
-def _apply_optimizer(state, grads, tcfg: TrainConfig):
+def _apply_optimizer(state, grads, tcfg: TrainConfig, shards=None,
+                     specs=None):
     lr = _lr(state["step"], tcfg)
     if tcfg.optimizer == "adamw":
         new_params, new_opt, metrics = adamw.update(
-            grads, state["opt"], state["params"], lr, tcfg.adamw)
+            grads, state["opt"], state["params"], lr, tcfg.adamw,
+            shards=shards, specs=specs)
     else:
         new_params, new_opt, metrics = adafactor.update(
-            grads, state["opt"], state["params"], lr, tcfg.adafactor)
+            grads, state["opt"], state["params"], lr, tcfg.adafactor,
+            shards=shards, specs=specs)
     out = dict(state)
     out["params"] = new_params
     out["opt"] = new_opt
@@ -154,18 +161,10 @@ def _apply_optimizer(state, grads, tcfg: TrainConfig):
     return out, metrics
 
 
-def _has_pod_axis(mesh) -> bool:
-    """Whether a training mesh has a "pod" axis; its other axes must be
-    1."""
+def _inside_pod(mesh) -> bool:
+    """Whether a training mesh has a "data" or "model" axis above 1."""
     from repro_torch.launch.mesh import mesh_axes
-    axes = mesh_axes(mesh)
-    inner = {a: n for a, n in axes.items() if a != "pod" and n > 1}
-    if inner:
-        raise NotImplementedError(
-            f"training mesh axes {inner}: data and model parallelism inside "
-            "a pod (the training sharding rules) come with ROADMAP queue 1, "
-            "item 13; the port's multi-pod step runs one rank per pod")
-    return "pod" in axes
+    return any(n > 1 for a, n in mesh_axes(mesh).items() if a != "pod")
 
 
 def pod_mean(values: list) -> torch.Tensor:
@@ -239,8 +238,16 @@ def make_train_step(api, tcfg: TrainConfig, mesh=None) -> Callable:
     :func:`repro_torch.launch.mesh.make_production_mesh`, one rank a pod)
     and compression enabled gives the compressed multi-pod step: every
     rank calls it with the same global batch and its own ``state`` (its
-    ``"ef"`` is the rank's error feedback)."""
-    use_comp = (mesh is not None and _has_pod_axis(mesh)
+    ``"ef"`` is the rank's error feedback).  A mesh with a "data" or
+    "model" axis above 1 gives the step inside a pod
+    (:func:`repro_torch.train.within_pod.make_within_pod_step`): every
+    rank calls it with the global batch and its blocks of the state
+    (:func:`repro_torch.train.within_pod.shard_train_state`)."""
+    if mesh is not None and _inside_pod(mesh):
+        from repro_torch.train.within_pod import make_within_pod_step
+        return make_within_pod_step(api, tcfg, mesh)
+    from repro_torch.launch.mesh import mesh_axes
+    use_comp = (mesh is not None and "pod" in mesh_axes(mesh)
                 and tcfg.grad_compression.enabled)
 
     def plain_step(state, batch):

@@ -65,7 +65,9 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.core.baselines", "repro_torch.configs.rwkv6_3b",
             "repro_torch.configs.jamba_1_5_large_398b",
             "repro_torch.configs.seamless_m4t_medium",
-            "repro_torch.configs.internvl2_1b"} <= set(mods)
+            "repro_torch.configs.internvl2_1b",
+            "repro_torch.train.within_pod",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if "
@@ -237,3 +239,19 @@ def test_mesh_modules_export_the_serving_mesh():
     assert {"make_serve_mesh", "make_production_mesh",
             "mesh_axes"} <= set(dir(mesh))
     assert {"ShardedBlockAllocator", "shard_pool_blocks"} <= set(paged_all)
+
+
+def test_training_mesh_modules_export_the_rules():
+    """The training rules, the sequence-parallel decode and the step
+    inside a pod are exported."""
+    import repro_torch.distributed as d
+    from repro_torch.train import within_pod
+    assert {"param_pspec", "train_state_shardings", "cache_pspec",
+            "decode_layout", "batch_axes", "batch_shardings",
+            "serve_cache_shardings", "heads_shardable", "shard_tree",
+            "assemble", "flash_combine", "make_sp_decode_attn",
+            "shard_decode_cache", "make_vp_embed_lookup",
+            "batch_axes_of"} <= set(d.__all__)
+    assert all(hasattr(d, n) for n in d.__all__)
+    assert {"make_within_pod_step", "within_pod_in_one_process",
+            "shard_train_state", "PodRun"} <= set(dir(within_pod))

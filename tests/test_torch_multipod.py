@@ -5,14 +5,15 @@ planes each pod gathered and the loss must be bitwise a one-process
 oracle (``train_step.pods_in_one_process``) that computes each pod's
 gradients on its slice in turn and runs the same compression and
 rank-order mean.  A global batch that does not divide over the pods
-raises.  A mesh with a "data" or "model" axis above 1 raises, naming the
-ROADMAP item."""
+raises.  Meshes with a "data" or "model" axis above 1 ((1, 2, 1),
+(2, 1, 2), (1, 1, 2)) run the step inside a pod on the rank's blocks of
+the state (``tests/test_torch_within_pod.py`` holds it to its oracle and
+to the mesh-free step)."""
 
 import json
 import os
 import subprocess
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -62,6 +63,19 @@ rows = int(sys.argv[6])
 torch.set_num_threads(1)
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                         rank=rank, world_size=world)
+if len(sys.argv) > 7:       # a mesh inside a pod: one step on the blocks
+    from repro_torch.train import within_pod as wp
+    shape = tuple(json.loads(sys.argv[7]))
+    mesh = make_production_mesh(shape=shape, device="cpu")
+    api, params = t.model_and_params()
+    tcfg = t._tcfg()
+    state = wp.shard_train_state(
+        ts.init_train_state(params, tcfg, multi_pod=shape[0] > 1), api.cfg,
+        mesh)
+    state, m = ts.make_train_step(api, tcfg, mesh=mesh)(state, t._batch(0))
+    torch.save({"state": state, "loss": float(m["loss"])}, out)
+    dist.destroy_process_group()
+    sys.exit(0)
 planes = []
 inner = gc.compress_leaf_for_allgather
 def record(g, e, cfg):
@@ -124,8 +138,10 @@ def _equal_trees(a, b):
         assert torch.equal(fa[k], fb[k]), k
 
 
-def _run_pods(n_pods: int, tmp_path, rows: int = GLOBAL_BATCH) -> list:
-    """Run ``CHILD`` on ``n_pods`` gloo ranks -> their output files."""
+def _run_pods(n_pods: int, tmp_path, rows: int = GLOBAL_BATCH,
+              shape=None) -> list:
+    """Run ``CHILD`` on ``n_pods`` gloo ranks (a mesh ``shape`` of as
+    many ranks when given) -> their output files."""
     from mesh_cases import free_port
     port = free_port()
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
@@ -133,7 +149,9 @@ def _run_pods(n_pods: int, tmp_path, rows: int = GLOBAL_BATCH) -> list:
     outs = [str(tmp_path / f"pod{r}.out") for r in range(n_pods)]
     kids = [subprocess.Popen(
         [sys.executable, "-c", CHILD, str(r), str(n_pods), str(port),
-         outs[r], here, str(rows)], env=env, stdout=subprocess.PIPE,
+         outs[r], here, str(rows)] + ([json.dumps(list(shape))] if shape
+                                      else []), env=env,
+        stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(n_pods)]
     try:
         for p in kids:
@@ -179,12 +197,28 @@ def test_a_batch_that_does_not_divide_over_the_pods_raises(tmp_path):
 
 
 @pytest.mark.parametrize("shape", [(1, 2, 1), (2, 1, 2), (1, 1, 2)])
-def test_inner_pod_axes_raise_naming_the_roadmap_item(shape):
-    mesh = types.SimpleNamespace(mesh_dim_names=("pod", "data", "model"),
-                                 shape=shape)
-    api, _ = model_and_params()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ts.make_train_step(api, _tcfg(), mesh=mesh)
+def test_inner_pod_axes_run_the_step_on_the_blocks(shape, tmp_path):
+    """One step on each mesh: every rank reports the same finite loss
+    and holds its blocks of the state as ``train_state_shardings``
+    places them."""
+    from repro_torch.train import within_pod as wp
+    n = int(np.prod(shape))
+    outs = _run_pods(n, tmp_path, shape=shape)
+    api, params = model_and_params()
+    state = ts.init_train_state(params, _tcfg(), multi_pod=shape[0] > 1)
+    sizes = wp.AxisSizes(dict(zip(("pod", "data", "model"), shape)))
+    coords = wp._coords(sizes.shape)
+    got = [torch.load(o) for o in outs]
+    assert np.isfinite(got[0]["loss"])
+    for r, res in enumerate(got):
+        assert res["loss"] == got[0]["loss"]
+        want = wp.shard_train_state(state, api.cfg, sizes,
+                                    dict(zip(sizes.shape, coords[r])))
+        for (p, a), (_, b) in zip(
+                tree_util.flatten_with_paths(res["state"]),
+                tree_util.flatten_with_paths(want)):
+            assert a.shape == b.shape and a.dtype == b.dtype, p
+            assert torch.isfinite(a.float()).all(), p
 
 
 def test_pod_mean_sums_in_rank_order():

@@ -369,14 +369,16 @@ def test_train_state_checkpoint_crosses_packages(tmp_path, opt, writer):
 
 def test_pod_mesh_step_names_its_item():
     """The multi-pod step runs one rank a pod (tests/test_torch_multipod.py
-    holds it over gloo); a "data" axis inside the pod is not ported and
-    names its ROADMAP item."""
+    holds it over gloo); a "data" axis inside the pod gives the step
+    inside a pod (ROADMAP item 13; tests/test_torch_within_pod.py holds
+    it), which reads the mesh's groups only when it runs."""
     class PodMesh:
         mesh_dim_names = ("pod", "data")
         shape = (2, 2)
     _, tt, _ = _loop_setup()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make_train_step(t_build(t_smoke("qwen2_5_3b")), tt, mesh=PodMesh())
+    step = make_train_step(t_build(t_smoke("qwen2_5_3b")), tt,
+                           mesh=PodMesh())
+    assert step.__module__ == "repro_torch.train.within_pod"
 
     class OnePerPod:
         mesh_dim_names = ("pod", "data")
