@@ -5127,11 +5127,14 @@ WITHIN_TRAIN = (("fsdp", (1, 2, 1), False), ("tp", (1, 1, 2), True),
                 ("pods", (2, 2, 1), False))
 WITHIN_PARAM_TOL = 1e-4      # f32, (1, 1, 2) against the mesh-free step
 SP_LOGIT_TOL = 1e-4          # of the largest |logit|, f32
-# the sequence-parallel decode cases: phase 3's 8 requests in waves of 4
-# on (data 1, model 2); one 4096-token prompt on (2, 2) (the sequence over
-# every axis, the long-context layout)
-SP_CASES = {"waves": dict(shape=(1, 2), cache_len=1024, steps=16),
-            "long": dict(shape=(2, 2), cache_len=8192, steps=32,
+# the sequence-parallel decode cases: phase 3's 8 requests (16 to 64
+# prompt tokens) in waves of 4 on (data 1, model 2); one 4096-token prompt
+# on (2, 2) (the sequence over every axis, the long-context layout).  Each
+# ring is short enough that every rank's slice holds positions the rows
+# attend to: the waves' 64 slots (32 a rank) wrap in their 16 steps, and
+# the long prompt reaches the last rank's 1152 slots (3456 onwards).
+SP_CASES = {"waves": dict(shape=(1, 2), cache_len=64, steps=16),
+            "long": dict(shape=(2, 2), cache_len=4608, steps=32,
                          prompt=4096, expert="e1")}
 
 
@@ -5248,7 +5251,9 @@ def sp_decode(torch, model, params, reg, waves, case: str, dev, mesh=None,
     prefills its rows, keeps its sequence slice of every ring and decodes
     through the sequence-parallel attention.  -> first decode step's
     logits, tokens, step ms, the combine's collectives (one more profiled
-    step), kernel launches."""
+    step), kernel launches; on a mesh, per wave, the rows whose attention
+    found a position in this rank's slice of the first ring at the last
+    step (its partial was not empty)."""
     from repro_torch.distributed.collectives import (make_sp_decode_attn,
                                                      shard_decode_cache)
     from repro_torch.distributed.sharding import decode_layout
@@ -5289,6 +5294,12 @@ def sp_decode(torch, model, params, reg, waves, case: str, dev, mesh=None,
                 logits.append(lg[:, 0].float())
         out["tokens"].append(toks_out)
         out["logits"].append(logits)
+        if mesh is not None:
+            pos = next(v["pos"] for v in cache["layers"].values()
+                       if "pos" in v)[0]
+            seen = ((pos[None, :] >= 0) & (pos[None, :] >= start[:, None])
+                    & (pos[None, :] < cache["cur"]))
+            out.setdefault("rows_seen", []).append(int(seen.any(1).sum()))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             model.decode_step(params, tok, cache, delta=overlay, eid=eid,
@@ -5522,6 +5533,10 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
             for f in firsts[1:]:
                 check(all(torch.equal(a, b) for a, b in zip(f, firsts[0])),
                       f"phase 3w sp {case}: ranks' logits differ")
+            seen = [sum(r["rows_seen"]) for r in ranks]
+            check(min(seen) > 0, f"phase 3w sp {case}: a rank's ring slice "
+                  f"held no position a row attends to (rows per rank "
+                  f"{seen}): its partials were all empty")
             name = "ternary_matmul_grouped"
             check(ranks[0]["launches"][name] > 0,
                   f"phase 3w sp {case}: {name} was not launched")
@@ -5532,12 +5547,15 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
                        cache_len=c["cache_len"], steps=c["steps"],
                        decode_ms_per_step=sum(steps) / len(steps),
                        combine=ranks[0]["combine"],
+                       rows_seen=[r["rows_seen"] for r in ranks],
                        launches=ranks[0]["launches"])
             out[f"sp_{case}"] = rep
             log(f"phase 3w sp decode {case} on {c['shape']} ({world} ranks, "
                 f"cache_len {c['cache_len']}): first-step logits within "
                 f"{gates['first_logits_rel_err']:.2e} of the largest, "
-                f"{len(gates['near_ties'])} near-ties; decode "
+                f"{len(gates['near_ties'])} near-ties; rows with a "
+                f"non-empty partial per rank and wave {rep['rows_seen']}; "
+                f"decode "
                 f"{rep['decode_ms_per_step']:.2f} ms a step (mesh-free "
                 f"{out[case + '_mesh_free']['decode_ms_per_step']:.2f}); "
                 f"combine {ranks[0]['combine'][0]} [{gpu_line()}]")

@@ -255,6 +255,35 @@ def ordered_sum(parts: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def reduce_scatter_ordered(t: torch.Tensor, dim: int, group,
+                           n: int) -> torch.Tensor:
+    """This rank's block along ``dim`` (``t`` cut into ``n`` contiguous
+    blocks, block ``i`` rank ``i``'s) of the sum of every rank's ``t``,
+    in f32 and in rank order: one ``all_to_all`` sends each rank its
+    block of ``t``, then :func:`ordered_sum` of the ``n`` copies, so a
+    rank receives ``(n - 1) / n`` of ``t`` and holds one copy of it."""
+    send = t.movedim(dim, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    block = recv.reshape((n, send.shape[0] // n) + tuple(send.shape[1:]))
+    return ordered_sum(block).movedim(0, dim)
+
+
+def all_reduce_ordered(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The sum of every rank's ``t`` in f32 and in rank order, the same
+    bits on every rank: :func:`reduce_scatter_ordered` of ``t`` flattened
+    (zero-padded to a multiple of ``n``), then an all-gather of the
+    summed blocks, so a rank receives 2 (n - 1) / n of ``t`` (a gather
+    of every rank's ``t`` would receive n - 1 times it)."""
+    flat = t.reshape(-1)
+    pad = (-flat.numel()) % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    mine = reduce_scatter_ordered(flat, 0, group, n)
+    out = all_gather_dim0(mine, group, n)
+    return out[:t.numel()].reshape(t.shape)
+
+
 def combine_partials(o: torch.Tensor, m: torch.Tensor,
                      l: torch.Tensor) -> torch.Tensor:
     """Every shard's flash partials, stacked in rank order (o [n, B, H,
@@ -346,14 +375,12 @@ def make_sp_decode_attn(mesh, global_batch: int, cache_len: int):
     return sp_attn
 
 
-def shard_decode_cache(cache: dict, mesh, global_batch: int,
-                       rows_local: bool = True) -> dict:
-    """This rank's part of a prefilled dense decode cache under
+def shard_decode_cache(cache: dict, mesh, global_batch: int) -> dict:
+    """This rank's part of a dense decode cache that the rank prefilled
+    for its batch rows, under
     :func:`repro_torch.distributed.sharding.cache_pspec`: every attention
     ring's K/V and ``pos`` keep the rank's sequence slice (a ring that
-    does not divide stays whole, and runs local attention).  With
-    ``rows_local`` the cache already holds only the rank's batch rows
-    (each rank prefilled its rows), else they are cut too.  Recurrent
+    does not divide stays whole, and runs local attention).  Recurrent
     states and the cross-KV are kept as they are (their sequence-parallel
     decode is not ported); ``cur`` and ``start`` are kept."""
     _, n_seq = _seq_shards(mesh, global_batch)
@@ -368,7 +395,7 @@ def shard_decode_cache(cache: dict, mesh, global_batch: int,
             spec = list(cache_pspec(f"layers/{name}/{leaf}", tuple(shape),
                                     mesh, global_batch))
             seq_dim = 2 if leaf != "pos" else 1
-            if leaf != "pos" and rows_local:
+            if leaf != "pos":       # the rows are the rank's already
                 spec[1] = None
             if t.shape[seq_dim] % n_seq:
                 spec[seq_dim] = None

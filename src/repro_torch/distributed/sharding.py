@@ -202,11 +202,9 @@ def shard_params(params: PyTree, mesh,
 
 def serve_cache_shardings(cache: PyTree, mesh, *,
                           layout: str = "dense") -> PyTree:
-    """Placements of a whole decode cache on the serving mesh: each 5-D
-    KV buffer by :func:`serve_kv_sharding`, every other leaf (lens,
-    starts, tables, flags) replicated, as the reference places them.  The
-    engine cuts a cache's row vectors with its rows
-    (:class:`~repro_torch.distributed.collectives.RowLayout`)."""
+    """Placements of a whole decode cache on the serving mesh, the
+    reference's rule: each 5-D KV buffer by :func:`serve_kv_sharding`,
+    every other leaf (lens, starts, tables, flags) replicated."""
     return tree_util.tree_map(
         lambda leaf: (serve_kv_sharding(mesh, tuple(leaf.shape),
                                         layout=layout) if leaf.dim() == 5

@@ -30,10 +30,14 @@ ask, so it counts what its own step does:
   trace on the meta device.
 * **Collective bytes** (received per rank and step) by kind, from the
   rules and the step's algorithm: FSDP gathers (forward and recompute),
-  the gradients' data sums (the port gathers every data rank's gradient
-  and sums in rank order: (D - 1) times the leaf), tensor-parallel sums
-  (six per unit and microbatch: two in the forward, two in the
-  recompute, two in the backward), the vocab-parallel lookup, head and
+  the gradients' data sums (a reduce-scatter by ``all_to_all``: a rank
+  receives the other D - 1 ranks' copies of its block, (D - 1) / D of
+  the leaf as the unit uses it; a leaf not cut over "data" is
+  all-reduced, a reduce-scatter and an all-gather: 2 (D - 1) / D of it),
+  tensor-parallel sums (six per unit and microbatch: two in the forward,
+  two in the recompute, two in the backward; each an all-reduce in rank
+  order, 2 (M - 1) / M of the activation), the vocab-parallel lookup,
+  head and
   loss, the sequence-parallel combine of decode, and the cross-pod
   planes at 2 bits a parameter.  A decode or prefill cell gathers each
   unit's weights whole, as the port's sequence-parallel decode runs
@@ -305,6 +309,17 @@ def _leaf_gather_bytes(leaf, spec, sizes, gather_model: bool) -> dict:
     return out
 
 
+def _grad_sum_bytes(used: int, spec, sizes) -> int:
+    """Bytes one rank receives to sum a used leaf's gradient over the
+    data ranks: the other ranks' copies of its block when the leaf is cut
+    over "data" (a reduce-scatter), else twice that (a reduce-scatter
+    of the flattened leaf and an all-gather of the sums)."""
+    D = sizes.get("data", 1)
+    cut = any("data" in (e if isinstance(e, tuple) else (e,))
+              for e in spec)
+    return used * (D - 1) // D if cut else 2 * used * (D - 1) // D
+
+
 def dry_cell(arch: str, shape: str, multi_pod: bool = False,
              cross_host_bytes_s: Optional[float] = None) -> dict:
     """Every number of one cell, per rank (see the module's notes)."""
@@ -323,8 +338,7 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
     dp = sizes.get("pod", 1) * sizes["data"]
     mem: dict = {}
     colls = {"fsdp_gather": 0, "fsdp_gather_model": 0, "grad_data_sum": 0,
-             "grad_reduce_scatter_min": 0, "tp_sum": 0, "vocab": 0,
-             "sp_combine": 0, "pod_planes": 0}
+             "tp_sum": 0, "vocab": 0, "sp_combine": 0, "pod_planes": 0}
     cross_host = nvlink = 0
     flops = 0
     notes = []
@@ -398,15 +412,13 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
                                            sizes, tp), one.dtype)
                 used_total += used * n_units
                 if train:
-                    colls["grad_data_sum"] += (used * (sizes["data"] - 1)
-                                               * n_units * micro)
-                    colls["grad_reduce_scatter_min"] += (
-                        used * (sizes["data"] - 1) // sizes["data"]
-                        * n_units * micro)
+                    colls["grad_data_sum"] += (_grad_sum_bytes(
+                        used, spec[1:], sizes) * n_units * micro)
             if tp:
                 act = rows * Tn * cfg.d_model * act_dt
                 sums = (6 if train else 2) * len(pattern)
-                colls["tp_sum"] += act * (sizes["model"] - 1) * sums \
+                M = sizes["model"]
+                colls["tp_sum"] += 2 * act * (M - 1) // M * sums \
                     * n_units * micro
         flops += _head_flops(cfg, rows, text_T, v_local, train) * micro
         for k in ("embed", "lm_head", "final_norm", "frontend_proj",
@@ -416,13 +428,23 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
                                         not tp)
                 colls["fsdp_gather"] += gb["data"] * micro
                 colls["fsdp_gather_model"] += gb["model"] * micro
-                used_total += _nbytes(_used_shape(
-                    tuple(params[k].shape), flat_specs[k], sizes, tp),
-                    params[k].dtype)
+                used = _nbytes(_used_shape(tuple(params[k].shape),
+                                           flat_specs[k], sizes, tp),
+                               params[k].dtype)
+                used_total += used
+                if train:
+                    colls["grad_data_sum"] += _grad_sum_bytes(
+                        used, flat_specs[k], sizes) * micro
         if tp and v_local != cfg.vocab:
+            # the lookup gathers the rows' embeddings; in training the
+            # head's input gradient is summed, and the loss gathers the
+            # rows' maxima and sums their exps and target logits
+            M = sizes["model"]
             xb = rows * T * cfg.d_model * act_dt
-            colls["vocab"] += (sizes["model"] - 1) * micro * (
-                xb * (2 if train else 1) + 3 * rows * text_T * 4)
+            yb = rows * text_T * 4
+            colls["vocab"] += micro * ((M - 1) * xb + (
+                2 * (M - 1) * (xb + 2 * yb) // M + (M - 1) * yb
+                if train else 0))
         mem["gathered_unit"] = used_total // max(
             sum(n for _, _, n, _ in stacks), 1)
         mem["activations"] = (x_bytes + unit_saved

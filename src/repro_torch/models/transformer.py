@@ -509,22 +509,22 @@ def _train_unit(x, unit_params, cfg, pattern, positions, enc_out, run=None,
 def _run_units(x, blocks, cfg, pattern, n_units: int, remat_policy: str,
                enc_out=None, run=None, stack="blocks"):
     """Every unit of a stack over the whole sequence -> (x, aux f32).
-    Under a training mesh's ``run`` every unit is recomputed in the
-    backward pass, so the leaves it gathered are dropped after its
-    forward (FSDP)."""
+    Under a training mesh's ``run`` that gathers leaves every unit is
+    recomputed in the backward pass, so the leaves it gathered are
+    dropped after its forward (FSDP)."""
     if remat_policy not in ("none", "unit"):
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for unit_params in _units_of(blocks, n_units):
-        if remat_policy == "unit" or run is not None:
+        if remat_policy == "unit" or (run is not None and run.gathers):
             from torch.utils.checkpoint import checkpoint
             x, a = checkpoint(_train_unit, x, unit_params, cfg, pattern,
                               positions, enc_out, run, stack,
                               use_reentrant=False)
         else:
             x, a = _train_unit(x, unit_params, cfg, pattern, positions,
-                               enc_out)
+                               enc_out, run, stack)
         if torch.is_tensor(a):        # a dense unit's 0.0 adds nothing
             aux = aux + a
     return x, aux

@@ -10,16 +10,16 @@ forward (cuBLAS products on the card).  On the card the step runs under
 and of the loss's gather would otherwise accumulate with atomics, and a
 restarted run must replay its steps bit for bit.
 
-The multi-pod step (a mesh with a "pod" axis and compression on) is SPMD
-by process, one rank a pod: each rank takes its ``P("pod")`` slice of the
-global batch on dim 0, computes its gradients, and the gradients cross
-pods as packed ternary planes with error feedback
-(:func:`repro_torch.core.gradient_compression.compressed_cross_pod_mean`,
-each rank with its own error state).  The pods' losses are averaged in
-rank order, and every rank applies the same update.  A mesh with a
-"data" or "model" axis above 1 runs the step inside a pod on the
-reference's training rules, each rank on its blocks of the state
-(:mod:`repro_torch.train.within_pod`).
+A training mesh (``make_train_step(mesh=)``, axes ("pod", "data",
+"model")) runs SPMD by process, one rank a process holding its blocks of
+the state (:mod:`repro_torch.train.within_pod`): each rank takes its rows
+of the global batch, "data" is FSDP, "model" tensor parallelism for the
+dense family, and the gradients cross pods as packed ternary planes with
+error feedback, each rank compressing its block with the logical leaf's
+threshold and scale.  On a mesh of pods alone, one rank a pod, that is
+:func:`repro_torch.core.gradient_compression.compressed_cross_pod_mean`
+leaf for leaf; :func:`pods_in_one_process` is its plain version on
+whole leaves.
 """
 
 from __future__ import annotations
@@ -33,8 +33,7 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.core.gradient_compression import (
-    GradCompressionConfig, _unpack_planes, compress_leaf_for_allgather,
-    compressed_cross_pod_mean)
+    GradCompressionConfig, _unpack_planes, compress_leaf_for_allgather)
 from repro_torch.models.common import _DTYPES
 from repro_torch.optim import adafactor, adamw, schedules
 
@@ -161,12 +160,6 @@ def _apply_optimizer(state, grads, tcfg: TrainConfig, shards=None,
     return out, metrics
 
 
-def _inside_pod(mesh) -> bool:
-    """Whether a training mesh has a "data" or "model" axis above 1."""
-    from repro_torch.launch.mesh import mesh_axes
-    return any(n > 1 for a, n in mesh_axes(mesh).items() if a != "pod")
-
-
 def pod_mean(values: list) -> torch.Tensor:
     """The mean of the pods' values, summed in rank order."""
     acc = values[0]
@@ -175,28 +168,20 @@ def pod_mean(values: list) -> torch.Tensor:
     return acc / len(values)
 
 
-def pod_slice(batch: PyTree, pod: int, n_pods: int) -> PyTree:
-    """Pod ``pod``'s ``P("pod")`` slice of a global batch: its contiguous
-    block of dim 0.  A batch that does not divide over the pods raises,
-    as the reference's sharding does."""
-    def cut(x):
-        if x.shape[0] % n_pods:
-            raise ValueError(f"a global batch of {x.shape[0]} rows does not "
-                             f"divide over {n_pods} pods")
-        per = x.shape[0] // n_pods
-        return x.narrow(0, pod * per, per)
-    return tree_util.tree_map(cut, batch)
-
-
 def pods_in_one_process(api, tcfg: TrainConfig, state: dict, efs: list,
-                        batch: PyTree) -> tuple:
-    """The compressed multi-pod step of ``len(efs)`` pods in one process,
-    the plain version the SPMD step is held to: each pod's gradients on
-    its slice in turn, every leaf compressed with the pod's error state
-    as :func:`compressed_cross_pod_mean` does and the reconstructions
-    summed in pod order, one update.  -> (new state, new error states,
-    pod-mean loss, planes), ``planes[p]`` pod ``p``'s (pos, neg, scale)
-    per leaf in the order the step compresses them."""
+                        batch: PyTree, data: int = 1) -> tuple:
+    """The compressed multi-pod step of ``len(efs)`` pods in one process on
+    whole leaves, the plain version the mesh's step is held to: each pod's
+    gradients on its slice (the rank-order mean of its ``data`` data
+    ranks' gradients on their rows, as the mesh computes them,
+    :func:`repro_torch.train.within_pod.pod_grads`), every leaf
+    compressed with the pod's error state as
+    :func:`compressed_cross_pod_mean` does (the logical leaf's threshold
+    and scale) and the reconstructions summed in pod order, one update
+    of the logical state.  -> (new state, new error states, mean loss
+    over the pods' data ranks, planes), ``planes[p]`` pod ``p``'s (pos,
+    neg, scale) per leaf in the order the step compresses them."""
+    from repro_torch.train.within_pod import pod_grads
     n_pods = len(efs)
     dev = tree_util.leaves(state["params"])[0].device
     planes = [[] for _ in range(n_pods)]
@@ -217,38 +202,37 @@ def pods_in_one_process(api, tcfg: TrainConfig, state: dict, efs: list,
             acc = acc + _unpack_planes(pos, neg, n_last) * scale
         return (acc / n_pods).reshape(g0.shape).to(g0.dtype), errs
 
+    grads, losses = pod_grads(api, tcfg, state["params"], batch, n_pods,
+                              data)
     with deterministic(dev):
-        pods = [_microbatch_grads(api, state["params"],
-                                  pod_slice(batch, p, n_pods),
-                                  tcfg.microbatches) for p in range(n_pods)]
-        out = tree_util.tree_map(leaf, *[g for _, g in pods], *efs)
+        out = tree_util.tree_map(leaf, *grads, *efs)
         new_state, _ = _apply_optimizer(
             state, tree_util.tree_map(lambda o: o[0], out), tcfg)
     errs = tree_util.tree_map(lambda o: o[1], out)
     new_efs = [tree_util.tree_map(lambda es, p=p: es[p], errs)
                for p in range(n_pods)]
-    return new_state, new_efs, pod_mean([loss for loss, _ in pods]), planes
+    return (new_state, new_efs, pod_mean([x for pod in losses for x in pod]),
+            planes)
 
 
 def make_train_step(api, tcfg: TrainConfig, mesh=None) -> Callable:
     """-> step_fn(state, batch) -> (new_state, metrics).
 
     ``batch`` leaves have the global batch at dim 0 and lie on the
-    parameters' device.  A ``mesh`` with a ``"pod"`` axis (from
-    :func:`repro_torch.launch.mesh.make_production_mesh`, one rank a pod)
-    and compression enabled gives the compressed multi-pod step: every
-    rank calls it with the same global batch and its own ``state`` (its
-    ``"ef"`` is the rank's error feedback).  A mesh with a "data" or
-    "model" axis above 1 gives the step inside a pod
-    (:func:`repro_torch.train.within_pod.make_within_pod_step`): every
-    rank calls it with the global batch and its blocks of the state
-    (:func:`repro_torch.train.within_pod.shard_train_state`)."""
-    if mesh is not None and _inside_pod(mesh):
+    parameters' device.  Without a ``mesh`` the step runs on one device.
+    A training ``mesh`` (:func:`repro_torch.launch.mesh.
+    make_production_mesh`: ("pod", "data", "model")) gives the step of
+    one of its ranks (:func:`repro_torch.train.within_pod.
+    make_within_pod_step`): every rank calls it with the same global
+    batch and its blocks of the state
+    (:func:`repro_torch.train.within_pod.shard_train_state`; on a mesh of
+    pods alone, the whole state).  A multi-pod state
+    (``init_train_state(multi_pod=True)``, its ``"ef"`` the rank's error
+    feedback) with compression enabled exchanges the gradients across
+    pods compressed."""
+    if mesh is not None:
         from repro_torch.train.within_pod import make_within_pod_step
         return make_within_pod_step(api, tcfg, mesh)
-    from repro_torch.launch.mesh import mesh_axes
-    use_comp = (mesh is not None and "pod" in mesh_axes(mesh)
-                and tcfg.grad_compression.enabled)
 
     def plain_step(state, batch):
         dev = tree_util.leaves(state["params"])[0].device
@@ -259,25 +243,4 @@ def make_train_step(api, tcfg: TrainConfig, mesh=None) -> Callable:
         metrics["loss"] = loss
         return new_state, metrics
 
-    if not use_comp:
-        return plain_step
-    import torch.distributed as dist
-    group = mesh.get_group("pod")
-    n_pods, me = dist.get_world_size(group), mesh.get_local_rank("pod")
-
-    def pod_step(state, batch):
-        dev = tree_util.leaves(state["params"])[0].device
-        with deterministic(dev):
-            loss, grads = _microbatch_grads(
-                api, state["params"], pod_slice(batch, me, n_pods),
-                tcfg.microbatches)
-            mean_grads, new_ef = compressed_cross_pod_mean(
-                grads, state["ef"], tcfg.grad_compression, group=group)
-            losses = [torch.empty_like(loss) for _ in range(n_pods)]
-            dist.all_gather(losses, loss.contiguous(), group=group)
-            new_state, metrics = _apply_optimizer(state, mean_grads, tcfg)
-        new_state["ef"] = new_ef
-        metrics["loss"] = pod_mean(losses)
-        return new_state, metrics
-
-    return pod_step
+    return plain_step

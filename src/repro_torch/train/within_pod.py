@@ -13,9 +13,10 @@ the collectives are written out:
   "data" dim before the unit runs, inside a checkpoint, so they are
   dropped after its forward and gathered again for its backward
   (:class:`_Gather`).  A gradient comes back to the rank's block summed
-  over the data ranks in rank order and divided by their number: the
-  mean over the global batch when every rank's rows hold as many
-  targets.
+  over the data ranks in rank order and divided by their number (a
+  reduce-scatter: each rank receives the other ranks' copies of its
+  block only): the mean over the global batch when every rank's rows
+  hold as many targets.
 * **"model" is tensor parallelism** for the attention-only dense family
   (:func:`tensor_parallel_family`): heads are cut where
   ``heads_shardable`` holds and the FFN on d_ff, as ``param_pspec``
@@ -36,8 +37,10 @@ the collectives are written out:
   (:func:`repro_torch.core.gradient_compression.
   compressed_cross_pod_mean_sharded`).
 
-Every sum across ranks is an all-gather and a sum in rank order, so the
-result does not depend on a backend's reduction order, and
+Every sum across ranks exchanges the parts (an all-gather, or an
+``all_to_all`` for the gradients' data sum and the tensor-parallel sums)
+and adds them in rank order,
+so the result does not depend on a backend's reduction order, and
 :func:`within_pod_in_one_process` reproduces a mesh without a "model"
 axis bit for bit in one process: each rank's gradients on its rows with
 the logical parameters, the same rank-order means, then every rank's
@@ -54,9 +57,11 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.distributed.collectives import (all_gather_dim0,
+                                                 all_reduce_ordered,
                                                  gather_axes,
                                                  make_vp_embed_lookup,
-                                                 ordered_sum)
+                                                 ordered_sum,
+                                                 reduce_scatter_ordered)
 from repro_torch.distributed.sharding import (_axes_of, assemble,
                                               batch_axes, batch_shardings,
                                               local_shard, param_shardings,
@@ -327,6 +332,10 @@ class PodRun:
         self.n_model = self.sizes.get("model", 1)
         self.tp_mode = self.n_model > 1 and tensor_parallel_family(cfg)
         self.tp = TensorParallel(self) if self.tp_mode else None
+        # whether a unit gathers leaves (then every unit is recomputed in
+        # the backward, so what it gathered is dropped after its forward)
+        self.gathers = self.n_data > 1 or (self.n_model > 1
+                                           and not self.tp_mode)
         self.vocab_parallel = (self.tp_mode
                                and "model" in self.specs["embed"])
         self._lookup = make_vp_embed_lookup(mesh)
@@ -336,22 +345,37 @@ class PodRun:
         return gather_axes(x, self.mesh, ("model",))
 
     def model_sum(self, x: torch.Tensor) -> torch.Tensor:
-        return ordered_sum(self.model_gather(x))
+        return all_reduce_ordered(x, self.mesh.get_group("model"),
+                                  self.n_model)
 
     def reduce_grad(self, g: torch.Tensor, cuts, partial: bool):
         """A used leaf's gradient -> this rank's block's: summed over
-        "model" when each rank's part saw only its heads, then over the
-        data ranks in rank order and divided by their number, then cut
-        back along the gathered dims."""
+        "model" when each rank's part saw only its heads, cut back along
+        the gathered "model" dims (the model ranks of one data rank saw
+        the same rows), then summed over the data ranks in rank order and
+        divided by their number: a reduce-scatter along the leaf's "data"
+        dim (:func:`reduce_scatter_ordered`), or, for a leaf that every
+        data rank holds whole, an all-reduce (:func:`all_reduce_ordered`);
+        either sums each element in rank order."""
         if partial:
             g = self.model_sum(g)
-        if self.n_data > 1:
-            g = ordered_sum(gather_axes(g, self.mesh, ("data",))).div_(
-                self.n_data)
+        data_dim = None
         for dim, axis in cuts:
+            if axis == "data":
+                data_dim = dim
+                continue
             size = g.shape[dim] // self.sizes[axis]
             g = g.narrow(dim, self.coords[axis] * size, size)
-        return g.contiguous()
+        if self.n_data == 1:
+            return g.contiguous()
+        if data_dim is None:
+            g = all_reduce_ordered(g, self.mesh.get_group("data"),
+                                   self.n_data)
+        else:
+            g = reduce_scatter_ordered(g, data_dim,
+                                       self.mesh.get_group("data"),
+                                       self.n_data)
+        return g.div_(self.n_data).contiguous()
 
     # ---- leaves ----
     def _cuts(self, spec) -> tuple:
@@ -438,10 +462,12 @@ def local_rows(batch: PyTree, mesh, index=None) -> PyTree:
     n = 1
     for a in batch_axes(mesh):
         n *= sizes[a]
+    what = (f"{n} pods" if sizes.get("data", 1) == 1 and n > 1
+            else f"{n} data ranks")
     for leaf in tree_util.leaves(batch):
         if leaf.shape[0] % n:
             raise ValueError(f"a global batch of {leaf.shape[0]} rows does "
-                             f"not divide over {n} data ranks")
+                             f"not divide over {what}")
     specs = batch_shardings(batch, mesh)
     return tree_util.tree_map(lambda x, s: local_shard(x, s, mesh, index),
                               batch, specs)
@@ -450,9 +476,13 @@ def local_rows(batch: PyTree, mesh, index=None) -> PyTree:
 def sharded_update(state: dict, grads: PyTree, loss: torch.Tensor, tcfg,
                    shards: Shards, specs: PyTree):
     """Everything of a step after this rank's gradients: the loss's mean
-    over the data ranks and pods, the pods' exchange (compressed with
-    error feedback, or a dense mean when compression is off), and the
-    optimizer on the rank's blocks.  -> (new state, metrics)."""
+    over the data ranks and pods, the pods' exchange, and the optimizer
+    on the rank's blocks.  The exchange is compressed with error
+    feedback when compression is on and the state carries it (a
+    multi-pod state, ``init_train_state(multi_pod=True)``), on a mesh
+    with a "pod" axis of any size, as the reference compresses on any
+    "pod" axis; else a dense mean over more than one pod.
+    -> (new state, metrics)."""
     from repro_torch.core.gradient_compression import (
         compressed_cross_pod_mean_sharded)
     from repro_torch.train.train_step import _apply_optimizer
@@ -465,7 +495,8 @@ def sharded_update(state: dict, grads: PyTree, loss: torch.Tensor, tcfg,
                                       if a in sizes))
     new_ef = None
     n_pods = sizes.get("pod", 1)
-    if n_pods > 1 and tcfg.grad_compression.enabled:
+    if ("pod" in sizes and tcfg.grad_compression.enabled
+            and "ef" in state):
         grads, new_ef = compressed_cross_pod_mean_sharded(
             grads, state["ef"], tcfg.grad_compression, shards, specs)
     elif n_pods > 1:
@@ -506,7 +537,7 @@ def make_within_pod_step(api, tcfg, mesh):
 
 
 # ---------------------------------------------------------------------------
-# The one-process oracle
+# The one-process oracles' pieces
 # ---------------------------------------------------------------------------
 
 
@@ -517,55 +548,42 @@ def _coords(sizes: dict) -> list:
     return keys
 
 
-def within_pod_in_one_process(api, tcfg, shape, states: dict,
-                              batch: PyTree) -> dict:
-    """The within-pod step of a mesh ``shape`` = (pod, data, 1) in one
-    process, the version the SPMD step is held to bit for bit.
-    ``states`` maps each rank's coordinates (pod, data, model) to its
-    blocks.  Per pod and microbatch: each data rank's gradients on its
-    rows with the logical parameters, their rank-order sum divided by the
-    data ranks (in the leaf's dtype, as the gather's backward returns
-    it), accumulated over microbatches as the step does; then every
-    rank's :func:`sharded_update` on its blocks, each rank a thread.
-    -> {coordinates: (new blocks, metrics)}."""
+def pod_grads(api, tcfg, params: PyTree, batch: PyTree, n_pods: int,
+              n_data: int) -> tuple[list, list]:
+    """Each pod's gradients as a mesh of (``n_pods``, ``n_data``, 1)
+    computes them, in one process with the logical ``params``: per pod
+    and microbatch, each data rank's gradients on its rows, their
+    rank-order sum divided by the data ranks (in the leaf's dtype, as the
+    gather's backward returns it), accumulated over microbatches in f32
+    as the step does.  -> (grads[pod], losses[pod][data])."""
     from repro_torch.train.train_step import deterministic, value_and_grad
-    sizes = dict(zip(TRAIN_AXES, shape))
-    if sizes["model"] != 1:
-        raise ValueError("the one-process oracle runs meshes without a "
-                         "'model' axis")
-    mesh = AxisSizes(sizes)
-    specs = logical_specs(api.cfg, mesh)
-    flat_specs = dict(tree_util.flatten_with_paths(specs))
-    first = states[(0, 0, 0)]
-    dev = tree_util.leaves(first["params"])[0].device
-    params = tree_util.unflatten_paths({
-        p: assemble({c: dict(tree_util.flatten_with_paths(
-            s["params"]))[p] for c, s in states.items()}, flat_specs[p],
-            sizes) for p in flat_specs})
+    mesh = AxisSizes({"pod": n_pods, "data": n_data, "model": 1})
     n_micro = tcfg.microbatches
-    D = sizes["data"]
+    dev = tree_util.leaves(params)[0].device
 
     def loss_fn(p, mb):
         return api.loss_and_logits(p, mb)[0]
 
-    grads, losses = {}, {}
+    grads, losses = [], []
     with deterministic(dev):
-        for pod in range(sizes["pod"]):
+        for pod in range(n_pods):
             per = [local_rows(batch, mesh, {"pod": pod, "data": d,
-                                            "model": 0}) for d in range(D)]
+                                            "model": 0})
+                   for d in range(n_data)]
             micro = [tree_util.tree_map(
                 lambda x: x.reshape((n_micro, x.shape[0] // n_micro)
                                     + tuple(x.shape[1:])), r) for r in per]
-            acc, lsum = None, [None] * D
+            acc, lsum = None, [None] * n_data
             for i in range(n_micro):
                 outs = [value_and_grad(loss_fn, params,
                                        tree_util.tree_map(
                                            lambda x: x[i], m))  # noqa: B023
                         for m in micro]
-                if D > 1:
+                if n_data > 1:
                     g = tree_util.tree_map(
-                        lambda *gs: (ordered_sum(torch.stack(gs)) / D).to(
-                            gs[0].dtype), *[o[1] for o in outs])
+                        lambda *gs: (ordered_sum(torch.stack(gs))
+                                     / n_data).to(gs[0].dtype),
+                        *[o[1] for o in outs])
                 else:
                     g = outs[0][1]
                 if n_micro == 1:
@@ -577,7 +595,7 @@ def within_pod_in_one_process(api, tcfg, shape, states: dict,
                         lambda q: torch.zeros(q.shape, dtype=torch.float32,
                                               device=q.device), params)
                     lsum = [torch.zeros((), dtype=torch.float32,
-                                        device=dev) for _ in range(D)]
+                                        device=dev) for _ in range(n_data)]
                 acc = tree_util.tree_map(lambda a, b: a + b.to(torch.float32),
                                          acc, g)
                 lsum = [s + o[0] for s, o in zip(lsum, outs)]
@@ -585,26 +603,32 @@ def within_pod_in_one_process(api, tcfg, shape, states: dict,
                 inv = 1.0 / n_micro
                 acc = tree_util.tree_map(lambda q: q * inv, acc)
                 lsum = [s * inv for s in lsum]
-            grads[pod], losses[pod] = acc, lsum
+            grads.append(acc)
+            losses.append(lsum)
+    return grads, losses
 
+
+def in_threads(sizes: dict, fn, device=None) -> dict:
+    """``fn(coords, shards)`` for every rank of a mesh of ``sizes``, each
+    rank a thread whose :class:`Shards` exchange through the others
+    (:class:`ThreadComm`).  -> {coordinate tuple: what ``fn`` returned};
+    a rank that raises frees the others and its error is raised."""
+    from repro_torch.train.train_step import deterministic
     hub = _Hub(sizes)
     results: dict = {}
     errors: list = []
 
     def rank(c):
-        coords = dict(zip(TRAIN_AXES, c))
-        g = tree_util.tree_map(lambda x, s: local_shard(x, s, mesh, coords),
-                               grads[c[0]], specs)
+        coords = dict(zip(sizes, c))
         try:
             with torch.no_grad():
-                results[c] = sharded_update(
-                    states[c], g, losses[c[0]][c[1]], tcfg,
-                    Shards(ThreadComm(hub, sizes, coords)), specs)
+                results[c] = fn(coords, Shards(ThreadComm(hub, sizes,
+                                                          coords)))
         except BaseException as e:      # a failed rank frees the others
             errors.append(e)
             hub.barrier.abort()
 
-    with deterministic(dev):
+    with deterministic(device or "cpu"):
         threads = [threading.Thread(target=rank, args=(c,))
                    for c in _coords(sizes)]
         for t in threads:
@@ -614,3 +638,41 @@ def within_pod_in_one_process(api, tcfg, shape, states: dict,
     if errors:
         raise errors[0]
     return results
+
+
+def within_pod_in_one_process(api, tcfg, shape, states: dict,
+                              batch: PyTree) -> dict:
+    """The within-pod step of a mesh ``shape`` = (pod, data, 1) in one
+    process, the version the SPMD step is held to bit for bit.
+    ``states`` maps each rank's coordinates (pod, data, model) to its
+    blocks.  Each pod's gradients as :func:`pod_grads` gives them, then
+    every rank's :func:`sharded_update` on its blocks, each rank a
+    thread (:func:`in_threads`).  It shares :func:`sharded_update` with
+    the step, so it holds the step's collectives and their order; the
+    statistics across blocks are held to the logical leaf's by
+    :func:`repro_torch.train.train_step.pods_in_one_process` and
+    ``tests/test_torch_within_pod.py``.
+    -> {coordinates: (new blocks, metrics)}."""
+    sizes = dict(zip(TRAIN_AXES, shape))
+    if sizes["model"] != 1:
+        raise ValueError("the one-process oracle runs meshes without a "
+                         "'model' axis")
+    mesh = AxisSizes(sizes)
+    specs = logical_specs(api.cfg, mesh)
+    flat_specs = dict(tree_util.flatten_with_paths(specs))
+    dev = tree_util.leaves(states[(0, 0, 0)]["params"])[0].device
+    params = tree_util.unflatten_paths({
+        p: assemble({c: dict(tree_util.flatten_with_paths(
+            s["params"]))[p] for c, s in states.items()}, flat_specs[p],
+            sizes) for p in flat_specs})
+    grads, losses = pod_grads(api, tcfg, params, batch, sizes["pod"],
+                              sizes["data"])
+
+    def rank(coords, shards):
+        c = tuple(coords.values())
+        g = tree_util.tree_map(lambda x, s: local_shard(x, s, mesh, coords),
+                               grads[c[0]], specs)
+        return sharded_update(states[c], g, losses[c[0]][c[1]], tcfg,
+                              shards, specs)
+
+    return in_threads(sizes, rank, dev)

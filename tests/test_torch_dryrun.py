@@ -32,7 +32,9 @@ def test_dry_cell_rows(arch, shape, multi_pod, tmp_path):
     colls = res["collective_bytes"]
     if res["kind"] == "train":
         assert res["tensor_parallel"] and colls["tp_sum"] > 0
-        assert colls["grad_data_sum"] > colls["grad_reduce_scatter_min"] > 0
+        # a reduce-scatter receives (D - 1) / D of each cut leaf once, the
+        # FSDP gathers as much twice (forward and recompute)
+        assert 0 < colls["grad_data_sum"] < colls["fsdp_gather"]
     else:
         assert colls["sp_combine"] > 0
     again = dryrun.dry_cell(arch, shape, multi_pod, cross_host_bytes_s=50e9)

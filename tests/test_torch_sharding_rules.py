@@ -7,8 +7,10 @@ reference's trees come from ``jax.eval_shape``, the port's from the meta
 device).  Per leaf: ``param_pspec``, ``train_state_shardings`` of AdamW
 and Adafactor states (with error feedback), ``cache_pspec`` and
 ``decode_layout`` of every decode cache at batch 1 and at a batch that
-divides, ``batch_axes``/``batch_shardings``; the parameter trees' leaves
-and totals; and a state cut by the placements and reassembled bitwise."""
+divides, ``batch_axes``/``batch_shardings`` and the collectives'
+``batch_axes_of``; ``serve_cache_shardings`` of dense and paged caches on
+("expert", "model") meshes; the parameter trees' leaves and totals; and
+a state cut by the placements and reassembled bitwise."""
 
 import functools
 
@@ -150,6 +152,45 @@ def test_batch_rules_match_reference(shape):
     got = dict(tree_util.flatten_with_paths(ts.batch_shardings(batch, pm)))
     assert got == _specs(rs.batch_shardings(rbatch, rm))
     assert ts.replicated(pm) == tuple(rs.replicated(rm).spec)
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_batch_axes_of_matches_reference(shape):
+    from repro.distributed.collectives import batch_axes_of as ref_of
+    from repro_torch.distributed.collectives import batch_axes_of
+    assert batch_axes_of(port_mesh(shape)) == tuple(ref_of(ref_mesh(shape)))
+
+
+SERVE_MESHES = [(1, 1), (1, 2), (2, 2), (4, 2), (1, 3)]
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+@pytest.mark.parametrize("shape", SERVE_MESHES)
+def test_serve_cache_shardings_match_reference(shape, layout):
+    """Every leaf of a smoke decode cache (KV rings, positions, the
+    cursor) and of a paged one (pools, tables, lengths, flags) at 2 and 4
+    rows, on ("expert", "model") meshes."""
+    rm = AbstractMesh(tuple(shape), ("expert", "model"))
+    pm = wp.AxisSizes(dict(zip(("expert", "model"), shape)))
+    api = build(get_smoke_config("qwen2_5_3b", n_units=2))
+    for rows in (2, 4):
+        caches = [api.init_decode_cache(rows, 16, device="meta"),
+                  {"k": torch.zeros((2, rows * 3, 16, 2, 8), device="meta"),
+                   "v": torch.zeros((2, rows * 3, 16, 2, 8), device="meta"),
+                   "tables": torch.zeros((rows, 4), dtype=torch.int32,
+                                         device="meta"),
+                   "lens": torch.zeros((rows,), dtype=torch.int32,
+                                       device="meta"),
+                   "active": torch.zeros((rows,), dtype=torch.bool,
+                                         device="meta")}]
+        for cache in caches:
+            ref = tree_util.unflatten_paths({
+                p: jax.ShapeDtypeStruct(tuple(x.shape), np.float32)
+                for p, x in tree_util.flatten_with_paths(cache)})
+            want = _specs(rs.serve_cache_shardings(ref, rm, layout=layout))
+            got = dict(tree_util.flatten_with_paths(
+                ts.serve_cache_shardings(cache, pm, layout=layout)))
+            assert got == want, rows
 
 
 @pytest.mark.parametrize("arch", ARCHS)
