@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA H100 and check it.
 
-    python3 chip_smoke.py [--units 4] [--seed 0]
+    python3 chip_smoke.py [--units 2] [--seed 0]
                           [--stop-after kernels|training|configs|families|
                                         mesh|within|all]
 
 At the full width of qwen2.5-3b (d_model 2048, 16 q / 2 kv heads of 128,
 QKV bias, swiglu d_ff 11008, vocab 151936, tied embeddings, rope theta
-1e6, bf16 base) with the depth cut to ``--units`` (default 4 of 36) and
+1e6, bf16 base) with the depth cut to ``--units`` (default 2 of 36) and
 random weights from ``--seed``, it runs, in order, stopping at the first
 failure with a non-zero exit:
 
@@ -60,7 +60,7 @@ failure with a non-zero exit:
      another wave position sees other rope positions in bf16); and on an
      f32 copy of the model, tokens bitwise equal at ``decode_chunk`` 0, 1,
      8 and 16 and each request equal to its solo serve;
-  3e. llama-7b (4 of 32 units), gemma2-9b (2 of 21), qwen3-32b (2 of
+  3e. llama-7b (2 of 32 units), gemma2-9b (2 of 21), qwen3-32b (2 of
      64; per-head q/k RMSNorm) and qwen1.5-110b (1 of 80; d_model 8192,
      d_ff 49152, a segment buffer past 2**31 elements) at full width on
      the overlay (``config_path``): 4 experts compressed (e0's planes
@@ -86,10 +86,11 @@ failure with a non-zero exit:
   3f. the families outside the overlay (``merge_path``), each served by
      merge-on-swap through ``api.serve(..., scheduling="mixed")`` (no
      overlay plan, kernel 4 once per leaf per distinct expert): rwkv6-3b
-     (rwkv blocks, 8 of 32 units), seamless-m4t-medium (all 12 encoder
-     and 12 decoder units; zero stub frames [4, 1024, 1024], a cross-KV
-     of 1024 source positions) and internvl2-1b (all 24 units; a
-     256-position zero ``mm_embeds`` prefix in a ``cache_len`` of 384)
+     (rwkv blocks, 4 of 32 units), seamless-m4t-medium (all 12 encoder
+     and 6 of 12 decoder units; zero stub frames [4, 1024, 1024], a
+     cross-KV of 1024 source positions) and internvl2-1b (12 of 24
+     units; a 256-position zero ``mm_embeds`` prefix in a ``cache_len``
+     of 384)
      at full width, and jamba-1.5-large (mamba, attention and MoE blocks)
      at smoke size: 4 experts compressed (e0's planes bitwise the plain
      compression), phase 3's 8 requests (``max_batch=4``,
@@ -127,34 +128,50 @@ failure with a non-zero exit:
      one rank a card under NCCL; then the compressed multi-pod train step
      (qwen2.5-3b at 1 unit, 3 AdamW steps of 4 x 64 tokens) as 1 NCCL pod
      and as 2 gloo pods on the card, parameters, error feedback and losses
-     bitwise a one-process oracle.  Every rank's tokens must equal rank
-     0's, and a failed rank fails the run.  Reported per run: ranks,
-     backend, cards, decode tokens/s of a warm run and the collectives'
-     device and host ms a decode step from ``torch.profiler``; kernels 1
+     bitwise a one-process oracle.  The ranks start after phase 3d (run
+     before 3c) and the worlds run two or three at a time, beside phase
+     3c in this process: (2, 1) beside (1, 2), then (1, 1) (which resumes
+     (2, 1)'s snapshot) beside the two multi-pod steps, until phase 3c's
+     merges (its largest allocation), which wait for every rank to end;
+     this process then takes the mesh-free references and the oracles
+     and reads every world's results.  Every rank's tokens must equal rank 0's,
+     and a failed rank fails the run (and stops every rank).  Reported
+     per run: ranks, backend, cards, decode tokens/s of a warm run (with
+     the other worlds running beside it) and the collectives' device and
+     host ms a decode step from ``torch.profiler``; kernels 1
      and S must launch under the mesh (rank 0's counts join the
      ``kernels`` line as ``launches_mesh``).  ``--stop-after mesh`` ends
      after phases 3, 3d and 3m;
   3w. (run right after phase 3, while this process holds least of the
      card) training inside a pod and sequence-parallel decode
      (``within_path``), ranks as gloo processes sharing the card, two
-     then four: the within-pod step on qwen2.5-3b at 1 unit, 3 AdamW
-     steps of 4 x 64 tokens, on (1, 2, 1) (FSDP) and (2, 2, 1) (FSDP and
-     compressed pods), every rank's blocks and the losses bitwise a
-     one-process oracle (``within_pod.within_pod_in_one_process``), and
-     (1, 1, 2) (tensor parallelism) on an f32 copy, each rank's
-     parameters within 1e-4 of the mesh-free step's; then on an f32 copy
+     (beside this process's decode references) then four: (a) the within-pod step on qwen2.5-3b at 1 unit, 2 AdamW
+     steps of 8 x 64 tokens in 2 microbatches with half of the targets
+     of data rank 0's rows at -1, on (1, 2, 1) (FSDP) and (2, 2, 1)
+     (FSDP and compressed pods), every rank's blocks and the losses
+     bitwise a one-process oracle
+     (``within_pod.within_pod_in_one_process``), and (1, 1, 2) (tensor
+     parallelism) on an f32 copy, each rank's parameters within 1e-4 of
+     the mesh-free step's; (b) on an f32 copy
      at ``--units`` with e0-e3 on the overlay, sequence-parallel decode
      of phase 3's requests in waves of 4 on (data 1, model 2) with
      ``cache_len`` 1024 and of one 4096-token prompt on (2, 2) with
      ``cache_len`` 8192 (the ring cut over every axis), the first decode
      step's logits within 1e-4 of the largest |logit| of the mesh-free
-     run and the greedy tokens equal up to a near-tie; reported: step
-     seconds, state bytes a rank beside the mesh-free state's, peak
-     memory a rank, the collectives of a profiled step, decode ms a step
-     beside the mesh-free run's and the combine's; kernel 1 must launch
-     under both decode meshes (rank 0's counts join the ``kernels`` line
-     as ``launches_within``).  ``--stop-after within`` ends after phases
-     3 and 3w;
+     run and the greedy tokens equal up to a near-tie; (c) the MoE
+     family on "model": mixtral-8x7b at full width, 1 unit, f32, 2 AdamW
+     steps of (a)'s batches, its mesh-free step first in this process
+     (freed before the ranks start), then the four ranks on (1, 2, 2)
+     with the experts cut on d_ff as published and on E
+     (``expert_parallel=True``), every rank's losses within 1e-4 and
+     every parameter block within 1e-4 of the mesh-free step's, each
+     expert leaf a quarter of the logical one; reported: step seconds,
+     state bytes a rank beside the mesh-free state's (and expert bytes),
+     peak memory a rank, the collectives of a profiled step, decode ms a
+     step beside the mesh-free run's and the combine's; kernel 1 must
+     launch under both decode meshes (rank 0's counts join the
+     ``kernels`` line as ``launches_within``).  ``--stop-after within``
+     ends after phases 3 and 3w;
   3s. phase 3d's 16 requests sampled at temperature 0.8, top_k 40 and 0
      (``sampled_path``, uids kept): graph chunks bitwise the same chunks
      run eagerly, requests placed alike bitwise at ``decode_chunk`` 0, 1
@@ -309,7 +326,14 @@ def check(cond: bool, msg: str) -> None:
         raise CheckFailed(msg)
 
 
+_T0 = time.monotonic()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's opening line also gets the seconds since
+    the script started, so a run's log shows where its time went."""
+    if msg.startswith("phase "):
+        msg = f"{msg} (at {time.monotonic() - _T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -1679,7 +1703,8 @@ def merge_effect_check(torch, engine, gengine, reqs):
     return out
 
 
-def artifact_path(torch, api, model, base, experts, reqs, cfg, dev, tmp):
+def artifact_path(torch, api, model, base, experts, reqs, cfg, dev, tmp,
+                  before_merges=None):
     """Phase 3c: the rest of the artifact loop on the same experts, each
     step driven with the launch counts set to 0 just before it and read
     just after, its checks between the steps (they launch nothing):
@@ -1699,7 +1724,8 @@ def artifact_path(torch, api, model, base, experts, reqs, cfg, dev, tmp):
        ``scaled_dot`` of e0 and e1 per leaf (popcount_dot per pair and
        leaf): equal to the plain versions';
     5. ``api.merge`` of e0-e2 by ``packed``, ``task_arithmetic`` and
-       ``ties``: seconds and peak memory; packed bitwise task arithmetic;
+       ``ties``: seconds and peak memory; packed bitwise task arithmetic
+       (``before_merges()`` first, where given);
     6. ``ops.ternary_matvec`` over unit 0's 2-D projections of each
        expert, a check (no path calls it): within 1e-4 * max |plain| of
        the plain version.
@@ -1839,6 +1865,8 @@ def artifact_path(torch, api, model, base, experts, reqs, cfg, dev, tmp):
         f"versions'; off-diagonal {sim[0][0, 1]:.6f} .. {sim[0][2, 3]:.6f}")
 
     # 5. merges
+    if before_merges is not None:
+        before_merges()
     merged, peak, held = {}, {}, {}
     for method in ("packed", "task_arithmetic", "ties"):
         torch.cuda.reset_peak_memory_stats()
@@ -2084,7 +2112,7 @@ def f32_refill(torch, api, model, base, reg, reqs):
 # 3.85 B parameters, so its segment buffer passes 2**31 elements) with 1
 # of 80, all on the overlay; then mixtral-8x7b (top-2 of 8 experts) with
 # 2 of 32 units by merge-on-swap (``moe_path``)
-WIDE_CONFIGS = (("llama_7b", 4), ("gemma2_9b", 2), ("qwen3_32b", 2),
+WIDE_CONFIGS = (("llama_7b", 2), ("gemma2_9b", 2), ("qwen3_32b", 2),
                 ("qwen1_5_110b", 1))
 MOE_CONFIG = ("mixtral_8x7b", 2)
 # configurations whose bf16 solo serves part from their waves beyond the
@@ -2444,13 +2472,13 @@ def moe_path(torch, api, arch, units, seed, dev, out_dir):
 # Phase 3f: the families outside the overlay
 # ---------------------------------------------------------------------------
 
-# (arch, units, cache_len) at full width, depth cut to fit the phase's time
-# beside the others: rwkv6-3b 8 of 32 units (0.98 B parameters),
-# seamless-m4t-medium whole (12 encoder + 12 decoder units, 0.98 B),
-# internvl2-1b whole (24 units, 0.49 B; its 256-position mm prefix sits in
-# the cache ahead of the prompt, so the ring holds 384)
-FAMILY_CONFIGS = (("rwkv6_3b", 8, 128), ("seamless_m4t_medium", 12, 128),
-                  ("internvl2_1b", 24, 384))
+# (arch, units, cache_len) at full width, depth cut to fit the script's
+# time: rwkv6-3b 4 of 32 units, seamless-m4t-medium 6 of 12 decoder units
+# beside all 12 encoder units, internvl2-1b 12 of 24 units (its
+# 256-position mm prefix sits in the cache ahead of the prompt, so the
+# ring holds 384)
+FAMILY_CONFIGS = (("rwkv6_3b", 4, 128), ("seamless_m4t_medium", 6, 128),
+                  ("internvl2_1b", 12, 384))
 # jamba-1.5-large: one full-width unit of 8 blocks holds 45.2 B parameters
 # (90 GB in bf16), so it runs at smoke size (2 units)
 FAMILY_SMOKE = ("jamba_1_5_large_398b", 2, 128)
@@ -3932,21 +3960,32 @@ def durability_case(torch, api, model, base, reg, kw, traffic, d, exact,
     return out, want, rel
 
 
-def spawn_child(torch, setup, snap, rel, what) -> dict:
-    """The SIGKILL child on the card: returns its seconds; gates: killed
-    by SIGKILL, ``rel`` chunks journaled, no clean end."""
+def start_child(setup, snap, rel) -> dict:
+    """Start the SIGKILL child on the card and return at once; the handle
+    goes to :func:`finish_child`."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    log_path = snap + ".log"
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.serve.restart_child", snap,
+             setup, str(rel)], env=env, stdout=f, stderr=subprocess.STDOUT)
+    _RANKS.append(proc)
+    return {"proc": proc, "log": log_path, "t0": time.monotonic()}
+
+
+def finish_child(h, snap, rel, what) -> dict:
+    """Wait for the SIGKILL child: returns its seconds (from its start);
+    gates: killed by SIGKILL, ``rel`` chunks journaled, no clean end."""
     import signal
     from repro_torch.serve import journal as journal_mod
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.monotonic()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.serve.restart_child", snap,
-         setup, str(rel)], env=env, capture_output=True, text=True,
-        timeout=300)
-    child_s = time.monotonic() - t0
+    proc = h["proc"]
+    proc.wait(timeout=300)
+    child_s = time.monotonic() - h["t0"]
+    with open(h["log"]) as f:
+        err = f.read()
     check(proc.returncode == -signal.SIGKILL,
           f"{what}: the child ended with {proc.returncode}, not SIGKILL: "
-          f"{proc.stderr[-3000:]}")
+          f"{err[-3000:]}")
     st = journal_mod.replay(os.path.join(snap, journal_mod.JOURNAL_NAME))
     check(st.chunks == rel and not st.clean_end and st.snapshots,
           f"{what}: the child journaled {st.chunks} chunks and "
@@ -4090,8 +4129,16 @@ def durability_path(torch, api, model, base, reg, experts, cfg, seed, units,
         base_bytes = sum(os.path.getsize(os.path.join(setup, "base", x, f))
                          for x in os.listdir(os.path.join(setup, "base"))
                          for f in os.listdir(os.path.join(setup, "base", x)))
-        de = os.path.join(tmp, "e")
-        out["e"] = spawn_child(torch, setup, de, rel, "3k (e) bf16")
+        # the f32 child (for the f32 copy below) runs beside the bf16 one
+        setup32 = os.path.join(tmp, "setup32")
+        write_setup(setup32, arch="qwen2_5_3b", n_units=units, base=base,
+                    experts=experts, requests=reqs, engine_kw=DURABLE,
+                    dtype="float32",
+                    registry_kw={"device_cache_bytes": 16 << 30})
+        de, de32 = os.path.join(tmp, "e"), os.path.join(tmp, "e32")
+        child = start_child(setup, de, rel)
+        child32 = start_child(setup32, de32, rel)
+        out["e"] = finish_child(child, de, rel, "3k (e) bf16")
         out["e"].update(setup_s=setup_s, base_bytes=base_bytes)
         eng = api.serve(model, base, reg, snapshot_dir=de,
                         snapshot_every_chunks=1, **DURABLE)
@@ -4139,13 +4186,7 @@ def durability_path(torch, api, model, base, reg, experts, cfg, seed, units,
             dc32, want32, True, "3k (c) journal only f32")
         check(f32["c"]["plan"]["snapshot_step"] is None,
               f"3k (c) f32: {f32['c']['plan']}")
-        setup32 = os.path.join(tmp, "setup32")
-        write_setup(setup32, arch="qwen2_5_3b", n_units=units, base=base,
-                    experts=experts, requests=reqs, engine_kw=DURABLE,
-                    dtype="float32",
-                    registry_kw={"device_cache_bytes": 16 << 30})
-        de32 = os.path.join(tmp, "e32")
-        f32["e"] = spawn_child(torch, setup32, de32, rel, "3k (e) f32")
+        f32["e"] = finish_child(child32, de32, rel, "3k (e) f32")
         eng = api.serve(model32, base32, reg, snapshot_dir=de32,
                         snapshot_every_chunks=1, **DURABLE)
         f32["e"]["resume"] = checked_resume(
@@ -4654,20 +4695,28 @@ def mesh_setup(torch, experts, traffic: dict, tmp) -> str:
 
 def tree_digest(torch, tree) -> dict:
     """{path: sha256 of the leaf's bytes}: bitwise equality of two trees
-    held in different processes."""
+    held in different processes.  The leaves hash in threads (hashlib
+    lets go of the GIL on large buffers)."""
     import hashlib
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch import tree as tree_util
-    out = {}
-    for path, t in tree_util.flatten_with_paths(tree):
+
+    def digest(t):
         raw = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
-        out[path] = hashlib.sha256(raw.numpy().tobytes()).hexdigest()
-    return out
+        return hashlib.sha256(raw.numpy()).hexdigest()
+
+    paths, leaves = zip(*tree_util.flatten_with_paths(tree))
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip(paths, pool.map(digest, leaves)))
 
 
 def collectives_of(prof) -> dict:
     """The collectives' self device and host time in a profile (NCCL
-    kernels, or the c10d ops around gloo's host exchange), and calls."""
-    keys = ("allreduce", "all_reduce", "allgather", "all_gather", "nccl")
+    kernels, or the c10d ops around gloo's host exchange: all-reduces,
+    all-gathers and the all-to-alls of the ordered reduce-scatters), and
+    calls."""
+    keys = ("allreduce", "all_reduce", "allgather", "all_gather",
+            "alltoall", "all_to_all", "nccl")
     dev_us = cpu_us = calls = 0.0
     for e in prof.key_averages():
         if any(k in e.key.lower() for k in keys):
@@ -4866,7 +4915,29 @@ def run_ranks(torch, spec: dict, world: int, backend: str, devices: list,
     """Start ``world`` ranks of ``spec`` (``chip_smoke.py --mesh-child``),
     rank r on card ``devices[r]``, and wait for all: a rank that fails
     fails the run.  Returns every rank's results, in rank order."""
+    return wait_ranks(start_ranks(spec, world, backend, devices, tmp, what,
+                                  timeout))
+
+
+# every rank process started: a run that fails while some still run
+# stops them on its way out (``stop_ranks``)
+_RANKS: list = []
+
+
+def stop_ranks() -> None:
+    _RANKS.append(None)         # no rank starts after this
+    for k in [k for k in _RANKS if k is not None]:
+        if k.poll() is None:
+            k.kill()
+            k.wait()
+
+
+def start_ranks(spec: dict, world: int, backend: str, devices: list, tmp,
+                what: str, timeout: int = 600) -> dict:
+    """Start the ranks of :func:`run_ranks` and return at once; the
+    handle goes to :func:`wait_ranks`."""
     import socket
+    import threading
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
@@ -4876,31 +4947,56 @@ def run_ranks(torch, spec: dict, world: int, backend: str, devices: list,
         env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     kids, outs = [], []
     for r in range(world):
+        check(None not in _RANKS, f"{what}: the run is stopping")
         path = os.path.join(tmp, f"{what}_rank{r}.json")
         outs.append(path + ".out")
         with open(path, "w") as f:
             json.dump(dict(spec, rank=r, world=world, port=port,
                            backend=backend, device_index=devices[r],
                            out=outs[-1]), f)
-        kids.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh-child",
-             path], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
-    errs = []
+        # output to a file, not a pipe: no rank waits on a full pipe
+        # while this process is busy elsewhere
+        with open(path + ".log", "w") as f:
+            kids.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-child",
+                 path], env=env, stdout=f, stderr=subprocess.STDOUT))
+        _RANKS.append(kids[-1])
+    h = {"kids": kids, "outs": outs, "what": what, "world": world,
+         "timeout": timeout, "t0": time.monotonic()}
+
+    def watch():            # when the last rank ended, for the log
+        for k in kids:
+            k.wait()
+        h["t_end"] = time.monotonic()
+    threading.Thread(target=watch, daemon=True).start()
+    return h
+
+
+def wait_ranks(h: dict) -> list:
+    """Wait for every rank :func:`start_ranks` started (killing them all
+    if one is not done in time); a rank that fails fails the run.
+    Returns every rank's results, in rank order."""
+    kids = h["kids"]
     try:
         for k in kids:
-            _, err = k.communicate(timeout=timeout)
-            errs.append((k.returncode, err))
+            k.wait(timeout=h["timeout"])
     finally:
         for k in kids:
             if k.poll() is None:
                 k.kill()
                 k.wait()
-    failed = [f"rank {r} ended with {rc}: {err[-3000:]}"
-              for r, (rc, err) in enumerate(errs) if rc != 0]
-    check(not failed, f"phase 3m {what}: " + "\n".join(failed))
+    failed = []
+    for r, (k, o) in enumerate(zip(kids, h["outs"])):
+        if k.returncode != 0:
+            with open(o[:-len(".out")] + ".log") as f:
+                failed.append(f"rank {r} ended with {k.returncode}: "
+                              f"{f.read()[-3000:]}")
+    check(not failed, f"phase 3m {h['what']}: " + "\n".join(failed))
+    log(f"  {h['what']}: {h['world']} rank(s) done "
+        f"{h.get('t_end', time.monotonic()) - h['t0']:.1f} s after their "
+        "start")
     res = []
-    for o in outs:
+    for o in h["outs"]:
         with open(o) as f:
             res.append(json.load(f))
     return res
@@ -4936,17 +5032,82 @@ def multipod_oracle(torch, seed, n_pods, dev) -> dict:
     return out
 
 
-def mesh_path(torch, api, model, base, reg, experts, engine, reqs, rreqs,
-              seed, units, tmp) -> tuple[dict, dict]:
-    """Phase 3m: the port's serving mesh at full width, one process a
-    rank.  Returns (report, kernel launches on the mesh runs: rank 0's,
-    summed over the serving cases)."""
-    from repro_torch.kernels import ops
-    n_cards = torch.cuda.device_count()
+def mesh_start(torch, experts, reqs, rreqs, seed, units, tmp) -> dict:
+    """Start phase 3m's ranks and return at once, so that this process
+    runs phase 3c while they serve: (2, 1) beside (1, 2), then, from a
+    thread, as soon as (2, 1) is done (its snapshot is what (1, 1)
+    resumes), (1, 1) beside the two multi-pod steps.  Each rank is
+    host-bound on one torch thread, and the card has room for them beside
+    phase 3c up to its merges (:func:`mesh_wait`).  The handle goes to
+    :func:`mesh_path`."""
+    import threading
     traffic = {"p3": traffic_rows(reqs), "refill": traffic_rows(rreqs),
                "paged": traffic_rows(reqs)}
     setup = mesh_setup(torch, experts, traffic, tmp)
     spec = {"op": "serve", "setup": setup, "seed": seed, "units": units}
+    snap = os.path.join(tmp, "mesh_snap")
+    run = {"spec": spec, "tmp": tmp, "snap": snap, "t0": time.monotonic()}
+    log("  (a) mesh (2, 1): two ranks on the card over gloo, eager chunks; "
+        "(b) mesh (1, 2): two ranks on the card over gloo, vocab-parallel "
+        "head, batch-sharded KV; both at once, beside phase 3c")
+    run["h21"] = start_ranks(dict(spec, shape=[2, 1], cases=[
+        {"name": "p3", "traffic": "p3", "timed": True},
+        {"name": "p3s", "traffic": "p3", "engine": MESH_SAMPLED},
+        {"name": "paged", "traffic": "paged"},
+        {"name": "crash", "traffic": "paged", "op": "crash",
+         "snapshot_dir": snap}]), 2, "gloo", [0, 0], tmp, "mesh21")
+    run["h12"] = start_ranks(dict(spec, shape=[1, 2], cases=[
+        {"name": "p3", "traffic": "p3", "timed": True},
+        {"name": "p3_f32", "traffic": "p3", "f32": True}]), 2, "gloo",
+        [0, 0], tmp, "mesh12")
+
+    def second():
+        try:
+            run["res21"] = wait_ranks(run["h21"])
+            log("  (c) mesh (1, 1) under NCCL: one rank, graphed chunks; the "
+                "(2, 1) snapshot resumed; (e) the compressed multi-pod step: "
+                f"1 NCCL pod, 2 gloo pods on the card ({MESH_TRAIN_STEPS} "
+                f"AdamW steps of {MESH_TRAIN['global_batch']} x "
+                f"{MESH_TRAIN['seq_len']} tokens, 1 unit); all three at once")
+            run["h11"] = start_ranks(dict(spec, shape=[1, 1], cases=[
+                {"name": "p3", "traffic": "p3", "timed": True},
+                {"name": "refill", "traffic": "refill"},
+                {"name": "paged", "traffic": "paged"},
+                {"name": "resume", "traffic": "paged", "op": "resume",
+                 "snapshot_dir": snap}]), 1, "nccl", [0], tmp, "mesh11")
+            run["h_train"] = {
+                pods: start_ranks({"op": "train", "seed": seed}, pods,
+                                  backend, [0] * pods, tmp, f"train{pods}")
+                for pods, backend in ((1, "nccl"), (2, "gloo"))}
+        except BaseException as e:      # raised again by mesh_path
+            run["error"] = e
+    run["thread"] = threading.Thread(target=second, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def mesh_wait(run: dict) -> None:
+    """Wait until every rank :func:`mesh_start` started has ended (their
+    results are read by :func:`mesh_path`): phase 3c calls it before its
+    merges, the largest allocation of this process (40 GB), which the
+    card would not hold beside the ranks."""
+    run["thread"].join()
+    hs = [run[k] for k in ("h12", "h11") if k in run]
+    for h in hs + list(run.get("h_train", {}).values()):
+        for k in h["kids"]:
+            k.wait(timeout=h["timeout"])
+
+
+def mesh_path(torch, api, model, base, reg, engine, reqs, rreqs,
+              run: dict) -> tuple[dict, dict]:
+    """Phase 3m: the port's serving mesh at full width, one process a
+    rank, the ranks started by :func:`mesh_start`: the mesh-free
+    references, then every world's results against them.  Returns
+    (report, kernel launches on the mesh runs: rank 0's, summed over the
+    serving cases)."""
+    from repro_torch.kernels import ops
+    n_cards = torch.cuda.device_count()
+    spec, tmp = run["spec"], run["tmp"]
     out: dict = {"cards": n_cards}
 
     # the mesh-free references beside phase 3's own tokens
@@ -4994,15 +5155,10 @@ def mesh_path(torch, api, model, base, reg, experts, engine, reqs, rreqs,
         out[what] = {"ranks": world, "backend": backend, "cards": cards,
                      "cases": cases}
 
-    snap = os.path.join(tmp, "mesh_snap")
-    log("  (a) mesh (2, 1): two ranks on the card over gloo, eager chunks")
-    cases = take(run_ranks(torch, dict(spec, shape=[2, 1], cases=[
-        {"name": "p3", "traffic": "p3", "timed": True},
-        {"name": "p3s", "traffic": "p3", "engine": MESH_SAMPLED},
-        {"name": "paged", "traffic": "paged"},
-        {"name": "crash", "traffic": "paged", "op": "crash",
-         "snapshot_dir": snap}]), 2, "gloo", [0, 0], tmp, "mesh21"),
-        "mesh (2, 1)")
+    run["thread"].join()
+    if "error" in run:
+        raise run["error"]
+    cases = take(run["res21"], "mesh (2, 1)")
     for name, ref in (("p3", "p3"), ("p3s", "p3s"), ("paged", "paged")):
         check(cases[name]["tokens"] == want[ref], f"phase 3m mesh (2, 1) "
               f"{name}: tokens differ from the mesh-free run's (bf16)")
@@ -5017,12 +5173,7 @@ def mesh_path(torch, api, model, base, reg, experts, engine, reqs, rreqs,
         f"{[s['resident_experts'] for s in cases['p3']['summary']['shards']]}")
     report("mesh (2, 1)", 2, "gloo", [0, 0], cases)
 
-    log("  (b) mesh (1, 2): two ranks on the card over gloo, vocab-parallel "
-        "head, batch-sharded KV")
-    cases = take(run_ranks(torch, dict(spec, shape=[1, 2], cases=[
-        {"name": "p3", "traffic": "p3", "timed": True},
-        {"name": "p3_f32", "traffic": "p3", "f32": True}]), 2, "gloo",
-        [0, 0], tmp, "mesh12"), "mesh (1, 2)")
+    cases = take(wait_ranks(run["h12"]), "mesh (1, 2)")
     check(cases["p3_f32"]["tokens"] == want["p3_f32"], "phase 3m mesh "
           "(1, 2): f32 tokens differ from the mesh-free f32 run's")
     ties = []
@@ -5038,15 +5189,7 @@ def mesh_path(torch, api, model, base, reg, experts, engine, reqs, rreqs,
         f"{len(ties)} part at near-ties")
     report("mesh (1, 2)", 2, "gloo", [0, 0], cases)
 
-    log("  (c) mesh (1, 1) under NCCL: one rank, graphed chunks; the (2, 1) "
-        "snapshot resumed")
-    cases = take(run_ranks(torch, dict(spec, shape=[1, 1], cases=[
-        {"name": "p3", "traffic": "p3", "timed": True},
-        {"name": "refill", "traffic": "refill"},
-        {"name": "paged", "traffic": "paged"},
-        {"name": "resume", "traffic": "paged", "op": "resume",
-         "snapshot_dir": snap}]), 1, "nccl", [0], tmp, "mesh11"),
-        "mesh (1, 1)")
+    cases = take(wait_ranks(run["h11"]), "mesh (1, 1)")
     for name in ("p3", "refill", "paged"):
         check(cases[name]["tokens"] == want[name], f"phase 3m mesh (1, 1) "
               f"{name}: tokens differ from the mesh-free run's (bf16)")
@@ -5086,14 +5229,11 @@ def mesh_path(torch, api, model, base, reg, experts, engine, reqs, rreqs,
                   f"phase 3m {what}: tokens differ from the mesh-free run's")
             report(what, 2, "nccl", [0, 1], cases)
 
-    log("  (e) the compressed multi-pod step: 1 NCCL pod, 2 gloo pods on the "
-        f"card ({MESH_TRAIN_STEPS} AdamW steps of {MESH_TRAIN['global_batch']}"
-        f" x {MESH_TRAIN['seq_len']} tokens, 1 unit)")
     train = {}
     for pods, backend in ((1, "nccl"), (2, "gloo")):
-        res = run_ranks(torch, {"op": "train", "seed": seed}, pods, backend,
-                        [0] * pods, tmp, f"train{pods}")
-        oracle = multipod_oracle(torch, seed, pods, torch.device("cuda"))
+        oracle = multipod_oracle(torch, spec["seed"], pods,
+                                 torch.device("cuda"))
+        res = wait_ranks(run["h_train"][pods])
         for r, got in enumerate(res):
             check(got["params"] == oracle["params"],
                   f"phase 3m multi-pod ({pods} {backend}): rank {r}'s "
@@ -5121,11 +5261,29 @@ def mesh_path(torch, api, model, base, reg, experts, engine, reqs, rreqs,
 # a rank
 # ---------------------------------------------------------------------------
 
-# (name, mesh shape, f32, compression): the within-pod train steps; the
+# (name, mesh shape, f32): the within-pod train steps of part (a); the
 # first two run on two ranks, the last on four
 WITHIN_TRAIN = (("fsdp", (1, 2, 1), False), ("tp", (1, 1, 2), True),
                 ("pods", (2, 2, 1), False))
-WITHIN_PARAM_TOL = 1e-4      # f32, (1, 1, 2) against the mesh-free step
+# every within-pod step trains on 8 x 64 tokens in 2 microbatches, half
+# of the targets of the rows data rank 0 (of pod 0) takes at -1; part (a)
+# runs 2 steps (warmup_cosine's learning rate is 0 at step 0, so the
+# second moves the parameters after the first moved the moments)
+WITHIN_BATCH = dict(seq_len=64, global_batch=8, task_id=1)
+WITHIN_MICRO = 2
+WITHIN_STEPS = 2
+WITHIN_PARAM_TOL = 1e-4      # f32, a mesh with "model" against the
+WITHIN_LOSS_TOL = 1e-4       # mesh-free step
+# part (c): mixtral-8x7b at full width, 1 unit, f32, on (1, 2, 2): as
+# published (TP inside the experts) and with expert_parallel=True
+MOE_SHAPE = (1, 2, 2)
+MOE_CASES = (("moe_tp", False), ("moe_ep", True))
+# warmup_cosine's learning rate is 0 at step 0, so of the 2 steps only
+# the second moves a parameter; a third costs about 13 s a layout
+MOE_STEPS = 2
+MOE_PARAM_TOL = 1e-5    # f32, one AdamW update at lr 3.3e-4
+MOE_NORM_TOL = 1e-5     # relative: the global gradient norm before the clip
+EXPERT_LEAVES = ("wg_e", "wu_e", "wo_e")
 SP_LOGIT_TOL = 1e-4          # of the largest |logit|, f32
 # the sequence-parallel decode cases: phase 3's 8 requests (16 to 64
 # prompt tokens) in waves of 4 on (data 1, model 2); one 4096-token prompt
@@ -5144,15 +5302,44 @@ def state_nbytes(tree) -> int:
                for t in tree_util.leaves(tree))
 
 
+def within_tcfg(TrainConfig, GradCompressionConfig):
+    return dataclasses.replace(mesh_tcfg(TrainConfig, GradCompressionConfig),
+                               microbatches=WITHIN_MICRO)
+
+
+def within_batches(torch, cfg, shape, dev, steps=WITHIN_STEPS) -> list:
+    """The within-pod steps' global batches on a mesh of ``shape``: half
+    of the targets of the rows data rank 0 of pod 0 takes (its share of
+    each microbatch, ``within_pod.local_rows``) at -1, so the data ranks
+    hold uneven counts of valid targets."""
+    from repro_torch.data.pipeline import make_batch_for
+    from repro_torch.train import within_pod as wp
+    n = WITHIN_BATCH["global_batch"]
+    rows = wp.local_rows({"i": torch.arange(n)}, wp.AxisSizes(dict(zip(
+        ("pod", "data", "model"), shape))), {"pod": 0, "data": 0,
+                                             "model": 0}, WITHIN_MICRO)["i"]
+    out = []
+    for s in range(steps):
+        batch = make_batch_for(cfg, s, device=dev, **WITHIN_BATCH)
+        batch["targets"] = batch["targets"].clone()   # not the tokens' view
+        g = torch.Generator().manual_seed(17 + s)
+        T = WITHIN_BATCH["seq_len"]
+        for r in rows.tolist():
+            cols = torch.randperm(T, generator=g)[:T // 2].to(dev)
+            batch["targets"][r, cols] = -1
+        out.append(batch)
+    return out
+
+
 def within_train_child(torch, name, shape, f32, spec, dev) -> dict:
-    """One rank of a within-pod train step (qwen2.5-3b at 1 unit, 3 AdamW
-    steps of 4 x 64 tokens): digests of its blocks, the losses, step
-    seconds, resident state bytes beside the mesh-free state's, the
-    collectives of one more profiled step; on an f32 mesh with "model",
-    the largest parameter difference from the mesh-free step."""
+    """One rank of a within-pod train step (qwen2.5-3b at 1 unit, 2 AdamW
+    steps of 8 x 64 tokens in 2 microbatches, masked targets): digests
+    of its blocks, the losses, step seconds, resident state bytes beside
+    the mesh-free state's, the collectives of the last step (profiled);
+    on an f32 mesh with "model", the largest parameter difference from
+    the mesh-free step."""
     from repro_torch.configs import get_config
     from repro_torch.core.gradient_compression import GradCompressionConfig
-    from repro_torch.data.pipeline import make_batch_for
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import build as build_model
     from repro_torch.train import (TrainConfig, init_train_state,
@@ -5165,7 +5352,7 @@ def within_train_child(torch, name, shape, f32, spec, dev) -> dict:
                               dtype="float32" if f32 else "bfloat16")
     model = build_model(cfg)
     mesh = make_production_mesh(shape=shape, device="cuda")
-    tcfg = mesh_tcfg(TrainConfig, GradCompressionConfig)
+    tcfg = within_tcfg(TrainConfig, GradCompressionConfig)
     pods = shape[0] > 1
     torch.cuda.reset_peak_memory_stats(dev)
     free_bytes = state_nbytes({k: v for k, v in init_train_state(
@@ -5181,12 +5368,17 @@ def within_train_child(torch, name, shape, f32, spec, dev) -> dict:
     step = make_train_step(model, tcfg, mesh=mesh)
     torch.set_grad_enabled(True)
     losses, secs = [], []
-    batches = [make_batch_for(cfg, s, device=dev, **MESH_TRAIN)
-               for s in range(MESH_TRAIN_STEPS)]
-    for batch in batches:
+    batches = within_batches(torch, cfg, shape, dev)
+    for i, batch in enumerate(batches):
         torch.cuda.synchronize(dev)
         t0 = time.monotonic()
-        local, met = step(local, batch)
+        if i + 1 < len(batches):
+            local, met = step(local, batch)
+        else:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                local, met = step(local, batch)
+                torch.cuda.synchronize(dev)
         losses.append(float(met["loss"]))
         secs.append(time.monotonic() - t0)
     out = {"name": name, "losses": losses, "step_s": secs,
@@ -5210,15 +5402,191 @@ def within_train_child(torch, name, shape, f32, spec, dev) -> dict:
                 tree_util.leaves(local["params"]),
                 tree_util.leaves(want["params"])))
         del st, want
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(local, batches[0])
-        torch.cuda.synchronize(dev)
     out["collectives"] = collectives_of(prof)
     del local
     torch.set_grad_enabled(False)
     free_all(torch)
     return out
+
+
+def moe_config(ep: bool):
+    """mixtral-8x7b at full width, 1 unit, f32; ``ep`` overrides the
+    published layout (TP inside the experts) with expert parallelism."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("mixtral_8x7b"), n_units=1,
+                              dtype="float32")
+    if ep:
+        cfg = dataclasses.replace(cfg, sharding=dataclasses.replace(
+            cfg.sharding, expert_parallel=True))
+    return cfg
+
+
+def expert_nbytes(tree) -> int:
+    from repro_torch import tree as tree_util
+    return sum(t.numel() * t.element_size()
+               for p, t in tree_util.flatten_with_paths(tree)
+               if p.split("/")[-1] in EXPERT_LEAVES)
+
+
+def moe_reference(torch, seed, dev, path) -> dict:
+    """Part (c)'s mesh-free step in this process (about 27 GB of f32
+    state and gradients with AdamW, freed before the ranks start): the
+    final parameters written to ``path`` for the ranks' gates; returned:
+    the losses, gradient norms, step seconds, the state's bytes and peak
+    memory."""
+    from repro_torch.core.gradient_compression import GradCompressionConfig
+    from repro_torch.models import build as build_model
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch import tree as tree_util
+    cfg = moe_config(False)
+    model = build_model(cfg)
+    tcfg = within_tcfg(TrainConfig, GradCompressionConfig)
+    free_all(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(model.init(seed=seed, device=dev), tcfg)
+    step = make_train_step(model, tcfg)
+    losses, norms, secs = [], [], []
+    with torch.enable_grad():
+        for batch in within_batches(torch, cfg, MOE_SHAPE, dev, MOE_STEPS):
+            torch.cuda.synchronize(dev)
+            t0 = time.monotonic()
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            secs.append(time.monotonic() - t0)
+    torch.save(tree_util.tree_map(lambda t: t.cpu(), state["params"]), path)
+    out = {"losses": losses, "grad_norms": norms, "step_s": secs,
+           "state_bytes": state_nbytes({k: v for k, v in state.items()
+                                        if k != "step"}),
+           "expert_bytes": expert_nbytes(state["params"]),
+           "n_params": sum(t.numel() for t in tree_util.leaves(
+               state["params"])),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    del state, step
+    free_all(torch)
+    return out
+
+
+def within_moe_child(torch, name, ep, spec, dev) -> dict:
+    """One rank of part (c): mixtral at full width, 1 unit, f32, on (1, 2,
+    2) as ``moe_config(ep)`` places it, ``MOE_STEPS`` AdamW steps of 8 x
+    64 tokens in 2 microbatches (masked targets), the last profiled; then
+    its parameter blocks against the mesh-free step's, cut from the file
+    the parent wrote (``spec["moe_ref"]``, mapped, not read whole).
+    Returned: losses, gradient norms, step seconds, resident state and
+    expert bytes beside the mesh-free state's, the expert leaves'
+    shapes, peak memory, the collectives of the profiled step, the
+    largest parameter difference and every block not at its placed shape
+    (or an expert block not a quarter of its leaf)."""
+    from repro_torch.core.gradient_compression import GradCompressionConfig
+    from repro_torch.distributed.sharding import (local_shard,
+                                                  param_shardings,
+                                                  shard_tree)
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build as build_model
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch import tree as tree_util
+    from torch.profiler import ProfilerActivity, profile
+    import torch.distributed as dist
+    cfg = moe_config(ep)
+    model = build_model(cfg)
+    mesh = make_production_mesh(shape=MOE_SHAPE, device="cuda")
+    tcfg = within_tcfg(TrainConfig, GradCompressionConfig)
+    free_all(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    free_gib = [torch.cuda.mem_get_info(dev)[0] / 2**30]
+    # two ranks at a time draw the whole tree (6.9 GB) and cut their blocks
+    for r in range(0, spec["world"], 2):
+        if spec["rank"] in (r, r + 1):
+            params = model.init(seed=spec["seed"], device=dev)
+            local = init_train_state(shard_tree(params, param_shardings(
+                params, cfg, mesh), mesh), tcfg)
+            del params
+            free_all(torch)
+        dist.barrier()
+    free_gib.append(torch.cuda.mem_get_info(dev)[0] / 2**30)
+    step = make_train_step(model, tcfg, mesh=mesh)
+    torch.set_grad_enabled(True)
+    losses, norms, secs = [], [], []
+    batches = within_batches(torch, cfg, MOE_SHAPE, dev, MOE_STEPS)
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        if i + 1 < len(batches):
+            local, met = step(local, batch)
+        else:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                local, met = step(local, batch)
+                torch.cuda.synchronize(dev)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        secs.append(time.monotonic() - t0)
+    torch.set_grad_enabled(False)
+    out = {"name": name, "losses": losses, "grad_norms": norms,
+           "step_s": secs,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "state_bytes": state_nbytes({k: v for k, v in local.items()
+                                        if k != "step"}),
+           "expert_bytes": expert_nbytes(local["params"]),
+           "expert_shapes": {p: list(t.shape) for p, t in
+                             tree_util.flatten_with_paths(local["params"])
+                             if p.split("/")[-1] in EXPERT_LEAVES},
+           "collectives": collectives_of(prof), "card_free_gib": free_gib}
+    del step
+    free_all(torch)
+    ref = torch.load(spec["moe_ref"], map_location="cpu", mmap=True,
+                     weights_only=True)
+    specs = dict(tree_util.flatten_with_paths(param_shardings(
+        ref, cfg, mesh)))
+    want = dict(tree_util.flatten_with_paths(ref))
+    index = {a: mesh.get_local_rank(a) for a in ("pod", "data", "model")}
+    worst, wrong = 0.0, []
+    for path, got in tree_util.flatten_with_paths(local["params"]):
+        block = local_shard(want[path], specs[path], mesh, index)
+        if got.shape != block.shape:
+            wrong.append(f"{path} is {tuple(got.shape)}, placed "
+                         f"{tuple(block.shape)}")
+            continue
+        if (path.split("/")[-1] in EXPERT_LEAVES
+                and block.numel() * 4 != want[path].numel()):
+            wrong.append(f"{path} is not cut to a quarter")
+        worst = max(worst, float((got - block.to(dev)).abs().max()))
+    out.update(max_param_diff=worst, wrong_blocks=wrong)
+    del local, ref, want
+    free_all(torch)
+    return out
+
+
+def moe_gates(torch, ref, ranks, name) -> dict:
+    """Part (c)'s gates on one layout, from what its ranks report: every
+    rank's losses and gradient norms equal rank 0's, the losses within
+    WITHIN_LOSS_TOL and the norms (before the clip) within MOE_NORM_TOL of
+    the mesh-free step's, which ties the gradients' scale to it; every
+    block at its placed shape, an expert block a quarter of its leaf (E
+    or d_ff over "model", another dim over "data"), every parameter
+    within MOE_PARAM_TOL of the mesh-free step's block."""
+    for r, rank in enumerate(ranks):
+        check(rank["losses"] == ranks[0]["losses"]
+              and rank["grad_norms"] == ranks[0]["grad_norms"],
+              f"phase 3w {name}: rank {r}'s losses or gradient norms differ "
+              "from rank 0's")
+        check(not rank["wrong_blocks"], f"phase 3w {name}: rank {r}: "
+              + "; ".join(rank["wrong_blocks"][:4]))
+    losses, norms = ranks[0]["losses"], ranks[0]["grad_norms"]
+    gap = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+    check(gap <= WITHIN_LOSS_TOL, f"phase 3w {name}: losses {losses} vs "
+          f"mesh-free {ref['losses']}")
+    norm_gap = max(abs(a - b) / b for a, b in zip(norms, ref["grad_norms"]))
+    check(norm_gap <= MOE_NORM_TOL, f"phase 3w {name}: gradient norms "
+          f"{norms} vs mesh-free {ref['grad_norms']}")
+    worst = max(r["max_param_diff"] for r in ranks)
+    check(worst <= MOE_PARAM_TOL, f"phase 3w {name}: parameters "
+          f"{worst:.3e} from the mesh-free step's")
+    return {"max_param_diff": worst, "loss_gap": gap,
+            "grad_norm_rel_gap": norm_gap}
 
 
 def sp_prompts(torch, traffic, case: str, vocab: int, dev) -> list:
@@ -5343,8 +5711,13 @@ def within_sp_child(torch, case, spec, dev, experts) -> tuple[dict, dict]:
 
 def within_child(torch, spec, dev, experts) -> list:
     """A phase 3w rank: its within-pod train steps and its
-    sequence-parallel decode case, in one world."""
+    sequence-parallel decode case, in one world; in the world of four,
+    first part (c)'s MoE steps (``spec["moe_ref"]``), while the card holds
+    nothing of the other cases."""
     res = []
+    if spec.get("moe_ref") and spec["world"] == 4:
+        res += [within_moe_child(torch, name, ep, spec, dev)
+                for name, ep in MOE_CASES]
     for name, shape, f32 in WITHIN_TRAIN:
         if shape[0] * shape[1] * shape[2] == spec["world"]:
             res.append(within_train_child(torch, name, shape, f32, spec,
@@ -5363,14 +5736,13 @@ def within_oracle(torch, seed, shape, dev) -> dict:
     digests of every rank's blocks and the losses."""
     from repro_torch.configs import get_config
     from repro_torch.core.gradient_compression import GradCompressionConfig
-    from repro_torch.data.pipeline import make_batch_for
     from repro_torch.models import build as build_model
     from repro_torch.train import TrainConfig, init_train_state
     from repro_torch.train import within_pod as wp
     cfg = dataclasses.replace(get_config("qwen2_5_3b"), n_units=1,
                               dtype="bfloat16")
     model = build_model(cfg)
-    tcfg = mesh_tcfg(TrainConfig, GradCompressionConfig)
+    tcfg = within_tcfg(TrainConfig, GradCompressionConfig)
     state = init_train_state(model.init(seed=seed, device=dev), tcfg,
                              multi_pod=shape[0] > 1)
     sizes = dict(zip(("pod", "data", "model"), shape))
@@ -5380,8 +5752,7 @@ def within_oracle(torch, seed, shape, dev) -> dict:
     del state
     losses = []
     with torch.enable_grad():
-        for s in range(MESH_TRAIN_STEPS):
-            batch = make_batch_for(cfg, s, device=dev, **MESH_TRAIN)
+        for batch in within_batches(torch, cfg, shape, dev):
             res = wp.within_pod_in_one_process(model, tcfg, shape, states,
                                                batch)
             states = {c: r[0] for c, r in res.items()}
@@ -5424,10 +5795,11 @@ def sp_gates(torch, what, got_first, got_tokens, ref) -> dict:
 
 def within_phase(torch, api, model, base, reg, experts, reqs, args):
     """Phase 3w with its log lines and timing -> (report, launches)."""
-    log("phase 3w: training inside a pod ((1, 2, 1) FSDP, (1, 1, 2) tensor "
-        "parallelism on an f32 copy, (2, 2, 1) with compressed pods) and "
-        "sequence-parallel decode ((1, 2) and (2, 2)), ranks as gloo "
-        "processes on the card")
+    log("phase 3w: training inside a pod ((a) (1, 2, 1) FSDP, (1, 1, 2) "
+        "tensor parallelism on an f32 copy, (2, 2, 1) with compressed pods; "
+        "(c) mixtral at full width on (1, 2, 2), experts cut on d_ff and on "
+        "E) and (b) sequence-parallel decode ((1, 2) and (2, 2)), ranks as "
+        "gloo processes on the card")
     t0 = time.monotonic()
     with tempfile.TemporaryDirectory(prefix="_artifacts_", dir=ROOT) as tmp:
         within, launches = within_path(torch, api, model, base, reg,
@@ -5453,6 +5825,10 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
     spec = {"op": "within", "setup": setup, "seed": seed, "units": units}
     out: dict = {"gpu": gpu_line()}
     dev = base["embed"].device
+    # the world of two runs while this process takes the decode
+    # references (a few GB beside its ranks' 9); part (c)'s mesh-free
+    # step (50 GB) and the world of four then have the card alone
+    h2 = start_ranks(spec, 2, "gloo", [0, 0], tmp, "within2", timeout=900)
     # the mesh-free decode references on the f32 copy
     m32, b32 = f32_copy(torch, model, base)
     refs = {}
@@ -5467,17 +5843,32 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
             "seconds": time.monotonic() - t0}
     del m32, b32
     free_all(torch)
-    out["parent_gib"] = {"allocated": torch.cuda.memory_allocated() / 2**30,
+    results = {2: wait_ranks(h2)}
+    out["world2_s"] = time.monotonic() - h2["t0"]
+    # part (c)'s mesh-free step, while no rank holds the card
+    t0 = time.monotonic()
+    ref_path = os.path.join(tmp, "moe_mesh_free.pt")
+    moe_ref = moe_reference(torch, seed, dev, ref_path)
+    out["moe_mesh_free"] = dict(moe_ref, seconds=time.monotonic() - t0)
+    log(f"phase 3w (c) mesh-free mixtral, 1 unit at full width, f32, "
+        f"{moe_ref['n_params']} parameters: losses {moe_ref['losses']}; "
+        f"step s {[round(x, 3) for x in moe_ref['step_s']]}; state bytes "
+        f"{moe_ref['state_bytes']} (experts {moe_ref['expert_bytes']} of "
+        f"parameters); peak {moe_ref['peak_gib']:.2f} GiB [{gpu_line()}]")
+    out["parent_gib"] = {"card_free": torch.cuda.mem_get_info()[0] / 2**30,
+                         "allocated": torch.cuda.memory_allocated() / 2**30,
                          "reserved": torch.cuda.memory_reserved() / 2**30}
     log(f"  this process holds {out['parent_gib']} GiB while the ranks run")
     launches = {k: 0 for k in ops.launch_counts()}
-    for world in (2, 4):
-        t0 = time.monotonic()
-        res = run_ranks(torch, spec, world, "gloo", [0] * world, tmp,
-                        f"within{world}", timeout=900)
-        out[f"world{world}_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    results[4] = run_ranks(torch, dict(spec, moe_ref=ref_path), 4, "gloo",
+                           [0] * 4, tmp, "within4", timeout=900)
+    out["world4_s"] = time.monotonic() - t0
+    for world, res in results.items():
         by = [{r["name"] if "name" in r else r["case"]: r for r in rank}
               for rank in res]
+        if world == 4:
+            by4 = by
         for name, shape, f32 in WITHIN_TRAIN:
             if name not in by[0]:
                 continue
@@ -5493,7 +5884,9 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
                    "mesh_free_state_bytes": ranks[0]["mesh_free_state_bytes"],
                    "collectives": [r["collectives"] for r in ranks]}
             if shape[2] == 1:
+                t1 = time.monotonic()
                 oracle = within_oracle(torch, seed, shape, dev)
+                out[f"oracle_{name}_s"] = time.monotonic() - t1
                 for r, got in enumerate(ranks):
                     check(got["digest"] == oracle["digest"][r],
                           f"phase 3w train {shape}: rank {r}'s blocks "
@@ -5559,12 +5952,50 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
                 f"{rep['decode_ms_per_step']:.2f} ms a step (mesh-free "
                 f"{out[case + '_mesh_free']['decode_ms_per_step']:.2f}); "
                 f"combine {ranks[0]['combine'][0]} [{gpu_line()}]")
+    # part (c): the first cases of the world of four
+    for name, ep in MOE_CASES:
+        ranks = [b[name] for b in by4]
+        gates = moe_gates(torch, moe_ref, ranks, name)
+        rep = dict(gates, shape=list(MOE_SHAPE), expert_parallel=ep,
+                   losses=ranks[0]["losses"],
+                   mesh_free_losses=moe_ref["losses"],
+                   grad_norms=ranks[0]["grad_norms"],
+                   mesh_free_grad_norms=moe_ref["grad_norms"],
+                   step_s=[r["step_s"] for r in ranks],
+                   state_bytes=[r["state_bytes"] for r in ranks],
+                   mesh_free_state_bytes=moe_ref["state_bytes"],
+                   expert_bytes=[r["expert_bytes"] for r in ranks],
+                   mesh_free_expert_bytes=moe_ref["expert_bytes"],
+                   expert_shapes=ranks[0]["expert_shapes"],
+                   peak_gib=[r["peak_gib"] for r in ranks],
+                   card_free_gib=[r["card_free_gib"] for r in ranks],
+                   collectives=[r["collectives"] for r in ranks])
+        out[f"train_{name}"] = rep
+        log(f"phase 3w (c) {name} on {MOE_SHAPE} (mixtral, 1 unit at "
+            f"full width, f32, experts cut on "
+            f"{'E' if ep else 'd_ff'} over 'model'): losses "
+            f"{rep['losses']} (mesh-free {rep['mesh_free_losses']}); "
+            f"gradient norms {rep['grad_norms']} (mesh-free "
+            f"{rep['mesh_free_grad_norms']}, largest relative gap "
+            f"{gates['grad_norm_rel_gap']:.2e}); "
+            f"max |param diff| {gates['max_param_diff']:.3e}; step s "
+            f"a rank {[[round(x, 3) for x in r] for r in rep['step_s']]}"
+            f" (the last profiled); state bytes a rank "
+            f"{rep['state_bytes']} vs mesh-free "
+            f"{rep['mesh_free_state_bytes']}; expert bytes a rank "
+            f"{rep['expert_bytes']} vs {rep['mesh_free_expert_bytes']}; "
+            f"expert leaves {rep['expert_shapes']}; peak GiB a rank "
+            f"{[round(x, 2) for x in rep['peak_gib']]} (card free GiB "
+            f"at the start and after the cut {rep['card_free_gib']}); "
+            f"collectives of the profiled step {rep['collectives']} "
+            f"[{gpu_line()}]")
+    os.remove(ref_path)
     return out, launches
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--units", type=int, default=4,
+    ap.add_argument("--units", type=int, default=2,
                     help="repeat units (layers) of qwen2.5-3b, 1..36")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh-child", help=argparse.SUPPRESS)
@@ -5743,18 +6174,6 @@ def main(argv=None) -> int:
     check(check_launches["unpack_add"] > 0,
           "unpack_add was not launched by the ensemble's loop check")
 
-    log("phase 3c: artifact path (exact compression, save / load, "
-        "cold-Golomb serve, similarity, merges)")
-    with tempfile.TemporaryDirectory(prefix="_artifacts_", dir=ROOT) as tmp:
-        art, art_launches, matvec_launches = artifact_path(
-            torch, api, model, base, experts, reqs, cfg, dev, tmp)
-    log(f"  launches on the artifact path: {art_launches}")
-    for name in ARTIFACT_PATH_KERNELS:
-        check(art_launches[name] > 0,
-              f"kernel {name} was not launched on the artifact path")
-    check(matvec_launches["ternary_matmul"] > 0,
-          "ternary_matmul was not launched by the ternary_matvec check")
-
     log("phase 3d: continuous admission (16 requests, slot refill, "
         "max_batch 4, cache_len 256, decode_chunk 8)")
     rengine, rreqs, refill_launches, refill = refill_path(
@@ -5764,18 +6183,40 @@ def main(argv=None) -> int:
           "ternary_matmul_grouped was not launched on the refill path")
     refill["f32"] = f32_refill(torch, api, model, base, reg, rreqs)
 
+    # phase 3m's ranks serve and train while this process runs phase 3c
     log("phase 3m: the serving mesh (ranks as processes: (2, 1) and (1, 2) "
         "over gloo on the card, (1, 1) under NCCL) and the compressed "
-        "multi-pod step")
-    t0 = time.monotonic()
-    with tempfile.TemporaryDirectory(prefix="_artifacts_", dir=ROOT) as tmp:
+        "multi-pod step; its ranks start now and run beside phase 3c")
+    with tempfile.TemporaryDirectory(prefix="_artifacts_",
+                                     dir=ROOT) as mesh_tmp:
+        mesh_run = mesh_start(torch, experts, reqs, rreqs, args.seed,
+                              args.units, mesh_tmp)
+
+        log("phase 3c: artifact path (exact compression, save / load, "
+            "cold-Golomb serve, similarity, merges), beside phase 3m's "
+            "ranks")
+        with tempfile.TemporaryDirectory(prefix="_artifacts_",
+                                         dir=ROOT) as tmp:
+            art, art_launches, matvec_launches = artifact_path(
+                torch, api, model, base, experts, reqs, cfg, dev, tmp,
+                before_merges=lambda: mesh_wait(mesh_run))
+        log(f"  launches on the artifact path: {art_launches}")
+        for name in ARTIFACT_PATH_KERNELS:
+            check(art_launches[name] > 0,
+                  f"kernel {name} was not launched on the artifact path")
+        check(matvec_launches["ternary_matmul"] > 0,
+              "ternary_matmul was not launched by the ternary_matvec check")
+
+        log("phase 3m: the mesh-free references and every world's results")
+        t0 = time.monotonic()
         mesh, mesh_launches = mesh_path(torch, api, model, base, reg,
-                                        experts, engine, reqs, rreqs,
-                                        args.seed, args.units, tmp)
+                                        engine, reqs, rreqs, mesh_run)
     mesh["phase_s"] = time.monotonic() - t0
+    mesh["ranks_s"] = time.monotonic() - mesh_run["t0"]
     log(f"  launches on the mesh runs (rank 0): "
         f"{ {k: v for k, v in mesh_launches.items() if v} }; phase 3m took "
-        f"{mesh['phase_s']:.1f} s [{gpu}]")
+        f"{mesh['phase_s']:.1f} s after phase 3c ({mesh['ranks_s']:.1f} s "
+        f"from its ranks' start) [{gpu}]")
     if args.stop_after == "mesh":
         with open(os.path.join(out_dir, "chip_smoke_mesh.json"), "w") as f:
             json.dump({"gpu": gpu, "mesh": mesh,
@@ -6418,3 +6859,5 @@ if __name__ == "__main__":
     except Exception:       # any other failure: report it, exit non-zero
         traceback.print_exc()
         sys.exit(1)
+    finally:
+        stop_ranks()

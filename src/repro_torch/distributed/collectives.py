@@ -265,7 +265,8 @@ def reduce_scatter_ordered(t: torch.Tensor, dim: int, group,
     send = t.movedim(dim, 0).contiguous()
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
-    block = recv.reshape((n, send.shape[0] // n) + tuple(send.shape[1:]))
+    del send            # freed before the sum's buffer is taken
+    block = recv.reshape((n, recv.shape[0] // n) + tuple(recv.shape[1:]))
     return ordered_sum(block).movedim(0, dim)
 
 

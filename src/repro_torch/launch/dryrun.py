@@ -23,25 +23,28 @@ ask, so it counts what its own step does:
   weights whole ("gathered_unit").  "fits" compares the sum with 80 GB.
 * **FLOPs** from ``torch.utils.flop_counter.FlopCounterMode`` over one
   unit at local shapes (forward and backward for training, plus the
-  recomputed forward), times the units, plus the head.  A cell of a
+  recomputed forward of every unit but the decoder's last), times the
+  units, plus the head.  A cell of a
   family with recurrent blocks above 4096 tokens counts one unit at 2048
   and 4096 tokens and fits a * T + b * T**2 (the scans are linear, the
   global attention quadratic), since the scans' chunk loops are slow to
   trace on the meta device.
 * **Collective bytes** (received per rank and step) by kind, from the
-  rules and the step's algorithm: FSDP gathers (forward and recompute),
+  rules and the step's algorithm: FSDP gathers (forward, and the
+  recompute of every unit but the decoder's last),
   the gradients' data sums (a reduce-scatter by ``all_to_all``: a rank
   receives the other D - 1 ranks' copies of its block, (D - 1) / D of
   the leaf as the unit uses it; a leaf not cut over "data" is
   all-reduced, a reduce-scatter and an all-gather: 2 (D - 1) / D of it),
-  tensor-parallel sums (six per unit and microbatch: two in the forward,
-  two in the recompute, two in the backward; each an all-reduce in rank
-  order, 2 (M - 1) / M of the activation), the vocab-parallel lookup,
-  head and
-  loss, the sequence-parallel combine of decode, and the cross-pod
-  planes at 2 bits a parameter.  A decode or prefill cell gathers each
-  unit's weights whole, as the port's sequence-parallel decode runs
-  them.
+  tensor-parallel sums (per cut region, unit and microbatch: in the
+  forward, the backward and a recompute; a region is an
+  attention whose heads are cut, and an FFN, dense or MoE; each an
+  all-reduce in rank order, 2 (M - 1) / M of the activation; an MoE
+  adds its gate values' gradient, summed in the backward), the
+  vocab-parallel lookup, head and loss, the sequence-parallel combine
+  of decode, and the cross-pod planes at 2 bits a parameter.  A decode
+  or prefill cell gathers each unit's weights whole, as the port's
+  sequence-parallel decode runs them.
 * **Roofline terms** at the H100's 989 TFLOP/s bf16 dense, 3.35 TB/s HBM
   and 450 GB/s each way over NVLink ("model" lies inside one 8-card
   host); the rate across hosts (the "data" and "pod" collectives) is a
@@ -70,10 +73,12 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.registry import normalize
 from repro_torch.core.gradient_compression import GradCompressionConfig
 from repro_torch.distributed.sharding import (_axes_of, cache_shardings,
-                                              decode_layout, param_shardings,
+                                              decode_layout, heads_shardable,
+                                              param_shardings,
                                               train_state_shardings)
 from repro_torch.train.train_step import TrainConfig, init_train_state
-from repro_torch.train.within_pod import AxisSizes, tensor_parallel_family
+from repro_torch.train.within_pod import (AxisSizes, TensorParallel,
+                                         tensor_parallel_family)
 
 # ---------------------------------------------------------------------------
 # Cell table (the reference's)
@@ -190,6 +195,29 @@ def _unit_tree(params, specs, stack, sizes, tp):
     return tree_util.unflatten_paths(out)
 
 
+class _MetaRank:
+    """Model rank 0 of a tensor-parallel mesh as the model code asks a
+    training mesh's ``run`` (:class:`repro_torch.train.within_pod.PodRun`)
+    on the meta device: the unit's leaves as given (at the shapes the
+    unit uses, :func:`_unit_tree`), its tensor-parallel hooks
+    (:class:`TensorParallel`), and every sum over ranks the identity (the
+    collectives' bytes are counted apart)."""
+
+    coords = {"model": 0}
+
+    def __init__(self):
+        self.tp = TensorParallel(self)
+
+    def unit(self, stack, unit_params):
+        return unit_params
+
+    def model_sum(self, x):
+        return x
+
+    def data_total(self, t):
+        return t
+
+
 def _unit_cost(cfg, params, specs, sizes, tp, stack, pattern, rows, T,
                train: bool, enc_len: int = 0) -> dict:
     """FLOPs (forward; forward + backward) and saved bytes of one unit
@@ -217,7 +245,8 @@ def _unit_cost(cfg, params, specs, sizes, tp, stack, pattern, rows, T,
         # grad mode in a prefill too: what the unit saves bounds the
         # working set a forward holds at once
         with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-            y, _ = tf._train_unit(x, unit, cfg, pattern, pos, enc)
+            y, _ = tf._train_unit(x, unit, cfg, pattern, pos, enc,
+                                  run=_MetaRank() if tp else None)
         fwd = fc.get_total_flops()
         if train:
             torch.autograd.grad(y.float().sum(), [x] + leaves,
@@ -388,15 +417,17 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
         if mb_rows % data_ranks:
             notes.append(f"a microbatch of {mb_rows} rows does not divide "
                          f"over {data_ranks} data ranks: {rows} a rank")
-        unit_saved, x_bytes, used_total = 0, 0, 0
+        unit_saved, x_bytes, used_total, reads = 0, 0, 0, 0
         for stack, pattern, n_units, enc in stacks:
             Tn = enc_len if stack == "enc_blocks" else dec_T
             c = _unit_cost_fit(cfg, params, pspecs, sizes, tp, stack,
                                pattern, rows, Tn, train, enc)
             if c.get("fitted"):
                 notes.append(f"{stack}: FLOPs and saved bytes fitted in T")
-            per = c["fwd_bwd"] + (c["fwd"] if train else 0)
-            flops += per * n_units * micro
+            # units a training step runs again in its backward: all but
+            # the decoder's last
+            again = n_units - (stack == "blocks") if train else 0
+            flops += (c["fwd_bwd"] * n_units + c["fwd"] * again) * micro
             unit_saved = max(unit_saved, c["saved"])
             x_bytes += rows * Tn * cfg.d_model * act_dt * n_units
             # collectives of the unit's leaves
@@ -404,22 +435,31 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
                 spec = flat_specs[f"{stack}/{path}"]
                 one = leaf[0]
                 gb = _leaf_gather_bytes(one, spec[1:], sizes, not tp)
-                passes = 2 if train else 1
-                colls["fsdp_gather"] += gb["data"] * passes * n_units * micro
-                colls["fsdp_gather_model"] += (gb["model"] * passes
-                                               * n_units * micro)
+                colls["fsdp_gather"] += gb["data"] * (n_units + again) * micro
+                colls["fsdp_gather_model"] += (gb["model"] * (n_units + again)
+                                               * micro)
                 used = _nbytes(_used_shape(tuple(one.shape), spec[1:],
                                            sizes, tp), one.dtype)
                 used_total += used * n_units
+                # read in the forward, the backward and a recompute
+                reads += used * ((2 * n_units + again) if train
+                                 else n_units)
                 if train:
                     colls["grad_data_sum"] += (_grad_sum_bytes(
                         used, spec[1:], sizes) * n_units * micro)
             if tp:
-                act = rows * Tn * cfg.d_model * act_dt
-                sums = (6 if train else 2) * len(pattern)
                 M = sizes["model"]
-                colls["tp_sum"] += 2 * act * (M - 1) // M * sums \
-                    * n_units * micro
+                act = rows * Tn * cfg.d_model * act_dt
+                for b in pattern:
+                    regions = int(b.ffn is not None) + int(
+                        heads_shardable(cfg, mesh, b.attn.n_q))
+                    colls["tp_sum"] += (2 * act * (M - 1) // M * regions
+                                        * ((2 * n_units + again) if train
+                                           else n_units) * micro)
+                    if train and b.ffn is not None and b.ffn.moe:
+                        gates = rows * Tn * b.ffn.moe.top_k * 4
+                        colls["tp_sum"] += (2 * gates * (M - 1) // M
+                                            * n_units * micro)
         flops += _head_flops(cfg, rows, text_T, v_local, train) * micro
         for k in ("embed", "lm_head", "final_norm", "frontend_proj",
                   "enc_final_norm"):
@@ -432,6 +472,7 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
                                            flat_specs[k], sizes, tp),
                                params[k].dtype)
                 used_total += used
+                reads += used * (2 if train else 1)
                 if train:
                     colls["grad_data_sum"] += _grad_sum_bytes(
                         used, flat_specs[k], sizes) * micro
@@ -456,7 +497,7 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
             colls["pod_planes"] = (n_loc * 2 // 8 + 4 * n_leaves) * (
                 sizes["pod"] - 1)
         # weights read in the forward, the recompute and the backward
-        hbm = (used_total * (3 if train else 1) * micro
+        hbm = (reads * micro
                + 2 * (mem.get("optimizer", 0) + mem.get("grads", 0)
                       + mem.get("ef", 0))
                + 2 * mem["activations"] + mem.get("kv_cache", 0))

@@ -89,7 +89,7 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, mo):
     return probs, gate_vals, gate_idx, onehot, pos_in_expert, C
 
 
-def moe_ffn(x: torch.Tensor, p: dict, cfg):
+def moe_ffn(x: torch.Tensor, p: dict, cfg, run=None):
     """Grouped capacity-based top-k MoE (GShard).  x [B, T, D] ->
     (out [B, T, D], aux f32).
 
@@ -99,7 +99,22 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg):
     beyond capacity fall back to the residual stream.  The dispatch is
     the reference's dense one-hot tensor [G, S, E, C], so nothing depends
     on the data's shape and no row sees another group.  aux is the Switch
-    load-balancing loss."""
+    load-balancing loss E * sum_e f_e * p_e, f_e and p_e means over the
+    microbatch's tokens.
+
+    ``run`` (a training mesh's, :class:`repro_torch.train.within_pod.
+    PodRun`) holds this rank's rows of the microbatch: f_e counts every
+    data rank's tokens (``run.data_total``; the one-hot carries no
+    gradient) and p_e sums this rank's probabilities over them, so the
+    data ranks' aux terms and their gradients add up to the logical
+    ones.  The router, its softmax and top-k and the aux run on every
+    model rank alike; under tensor parallelism (``run.tp``) the experts
+    are this rank's part, entered with the gate values (their gradients
+    are partial) and summed over "model" with the shared expert's d_ff
+    slice: a d_ff slice of every expert (experts cut on d_ff), or this
+    rank's contiguous block of whole experts (cut on E), dispatched with
+    the slots of the routing over every expert.  A leaf holding fewer
+    experts than the config outside tensor parallelism raises."""
     mo = cfg.moe
     B, T, D = x.shape
     S = 4096 if T % 4096 == 0 else (2048 if T % 2048 == 0 else T)
@@ -108,6 +123,25 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg):
     E = mo.n_experts
     probs, gate_vals, _, onehot, pos_in_expert, C = moe_route(
         x, p["router"], mo)
+    # load-balancing aux loss (Switch): E * sum_e f_e * p_e
+    counts = torch.cat([onehot[:, :, 0, :].to(torch.float32).sum(
+        dim=(0, 1)), probs.new_full((1,), G * S)])
+    if run is not None:
+        counts = run.data_total(counts)
+    frac_tokens = counts[:E] / counts[E]
+    frac_probs = probs.sum(dim=(0, 1)) / counts[E]
+    aux = E * torch.sum(frac_tokens * frac_probs)
+    tp = run.tp if run is not None else None
+    n_local = p["wg_e"].shape[0]
+    if n_local != E and tp is None:
+        raise ValueError(f"an MoE leaf holds {n_local} of the config's {E} "
+                         "experts: experts cut on E run only as a "
+                         "tensor-parallel rank's block")
+    lo = tp.rank * n_local if n_local != E else 0
+    onehot = onehot[..., lo:lo + n_local]
+    if tp is not None:
+        x = tp.enter(x)
+        gate_vals = tp.enter(gate_vals)
     # a (token, k) beyond its expert's capacity gets no slot: dropped
     slot_oh = _one_hot(torch.where(pos_in_expert < C, pos_in_expert, C), C,
                        torch.float32)                          # [G, S, K, C]
@@ -123,20 +157,24 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg):
     if mo.shared_expert_dff:
         out = out + dense_ffn(x, {"wg": p["wg_s"], "wu": p["wu_s"],
                                   "wo": p["wo_s"]}, cfg)
-    # load-balancing aux loss (Switch): E * sum_e f_e * p_e
-    frac_tokens = onehot[:, :, 0, :].to(torch.float32).mean(dim=(0, 1))
-    frac_probs = probs.mean(dim=(0, 1))
-    aux = E * torch.sum(frac_tokens * frac_probs)
+    if tp is not None:
+        out = tp.reduce(out)
     return out.reshape(B, T, D), aux
 
 
-def ffn_apply(x: torch.Tensor, p: dict, cfg, dp=None, eid=None):
+def ffn_apply(x: torch.Tensor, p: dict, cfg, dp=None, eid=None, run=None):
     """The block's FFN -> (out, aux): the MoE for an MoE config (which no
     overlay covers), else the gated MLP with aux 0.0, a Python float (the
-    reference's zero scalar, without a device op on the serving path)."""
+    reference's zero scalar, without a device op on the serving path).
+    ``run`` (a training mesh's) brings the MoE's sums over the data ranks
+    and, under tensor parallelism, runs this rank's d_ff slice of the
+    gated MLP between Megatron's f and g (``run.tp``)."""
     if cfg.moe is not None:
         if dp:
             raise ValueError("the zero-merge overlay does not cover MoE "
                              "FFNs; they are served by merge-on-swap")
-        return moe_ffn(x, p, cfg)
-    return dense_ffn(x, p, cfg, dp=dp, eid=eid), 0.0
+        return moe_ffn(x, p, cfg, run=run)
+    tp = run.tp if run is not None else None
+    if tp is None:
+        return dense_ffn(x, p, cfg, dp=dp, eid=eid), 0.0
+    return tp.reduce(dense_ffn(tp.enter(x), p, cfg, dp=dp, eid=eid)), 0.0

@@ -28,17 +28,23 @@ from repro_torch.models import transformer as tf
 AUX_LOSS_WEIGHT = 0.01
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
-                  ) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  total=None) -> torch.Tensor:
     """Mean CE over targets >= 0.  logits [B, T, V] (any float dtype),
-    the log-sum-exp in f32."""
+    the log-sum-exp in f32.  ``total`` (a training mesh's sum over the
+    data ranks, ``PodRun.data_total``) divides by the count of valid
+    targets on every data rank of the microbatch: this rank's share of
+    the microbatch's mean."""
     l32 = logits.to(torch.float32)
     lse = torch.logsumexp(l32, dim=-1)
     tgt = torch.clamp(targets.to(torch.int64), 0, logits.shape[-1] - 1)
     picked = torch.gather(l32, -1, tgt[..., None])[..., 0]
     nll = lse - picked
     mask = (targets >= 0).to(torch.float32)
-    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    count = torch.sum(mask)
+    if total is not None:
+        count = total(count)
+    return torch.sum(nll * mask) / torch.clamp_min(count, 1.0)
 
 
 @dataclasses.dataclass

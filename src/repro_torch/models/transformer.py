@@ -274,18 +274,16 @@ def _norm(x, bp, name, cfg, dp, eid):
                     _gemma(cfg))
 
 
-def _apply_ffn(x, bp, b, cfg, dp, eid, tp=None):
-    """x + the block's FFN output -> (x, aux).  ``tp`` (a tensor-parallel
-    block's hooks, d_ff cut over "model") enters the FFN and sums its
-    output over "model"."""
+def _apply_ffn(x, bp, b, cfg, dp, eid, run=None):
+    """x + the block's FFN output -> (x, aux).  ``run`` (a training
+    mesh's) runs this rank's part of a tensor-parallel FFN and sums it
+    over "model", and takes an MoE's token fractions over the data ranks
+    (:func:`repro_torch.models.ffn.ffn_apply`)."""
     if b.ffn is None:
         return x, 0.0
     h = _norm(x, bp, "ffn_norm", cfg, dp, eid)
-    if tp is not None:
-        h = tp.enter(h)
-    out, aux = ffn_apply(h, bp["ffn"], b.ffn, dp=dp.get("ffn"), eid=eid)
-    if tp is not None:
-        out = tp.reduce(out)
+    out, aux = ffn_apply(h, bp["ffn"], b.ffn, dp=dp.get("ffn"), eid=eid,
+                         run=run)
     if b.sandwich_norm:
         out = _norm(out, bp, "post_ffn_norm", cfg, dp, eid)
     return x + out, aux
@@ -316,12 +314,12 @@ def _cross_attend(x, bp, b, cfg, ck, cv):
     return x + out_project(oc, bp["cross"])
 
 
-def _mamba_block(x, bp, b, cfg, state, chunk: int):
+def _mamba_block(x, bp, b, cfg, state, chunk: int, run=None):
     """-> (x, aux, (h, conv ring))."""
     h = rms_norm(x, bp["pre_norm"], cfg.rms_eps)
     out, new_state = mamba_mod.mamba_forward(h, bp["mamba"], b.mamba,
                                              state=state, chunk=chunk)
-    x, aux = _apply_ffn(x + out, bp, b, cfg, {}, None)
+    x, aux = _apply_ffn(x + out, bp, b, cfg, {}, None, run=run)
     return x, aux, new_state
 
 
@@ -340,15 +338,19 @@ def _rwkv_block(x, bp, b, cfg, state, chunk: int, impl: str):
 
 
 def _apply_block(x, bp, b, cfg, positions, dp, eid, kv_start,
-                 enc_out=None, tp=None):
+                 enc_out=None, run=None):
     """One block over a whole sequence from a zero state (training and
     prefill) -> (x, aux, this block's decode state: (k, v) of an
     attention block, the final recurrent state of a mamba or rwkv
-    block).  ``tp`` (:class:`repro_torch.train.within_pod.TensorParallel`)
-    runs an attention block's local heads and its FFN's d_ff slice, and
-    sums each output over "model"."""
+    block).  ``run`` (a training mesh's
+    :class:`repro_torch.train.within_pod.PodRun`) brings its
+    tensor-parallel hooks (``run.tp``,
+    :class:`repro_torch.train.within_pod.TensorParallel`), which run an
+    attention block's local heads and its FFN's part and sum each output
+    over "model", and an MoE's sums over the data ranks."""
+    tp = run.tp if run is not None else None
     if b.kind == "mamba":
-        return _mamba_block(x, bp, b, cfg, None, mamba_mod.CHUNK)
+        return _mamba_block(x, bp, b, cfg, None, mamba_mod.CHUNK, run=run)
     if b.kind == "rwkv":
         x, st = _rwkv_block(x, bp, b, cfg, None, rwkv_mod.CHUNK,
                             rwkv_mod.IMPL)
@@ -367,7 +369,7 @@ def _apply_block(x, bp, b, cfg, positions, dp, eid, kv_start,
     x = _attn_residual(x, o, bp, b, cfg, dp, eid, tp=heads)
     if enc_out is not None and "cross" in bp:
         x = _cross_attend(x, bp, b, cfg, *_cross_kv(enc_out, bp["cross"]))
-    x, aux = _apply_ffn(x, bp, b, cfg, dp, eid, tp=tp)
+    x, aux = _apply_ffn(x, bp, b, cfg, dp, eid, run=run)
     return x, aux, (k, v)
 
 
@@ -493,15 +495,13 @@ def _train_unit(x, unit_params, cfg, pattern, positions, enc_out, run=None,
     """One unit's blocks -> (x, the unit's aux: 0.0 without an MoE).
     ``run`` (a training mesh's) first gathers the unit's leaves from this
     rank's blocks, and brings its tensor-parallel hooks."""
-    tp = None
     if run is not None:
         unit_params = run.unit(stack, unit_params)
-        tp = run.tp
     aux = 0.0
     for i, b in enumerate(pattern):
         x, a, _ = _apply_block(x, unit_params[f"block{i}"], b, cfg,
                                positions, {}, None, None, enc_out=enc_out,
-                               tp=tp)
+                               run=run)
         aux = aux + a
     return x, aux
 
@@ -511,13 +511,17 @@ def _run_units(x, blocks, cfg, pattern, n_units: int, remat_policy: str,
     """Every unit of a stack over the whole sequence -> (x, aux f32).
     Under a training mesh's ``run`` that gathers leaves every unit is
     recomputed in the backward pass, so the leaves it gathered are
-    dropped after its forward (FSDP)."""
+    dropped after its forward (FSDP), but the decoder's last unit: its
+    backward follows the head's at once, where a recompute would gather
+    the same leaves again."""
     if remat_policy not in ("none", "unit"):
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for unit_params in _units_of(blocks, n_units):
-        if remat_policy == "unit" or (run is not None and run.gathers):
+    for u, unit_params in enumerate(_units_of(blocks, n_units)):
+        last = stack == "blocks" and u + 1 == n_units
+        if remat_policy == "unit" or (run is not None and run.gathers
+                                      and not last):
             from torch.utils.checkpoint import checkpoint
             x, a = checkpoint(_train_unit, x, unit_params, cfg, pattern,
                               positions, enc_out, run, stack,

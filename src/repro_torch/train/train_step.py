@@ -14,9 +14,10 @@ A training mesh (``make_train_step(mesh=)``, axes ("pod", "data",
 "model")) runs SPMD by process, one rank a process holding its blocks of
 the state (:mod:`repro_torch.train.within_pod`): each rank takes its rows
 of the global batch, "data" is FSDP, "model" tensor parallelism for the
-dense family, and the gradients cross pods as packed ternary planes with
-error feedback, each rank compressing its block with the logical leaf's
-threshold and scale.  On a mesh of pods alone, one rank a pod, that is
+dense and MoE families, and the gradients cross pods as packed ternary
+planes with error feedback, each rank compressing its block with the
+logical leaf's threshold and scale.  On a mesh of pods alone, one rank
+a pod, that is
 :func:`repro_torch.core.gradient_compression.compressed_cross_pod_mean`
 leaf for leaf; :func:`pods_in_one_process` is its plain version on
 whole leaves.
@@ -113,7 +114,10 @@ def _microbatch_grads(api, params, batch, n_micro: int, run=None):
     """Accumulated (mean) grads + loss over n_micro sequential
     microbatches (the sums in f32).  ``run``: a training mesh's
     (:class:`repro_torch.train.within_pod.PodRun`); ``params`` are then
-    this rank's blocks, and so are the gradients."""
+    this rank's blocks, and so are the gradients, ``batch`` its share of
+    each of the pod's microbatches in turn
+    (:func:`repro_torch.train.within_pod.local_rows`), and the loss its
+    share of theirs."""
 
     def loss_fn(p, mb):
         if run is None:
@@ -134,11 +138,16 @@ def _microbatch_grads(api, params, batch, n_micro: int, run=None):
     for i in range(n_micro):
         mb = tree_util.tree_map(lambda x: x[i], micro)  # noqa: B023
         l, g = value_and_grad(loss_fn, params, mb)
-        acc = tree_util.tree_map(lambda a, b: a + b.to(torch.float32), acc, g)
+        # in place, and this microbatch's gradients dropped before the
+        # next backward: one copy of the gradients beside the sums
+        for a, b in zip(tree_util.leaves(acc), tree_util.leaves(g)):
+            a.add_(b.to(torch.float32))
+        del g
         lsum = lsum + l
     inv = 1.0 / n_micro
-    grads = tree_util.tree_map(lambda g: g * inv, acc)
-    return lsum * inv, grads
+    for a in tree_util.leaves(acc):
+        a.mul_(inv)
+    return lsum * inv, acc
 
 
 def _apply_optimizer(state, grads, tcfg: TrainConfig, shards=None,
@@ -172,15 +181,16 @@ def pods_in_one_process(api, tcfg: TrainConfig, state: dict, efs: list,
                         batch: PyTree, data: int = 1) -> tuple:
     """The compressed multi-pod step of ``len(efs)`` pods in one process on
     whole leaves, the plain version the mesh's step is held to: each pod's
-    gradients on its slice (the rank-order mean of its ``data`` data
-    ranks' gradients on their rows, as the mesh computes them,
-    :func:`repro_torch.train.within_pod.pod_grads`), every leaf
+    gradients on its slice (the rank-order sum of its ``data`` data
+    ranks' gradients of their shares of the loss, as the mesh computes
+    them, :func:`repro_torch.train.within_pod.pod_grads`), every leaf
     compressed with the pod's error state as
     :func:`compressed_cross_pod_mean` does (the logical leaf's threshold
     and scale) and the reconstructions summed in pod order, one update
-    of the logical state.  -> (new state, new error states, mean loss
-    over the pods' data ranks, planes), ``planes[p]`` pod ``p``'s (pos,
-    neg, scale) per leaf in the order the step compresses them."""
+    of the logical state.  -> (new state, new error states, the pods'
+    mean loss, planes), ``planes[p]`` pod ``p``'s (pos, neg, scale) per
+    leaf in the order the step compresses them."""
+    from repro_torch.distributed.collectives import ordered_sum
     from repro_torch.train.within_pod import pod_grads
     n_pods = len(efs)
     dev = tree_util.leaves(state["params"])[0].device
@@ -211,7 +221,8 @@ def pods_in_one_process(api, tcfg: TrainConfig, state: dict, efs: list,
     errs = tree_util.tree_map(lambda o: o[1], out)
     new_efs = [tree_util.tree_map(lambda es, p=p: es[p], errs)
                for p in range(n_pods)]
-    return (new_state, new_efs, pod_mean([x for pod in losses for x in pod]),
+    return (new_state, new_efs,
+            pod_mean([ordered_sum(torch.stack(pod)) for pod in losses]),
             planes)
 
 

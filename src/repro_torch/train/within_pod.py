@@ -9,22 +9,40 @@ train_state_shardings`, cut by :func:`shard_train_state`) and its rows of
 the global batch (``batch_shardings``: dim 0 over ("pod", "data")), and
 the collectives are written out:
 
+* **The loss is the reference's.**  The reference cuts a pod's batch
+  into microbatches of contiguous rows and GSPMD partitions each
+  microbatch's logical loss.  Here microbatch i of a pod is its rows
+  [i b, (i + 1) b) and data rank d takes its contiguous share of each
+  (:func:`local_rows`); its loss is its share of the microbatch's: the
+  cross-entropy of its rows over the valid targets of every data rank,
+  and the MoE aux with f_e over every data rank's tokens and p_e summed
+  over its own (:meth:`PodRun.data_total`, a sum of counts over
+  "data").  The data ranks' losses and gradients then add up to the
+  logical ones; the reported loss is their sum, averaged over pods as
+  ``lax.pmean`` averages it.
 * **"data" is FSDP.**  Each unit's leaves are all-gathered along their
   "data" dim before the unit runs, inside a checkpoint, so they are
   dropped after its forward and gathered again for its backward
-  (:class:`_Gather`).  A gradient comes back to the rank's block summed
-  over the data ranks in rank order and divided by their number (a
-  reduce-scatter: each rank receives the other ranks' copies of its
-  block only): the mean over the global batch when every rank's rows
-  hold as many targets.
-* **"model" is tensor parallelism** for the attention-only dense family
-  (:func:`tensor_parallel_family`): heads are cut where
-  ``heads_shardable`` holds and the FFN on d_ff, as ``param_pspec``
-  places them; one sum over "model" follows the attention's ``wo`` and
-  one the FFN's down projection (Megatron's f and g operators,
-  :class:`TensorParallel`); the embedding is the vocab-parallel lookup
-  with a vocab-parallel head and cross-entropy (:class:`_VocabCE`).  A
-  leaf used inside a cut region but not cut itself (q/k norms, K/V
+  (:class:`_Gather`); the decoder's last unit keeps them, as its
+  backward follows at once.  A gradient comes back to the rank's block
+  summed over the data ranks in rank order (a reduce-scatter: each rank
+  receives the other ranks' copies of its block only).
+* **"model" is tensor parallelism** for decoder-only attention models
+  with dense or MoE FFNs (:func:`tensor_parallel_family`): heads are
+  cut where ``heads_shardable`` holds, the FFN on d_ff and the experts
+  on d_ff or E, as ``param_pspec`` places them; one sum over "model"
+  follows the attention's ``wo`` (of cut heads) and one the FFN, MoE
+  or dense (Megatron's f and g operators, :class:`TensorParallel`); the
+  embedding is the vocab-parallel lookup with a vocab-parallel head and
+  cross-entropy (:class:`_VocabCE`).  An MoE's router, top-k and aux
+  run on every model rank alike, outside the cut region; its experts
+  run cut inside it (:func:`repro_torch.models.ffn.moe_ffn`): mixtral
+  (``expert_parallel=False``) a d_ff slice of every expert, llama4 its
+  E / M whole experts on every token of its data rank, with the slots
+  of the routing over all E, so no token is exchanged.  A rank then
+  holds 1 / (D M) of the expert bytes between units and 1 / M while a
+  unit runs, where gathering whole leaves held all of them.  A leaf
+  used inside a cut region but not cut itself (q/k norms, K/V
   projections whose heads do not divide) gets its gradient summed over
   "model".  Every other family gathers each leaf whole over both axes:
   the same arithmetic as one rank, on the rank's rows.
@@ -39,13 +57,14 @@ the collectives are written out:
 
 Every sum across ranks exchanges the parts (an all-gather, or an
 ``all_to_all`` for the gradients' data sum and the tensor-parallel sums)
-and adds them in rank order,
-so the result does not depend on a backend's reduction order, and
+and adds them in rank order, so the result does not depend on a backend's reduction
+order, and
 :func:`within_pod_in_one_process` reproduces a mesh without a "model"
 axis bit for bit in one process: each rank's gradients on its rows with
-the logical parameters, the same rank-order means, then every rank's
-update in a thread of its own whose collectives are exchanges between
-the threads (:class:`ThreadComm`).
+the logical parameters (its counts over "data" from a first forward of
+every rank, :class:`_OneRank`), the same rank-order sums, then every
+rank's update in a thread of its own whose collectives are exchanges
+between the threads (:class:`ThreadComm`).
 """
 
 from __future__ import annotations
@@ -73,13 +92,12 @@ PyTree = Any
 
 def tensor_parallel_family(cfg) -> bool:
     """Whether "model" runs tensor parallelism for ``cfg``: a decoder-only
-    model of attention blocks with dense FFNs (qwen2.5, llama, gemma2,
-    qwen3, qwen1.5).  MoE, mamba, rwkv, enc-dec and frontend models
-    gather their leaves whole instead."""
+    model of attention blocks with dense or MoE FFNs (qwen2.5, llama,
+    gemma2, qwen3, qwen1.5, mixtral, llama4).  Mamba (jamba), rwkv,
+    enc-dec and frontend models gather their leaves whole instead."""
     return (cfg.enc_n_units == 0 and not cfg.cross_attn
             and cfg.frontend is None
-            and all(b.kind == "attn" and (b.ffn is None or b.ffn.moe is None)
-                    for b in cfg.pattern))
+            and all(b.kind == "attn" for b in cfg.pattern))
 
 
 class AxisSizes:
@@ -195,10 +213,13 @@ class Shards:
 
 def _gather_dim(t: torch.Tensor, dim: int, run: "PodRun",
                 axis: str) -> torch.Tensor:
-    """``t`` of every rank along ``axis`` concatenated on ``dim``."""
+    """``t`` of every rank along ``axis`` concatenated on ``dim``, made
+    contiguous: a product then reads the leaf in the logical leaf's
+    layout, as the one-process oracle's does (a strided operand may take
+    another kernel that sums in another order)."""
     n = run.sizes[axis]
     out = all_gather_dim0(t.movedim(dim, 0), run.mesh.get_group(axis), n)
-    return out.movedim(0, dim)
+    return out.movedim(0, dim).contiguous()
 
 
 class _Gather(torch.autograd.Function):
@@ -250,9 +271,10 @@ class _Reduce(torch.autograd.Function):
 
 class _VocabCE(torch.autograd.Function):
     """Mean cross-entropy over targets >= 0 of vocab-cut logits [..., V
-    / n] (this rank's contiguous slice): the max, the sum of exps and the
-    target's logit reduced over "model" in rank order; the backward is
-    the rank's slice of softmax minus one-hot."""
+    / n] (this rank's contiguous slice), its rows' share of the
+    microbatch's (over the valid targets of every data rank): the max,
+    the sum of exps and the target's logit reduced over "model" in rank
+    order; the backward is the rank's slice of softmax minus one-hot."""
 
     @staticmethod
     def forward(ctx, logits, targets, run):
@@ -271,7 +293,7 @@ class _VocabCE(torch.autograd.Function):
         picked = run.model_sum(picked)
         nll = torch.log(se) + m - picked
         mask = (targets >= 0).to(torch.float32)
-        count = torch.clamp_min(torch.sum(mask), 1.0)
+        count = torch.clamp_min(run.data_total(torch.sum(mask)), 1.0)
         ctx.save_for_backward(e, se, tloc, mine, mask, count)
         ctx.dtype = logits.dtype
         return torch.sum(nll * mask) / count
@@ -292,6 +314,7 @@ class TensorParallel:
 
     def __init__(self, run: "PodRun"):
         self.run = run
+        self.rank = run.coords["model"]
 
     def heads_cut(self, attn: dict, a) -> bool:
         """Whether this attention's heads are cut (its ``wq`` holds fewer
@@ -332,8 +355,9 @@ class PodRun:
         self.n_model = self.sizes.get("model", 1)
         self.tp_mode = self.n_model > 1 and tensor_parallel_family(cfg)
         self.tp = TensorParallel(self) if self.tp_mode else None
-        # whether a unit gathers leaves (then every unit is recomputed in
-        # the backward, so what it gathered is dropped after its forward)
+        # whether a unit gathers leaves (then every unit but the last is
+        # recomputed in the backward, so what it gathered is dropped
+        # after its forward)
         self.gathers = self.n_data > 1 or (self.n_model > 1
                                            and not self.tp_mode)
         self.vocab_parallel = (self.tp_mode
@@ -348,14 +372,24 @@ class PodRun:
         return all_reduce_ordered(x, self.mesh.get_group("model"),
                                   self.n_model)
 
+    def data_total(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the data ranks of this rank's pod in rank
+        order, the same bits on each (f32): the microbatch's counts of
+        valid targets and of tokens routed to each expert.  ``t`` carries
+        no gradient."""
+        if self.n_data == 1:
+            return t
+        return ordered_sum(gather_axes(t.detach(), self.mesh, ("data",)))
+
     def reduce_grad(self, g: torch.Tensor, cuts, partial: bool):
         """A used leaf's gradient -> this rank's block's: summed over
         "model" when each rank's part saw only its heads, cut back along
         the gathered "model" dims (the model ranks of one data rank saw
-        the same rows), then summed over the data ranks in rank order and
-        divided by their number: a reduce-scatter along the leaf's "data"
-        dim (:func:`reduce_scatter_ordered`), or, for a leaf that every
-        data rank holds whole, an all-reduce (:func:`all_reduce_ordered`);
+        the same rows), then summed over the data ranks in rank order
+        (each rank's loss is its share of the microbatch's): a
+        reduce-scatter along the leaf's "data" dim
+        (:func:`reduce_scatter_ordered`), or, for a leaf that every data
+        rank holds whole, an all-reduce (:func:`all_reduce_ordered`);
         either sums each element in rank order."""
         if partial:
             g = self.model_sum(g)
@@ -375,7 +409,7 @@ class PodRun:
             g = reduce_scatter_ordered(g, data_dim,
                                        self.mesh.get_group("data"),
                                        self.n_data)
-        return g.div_(self.n_data).contiguous()
+        return g.contiguous()
 
     # ---- leaves ----
     def _cuts(self, spec) -> tuple:
@@ -432,7 +466,7 @@ class PodRun:
         if self.vocab_parallel:
             return _VocabCE.apply(logits, targets, self)
         from repro_torch.models.model import cross_entropy
-        return cross_entropy(logits, targets)
+        return cross_entropy(logits, targets, total=self.data_total)
 
 
 # ---------------------------------------------------------------------------
@@ -455,46 +489,63 @@ def shard_train_state(state: dict, cfg, mesh, index=None) -> dict:
                       index)
 
 
-def local_rows(batch: PyTree, mesh, index=None) -> PyTree:
-    """This rank's rows of a global batch (dim 0 over ("pod", "data")).
-    A batch that does not divide raises."""
+def local_rows(batch: PyTree, mesh, index=None,
+               microbatches: int = 1) -> PyTree:
+    """This rank's rows of a global batch, as the reference's step cuts
+    them: pod p takes its contiguous block of rows (dim 0 over ("pod",
+    "data")), cut into ``microbatches`` contiguous microbatches, and data
+    rank d its contiguous share of each, in microbatch order (so that
+    ``_microbatch_grads`` cuts them into the rank's shares).  A batch, a
+    pod's batch or a microbatch that does not divide raises."""
     sizes = mesh_axes(mesh)
     n = 1
     for a in batch_axes(mesh):
         n *= sizes[a]
-    what = (f"{n} pods" if sizes.get("data", 1) == 1 and n > 1
-            else f"{n} data ranks")
+    n_pods, n_data = sizes.get("pod", 1), sizes.get("data", 1)
+    what = (f"{n} pods" if n_data == 1 and n > 1 else f"{n} data ranks")
     for leaf in tree_util.leaves(batch):
-        if leaf.shape[0] % n:
-            raise ValueError(f"a global batch of {leaf.shape[0]} rows does "
-                             f"not divide over {what}")
-    specs = batch_shardings(batch, mesh)
-    return tree_util.tree_map(lambda x, s: local_shard(x, s, mesh, index),
-                              batch, specs)
+        B = leaf.shape[0]
+        if B % n:
+            raise ValueError(f"a global batch of {B} rows does not divide "
+                             f"over {what}")
+        b = B // n_pods
+        if b % microbatches:
+            raise ValueError(f"a pod's batch of {b} rows does not divide "
+                             f"into {microbatches} microbatches")
+        if (b // microbatches) % n_data:
+            raise ValueError(f"a microbatch of {b // microbatches} rows "
+                             f"does not divide over {n_data} data ranks")
+
+    def rows(x, spec):
+        if microbatches > 1 and n_data > 1:
+            # each data rank's shares of the microbatches made contiguous
+            x = x.reshape((n_pods, microbatches, n_data, -1)
+                          + tuple(x.shape[1:])).transpose(1, 2).reshape(
+                              x.shape)
+        return local_shard(x, spec, mesh, index)
+
+    return tree_util.tree_map(rows, batch, batch_shardings(batch, mesh))
 
 
 def sharded_update(state: dict, grads: PyTree, loss: torch.Tensor, tcfg,
                    shards: Shards, specs: PyTree):
-    """Everything of a step after this rank's gradients: the loss's mean
-    over the data ranks and pods, the pods' exchange, and the optimizer
-    on the rank's blocks.  The exchange is compressed with error
-    feedback when compression is on and the state carries it (a
-    multi-pod state, ``init_train_state(multi_pod=True)``), on a mesh
-    with a "pod" axis of any size, as the reference compresses on any
-    "pod" axis; else a dense mean over more than one pod.
+    """Everything of a step after this rank's gradients: the loss (the
+    sum of the data ranks' shares, averaged over pods), the pods'
+    exchange, and the optimizer on the rank's blocks.  The exchange is
+    compressed with error feedback when compression is on and the state
+    carries it (a multi-pod state, ``init_train_state(multi_pod=True)``),
+    on a mesh with a "pod" axis of any size, as the reference compresses
+    on any "pod" axis; else a dense mean over more than one pod.
     -> (new state, metrics)."""
     from repro_torch.core.gradient_compression import (
         compressed_cross_pod_mean_sharded)
     from repro_torch.train.train_step import _apply_optimizer
     sizes = shards.sizes
-    dp = 1
-    for a in ("pod", "data"):
-        dp *= sizes.get(a, 1)
+    n_pods = sizes.get("pod", 1)
     losses = shards.comm.gather(loss.to(torch.float32),
                                 tuple(a for a in ("pod", "data")
-                                      if a in sizes))
+                                      if a in sizes)).reshape(n_pods, -1)
     new_ef = None
-    n_pods = sizes.get("pod", 1)
     if ("pod" in sizes and tcfg.grad_compression.enabled
             and "ef" in state):
         grads, new_ef = compressed_cross_pod_mean_sharded(
@@ -507,7 +558,8 @@ def sharded_update(state: dict, grads: PyTree, loss: torch.Tensor, tcfg,
                                           specs=specs)
     if new_ef is not None:
         new_state["ef"] = new_ef
-    metrics["loss"] = ordered_sum(losses) / dp
+    metrics["loss"] = ordered_sum(torch.stack(
+        [ordered_sum(pod) for pod in losses])) / n_pods
     return new_state, metrics
 
 
@@ -525,7 +577,7 @@ def make_within_pod_step(api, tcfg, mesh):
             made["run"] = PodRun(api.cfg, mesh, made["specs"])
             made["shards"] = Shards(MeshComm(mesh))
         dev = tree_util.leaves(state["params"])[0].device
-        rows = local_rows(batch, mesh)
+        rows = local_rows(batch, mesh, microbatches=tcfg.microbatches)
         with deterministic(dev):
             loss, grads = _microbatch_grads(api, state["params"], rows,
                                             tcfg.microbatches,
@@ -548,42 +600,93 @@ def _coords(sizes: dict) -> list:
     return keys
 
 
+class _OneRank:
+    """The forward hooks of one data rank in :func:`pod_grads`: the
+    logical leaves as they are, and the sums over the data ranks
+    (:meth:`PodRun.data_total`) taken from a first forward of every rank,
+    which records each rank's parts (``totals`` None), then replayed in
+    call order, summed in rank order (``totals`` set).  The forward must
+    not recompute a unit (a run without remat)."""
+
+    tp = None
+    gathers = False
+
+    def __init__(self):
+        self.parts: list = []
+        self.totals = None
+
+    def data_total(self, t: torch.Tensor) -> torch.Tensor:
+        if self.totals is None:
+            self.parts.append(t.detach().to(torch.float32))
+            return t
+        if not self.totals:
+            raise RuntimeError("the forward asked for more sums over the "
+                               "data ranks than its first pass recorded")
+        return self.totals.pop(0)
+
+    def top(self, params: dict) -> dict:
+        return params
+
+    def unit(self, stack: str, unit_params: dict) -> dict:
+        return unit_params
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor):
+        return table[tokens]
+
+    def head_input(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def cross_entropy(self, logits, targets):
+        from repro_torch.models.model import cross_entropy
+        return cross_entropy(logits, targets, total=self.data_total)
+
+
 def pod_grads(api, tcfg, params: PyTree, batch: PyTree, n_pods: int,
               n_data: int) -> tuple[list, list]:
     """Each pod's gradients as a mesh of (``n_pods``, ``n_data``, 1)
     computes them, in one process with the logical ``params``: per pod
-    and microbatch, each data rank's gradients on its rows, their
-    rank-order sum divided by the data ranks (in the leaf's dtype, as the
-    gather's backward returns it), accumulated over microbatches in f32
-    as the step does.  -> (grads[pod], losses[pod][data])."""
+    and microbatch, each data rank's gradients of its share of the
+    microbatch's loss on its rows (:func:`local_rows`; the sums over the
+    data ranks from a first forward of every rank, :class:`_OneRank`),
+    their rank-order sum (in the leaf's dtype, as the gather's backward
+    returns it), accumulated over microbatches in f32 as the step does.
+    -> (grads[pod], losses[pod][data]: each rank's share, averaged over
+    the microbatches)."""
     from repro_torch.train.train_step import deterministic, value_and_grad
     mesh = AxisSizes({"pod": n_pods, "data": n_data, "model": 1})
     n_micro = tcfg.microbatches
     dev = tree_util.leaves(params)[0].device
 
-    def loss_fn(p, mb):
-        return api.loss_and_logits(p, mb)[0]
+    def loss_fn(p, mb, run):
+        return api.loss_and_logits(p, mb, run=run)[0]
 
     grads, losses = [], []
     with deterministic(dev):
         for pod in range(n_pods):
             per = [local_rows(batch, mesh, {"pod": pod, "data": d,
-                                            "model": 0})
+                                            "model": 0}, n_micro)
                    for d in range(n_data)]
             micro = [tree_util.tree_map(
                 lambda x: x.reshape((n_micro, x.shape[0] // n_micro)
                                     + tuple(x.shape[1:])), r) for r in per]
             acc, lsum = None, [None] * n_data
             for i in range(n_micro):
-                outs = [value_and_grad(loss_fn, params,
-                                       tree_util.tree_map(
-                                           lambda x: x[i], m))  # noqa: B023
-                        for m in micro]
+                mbs = [tree_util.tree_map(lambda x: x[i], m)  # noqa: B023
+                       for m in micro]
+                runs = [_OneRank() for _ in range(n_data)]
+                with torch.no_grad():
+                    for run, mb in zip(runs, mbs):
+                        api.loss_and_logits(params, mb, run=run)
+                totals = [ordered_sum(torch.stack(parts))
+                          for parts in zip(*[r.parts for r in runs])]
+                for run in runs:
+                    run.totals = list(totals)
+                outs = [value_and_grad(loss_fn, params, mb, run)
+                        for run, mb in zip(runs, mbs)]
                 if n_data > 1:
                     g = tree_util.tree_map(
-                        lambda *gs: (ordered_sum(torch.stack(gs))
-                                     / n_data).to(gs[0].dtype),
-                        *[o[1] for o in outs])
+                        lambda *gs: ordered_sum(torch.stack(gs)).to(
+                            gs[0].dtype), *[o[1] for o in outs])
                 else:
                     g = outs[0][1]
                 if n_micro == 1:

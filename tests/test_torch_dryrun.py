@@ -1,11 +1,14 @@
-"""The port's dry run (``repro_torch.launch.dryrun``) on three cells of
-the H100 meshes, on the CPU and the meta device: a training cell
-(qwen2.5-3b ``train_4k`` on (32, 8)), a decode cell (qwen3-32b
-``decode_32k`` on (2, 32, 8)) and a ``long_500k`` cell (gemma2-9b, the
-sequence cut over every axis).  Each row carries per-rank bytes, FLOPs,
-collective bytes by kind, the roofline terms at the H100's numbers and
-"fits"; the rank's blocks of every leaf, times the blocks, are the
-logical state's bytes; the cell table is the reference's."""
+"""The port's dry run (``repro_torch.launch.dryrun``) on five cells of
+the H100 meshes, on the CPU and the meta device: training cells
+(qwen2.5-3b ``train_4k`` on (32, 8); the MoE family's, mixtral on (32,
+8) with its experts cut on d_ff and llama4 on (2, 32, 8) with its
+experts cut on E, both tensor-parallel, with no whole-leaf gather over
+"model"), a decode cell (qwen3-32b ``decode_32k`` on (2, 32, 8)) and a
+``long_500k`` cell (gemma2-9b, the sequence cut over every axis).  Each
+row carries per-rank bytes, FLOPs, collective bytes by kind, the
+roofline terms at the H100's numbers and "fits"; the rank's blocks of
+every leaf, times the blocks, are the logical state's bytes; the cell
+table is the reference's."""
 
 import json
 
@@ -14,7 +17,9 @@ import pytest
 from repro_torch.launch import dryrun
 
 CELLS = [("qwen2_5_3b", "train_4k", False), ("qwen3_32b", "decode_32k", True),
-         ("gemma2_9b", "long_500k", False)]
+         ("gemma2_9b", "long_500k", False),
+         ("mixtral_8x7b", "train_4k", False),
+         ("llama4_maverick_400b", "train_4k", True)]
 
 
 @pytest.mark.parametrize("arch,shape,multi_pod", CELLS)
@@ -32,6 +37,7 @@ def test_dry_cell_rows(arch, shape, multi_pod, tmp_path):
     colls = res["collective_bytes"]
     if res["kind"] == "train":
         assert res["tensor_parallel"] and colls["tp_sum"] > 0
+        assert colls["fsdp_gather_model"] == 0
         # a reduce-scatter receives (D - 1) / D of each cut leaf once, the
         # FSDP gathers as much twice (forward and recompute)
         assert 0 < colls["grad_data_sum"] < colls["fsdp_gather"]
