@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--units 2] [--seed 0]
                           [--stop-after kernels|training|configs|families|
-                                        mesh|within|all]
+                                        mesh|within|long|all]
 
 At the full width of qwen2.5-3b (d_model 2048, 16 q / 2 kv heads of 128,
 QKV bias, swiglu d_ff 11008, vocab 151936, tied embeddings, rope theta
@@ -254,6 +254,24 @@ failure with a non-zero exit:
      train step ms, tokens/s and model FLOP utilisation (AdamW and
      Adafactor), peak memory, checkpoint save and restore seconds, the
      compress seconds and the served wave's decode tokens/s;
+  3l. long sequences (``long_phase``), the chunked flash attention of
+     ``models/attention.py`` at the model's chunks of 512: (a) one greedy
+     request on e0 with a 32768-token prompt from ``--seed`` and 16 new
+     tokens through ``api.serve(max_batch=1, cache_len=32784,
+     decode_chunk=8)``, the peak device memory above the phase's start
+     below a quarter of the whole-matrix scores' bytes (B Hq T S 4 / 4,
+     17.2 GB), a warm run repeating its tokens; (b) the same prompt's
+     prefill (e0's overlay, the row mask) at chunks of 512 and 2048: the
+     engine's first token the bf16 greedy choice at 512, and on an f32
+     copy the last-token logits within 1e-4 of the largest |logit| (in
+     bf16 they are reported); (c) at 4096 tokens, chunked against
+     one tile of the whole sequence, f32: one attention call at the
+     model's heads (output within 2e-5 and dq, dk, dv within 1e-4 of
+     their largest values) and one AdamW step of ``train_step`` on an f32
+     copy over one row (loss and gradient norm within 1e-5 relative, each
+     leaf's ``mu`` within 1e-4 of its largest); reported: prefill ms,
+     decode tokens/s, tile steps a layer, peak memory and seconds of each
+     form.  ``--stop-after long`` ends after phases 3 and 3l;
   4. check the result: tokens in range; one expert's planes bitwise equal
      to the plain compression of its tau (and one warm compression of it
      profiled: device ms by pass and the host share); every row's tokens
@@ -4597,6 +4615,307 @@ def training_path(torch, api, model, base, experts, reqs, cfg, seed, dev,
     return out
 
 
+LONG_PROMPT = 32768       # 3l: one prompt of the reference's prefill_32k
+LONG_NEW = 16             # its new tokens
+LONG_CHUNKS = (512, 2048)  # (b): the model's chunk, and a coarser one
+WHOLE_T = 4096            # (c): the reference's train_4k length
+
+
+def long_request(torch, cfg, seed):
+    """One greedy request on e0: a LONG_PROMPT-token prompt from
+    ``seed``."""
+    from repro_torch.serve import Request
+    g = torch.Generator().manual_seed(seed + 29)
+    prompt = torch.randint(2, cfg.vocab, (LONG_PROMPT,), generator=g)
+    return Request(uid=0, expert="e0", prompt=prompt,
+                   max_new_tokens=LONG_NEW)
+
+
+def tile_steps(T: int, S: int, causal: bool = True,
+               chunk: int = 0) -> int:
+    """Tile steps of one attention call over [T, S] at the model's
+    chunks (or ``chunk``): the schedule's length."""
+    from repro_torch.models import attention
+    cq, ck = chunk or attention.CHUNK_Q, chunk or attention.CHUNK_K
+    return len(attention._chunk_pairs(-(-T // min(cq, T)),
+                                      -(-S // min(ck, S)),
+                                      causal and T == S, None))
+
+
+@contextlib.contextmanager
+def attention_chunks(chunk: int):
+    """The model's attention chunks set to ``chunk`` for a block."""
+    from repro_torch.models import attention
+    saved = attention.CHUNK_Q, attention.CHUNK_K
+    attention.CHUNK_Q = attention.CHUNK_K = chunk
+    try:
+        yield
+    finally:
+        attention.CHUNK_Q, attention.CHUNK_K = saved
+
+
+def gpu_mem_above(torch, before: int) -> int:
+    """Peak device bytes since the last reset, above ``before``."""
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
+
+
+def mem_mark(torch) -> int:
+    """Free the dropped, reset the peak, and return the bytes held."""
+    free_all(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def long_phase(torch, api, model, base, reg, cfg, seed, dev):
+    """Phase 3l as a path: every launch count set to 0 just before the
+    served long request and read just after; kernel 1 must launch.  The
+    checks of (b) and (c) run after the counts are read."""
+    from repro_torch.kernels import ops
+    log(f"phase 3l: long sequences ({LONG_PROMPT}-token prompt served on "
+        f"e0, chunks {LONG_CHUNKS[0]} against {LONG_CHUNKS[1]}, chunked "
+        f"against whole at {WHOLE_T})")
+    t0 = time.monotonic()
+    before = mem_mark(torch)
+    ops.reset_launch_counts()
+    out, engine, req = long_serve(torch, api, model, base, reg, cfg, seed,
+                                  before)
+    launches = ops.launch_counts()
+    log(f"  launches on the long-prompt path: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    check(launches["ternary_matmul_grouped"] > 0,
+          "ternary_matmul_grouped was not launched on the long-prompt path")
+    out["chunks"] = long_chunk_check(torch, model, base, engine, req)
+    del engine
+    out["whole"] = whole_check(torch, model, base, cfg, seed, dev)
+    out["phase_s"] = time.monotonic() - t0
+    log(f"  phase 3l took {out['phase_s']:.1f} s")
+    return out, launches
+
+
+def long_serve(torch, api, model, base, reg, cfg, seed, before):
+    """(a) The long request through ``api.serve`` (``max_batch=1``,
+    ``cache_len`` prompt + new tokens, ``decode_chunk=8``): 16 tokens in
+    the vocabulary; the peak device memory above what was held before,
+    including the engine's cache and its graph capture, below a quarter
+    of the whole-matrix scores' bytes, B Hq T S 4 / 4; a warm run
+    repeating the tokens, its prefill ms and decode tokens/s."""
+    a = cfg.pattern[0].attn
+    T = LONG_PROMPT
+    scores = 1 * a.n_q * T * T * 4
+    engine = api.serve(model, base, reg, max_batch=1, cache_len=T + LONG_NEW,
+                       decode_chunk=8, continuous=False)
+    req = long_request(torch, cfg, seed)
+    t0 = time.monotonic()
+    engine.run([req])
+    torch.cuda.synchronize()
+    cold_s = time.monotonic() - t0
+    peak = gpu_mem_above(torch, before)
+    check(len(req.out_tokens) == LONG_NEW
+          and all(0 <= t < cfg.vocab for t in req.out_tokens),
+          f"long request: bad tokens {req.out_tokens}")
+    check(peak < scores / 4,
+          f"long request: peak memory {peak} bytes above the phase's start,"
+          f" not below a quarter of the whole-matrix scores ({scores} / 4)")
+    warm = fresh([req], 100)
+    n0 = len(engine.wave_log)
+    engine.run(warm)
+    torch.cuda.synchronize()
+    check(warm[0].out_tokens == req.out_tokens,
+          "a warm run of the long request gave other tokens")
+    w = engine.wave_log[n0]
+    out = {"prompt": T, "cache_len": T + LONG_NEW, "cold_serve_s": cold_s,
+           "prefill_ms": w["prefill_s"] * 1e3,
+           "cold_prefill_ms": engine.wave_log[n0 - 1]["prefill_s"] * 1e3,
+           "decode_tokens_per_s": (w["tokens"] - w["rows"])
+           / (w["seconds"] - w["prefill_s"]),
+           "peak_above_start_bytes": peak, "score_bytes": scores,
+           "gate_bytes": scores / 4,
+           "tile_steps_per_layer": tile_steps(T, T),
+           "attention_layers": cfg.n_units * len(cfg.pattern),
+           "tokens": list(req.out_tokens)}
+    log(f"  (a) {T}-token prompt served: prefill {out['prefill_ms']:.1f} ms "
+        f"warm ({out['cold_prefill_ms']:.1f} cold), decode "
+        f"{out['decode_tokens_per_s']:.1f} tokens/s, peak "
+        f"{peak / 2 ** 30:.2f} GiB above the phase's start (gate "
+        f"{scores / 4 / 2 ** 30:.2f} GiB; the whole score matrix "
+        f"{scores / 2 ** 30:.2f} GiB); {out['tile_steps_per_layer']} tile "
+        f"steps a layer, {out['attention_layers']} layers")
+    return out, engine, req
+
+
+def long_chunk_check(torch, model, base, engine, req):
+    """(b) The long prompt's prefill with the engine's overlay of e0 and
+    its row mask, at the model's chunks and at coarser ones.  In bf16 the
+    engine's first token is the greedy choice of the model's chunks (the
+    same arithmetic); the two chunkings' last-token logits are reported
+    (every activation is rounded to bf16, so they part by bf16 ulps).  On
+    an f32 copy they agree within 1e-4 of the largest |logit| (the f32
+    logits tolerance of phase 3e)."""
+    ov = engine._overlay_for(("e0",))
+    eid = torch.as_tensor([engine.slot_of("e0")], dtype=torch.int32,
+                          device=engine.dev)
+    toks, start = engine._pad_prompts([req])
+    model32, base32 = f32_copy(torch, model, base)
+    runs, logits = {}, {}
+    for dtype, mdl, params in (("bf16", model, base),
+                               ("f32", model32, base32)):
+        for chunk in LONG_CHUNKS:
+            with attention_chunks(chunk):
+                before = mem_mark(torch)
+                t0 = time.monotonic()
+                lg, _ = mdl.prefill(params, {"tokens": toks},
+                                    LONG_PROMPT + 1, delta=ov, eid=eid,
+                                    start=start)
+                logits[dtype, chunk] = lg[0, -1].float()
+                del lg
+                peak = gpu_mem_above(torch, before)
+                runs[f"{dtype}_{chunk}"] = {
+                    "prefill_s": time.monotonic() - t0,
+                    "peak_above_start_bytes": peak,
+                    "tile_steps_per_layer": tile_steps(
+                        LONG_PROMPT, LONG_PROMPT, chunk=chunk)}
+    del model32, base32
+    free_all(torch)
+    errs = {}
+    for dtype in ("bf16", "f32"):
+        a, b = (logits[dtype, c] for c in LONG_CHUNKS)
+        check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+              f"long prefill ({dtype}): non-finite logits")
+        errs[dtype] = (float((a - b).abs().max()),
+                       1e-4 * float(torch.maximum(a.abs(), b.abs()).max()))
+    err, tol = errs["f32"]
+    out = {"runs": runs, "max_abs_err": err, "tol": tol,
+           "bf16_max_abs_err": errs["bf16"][0]}
+    check(err <= tol, f"long prefill (f32 copy): logits at chunks "
+          f"{LONG_CHUNKS} differ by {err} (tol {tol})")
+    first = int(logits["bf16", LONG_CHUNKS[0]].argmax())
+    check(first == req.out_tokens[0],
+          f"long prefill: greedy token {first} of the direct prefill, the "
+          f"engine's first token {req.out_tokens[0]}")
+    log(f"  (b) chunks {LONG_CHUNKS[0]} / {LONG_CHUNKS[1]}: prefill "
+        + "; ".join(f"{k} {v['prefill_s']:.2f} s ("
+                    f"{v['tile_steps_per_layer']} tiles a layer, peak "
+                    f"{v['peak_above_start_bytes'] / 2 ** 30:.2f} GiB)"
+                    for k, v in runs.items())
+        + f"; last-token logits, f32 copy: max err {err:.3e} (tol "
+        f"{tol:.3e}); bf16: max err {errs['bf16'][0]:.3e} (reported); the "
+        "engine's first token is the bf16 greedy choice")
+    return out
+
+
+def whole_check(torch, model, base, cfg, seed, dev):
+    """(c) At WHOLE_T tokens, chunked (the model's chunks) against one
+    tile of the whole sequence (chunk WHOLE_T), f32: one attention call
+    at the model's heads (output within 2e-5 of its largest |value|, dq,
+    dk, dv of a seeded cotangent within 1e-4 of their largest), then one
+    AdamW step of ``train_step`` on an f32 copy over one row of WHOLE_T
+    tokens (loss and gradient norm within 1e-5 relative, each leaf's
+    ``mu``, 0.1 times its clipped gradient, within 1e-4 of the leaf's
+    largest); peak memory and seconds of both forms."""
+    from repro_torch import tree as tree_util
+    from repro_torch.data.pipeline import make_batch_for
+    from repro_torch.models import attention
+    from repro_torch.train import TrainConfig, init_train_state, \
+        make_train_step
+    a = cfg.pattern[0].attn
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    q, w = (torch.randn((1, WHOLE_T, a.n_q, a.head_dim), generator=g,
+                        device=dev) for _ in range(2))
+    k, v = (torch.randn((1, WHOLE_T, a.n_kv, a.head_dim), generator=g,
+                        device=dev) for _ in range(2))
+    runs: dict = {}
+    for chunk in (attention.CHUNK_Q, WHOLE_T):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        before = mem_mark(torch)
+        t0 = time.monotonic()
+        with torch.enable_grad():
+            o = attention.flash_attention(qq, kk, vv, a, chunk_q=chunk,
+                                          chunk_k=chunk)
+            grads = torch.autograd.grad((o * w).sum(), (qq, kk, vv))
+        runs[chunk] = {"out": o.detach(), "grads": grads,
+                       "peak": gpu_mem_above(torch, before),
+                       "s": time.monotonic() - t0}
+        del qq, kk, vv, o
+    c, x = runs[attention.CHUNK_Q], runs[WHOLE_T]
+    errs = {"out": float((c["out"] - x["out"]).abs().max())}
+    tols = {"out": 2e-5 * float(x["out"].abs().max())}
+    for n, gc_, gx in zip("qkv", c["grads"], x["grads"]):
+        errs[f"d{n}"] = float((gc_ - gx).abs().max())
+        tols[f"d{n}"] = 1e-4 * float(gx.abs().max())
+    for n in errs:
+        check(errs[n] <= tols[n], f"attention at {WHOLE_T}: {n} chunked "
+              f"against whole differs by {errs[n]} (tol {tols[n]})")
+    out = {"attention": {
+        "max_abs_err": errs, "tol": tols,
+        "peak_bytes": {"chunked": c["peak"], "whole": x["peak"]},
+        "seconds": {"chunked": c["s"], "whole": x["s"]},
+        "tile_steps": {"chunked": tile_steps(WHOLE_T, WHOLE_T),
+                       "whole": 1}}}
+    del runs, c, x, q, k, v, w
+    log(f"  (c) one attention call at {WHOLE_T} (fwd + bwd, f32): chunked "
+        f"against whole max err " + ", ".join(
+            f"{n} {e:.3e} (tol {tols[n]:.3e})" for n, e in errs.items())
+        + "; peak {:.1f} MiB chunked, {:.1f} MiB whole".format(
+            *(out["attention"]["peak_bytes"][f] / 2 ** 20
+              for f in ("chunked", "whole"))))
+
+    model32, base32 = f32_copy(torch, model, base)
+    batch = make_batch_for(cfg, 0, seq_len=WHOLE_T, global_batch=1,
+                           task_id=1, device=dev)
+    tcfg = TrainConfig(optimizer="adamw", peak_lr=1e-3, warmup_steps=3,
+                       total_steps=10)
+    step = make_train_step(model32, tcfg)
+    steps: dict = {}
+    # the first step pays one-time setup (cuBLAS handles, the allocator's
+    # growth): a chunked step first, untimed
+    for chunk in (attention.CHUNK_Q, attention.CHUNK_Q, WHOLE_T):
+        with attention_chunks(chunk):
+            state = init_train_state(
+                tree_util.tree_map(lambda t: t.clone(), base32), tcfg)
+            before = mem_mark(torch)
+            t0 = time.monotonic()
+            new, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            steps[chunk] = {"s": time.monotonic() - t0,
+                            "peak": gpu_mem_above(torch, before),
+                            "loss": float(metrics["loss"]),
+                            "grad_norm": float(metrics["grad_norm"]),
+                            "mu": new["opt"]["mu"]}
+            del state, new
+    c, x = steps[attention.CHUNK_Q], steps[WHOLE_T]
+    mu_err = 0.0
+    for mc, mx in zip(tree_util.leaves(c["mu"]), tree_util.leaves(x["mu"])):
+        scale = float(mx.abs().max()) or 1.0
+        mu_err = max(mu_err, float((mc - mx).abs().max()) / scale)
+    loss_rel = abs(c["loss"] - x["loss"]) / abs(x["loss"])
+    norm_rel = abs(c["grad_norm"] - x["grad_norm"]) / x["grad_norm"]
+    check(loss_rel <= 1e-5, f"train step at {WHOLE_T}: loss {c['loss']} "
+          f"chunked against {x['loss']} whole")
+    check(norm_rel <= 1e-5, f"train step at {WHOLE_T}: gradient norm "
+          f"{c['grad_norm']} chunked against {x['grad_norm']} whole")
+    check(mu_err <= 1e-4, f"train step at {WHOLE_T}: a leaf's mu differs "
+          f"by {mu_err} of its largest")
+    out["train_step"] = {
+        "loss": {"chunked": c["loss"], "whole": x["loss"]},
+        "loss_rel_err": loss_rel, "grad_norm_rel_err": norm_rel,
+        "mu_rel_err": mu_err,
+        "peak_bytes": {"chunked": c["peak"], "whole": x["peak"]},
+        "seconds": {"chunked": c["s"], "whole": x["s"]}}
+    del steps, c, x, model32, base32
+    free_all(torch)
+    ts = out["train_step"]
+    log(f"  (c) one AdamW step at 1 x {WHOLE_T} (f32 copy): loss "
+        f"{ts['loss']['chunked']:.6f} chunked, {ts['loss']['whole']:.6f} "
+        f"whole (rel {loss_rel:.2e}); grad norm rel {norm_rel:.2e}; mu "
+        f"within {mu_err:.2e} of each leaf's largest; peak "
+        f"{ts['peak_bytes']['chunked'] / 2 ** 30:.2f} / "
+        f"{ts['peak_bytes']['whole'] / 2 ** 30:.2f} GiB, "
+        f"{ts['seconds']['chunked']:.2f} / {ts['seconds']['whole']:.2f} s")
+    return out
+
+
 def attention_step_ms(torch, cfg):
     """Device ms of one decode step's attention, every layer, by CUDA
     graph: the paged write, gather attention and normalisation against
@@ -6001,14 +6320,15 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-child", help=argparse.SUPPRESS)
     ap.add_argument("--stop-after",
                     choices=("kernels", "training", "configs", "families",
-                             "mesh", "within", "all"),
+                             "mesh", "within", "long", "all"),
                     default="all", help="end after phase 2 (kernels: a "
                     "first build and correctness check of new kernels), "
                     "after phases 3 and 3t (training: a quick check of the "
                     "training path), or after phases 3 and 3e (configs: a "
                     "quick check of the full-width configurations; "
                     "families: after phases 3 and 3f; mesh: after phases "
-                    "3, 3d and 3m; within: after phases 3 and 3w)")
+                    "3, 3d and 3m; within: after phases 3 and 3w; long: "
+                    "after phases 3 and 3l)")
     args = ap.parse_args(argv)
     if args.mesh_child:
         return mesh_child(args.mesh_child)
@@ -6105,6 +6425,14 @@ def main(argv=None) -> int:
     for name in MIXED_PATH_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the mixed path")
+
+    if args.stop_after == "long":
+        long, long_launches = long_phase(torch, api, model, base, reg, cfg,
+                                         args.seed, dev)
+        with open(os.path.join(out_dir, "chip_smoke_long.json"), "w") as f:
+            json.dump({"gpu": gpu, "long": long, "launches": long_launches},
+                      f, indent=1)
+        return 0
 
     if args.stop_after == "configs":
         wide, wide_launches = wide_phase(torch, api, args.seed, dev, out_dir)
@@ -6273,6 +6601,8 @@ def main(argv=None) -> int:
     trained, train_launches = training_phase(torch, api, model, base,
                                              experts, reqs, cfg, args.seed,
                                              dev)
+    long, long_launches = long_phase(torch, api, model, base, reg, cfg,
+                                     args.seed, dev)
 
     log("phase 4: checks")
     for r in reqs:
@@ -6406,14 +6736,14 @@ def main(argv=None) -> int:
         # refill path, phase 3e's configurations (the MoE one by
         # merge-on-swap), phase 3f's families (by merge-on-swap), the
         # sampled paths, the paged path, the remote
-        # paths, the durability path, the training path and the mesh
-        # runs (rank 0's)
+        # paths, the durability path, the training path, the long-prompt
+        # path and the mesh runs (rank 0's)
         n_launch = (launches[name] + merge_launches[name]
                     + ens_launches[name] + art_launches[name]
                     + refill_launches[name] + paged_launches[name]
                     + remote_launches[name] + durable_launches[name]
                     + train_launches[name] + mesh_launches[name]
-                    + within_launches[name]
+                    + within_launches[name] + long_launches[name]
                     + sum(c[name] for c in wide_launches.values())
                     + sum(c[name] for c in fam_launches.values())
                     + sum(c[name] for c in sampled_launches.values()))
@@ -6424,6 +6754,7 @@ def main(argv=None) -> int:
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                  "shape": r["shape"], "launches_mesh": mesh_launches[name],
                  "launches_within": within_launches[name],
+                 "launches_long": long_launches[name],
                  "launches_families": sum(c[name]
                                           for c in fam_launches.values())}
         if name == "unpack_add":
@@ -6470,7 +6801,7 @@ def main(argv=None) -> int:
                "wide_configs": wide, "families": fams,
                "sampled": sampled, "paged": paged,
                "remote": remote, "durable": durable, "trained": trained,
-               "mesh": mesh, "within": within,
+               "mesh": mesh, "within": within, "long": long,
                "params_m": n_params / 1e6}
     details.update(kernels=kernels, numbers=numbers, launches={
         "mixed_path": launches, "merge_path": merge_launches,
@@ -6478,7 +6809,7 @@ def main(argv=None) -> int:
         "artifact_path": art_launches, "refill_path": refill_launches,
         "paged_path": paged_launches, "remote_path": remote_launches,
         "durable_path": durable_launches, "training_path": train_launches,
-        "within_path": within_launches,
+        "within_path": within_launches, "long_path": long_launches,
         "ternary_matvec_check": matvec_launches,
         **{f"{a}_path": c for a, c in wide_launches.items()},
         **{f"{a}_path": c for a, c in fam_launches.items()},
@@ -6817,6 +7148,25 @@ def main(argv=None) -> int:
         f"{tr['grad_compression']['seconds']:.3f} s over the tree; worst "
         f"density {tr['grad_compression']['worst_exact_pp']:.3f} points off")
     log(f"phase 3t took {tr['phase_s']:.1f} s {tag}")
+    lg, lw, lr = long, long["whole"], long["chunks"]["runs"]
+    log(f"phase 3l {LONG_PROMPT}-token prompt on e0 {tag}: prefill "
+        f"{lg['prefill_ms']:.1f} ms warm ({lg['cold_prefill_ms']:.1f} cold), "
+        f"decode {lg['decode_tokens_per_s']:.1f} tokens/s, peak "
+        f"{lg['peak_above_start_bytes'] / 2 ** 30:.2f} GiB above the "
+        f"phase's start (gate {lg['gate_bytes'] / 2 ** 30:.2f} GiB), "
+        f"{lg['tile_steps_per_layer']} tile steps a layer; chunks "
+        + " / ".join(f"{c}: {lr[f'bf16_{c}']['prefill_s']:.2f} s"
+                     for c in LONG_CHUNKS)
+        + f", f32 logits max err {lg['chunks']['max_abs_err']:.3e}; at "
+        f"{WHOLE_T} chunked / whole: attention peak "
+        f"{lw['attention']['peak_bytes']['chunked'] / 2 ** 20:.1f} / "
+        f"{lw['attention']['peak_bytes']['whole'] / 2 ** 20:.1f} MiB, "
+        f"train step peak "
+        f"{lw['train_step']['peak_bytes']['chunked'] / 2 ** 30:.2f} / "
+        f"{lw['train_step']['peak_bytes']['whole'] / 2 ** 30:.2f} GiB, "
+        f"{lw['train_step']['seconds']['chunked']:.2f} / "
+        f"{lw['train_step']['seconds']['whole']:.2f} s; phase 3l took "
+        f"{lg['phase_s']:.1f} s")
     log(f"grouped kernel: empty expert slots cost {tag}: "
         f"{report['ternary_matmul_grouped']['slot_padding_ms_per_wave']:.3f}"
         " ms per wave")

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.attention import (_proj, cache_write,
@@ -310,7 +311,8 @@ def _cross_attend(x, bp, b, cfg, ck, cv):
     rope, no mask, no expert delta (the reference's cross branch)."""
     hc = rms_norm(x, bp["cross_norm"], cfg.rms_eps)
     qc = _proj(hc, bp["cross"]["wq"])
-    oc = flash_attention(qc, ck, cv, b.attn, causal=False)
+    oc = flash_attention(qc, ck, cv, b.attn, causal=False,
+                         chunk_q=attn_mod.CHUNK_Q, chunk_k=attn_mod.CHUNK_K)
     return x + out_project(oc, bp["cross"])
 
 
@@ -365,7 +367,8 @@ def _apply_block(x, bp, b, cfg, positions, dp, eid, kv_start,
     if heads is not None:
         k, v = heads.local_kv(k, v, q.shape[2], b.attn)
     o = flash_attention(q, k, v, b.attn, causal=b.attn.causal,
-                        kv_start=kv_start)
+                        kv_start=kv_start, chunk_q=attn_mod.CHUNK_Q,
+                        chunk_k=attn_mod.CHUNK_K)
     x = _attn_residual(x, o, bp, b, cfg, dp, eid, tp=heads)
     if enc_out is not None and "cross" in bp:
         x = _cross_attend(x, bp, b, cfg, *_cross_kv(enc_out, bp["cross"]))
