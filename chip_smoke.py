@@ -168,7 +168,26 @@ failure with a non-zero exit:
      expert leaf a quarter of the logical one; reported: step seconds,
      state bytes a rank beside the mesh-free state's (and expert bytes),
      peak memory a rank, the collectives of a profiled step, decode ms a
-     step beside the mesh-free run's and the combine's; kernel 1 must
+     step beside the mesh-free run's and the combine's; (d) the families
+     beyond decoder-only attention on "model" as the reference places
+     them, f32, 2 AdamW steps of (a)'s batches (a frontend's frames or
+     patches besides the 64 text tokens) on (1, 2, 2), a world of four
+     of its own beside (a)'s world of two and (b)'s decode references,
+     each rank held to the mesh-free step (run first in this process,
+     beside the world of two) at (c)'s tolerances,
+     every block of its state at its placed shape and every leaf placed
+     on "model" cut over it: rwkv6-3b at full width with 1 unit (its
+     channel mix cut on d_ff), internvl2-1b at full width with 1 unit
+     (its FFN cut, attention whole), seamless-m4t-medium at full width
+     with 1 + 1 units (encoder and cross-attention heads cut) and jamba
+     at smoke size with 1 unit (mamba on d_inner, attention heads,
+     experts on E);
+     and one full-width jamba mamba mixer (d_model 8192, d_inner 16384)
+     forward and backward on (1, 1, 2) beside (a)'s world of two, its
+     output and every gradient block within 1e-5 of the largest |value|
+     of the whole mixer's in the rank's process; reported: step seconds,
+     state bytes a rank beside the mesh-free state's, peak memory a rank
+     and the collectives' host and device ms; kernel 1 must
      launch under both decode meshes (rank 0's counts join the
      ``kernels`` line as ``launches_within``).  ``--stop-after within``
      ends after phases 3 and 3w;
@@ -5603,6 +5622,17 @@ MOE_STEPS = 2
 MOE_PARAM_TOL = 1e-5    # f32, one AdamW update at lr 3.3e-4
 MOE_NORM_TOL = 1e-5     # relative: the global gradient norm before the clip
 EXPERT_LEAVES = ("wg_e", "wu_e", "wo_e")
+# part (d): the families beyond decoder-only attention on "model", f32,
+# on (1, 2, 2) at (c)'s tolerances (``family_config``), and one
+# full-width jamba mamba mixer on (1, 1, 2) against the whole mixer
+FAMILY_SHAPE = (1, 2, 2)
+FAMILY_ARCHS = {"rwkv6": "rwkv6_3b", "internvl2": "internvl2_1b",
+                "seamless": "seamless_m4t_medium"}
+FAMILY_CASES = ("rwkv6", "internvl2", "seamless", "jamba_smoke")
+FAMILY_STEPS = 2
+MAMBA_SHAPE = (1, 1, 2)
+MAMBA_ROWS, MAMBA_T = 2, 256
+MAMBA_TOL = 1e-5        # of each tensor's largest |value|, f32
 SP_LOGIT_TOL = 1e-4          # of the largest |logit|, f32
 # the sequence-parallel decode cases: phase 3's 8 requests (16 to 64
 # prompt tokens) in waves of 4 on (data 1, model 2); one 4096-token prompt
@@ -5630,16 +5660,20 @@ def within_batches(torch, cfg, shape, dev, steps=WITHIN_STEPS) -> list:
     """The within-pod steps' global batches on a mesh of ``shape``: half
     of the targets of the rows data rank 0 of pod 0 takes (its share of
     each microbatch, ``within_pod.local_rows``) at -1, so the data ranks
-    hold uneven counts of valid targets."""
+    hold uneven counts of valid targets.  A frontend config's rows hold
+    its ``n_tokens`` frames or patches besides their 64 text tokens."""
     from repro_torch.data.pipeline import make_batch_for
     from repro_torch.train import within_pod as wp
     n = WITHIN_BATCH["global_batch"]
     rows = wp.local_rows({"i": torch.arange(n)}, wp.AxisSizes(dict(zip(
         ("pod", "data", "model"), shape))), {"pod": 0, "data": 0,
                                              "model": 0}, WITHIN_MICRO)["i"]
+    kw = dict(WITHIN_BATCH)
+    if cfg.frontend is not None:
+        kw["seq_len"] += cfg.frontend.n_tokens
     out = []
     for s in range(steps):
-        batch = make_batch_for(cfg, s, device=dev, **WITHIN_BATCH)
+        batch = make_batch_for(cfg, s, device=dev, **kw)
         batch["targets"] = batch["targets"].clone()   # not the tokens' view
         g = torch.Generator().manual_seed(17 + s)
         T = WITHIN_BATCH["seq_len"]
@@ -5747,18 +5781,18 @@ def expert_nbytes(tree) -> int:
                if p.split("/")[-1] in EXPERT_LEAVES)
 
 
-def moe_reference(torch, seed, dev, path) -> dict:
-    """Part (c)'s mesh-free step in this process (about 27 GB of f32
-    state and gradients with AdamW, freed before the ranks start): the
+def mesh_free_reference(torch, cfg, seed, dev, path, shape, steps) -> dict:
+    """A mesh-free step of ``cfg`` in this process, ``steps`` AdamW steps
+    of the batches of a mesh of ``shape`` (part (c)'s mixtral: about 27
+    GB of f32 state and gradients, freed before the ranks start): the
     final parameters written to ``path`` for the ranks' gates; returned:
-    the losses, gradient norms, step seconds, the state's bytes and peak
-    memory."""
+    the losses, gradient norms, step seconds, the state's bytes (and its
+    expert bytes), parameters and peak memory."""
     from repro_torch.core.gradient_compression import GradCompressionConfig
     from repro_torch.models import build as build_model
     from repro_torch.train import (TrainConfig, init_train_state,
                                    make_train_step)
     from repro_torch import tree as tree_util
-    cfg = moe_config(False)
     model = build_model(cfg)
     tcfg = within_tcfg(TrainConfig, GradCompressionConfig)
     free_all(torch)
@@ -5767,7 +5801,7 @@ def moe_reference(torch, seed, dev, path) -> dict:
     step = make_train_step(model, tcfg)
     losses, norms, secs = [], [], []
     with torch.enable_grad():
-        for batch in within_batches(torch, cfg, MOE_SHAPE, dev, MOE_STEPS):
+        for batch in within_batches(torch, cfg, shape, dev, steps):
             torch.cuda.synchronize(dev)
             t0 = time.monotonic()
             state, met = step(state, batch)
@@ -5775,7 +5809,8 @@ def moe_reference(torch, seed, dev, path) -> dict:
             norms.append(float(met["grad_norm"]))
             secs.append(time.monotonic() - t0)
     torch.save(tree_util.tree_map(lambda t: t.cpu(), state["params"]), path)
-    out = {"losses": losses, "grad_norms": norms, "step_s": secs,
+    out = {"path": path, "losses": losses, "grad_norms": norms,
+           "step_s": secs,
            "state_bytes": state_nbytes({k: v for k, v in state.items()
                                         if k != "step"}),
            "expert_bytes": expert_nbytes(state["params"]),
@@ -5879,14 +5914,15 @@ def within_moe_child(torch, name, ep, spec, dev) -> dict:
     return out
 
 
-def moe_gates(torch, ref, ranks, name) -> dict:
-    """Part (c)'s gates on one layout, from what its ranks report: every
-    rank's losses and gradient norms equal rank 0's, the losses within
-    WITHIN_LOSS_TOL and the norms (before the clip) within MOE_NORM_TOL of
-    the mesh-free step's, which ties the gradients' scale to it; every
-    block at its placed shape, an expert block a quarter of its leaf (E
-    or d_ff over "model", another dim over "data"), every parameter
-    within MOE_PARAM_TOL of the mesh-free step's block."""
+def step_gates(torch, ref, ranks, name) -> dict:
+    """Part (c)'s and (d)'s gates on one layout, from what its ranks
+    report: every rank's losses and gradient norms equal rank 0's, the
+    losses within WITHIN_LOSS_TOL and the norms (before the clip) within
+    MOE_NORM_TOL of the mesh-free step's, which ties the gradients' scale
+    to it; every block at its placed shape (in (c) an expert block a
+    quarter of its leaf: E or d_ff over "model", another dim over
+    "data"), every parameter within MOE_PARAM_TOL of the mesh-free
+    step's block."""
     for r, rank in enumerate(ranks):
         check(rank["losses"] == ranks[0]["losses"]
               and rank["grad_norms"] == ranks[0]["grad_norms"],
@@ -5906,6 +5942,224 @@ def moe_gates(torch, ref, ranks, name) -> dict:
           f"{worst:.3e} from the mesh-free step's")
     return {"max_param_diff": worst, "loss_gap": gap,
             "grad_norm_rel_gap": norm_gap}
+
+
+def family_config(name: str):
+    """Part (d)'s configurations, f32: rwkv6-3b and internvl2-1b at full
+    width with 1 unit, seamless-m4t-medium at full width with 1 encoder
+    and 1 decoder unit, jamba at smoke size with 1 unit (8 blocks: its
+    attention, 7 mamba, 4 MoE FFNs)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    if name == "jamba_smoke":
+        return get_smoke_config("jamba_1_5_large_398b", n_units=1)
+    cfg = get_config(FAMILY_ARCHS[name])
+    cfg = dataclasses.replace(cfg, n_units=1, dtype="float32")
+    if cfg.enc_n_units:
+        cfg = dataclasses.replace(cfg, enc_n_units=1)
+    return cfg
+
+
+def family_references(torch, seed, dev, tmp) -> dict:
+    """Part (d)'s mesh-free steps in this process, one configuration at a
+    time (:func:`mesh_free_reference`), their final parameters in files
+    under ``tmp``."""
+    return {name: mesh_free_reference(
+        torch, family_config(name), seed, dev,
+        os.path.join(tmp, f"family_{name}.pt"), FAMILY_SHAPE, FAMILY_STEPS)
+        for name in FAMILY_CASES}
+
+
+def within_family_child(torch, name, spec, dev) -> dict:
+    """One rank of part (d): ``family_config(name)`` on (1, 2, 2),
+    ``FAMILY_STEPS`` AdamW steps of 8 rows of 64 text tokens in 2
+    microbatches (masked targets), the last profiled; then every block of
+    its state against its placed shape and its parameter blocks against
+    the mesh-free step's (``spec["family_refs"]``).  Returned: losses,
+    gradient norms, step seconds, resident state bytes, peak memory, the
+    collectives of the profiled step, the largest parameter difference,
+    every block not at its placed shape, and how many leaves are cut
+    over "model"."""
+    from repro_torch.core.gradient_compression import GradCompressionConfig
+    from repro_torch.distributed.sharding import (local_shard,
+                                                  train_state_shardings)
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build as build_model
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.train import within_pod as wp
+    from repro_torch import tree as tree_util
+    from torch.profiler import ProfilerActivity, profile
+    cfg = family_config(name)
+    model = build_model(cfg)
+    mesh = make_production_mesh(shape=FAMILY_SHAPE, device="cuda")
+    tcfg = within_tcfg(TrainConfig, GradCompressionConfig)
+    free_all(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    local = wp.shard_train_state(init_train_state(
+        model.init(seed=spec["seed"], device=dev), tcfg), cfg, mesh)
+    free_all(torch)
+    step = make_train_step(model, tcfg, mesh=mesh)
+    torch.set_grad_enabled(True)
+    losses, norms, secs = [], [], []
+    batches = within_batches(torch, cfg, FAMILY_SHAPE, dev, FAMILY_STEPS)
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        if i + 1 < len(batches):
+            local, met = step(local, batch)
+        else:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                local, met = step(local, batch)
+                torch.cuda.synchronize(dev)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        secs.append(time.monotonic() - t0)
+    torch.set_grad_enabled(False)
+    out = {"name": name, "losses": losses, "grad_norms": norms,
+           "step_s": secs,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "state_bytes": state_nbytes({k: v for k, v in local.items()
+                                        if k != "step"}),
+           "collectives": collectives_of(prof)}
+    del step
+    free_all(torch)
+    index = {a: mesh.get_local_rank(a) for a in ("pod", "data", "model")}
+    meta = init_train_state(model.init(device="meta"), tcfg)
+    specs = dict(tree_util.flatten_with_paths(train_state_shardings(
+        meta, cfg, mesh)))
+    whole = dict(tree_util.flatten_with_paths(meta))
+    wrong, cut = [], 0
+    for path, got in tree_util.flatten_with_paths(local):
+        if path == "step":
+            continue
+        placed = local_shard(whole[path], specs[path], mesh, index).shape
+        if got.shape != placed:
+            wrong.append(f"{path} is {tuple(got.shape)}, placed "
+                         f"{tuple(placed)}")
+        elif "model" in specs[path]:
+            d = specs[path].index("model")
+            if got.shape[d] * FAMILY_SHAPE[2] != whole[path].shape[d]:
+                wrong.append(f"{path} is not cut over 'model'")
+            cut += 1
+    ref = torch.load(spec["family_refs"][name]["path"], map_location="cpu",
+                     mmap=True, weights_only=True)
+    pspecs = dict(tree_util.flatten_with_paths(wp.logical_specs(cfg, mesh)))
+    worst = 0.0
+    for path, got in tree_util.flatten_with_paths(local["params"]):
+        block = local_shard(dict(tree_util.flatten_with_paths(ref))[path],
+                            pspecs[path], mesh, index)
+        if got.shape == block.shape:
+            worst = max(worst, float((got - block.to(dev)).abs().max()))
+    out.update(max_param_diff=worst, wrong_blocks=wrong, model_cut=cut)
+    del local, ref
+    free_all(torch)
+    return out
+
+
+def family_gates(torch, ref, ranks, name) -> dict:
+    """Part (d)'s gates on one configuration: (c)'s (:func:`step_gates`),
+    every leaf placed on "model" cut over it on every rank."""
+    for r, rank in enumerate(ranks):
+        check(rank["model_cut"] > 0, f"phase 3w (d) {name}: rank {r} "
+              "holds no leaf cut over 'model'")
+    return step_gates(torch, ref, ranks, f"(d) {name}")
+
+
+def within_mamba_child(torch, spec, dev) -> dict:
+    """One rank of part (d)'s full-width jamba mamba mixer on (1, 1, 2):
+    this rank's d_inner slice (its placed blocks, ``in_proj`` regrouped
+    over "model") forward and backward over MAMBA_ROWS x MAMBA_T tokens
+    with a seeded cotangent, then the whole mixer in this process on the
+    same inputs; the output and this rank's block of every leaf's
+    gradient, each within MAMBA_TOL of its largest |value|.  Returned:
+    the errors, the placed shapes, seconds of the cut and the whole
+    mixer's forward and backward, the collectives of a profiled cut one,
+    and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import local_shard, param_pspec
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models.transformer import _init_mamba
+    from repro_torch.train import within_pod as wp
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(get_config("jamba_1_5_large_398b"),
+                              dtype="float32")
+    b = next(b for b in cfg.pattern if b.kind == "mamba")
+    mesh = make_production_mesh(shape=MAMBA_SHAPE, device="cuda")
+    free_all(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"] + 5)
+    whole = {k: v[0] for k, v in _init_mamba(
+        b.mamba, cfg.d_model, 1, torch.float32, gen, dev).items()}
+    specs = {k: param_pspec(f"blocks/block1/mamba/{k}", (1,) + tuple(
+        v.shape), cfg, mesh)[1:] for k, v in whole.items()}
+    mine = {k: local_shard(v, specs[k], mesh) for k, v in whole.items()}
+    run = wp.PodRun(cfg, mesh, wp.logical_specs(cfg, mesh))
+    x = torch.randn((MAMBA_ROWS, MAMBA_T, cfg.d_model), generator=gen,
+                    device=dev)
+    cot = torch.randn(x.shape, generator=gen, device=dev)
+
+    def grads(p, tp=None, regroup=False):
+        req = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        with torch.enable_grad():
+            used = dict(req, in_proj=run.leaf(
+                req["in_proj"], specs["in_proj"], regroup=True)) \
+                if regroup else req
+            out, _ = mamba_mod.mamba_forward(x, used, b.mamba, tp=tp)
+            g = torch.autograd.grad((out * cot).sum(), list(req.values()))
+        return out.detach(), dict(zip(req, g))
+
+    secs = {}
+    for what in ("cut", "cut", "whole"):
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        if what == "cut":
+            out, g = grads(mine, run.tp, True)
+        else:
+            want_out, want_g = grads(whole)
+        torch.cuda.synchronize(dev)
+        secs.setdefault(what, []).append(time.monotonic() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        grads(mine, run.tp, True)
+        torch.cuda.synchronize(dev)
+
+    def rel(a, w):
+        return float((a - w).abs().max()) / max(float(w.abs().max()),
+                                                1e-30)
+
+    errs = {"out": rel(out, want_out)}
+    for k, w in want_g.items():
+        errs[k] = rel(g[k], local_shard(w, specs[k], mesh))
+    out = {"errors": errs, "seconds": secs,
+           "shapes": {k: list(v.shape) for k, v in mine.items()},
+           "whole_shapes": {k: list(v.shape) for k, v in whole.items()},
+           "n_params": sum(v.numel() for v in whole.values()),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "collectives": collectives_of(prof)}
+    del whole, mine, g, want_g
+    free_all(torch)
+    return out
+
+
+def mamba_gates(ranks) -> dict:
+    """The full-width mixer's gates: on every rank the output and each
+    leaf's gradient block within MAMBA_TOL of the whole mixer's, and
+    every leaf but the norm cut in two along d_inner (``in_proj`` [D, 2
+    Din / 2], ``out_proj`` [Din / 2, D])."""
+    worst = 0.0
+    for r, rank in enumerate(ranks):
+        for k, e in rank["errors"].items():
+            check(e <= MAMBA_TOL, f"phase 3w (d) mamba mixer: rank {r}'s "
+                  f"{k} {e:.3e} of its largest from the whole mixer's")
+            worst = max(worst, e)
+        sh, wh = rank["shapes"], rank["whole_shapes"]
+        check(sh["in_proj"] == [wh["in_proj"][0], wh["in_proj"][1] // 2]
+              and sh["out_proj"] == [wh["out_proj"][0] // 2,
+                                     wh["out_proj"][1]],
+              f"phase 3w (d) mamba mixer: rank {r} holds {sh}")
+    return {"max_rel_err": worst}
 
 
 def sp_prompts(torch, traffic, case: str, vocab: int, dev) -> list:
@@ -6031,12 +6285,20 @@ def within_sp_child(torch, case, spec, dev, experts) -> tuple[dict, dict]:
 def within_child(torch, spec, dev, experts) -> list:
     """A phase 3w rank: its within-pod train steps and its
     sequence-parallel decode case, in one world; in the world of four,
-    first part (c)'s MoE steps (``spec["moe_ref"]``), while the card holds
-    nothing of the other cases."""
+    first part (c)'s MoE steps (``spec["moe_ref"]``), while the card
+    holds nothing of the other cases; in the world of two, first part
+    (d)'s full-width mamba mixer; in part (d)'s world of four
+    (``spec["family_refs"]``), its families alone."""
+    if spec.get("family_refs"):
+        return [within_family_child(torch, name, spec, dev)
+                for name in FAMILY_CASES]
     res = []
     if spec.get("moe_ref") and spec["world"] == 4:
         res += [within_moe_child(torch, name, ep, spec, dev)
                 for name, ep in MOE_CASES]
+    if spec["world"] == 2 and spec.get("mamba"):
+        res.append(dict(within_mamba_child(torch, spec, dev),
+                        name="mamba_mixer"))
     for name, shape, f32 in WITHIN_TRAIN:
         if shape[0] * shape[1] * shape[2] == spec["world"]:
             res.append(within_train_child(torch, name, shape, f32, spec,
@@ -6117,8 +6379,10 @@ def within_phase(torch, api, model, base, reg, experts, reqs, args):
     log("phase 3w: training inside a pod ((a) (1, 2, 1) FSDP, (1, 1, 2) "
         "tensor parallelism on an f32 copy, (2, 2, 1) with compressed pods; "
         "(c) mixtral at full width on (1, 2, 2), experts cut on d_ff and on "
-        "E) and (b) sequence-parallel decode ((1, 2) and (2, 2)), ranks as "
-        "gloo processes on the card")
+        "E; (d) rwkv6, internvl2, seamless and jamba on (1, 2, 2), a "
+        "full-width jamba mamba mixer on (1, 1, 2)) and (b) "
+        "sequence-parallel decode ((1, 2) and (2, 2)), ranks as gloo "
+        "processes on the card")
     t0 = time.monotonic()
     with tempfile.TemporaryDirectory(prefix="_artifacts_", dir=ROOT) as tmp:
         within, launches = within_path(torch, api, model, base, reg,
@@ -6135,8 +6399,9 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
                 tmp) -> tuple[dict, dict]:
     """Phase 3w: the within-pod train step ((1, 2, 1) FSDP and (1, 1, 2)
     tensor parallelism on two ranks, (2, 2, 1) with compressed pods on
-    four) and sequence-parallel decode ((1, 2) and (2, 2)), every rank a
-    gloo process on the card.  Returns (report, kernel launches of rank 0
+    four), mixtral's experts and the other families on (1, 2, 2), a
+    full-width mamba mixer on (1, 1, 2), and sequence-parallel decode
+    ((1, 2) and (2, 2)), every rank a gloo process on the card.  Returns (report, kernel launches of rank 0
     on the decode runs)."""
     from repro_torch.kernels import ops
     traffic = {"p3": traffic_rows(reqs)}
@@ -6147,7 +6412,22 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
     # the world of two runs while this process takes the decode
     # references (a few GB beside its ranks' 9); part (c)'s mesh-free
     # step (50 GB) and the world of four then have the card alone
-    h2 = start_ranks(spec, 2, "gloo", [0, 0], tmp, "within2", timeout=900)
+    h2 = start_ranks(dict(spec, mamba=True), 2, "gloo", [0, 0], tmp,
+                     "within2", timeout=900)
+    # part (d)'s mesh-free steps, then its world of four (at most 8 GiB a
+    # rank), both beside the world of two and the decode references
+    t0 = time.monotonic()
+    family_refs = family_references(torch, seed, dev, tmp)
+    out["family_mesh_free_s"] = time.monotonic() - t0
+    for name, ref in family_refs.items():
+        log(f"phase 3w (d) mesh-free {name} ({ref['n_params']} "
+            f"parameters, f32): losses {ref['losses']}; gradient norms "
+            f"{ref['grad_norms']}; step s "
+            f"{[round(x, 3) for x in ref['step_s']]}; state bytes "
+            f"{ref['state_bytes']}; peak {ref['peak_gib']:.2f} GiB "
+            f"[{gpu_line()}]")
+    hf = start_ranks(dict(spec, family_refs=family_refs), 4, "gloo",
+                     [0] * 4, tmp, "within_family", timeout=900)
     # the mesh-free decode references on the f32 copy
     m32, b32 = f32_copy(torch, model, base)
     refs = {}
@@ -6164,10 +6444,13 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
     free_all(torch)
     results = {2: wait_ranks(h2)}
     out["world2_s"] = time.monotonic() - h2["t0"]
+    by_family = [{r["name"]: r for r in rank} for rank in wait_ranks(hf)]
+    out["family_world_s"] = time.monotonic() - hf["t0"]
     # part (c)'s mesh-free step, while no rank holds the card
     t0 = time.monotonic()
     ref_path = os.path.join(tmp, "moe_mesh_free.pt")
-    moe_ref = moe_reference(torch, seed, dev, ref_path)
+    moe_ref = mesh_free_reference(torch, moe_config(False), seed, dev,
+                                  ref_path, MOE_SHAPE, MOE_STEPS)
     out["moe_mesh_free"] = dict(moe_ref, seconds=time.monotonic() - t0)
     log(f"phase 3w (c) mesh-free mixtral, 1 unit at full width, f32, "
         f"{moe_ref['n_params']} parameters: losses {moe_ref['losses']}; "
@@ -6274,7 +6557,7 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
     # part (c): the first cases of the world of four
     for name, ep in MOE_CASES:
         ranks = [b[name] for b in by4]
-        gates = moe_gates(torch, moe_ref, ranks, name)
+        gates = step_gates(torch, moe_ref, ranks, name)
         rep = dict(gates, shape=list(MOE_SHAPE), expert_parallel=ep,
                    losses=ranks[0]["losses"],
                    mesh_free_losses=moe_ref["losses"],
@@ -6308,6 +6591,56 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
             f"at the start and after the cut {rep['card_free_gib']}); "
             f"collectives of the profiled step {rep['collectives']} "
             f"[{gpu_line()}]")
+    # part (d): the families on (1, 2, 2), the mixer on (1, 1, 2)
+    for name in FAMILY_CASES:
+        ref = family_refs[name]
+        ranks = [b[name] for b in by_family]
+        gates = family_gates(torch, ref, ranks, name)
+        rep = dict(gates, shape=list(FAMILY_SHAPE),
+                   losses=ranks[0]["losses"], mesh_free_losses=ref["losses"],
+                   grad_norms=ranks[0]["grad_norms"],
+                   mesh_free_grad_norms=ref["grad_norms"],
+                   step_s=[r["step_s"] for r in ranks],
+                   mesh_free_step_s=ref["step_s"],
+                   state_bytes=[r["state_bytes"] for r in ranks],
+                   mesh_free_state_bytes=ref["state_bytes"],
+                   peak_gib=[r["peak_gib"] for r in ranks],
+                   mesh_free_peak_gib=ref["peak_gib"],
+                   model_cut_leaves=ranks[0]["model_cut"],
+                   collectives=[r["collectives"] for r in ranks])
+        out[f"train_{name}"] = rep
+        log(f"phase 3w (d) {name} on {FAMILY_SHAPE} (f32, "
+            f"{ref['n_params']} parameters, {rep['model_cut_leaves']} "
+            f"state leaves of a rank cut over 'model'): losses "
+            f"{rep['losses']} (mesh-free {rep['mesh_free_losses']}); "
+            f"gradient norms {rep['grad_norms']} (mesh-free "
+            f"{rep['mesh_free_grad_norms']}, largest relative gap "
+            f"{gates['grad_norm_rel_gap']:.2e}); max |param diff| "
+            f"{gates['max_param_diff']:.3e}; step s a rank "
+            f"{[[round(x, 3) for x in r] for r in rep['step_s']]} (the "
+            f"last profiled; mesh-free "
+            f"{[round(x, 3) for x in ref['step_s']]}; beside the world "
+            f"of two and this process's decode references); state bytes "
+            f"a rank "
+            f"{rep['state_bytes']} vs mesh-free "
+            f"{rep['mesh_free_state_bytes']}; peak GiB a rank "
+            f"{[round(x, 2) for x in rep['peak_gib']]} (mesh-free "
+            f"{ref['peak_gib']:.2f}); collectives of the profiled step "
+            f"{rep['collectives']} [{gpu_line()}]")
+    ranks = [next(r for r in rank if r.get("name") == "mamba_mixer")
+             for rank in results[2]]
+    gates = mamba_gates(ranks)
+    out["mamba_mixer"] = dict(gates, ranks=ranks, shape=list(MAMBA_SHAPE))
+    log(f"phase 3w (d) jamba mamba mixer at full width on {MAMBA_SHAPE} "
+        f"({ranks[0]['n_params']} parameters, f32, {MAMBA_ROWS} x "
+        f"{MAMBA_T} tokens): output and gradients within "
+        f"{gates['max_rel_err']:.2e} of the whole mixer's largest; rank "
+        f"0 holds {ranks[0]['shapes']}; forward and backward s cut "
+        f"{[round(x, 3) for x in ranks[0]['seconds']['cut']]} (the first "
+        f"cold), whole {[round(x, 3) for x in ranks[0]['seconds']['whole']]}"
+        f"; peak GiB a rank {[round(r['peak_gib'], 2) for r in ranks]}; "
+        f"collectives of a profiled cut pass {ranks[0]['collectives']} "
+        f"[{gpu_line()}]")
     os.remove(ref_path)
     return out, launches
 

@@ -36,11 +36,15 @@ ask, so it counts what its own step does:
   receives the other D - 1 ranks' copies of its block, (D - 1) / D of
   the leaf as the unit uses it; a leaf not cut over "data" is
   all-reduced, a reduce-scatter and an all-gather: 2 (D - 1) / D of it),
-  tensor-parallel sums (per cut region, unit and microbatch: in the
-  forward, the backward and a recompute; a region is an
-  attention whose heads are cut, and an FFN, dense or MoE; each an
-  all-reduce in rank order, 2 (M - 1) / M of the activation; an MoE
-  adds its gate values' gradient, summed in the backward), the
+  tensor-parallel sums of every family (per cut region, unit and
+  microbatch: in the forward, the backward and a recompute; a region is
+  an attention whose heads are cut, self or cross, an FFN, dense, MoE
+  or rwkv channel mix, and a mamba mixer; each an all-reduce in rank
+  order, 2 (M - 1) / M of the activation; an MoE adds its gate values'
+  gradient and a cross-attention its f on ``enc_out``, summed in the
+  backward; a mamba mixer its ``x_proj`` sum on [rows, T, R + 2 N],
+  forward and backward), mamba's ``in_proj`` regroup over "model"
+  (``tp_regroup``: the resident block's bytes each pass), the
   vocab-parallel lookup, head and loss, the sequence-parallel combine
   of decode, and the cross-pod planes at 2 bits a parameter.  A decode
   or prefill cell gathers each unit's weights whole, as the port's
@@ -78,7 +82,7 @@ from repro_torch.distributed.sharding import (_axes_of, cache_shardings,
                                               train_state_shardings)
 from repro_torch.train.train_step import TrainConfig, init_train_state
 from repro_torch.train.within_pod import (AxisSizes, TensorParallel,
-                                         tensor_parallel_family)
+                                          regrouped)
 
 # ---------------------------------------------------------------------------
 # Cell table (the reference's)
@@ -349,6 +353,61 @@ def _grad_sum_bytes(used: int, spec, sizes) -> int:
     return used * (D - 1) // D if cut else 2 * used * (D - 1) // D
 
 
+def _tp_sum_bytes(cfg, mesh, sizes, stack, pattern, n_units, again, rows,
+                  T, enc_len, train, act_dt) -> int:
+    """Bytes one rank receives for a stack's sums over "model" a
+    microbatch: each cut region's pair (g in the forward and a
+    recompute, f in the backward; each an all-reduce in rank order, 2 (M
+    - 1) / M of [rows, T, D]): a head-cut attention, self or cross (and
+    the cross K/V's f on ``enc_out`` [rows, S_src, D], in the backward),
+    an FFN, dense, MoE (and its gate values' gradient) or rwkv channel
+    mix, and a mamba mixer (and its ``x_proj`` sum, forward, recompute
+    and backward, on [rows, T, R + 2 N])."""
+    M = sizes["model"]
+    passes = (2 * n_units + again) if train else n_units
+    back = n_units if train else 0
+
+    def ar(nbytes):                  # one all-reduce in rank order
+        return 2 * nbytes * (M - 1) // M
+
+    act = ar(rows * T * cfg.d_model * act_dt)
+    out = 0
+    for b in pattern:
+        regions = int(b.ffn is not None)
+        if b.kind == "attn":
+            regions += int(heads_shardable(cfg, mesh, b.attn.n_q))
+            if stack == "blocks" and cfg.cross_attn and heads_shardable(
+                    cfg, mesh, b.attn.n_q):
+                regions += 1
+                out += ar(rows * enc_len * cfg.d_model * act_dt) * back
+        elif b.kind == "mamba":
+            regions += 1
+            R = b.mamba.dt_rank or -(-cfg.d_model // 16)
+            out += ar(rows * T * (R + 2 * b.mamba.d_state) * act_dt) * passes
+        out += act * regions * passes
+        if b.ffn is not None and b.ffn.moe:
+            out += ar(rows * T * b.ffn.moe.top_k * 4) * back
+    return out
+
+
+def _regroup_bytes(params, flat_specs, sizes, stack, n_units, again,
+                   train) -> int:
+    """Bytes one rank receives a microbatch to regroup mamba's
+    ``in_proj`` blocks over "model" (``within_pod._Regroup``): two of
+    the M x 2 chunks of its resident block ([D / D_data, Din / M] each)
+    come from other ranks in the forward and a recompute, and their
+    gradients go back in the backward."""
+    out = 0
+    for path, leaf in tree_util.flatten_with_paths(params[stack]):
+        if not regrouped(path):
+            continue
+        block = local_shape(tuple(leaf.shape)[1:],
+                            flat_specs[f"{stack}/{path}"][1:], sizes)
+        out += _nbytes(block, leaf.dtype) * ((2 * n_units + again)
+                                             if train else n_units)
+    return out
+
+
 def dry_cell(arch: str, shape: str, multi_pod: bool = False,
              cross_host_bytes_s: Optional[float] = None) -> dict:
     """Every number of one cell, per rank (see the module's notes)."""
@@ -363,11 +422,12 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
     params = tf.init_params(cfg, device="meta")
     pspecs = param_shardings(params, cfg, mesh)
     flat_specs = dict(tree_util.flatten_with_paths(pspecs))
-    tp = sizes["model"] > 1 and tensor_parallel_family(cfg)
+    tp = sizes["model"] > 1
     dp = sizes.get("pod", 1) * sizes["data"]
     mem: dict = {}
     colls = {"fsdp_gather": 0, "fsdp_gather_model": 0, "grad_data_sum": 0,
-             "tp_sum": 0, "vocab": 0, "sp_combine": 0, "pod_planes": 0}
+             "tp_sum": 0, "tp_regroup": 0, "vocab": 0, "sp_combine": 0,
+             "pod_planes": 0}
     cross_host = nvlink = 0
     flops = 0
     notes = []
@@ -448,18 +508,12 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
                     colls["grad_data_sum"] += (_grad_sum_bytes(
                         used, spec[1:], sizes) * n_units * micro)
             if tp:
-                M = sizes["model"]
-                act = rows * Tn * cfg.d_model * act_dt
-                for b in pattern:
-                    regions = int(b.ffn is not None) + int(
-                        heads_shardable(cfg, mesh, b.attn.n_q))
-                    colls["tp_sum"] += (2 * act * (M - 1) // M * regions
-                                        * ((2 * n_units + again) if train
-                                           else n_units) * micro)
-                    if train and b.ffn is not None and b.ffn.moe:
-                        gates = rows * Tn * b.ffn.moe.top_k * 4
-                        colls["tp_sum"] += (2 * gates * (M - 1) // M
-                                            * n_units * micro)
+                colls["tp_sum"] += _tp_sum_bytes(
+                    cfg, mesh, sizes, stack, pattern, n_units, again, rows,
+                    Tn, enc_len, train, act_dt) * micro
+                colls["tp_regroup"] += _regroup_bytes(
+                    params, flat_specs, sizes, stack, n_units, again,
+                    train) * micro
         flops += _head_flops(cfg, rows, text_T, v_local, train) * micro
         for k in ("embed", "lm_head", "final_norm", "frontend_proj",
                   "enc_final_norm"):
@@ -536,7 +590,8 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
         hbm = pb["logical"] + mem["kv_cache"]
     for k in ("fsdp_gather", "grad_data_sum", "pod_planes"):
         cross_host += colls[k]
-    nvlink = colls["fsdp_gather_model"] + colls["tp_sum"] + colls["vocab"]
+    nvlink = (colls["fsdp_gather_model"] + colls["tp_sum"]
+              + colls["tp_regroup"] + colls["vocab"])
     if kind == "decode":
         seq_cross = any(x in decode_layout(mesh, B)[1] for x in ("data",
                                                                "pod"))

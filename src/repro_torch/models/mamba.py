@@ -97,19 +97,30 @@ def _ssm_scan_chunked(dt: torch.Tensor, A: torch.Tensor, B_ssm: torch.Tensor,
 
 
 def mamba_forward(x: torch.Tensor, p: dict, cfg, state=None,
-                  chunk: int = CHUNK):
+                  chunk: int = CHUNK, tp=None):
     """Whole-sequence forward.  x [B, T, D]; ``state`` = (h [B, Din, S]
     f32, conv ring [B, K-1, Din]) carried from earlier tokens.  Returns
-    (out [B, T, D], (h, conv ring))."""
+    (out [B, T, D], (h, conv ring)).
+
+    ``tp`` (a training mesh's tensor-parallel hooks) runs this rank's
+    d_inner slice (Din the slice's width, read from ``in_proj``, whose
+    columns are x_in's and z's slice of the rank): Megatron's f on the
+    input, the partial ``x_proj`` products summed over "model" forward
+    and backward (what follows feeds the rank's own slice), and g after
+    ``out_proj``."""
     B, T, D = x.shape
     f32 = torch.float32
-    Din = cfg.expand * D
+    Din = p["in_proj"].shape[-1] // 2
     h0 = state[0] if state is not None else None
     conv_buf = state[1] if state is not None else None
+    if tp is not None:
+        x = tp.enter(x)
     x_in, z = (x @ p["in_proj"]).split(Din, dim=-1)
     x_conv = _conv1d_causal(x_in, p["conv_w"], p["conv_b"], conv_buf)
     x_act = F.silu(x_conv.to(f32))
     proj = x_act.to(x.dtype) @ p["x_proj"]
+    if tp is not None:     # g, then f: what follows feeds the rank's slice
+        proj = tp.enter(tp.reduce(proj))
     R = _dt_rank(cfg, D)
     dt, B_ssm, C_ssm = proj.split([R, cfg.d_state, cfg.d_state], dim=-1)
     dt = F.softplus((dt @ p["dt_proj"]).to(f32) + p["dt_bias"].to(f32))
@@ -121,6 +132,8 @@ def mamba_forward(x: torch.Tensor, p: dict, cfg, state=None,
     y = y + x_act * p["D_skip"].to(f32)
     y = y * F.silu(z.to(f32))
     out = y.to(x.dtype) @ p["out_proj"]
+    if tp is not None:
+        out = tp.reduce(out)
     K = p["conv_w"].shape[0]
     prev = (conv_buf.to(x.dtype) if conv_buf is not None else
             torch.zeros((B, K - 1, Din), dtype=x.dtype, device=x.device))

@@ -152,14 +152,22 @@ def rwkv_time_mix(x: torch.Tensor, p: dict, cfg, state=None,
 
 
 def rwkv_channel_mix(x: torch.Tensor, p: dict,
-                     state: Optional[torch.Tensor] = None):
-    """The RWKV FFN (relu^2 channel mix) -> (out, last_x [B, 1, D])."""
+                     state: Optional[torch.Tensor] = None, tp=None):
+    """The RWKV FFN (relu^2 channel mix) -> (out, last_x [B, 1, D]).
+    ``tp`` (a training mesh's tensor-parallel hooks) runs this rank's
+    d_ff slice of the key path (``cm_Wk``'s columns, ``cm_Wv``'s rows)
+    between Megatron's f, on the key path's input alone, and g, before
+    the receptance gate; the receptance path runs whole on every rank."""
     dx = _shift(x, state) - x
     xk = x + dx * p["cm_mu_k"]
     xr = x + dx * p["cm_mu_r"]
+    if tp is not None:
+        xk = tp.enter(xk)
     kk = torch.square(torch.relu(_mm(xk, p["cm_Wk"]).to(torch.float32)))
     rr = torch.sigmoid(_mm(xr, p["cm_Wr"]).to(torch.float32))
     vv = _mm(kk.to(x.dtype), p["cm_Wv"])
+    if tp is not None:
+        vv = tp.reduce(vv)
     return (rr * vv.to(torch.float32)).to(x.dtype), x[:, -1:]
 
 

@@ -301,32 +301,49 @@ def _attn_residual(x, o, bp, b, cfg, dp, eid, tp=None):
     return x + out
 
 
-def _cross_kv(enc_out: torch.Tensor, cp: dict):
-    """The cross-attention K/V [B, S_src, Hkv, D] of encoder output."""
+def _cross_kv(enc_out: torch.Tensor, cp: dict, tp=None):
+    """The cross-attention K/V [B, S_src, Hkv, D] of encoder output;
+    ``tp`` (of a head-cut cross-attention) enters ``enc_out`` with an f
+    of its own, as every model rank's heads read it."""
+    if tp is not None:
+        enc_out = tp.enter(enc_out)
     return _proj(enc_out, cp["wk"]), _proj(enc_out, cp["wv"])
 
 
-def _cross_attend(x, bp, b, cfg, ck, cv):
+def _cross_attend(x, bp, b, cfg, ck, cv, tp=None):
     """x + cross-attention over every source position of (ck, cv): no
-    rope, no mask, no expert delta (the reference's cross branch)."""
+    rope, no mask, no expert delta (the reference's cross branch).
+    ``tp`` runs this rank's heads of a head-cut cross-attention between
+    Megatron's f and g."""
     hc = rms_norm(x, bp["cross_norm"], cfg.rms_eps)
+    if tp is not None:
+        hc = tp.enter(hc)
     qc = _proj(hc, bp["cross"]["wq"])
+    if tp is not None:
+        ck, cv = tp.local_kv(ck, cv, qc.shape[2], b.attn)
     oc = flash_attention(qc, ck, cv, b.attn, causal=False,
                          chunk_q=attn_mod.CHUNK_Q, chunk_k=attn_mod.CHUNK_K)
-    return x + out_project(oc, bp["cross"])
+    out = out_project(oc, bp["cross"])
+    if tp is not None:
+        out = tp.reduce(out)
+    return x + out
 
 
 def _mamba_block(x, bp, b, cfg, state, chunk: int, run=None):
-    """-> (x, aux, (h, conv ring))."""
+    """-> (x, aux, (h, conv ring)).  ``run`` (a training mesh's) runs
+    this rank's d_inner slice of the mixer and its FFN's part."""
     h = rms_norm(x, bp["pre_norm"], cfg.rms_eps)
-    out, new_state = mamba_mod.mamba_forward(h, bp["mamba"], b.mamba,
-                                             state=state, chunk=chunk)
+    out, new_state = mamba_mod.mamba_forward(
+        h, bp["mamba"], b.mamba, state=state, chunk=chunk,
+        tp=run.tp if run is not None else None)
     x, aux = _apply_ffn(x + out, bp, b, cfg, {}, None, run=run)
     return x, aux, new_state
 
 
-def _rwkv_block(x, bp, b, cfg, state, chunk: int, impl: str):
-    """-> (x, (S, time-mix shift, channel-mix shift))."""
+def _rwkv_block(x, bp, b, cfg, state, chunk: int, impl: str, tp=None):
+    """-> (x, (S, time-mix shift, channel-mix shift)).  ``tp`` (a
+    training mesh's hooks) cuts the channel mix's key path on d_ff; the
+    time mix runs whole on every model rank."""
     h = rms_norm(x, bp["pre_norm"], cfg.rms_eps)
     tm_state = (state[0], state[1]) if state is not None else None
     out, (S, tm) = rwkv_mod.rwkv_time_mix(h, bp["rwkv"], b.rwkv,
@@ -335,7 +352,8 @@ def _rwkv_block(x, bp, b, cfg, state, chunk: int, impl: str):
     x = x + out
     h2 = rms_norm(x, bp["ffn_norm"], cfg.rms_eps)
     out2, cm = rwkv_mod.rwkv_channel_mix(
-        h2, bp["ffn"], state=state[2] if state is not None else None)
+        h2, bp["ffn"], state=state[2] if state is not None else None,
+        tp=tp)
     return x + out2, (S, tm, cm)
 
 
@@ -348,14 +366,16 @@ def _apply_block(x, bp, b, cfg, positions, dp, eid, kv_start,
     :class:`repro_torch.train.within_pod.PodRun`) brings its
     tensor-parallel hooks (``run.tp``,
     :class:`repro_torch.train.within_pod.TensorParallel`), which run an
-    attention block's local heads and its FFN's part and sum each output
-    over "model", and an MoE's sums over the data ranks."""
+    attention block's local heads (self and cross), its FFN's part, a
+    mamba block's d_inner slice or an rwkv channel mix's d_ff slice and
+    sum each output over "model", and an MoE's sums over the data
+    ranks."""
     tp = run.tp if run is not None else None
     if b.kind == "mamba":
         return _mamba_block(x, bp, b, cfg, None, mamba_mod.CHUNK, run=run)
     if b.kind == "rwkv":
         x, st = _rwkv_block(x, bp, b, cfg, None, rwkv_mod.CHUNK,
-                            rwkv_mod.IMPL)
+                            rwkv_mod.IMPL, tp=tp)
         return x, 0.0, st
     h = _norm(x, bp, "pre_norm", cfg, dp, eid)
     heads = tp if tp is not None and tp.heads_cut(bp["attn"], b.attn) \
@@ -371,7 +391,10 @@ def _apply_block(x, bp, b, cfg, positions, dp, eid, kv_start,
                         chunk_k=attn_mod.CHUNK_K)
     x = _attn_residual(x, o, bp, b, cfg, dp, eid, tp=heads)
     if enc_out is not None and "cross" in bp:
-        x = _cross_attend(x, bp, b, cfg, *_cross_kv(enc_out, bp["cross"]))
+        cross = tp if tp is not None and tp.heads_cut(bp["cross"], b.attn) \
+            else None
+        x = _cross_attend(x, bp, b, cfg, *_cross_kv(enc_out, bp["cross"],
+                                                    cross), tp=cross)
     x, aux = _apply_ffn(x, bp, b, cfg, dp, eid, run=run)
     return x, aux, (k, v)
 

@@ -13,8 +13,8 @@ restarted run must replay its steps bit for bit.
 A training mesh (``make_train_step(mesh=)``, axes ("pod", "data",
 "model")) runs SPMD by process, one rank a process holding its blocks of
 the state (:mod:`repro_torch.train.within_pod`): each rank takes its rows
-of the global batch, "data" is FSDP, "model" tensor parallelism for the
-dense and MoE families, and the gradients cross pods as packed ternary
+of the global batch, "data" is FSDP, "model" tensor parallelism for
+every family, and the gradients cross pods as packed ternary
 planes with error feedback, each rank compressing its block with the
 logical leaf's threshold and scale.  On a mesh of pods alone, one rank
 a pod, that is

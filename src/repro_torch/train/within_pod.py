@@ -27,25 +27,36 @@ the collectives are written out:
   backward follows at once.  A gradient comes back to the rank's block
   summed over the data ranks in rank order (a reduce-scatter: each rank
   receives the other ranks' copies of its block only).
-* **"model" is tensor parallelism** for decoder-only attention models
-  with dense or MoE FFNs (:func:`tensor_parallel_family`): heads are
-  cut where ``heads_shardable`` holds, the FFN on d_ff and the experts
-  on d_ff or E, as ``param_pspec`` places them; one sum over "model"
-  follows the attention's ``wo`` (of cut heads) and one the FFN, MoE
-  or dense (Megatron's f and g operators, :class:`TensorParallel`); the
-  embedding is the vocab-parallel lookup with a vocab-parallel head and
-  cross-entropy (:class:`_VocabCE`).  An MoE's router, top-k and aux
-  run on every model rank alike, outside the cut region; its experts
-  run cut inside it (:func:`repro_torch.models.ffn.moe_ffn`): mixtral
-  (``expert_parallel=False``) a d_ff slice of every expert, llama4 its
-  E / M whole experts on every token of its data rank, with the slots
-  of the routing over all E, so no token is exchanged.  A rank then
-  holds 1 / (D M) of the expert bytes between units and 1 / M while a
-  unit runs, where gathering whole leaves held all of them.  A leaf
-  used inside a cut region but not cut itself (q/k norms, K/V
-  projections whose heads do not divide) gets its gradient summed over
-  "model".  Every other family gathers each leaf whole over both axes:
-  the same arithmetic as one rank, on the rank's rows.
+* **"model" is tensor parallelism** for every family, as ``param_pspec``
+  places the leaves (Megatron's f and g operators,
+  :class:`TensorParallel`): attention heads are cut where
+  ``heads_shardable`` holds (self- and cross-attention; the encoder's
+  as the decoder's), the FFN on d_ff (rwkv's channel mix too), the
+  experts on d_ff or E, and mamba on d_inner; one sum over "model"
+  follows each cut region (the attention's ``wo``, the FFN, dense, MoE
+  or channel mix, mamba's ``out_proj``); the embedding is the
+  vocab-parallel lookup with a vocab-parallel head and cross-entropy
+  where the vocab divides (:class:`_VocabCE`).  An MoE's router, top-k
+  and aux run on every model rank alike, outside the cut region; its
+  experts run cut inside it (:func:`repro_torch.models.ffn.moe_ffn`):
+  mixtral (``expert_parallel=False``) a d_ff slice of every expert,
+  llama4 and jamba their E / M whole experts on every token of the data
+  rank, with the slots of the routing over all E, so no token is
+  exchanged.  rwkv's time mix (``head_tp=False``) and its channel mix's
+  receptance run alike on every model rank; f enters only the key
+  path's input.  A mamba rank runs its d_inner slice: ``in_proj``'s
+  placed block is a contiguous run of the [x_in | z] columns, so before
+  the unit runs each rank's block is regrouped over "model" into x_in's
+  and z's slice of the rank (:class:`_Regroup`, an exchange of weight
+  blocks; the backward sends each gradient block back to where it is
+  placed), and the sum after ``x_proj`` (cut on its contraction dim)
+  feeds each rank's own slice, so an f follows that g and its backward
+  sums over "model" too.  A cross-attention's K/V projections enter
+  ``enc_out`` with an f of their own.  A rank holds 1 / (D M) of a cut
+  leaf between units and 1 / M while a unit runs; no leaf is gathered
+  over "model".  A leaf used inside a cut region but not cut itself
+  (q/k norms, K/V projections whose heads do not divide) gets its
+  gradient summed over "model".
 * **Statistics across blocks** (AdamW's global norm, Adafactor's
   factored moments, the compression's threshold and scale) sum each
   block's partial in rank order over the ranks holding the leaf's other
@@ -73,6 +84,7 @@ import threading
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_util
 from repro_torch.distributed.collectives import (all_gather_dim0,
@@ -88,16 +100,6 @@ from repro_torch.distributed.sharding import (_axes_of, assemble,
 from repro_torch.launch.mesh import TRAIN_AXES, mesh_axes
 
 PyTree = Any
-
-
-def tensor_parallel_family(cfg) -> bool:
-    """Whether "model" runs tensor parallelism for ``cfg``: a decoder-only
-    model of attention blocks with dense or MoE FFNs (qwen2.5, llama,
-    gemma2, qwen3, qwen1.5, mixtral, llama4).  Mamba (jamba), rwkv,
-    enc-dec and frontend models gather their leaves whole instead."""
-    return (cfg.enc_n_units == 0 and not cfg.cross_attn
-            and cfg.frontend is None
-            and all(b.kind == "attn" for b in cfg.pattern))
 
 
 class AxisSizes:
@@ -160,6 +162,21 @@ class ThreadComm:
             vals = range(self.sizes[a]) if a in axes else [self.coords[a]]
             keys = [k + (v,) for k in keys for v in vals]
         out = torch.stack([self.hub.slots[k] for k in keys])
+        self.hub.barrier.wait()
+        return out
+
+    def all_to_all(self, send: torch.Tensor, to, frm,
+                   axis: str) -> torch.Tensor:
+        """:meth:`PodRun.model_all_to_all` between the ranks along
+        ``axis``."""
+        names = tuple(self.sizes)
+        self.hub.slots[tuple(self.coords[a] for a in names)] = dict(
+            zip(to, send))
+        self.hub.barrier.wait()
+        me = self.coords[axis]
+        out = torch.stack([self.hub.slots[tuple(
+            r if a == axis else self.coords[a] for a in names)][me]
+            for r in frm])
         self.hub.barrier.wait()
         return out
 
@@ -269,6 +286,46 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+def regrouped(path: str) -> bool:
+    """Whether a unit leaf runs regrouped over "model" under tensor
+    parallelism (:class:`_Regroup`): mamba's ``in_proj``."""
+    return path.endswith("mamba/in_proj")
+
+
+def _regroup(t: torch.Tensor, run, back: bool) -> torch.Tensor:
+    """Mamba's ``in_proj`` columns [x_in | z] are 2 M chunks of Din / M.
+    Model rank m holds chunks 2m and 2m + 1 (its placed block's halves)
+    and runs chunks m and M + m (x_in's and z's slice m): one all-to-all
+    sends its halves to ranks 2m and 2m + 1 (mod M) and takes the chunks
+    it runs from ranks m // 2 and (M + m) // 2; ``back`` sends them the
+    other way round.  For an even M (d_inner is a power of two) both
+    pairs are in rank order, as the all-to-all's parts are.  ``run``
+    brings ``coords``, ``n_model`` and ``model_all_to_all``."""
+    m, M = run.coords["model"], run.n_model
+    held = ((2 * m) % M, (2 * m + 1) % M)
+    used = (m // 2, (M + m) // 2)
+    to, frm = (used, held) if back else (held, used)
+    send = t.unflatten(-1, (2, -1)).movedim(-2, 0).contiguous()
+    return run.model_all_to_all(send, to, frm).movedim(0, -2).flatten(-2)
+
+
+class _Regroup(torch.autograd.Function):
+    """Mamba's ``in_proj`` block as the rank runs it: its placed block
+    (a contiguous run of the [x_in | z] columns) exchanged over "model"
+    for x_in's and z's slice of the rank (:func:`_regroup`).  The
+    backward is the inverse exchange, so each gradient block lands on
+    the rank that holds it, with no sum."""
+
+    @staticmethod
+    def forward(ctx, block, run):
+        ctx.run = run
+        return _regroup(block, run, back=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _regroup(g, ctx.run, back=True), None
+
+
 class _VocabCE(torch.autograd.Function):
     """Mean cross-entropy over targets >= 0 of vocab-cut logits [..., V
     / n] (this rank's contiguous slice), its rows' share of the
@@ -353,14 +410,12 @@ class PodRun:
         self.specs = dict(tree_util.flatten_with_paths(specs))
         self.n_data = self.sizes.get("data", 1)
         self.n_model = self.sizes.get("model", 1)
-        self.tp_mode = self.n_model > 1 and tensor_parallel_family(cfg)
-        self.tp = TensorParallel(self) if self.tp_mode else None
+        self.tp = TensorParallel(self) if self.n_model > 1 else None
         # whether a unit gathers leaves (then every unit but the last is
         # recomputed in the backward, so what it gathered is dropped
         # after its forward)
-        self.gathers = self.n_data > 1 or (self.n_model > 1
-                                           and not self.tp_mode)
-        self.vocab_parallel = (self.tp_mode
+        self.gathers = self.n_data > 1
+        self.vocab_parallel = (self.tp is not None
                                and "model" in self.specs["embed"])
         self._lookup = make_vp_embed_lookup(mesh)
 
@@ -371,6 +426,18 @@ class PodRun:
     def model_sum(self, x: torch.Tensor) -> torch.Tensor:
         return all_reduce_ordered(x, self.mesh.get_group("model"),
                                   self.n_model)
+
+    def model_all_to_all(self, send: torch.Tensor, to,
+                         frm) -> torch.Tensor:
+        """Row i of ``send`` to the i-th of the model ranks ``to`` (in rank
+        order) -> what the model ranks ``frm`` sent this rank, a row each
+        in rank order."""
+        recv = send.new_empty((len(frm),) + tuple(send.shape[1:]))
+        dist.all_to_all_single(
+            recv, send, [int(r in frm) for r in range(self.n_model)],
+            [int(r in to) for r in range(self.n_model)],
+            group=self.mesh.get_group("model"))
+        return recv
 
     def data_total(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the data ranks of this rank's pod in rank
@@ -383,9 +450,8 @@ class PodRun:
 
     def reduce_grad(self, g: torch.Tensor, cuts, partial: bool):
         """A used leaf's gradient -> this rank's block's: summed over
-        "model" when each rank's part saw only its heads, cut back along
-        the gathered "model" dims (the model ranks of one data rank saw
-        the same rows), then summed over the data ranks in rank order
+        "model" when each rank's part saw only its heads, then summed
+        over the data ranks in rank order
         (each rank's loss is its share of the microbatch's): a
         reduce-scatter along the leaf's "data" dim
         (:func:`reduce_scatter_ordered`), or, for a leaf that every data
@@ -393,13 +459,7 @@ class PodRun:
         either sums each element in rank order."""
         if partial:
             g = self.model_sum(g)
-        data_dim = None
-        for dim, axis in cuts:
-            if axis == "data":
-                data_dim = dim
-                continue
-            size = g.shape[dim] // self.sizes[axis]
-            g = g.narrow(dim, self.coords[axis] * size, size)
+        data_dim = next((dim for dim, _ in cuts), None)
         if self.n_data == 1:
             return g.contiguous()
         if data_dim is None:
@@ -414,16 +474,17 @@ class PodRun:
     # ---- leaves ----
     def _cuts(self, spec) -> tuple:
         """(dim, axis) pairs a leaf is gathered along before use: its
-        "data" dims, and its "model" dims outside tensor parallelism."""
-        out = []
-        for dim, entry in enumerate(spec):
-            for a in _axes_of(entry):
-                if self.sizes.get(a, 1) > 1 and (a == "data"
-                                                 or not self.tp_mode):
-                    out.append((dim, a))
-        return tuple(out)
+        "data" dim (its "model" dims stay cut)."""
+        return tuple((dim, "data") for dim, entry in enumerate(spec)
+                     if "data" in _axes_of(entry) and self.n_data > 1)
 
-    def leaf(self, t: torch.Tensor, spec, partial: bool = False):
+    def leaf(self, t: torch.Tensor, spec, partial: bool = False,
+             regroup: bool = False):
+        """A leaf as the unit uses it; ``regroup`` (mamba's ``in_proj``
+        under tensor parallelism) first exchanges its columns over
+        "model" (:class:`_Regroup`)."""
+        if regroup:
+            t = _Regroup.apply(t, self)
         cuts = self._cuts(spec)
         if not cuts and not partial and self.n_data == 1:
             return t
@@ -437,11 +498,12 @@ class PodRun:
 
     def _partial(self, stack: str, path: str) -> bool:
         """Whether a unit leaf's gradient is partial over "model": an
-        uncut leaf of a head-cut attention."""
+        uncut leaf of a head-cut self- or cross-attention."""
         parts = path.split("/")
-        if not self.tp_mode or len(parts) < 3 or parts[1] != "attn":
+        if (self.tp is None or len(parts) < 3
+                or parts[1] not in ("attn", "cross")):
             return False
-        wq = self.specs[f"{stack}/{parts[0]}/attn/wq"]
+        wq = self.specs[f"{stack}/{parts[0]}/{parts[1]}/wq"]
         return "model" in wq and "model" not in self.specs[
             f"{stack}/{path}"]
 
@@ -450,7 +512,8 @@ class PodRun:
         as the unit uses them."""
         return tree_util.unflatten_paths({
             p: self.leaf(t, self.specs[f"{stack}/{p}"][1:],
-                         self._partial(stack, p))
+                         self._partial(stack, p),
+                         self.tp is not None and regrouped(p))
             for p, t in tree_util.flatten_with_paths(unit_params)})
 
     # ---- embedding, head, loss ----

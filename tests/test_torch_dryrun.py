@@ -4,7 +4,9 @@ the H100 meshes, on the CPU and the meta device: training cells
 8) with its experts cut on d_ff and llama4 on (2, 32, 8) with its
 experts cut on E, both tensor-parallel, with no whole-leaf gather over
 "model"), a decode cell (qwen3-32b ``decode_32k`` on (2, 32, 8)) and a
-``long_500k`` cell (gemma2-9b, the sequence cut over every axis).  Each
+``long_500k`` cell (gemma2-9b, the sequence cut over every axis); and
+``train_4k`` of the families beyond decoder-only attention (jamba,
+rwkv6, seamless, internvl2) tensor-parallel on (32, 8).  Each
 row carries per-rank bytes, FLOPs, collective bytes by kind, the
 roofline terms at the H100's numbers and "fits"; the rank's blocks of
 every leaf, times the blocks, are the logical state's bytes; the cell
@@ -48,6 +50,42 @@ def test_dry_cell_rows(arch, shape, multi_pod, tmp_path):
     path = dryrun.result_path(arch, shape, multi_pod, str(tmp_path))
     with open(path, "w") as f:
         json.dump(res, f)
+
+
+# the families beyond decoder-only attention: recurrent blocks (mamba,
+# rwkv), an encoder with cross-attention, a vision frontend
+FAMILIES = ["jamba_1_5_large_398b", "rwkv6_3b", "seamless_m4t_medium",
+            "internvl2_1b"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_every_family_trains_tensor_parallel(arch):
+    """``train_4k`` on (32, 8) with "model" tensor-parallel for every
+    family: sums over "model" counted, nothing gathered over it; jamba's
+    unit (``gathered_unit``: the leaves a rank uses while the units run,
+    gathered over "data", a unit's share) is an eighth of the whole
+    leaves' (its norms and routers are whole) and its ``in_proj``
+    regroup is counted."""
+    import math
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    res = dryrun.dry_cell(arch, "train_4k")
+    colls = res["collective_bytes"]
+    assert res["tensor_parallel"] and colls["tp_sum"] > 0
+    assert colls["fsdp_gather_model"] == 0
+    cfg = get_config(arch)
+    params = init_params(cfg, device="meta")
+    # the leaves a rank uses while the units run, each whole
+    whole = sum(math.prod(t.shape) * t.element_size()
+                for t in tree_util.leaves(params))
+    units = cfg.n_units + cfg.enc_n_units
+    unit = res["memory_bytes"]["gathered_unit"]
+    assert whole // (8 * units) <= unit < whole // units
+    is_mamba = any(b.kind == "mamba" for b in cfg.pattern)
+    assert (colls["tp_regroup"] > 0) == is_mamba
+    if is_mamba:
+        assert unit <= 1.01 * whole / (8 * units)
 
 
 def _reference_table():

@@ -25,8 +25,12 @@ of each of its pod's microbatches (``local_rows``).
   the data ranks reorder the f32 accumulation).  They cover the
   tensor-parallel family with tied (qwen2.5) and untied (llama) heads,
   softcaps and sandwich norms (gemma2), q/k norms (qwen3), query heads
-  cut while the KV heads are not ((1, 1, 4)), and a family that gathers
-  its leaves whole (rwkv6); and the MoE family with masked targets:
+  cut while the KV heads are not ((1, 1, 4)), and rwkv6 with its channel
+  mix cut on d_ff and its time mix whole on every model rank (held to
+  the mesh-free step in the mesh's order of the channel mix's sum, and
+  at ``LOW_LR`` to the whole-sum step, see there;
+  ``test_torch_within_pod_families.py`` holds the other families); and
+  the MoE family with masked targets:
   mixtral's experts cut on d_ff ((1, 1, 2), (1, 2, 2)) and on E
   (``expert_parallel=True``, (1, 1, 2)), llama4 with its experts cut on
   E, its shared expert on d_ff, a dense block between and attention
@@ -53,6 +57,7 @@ of each of its pod's microbatches (``local_rows``).
 * A global batch or a microbatch that does not divide over the data
   ranks raises."""
 
+import contextlib
 import dataclasses
 import functools
 import os
@@ -69,6 +74,7 @@ from repro_torch.core import gradient_compression as gc
 from repro_torch.distributed.collectives import ordered_sum
 from repro_torch.distributed.sharding import assemble, train_state_shardings
 from repro_torch.models import build
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.train import train_step as ts
 from repro_torch.train import within_pod as wp
 
@@ -89,8 +95,20 @@ AXES = ("pod", "data", "model")
 # (parameters from the reference's init), "ep" (``expert_parallel=True``),
 # "dense" (pods averaged without compression), "route" (the ranks record
 # the routing of their first microbatch's forward), "steps" (the ranks
-# keep their state after every step)
+# keep their state after every step), "low_lr" (peak lr ``LOW_LR``),
+# "cm_order" (the mesh-free step sums rwkv's channel mix in the mesh's
+# "model" parts, :func:`channel_mix_in_parts`)
 MASKED_REF = ("masked", "jax")
+# rwkv6's smoke step is ill-conditioned: the mesh-free step with only its
+# channel mix's d_ff sum in the two ordered parts of (1, 2, 2)'s "model"
+# ranks parts from the whole-sum step by 4.2e-4 after 3 steps at peak lr
+# 5e-3 and by 5.8e-7 at ``LOW_LR``, while rwkv6 on (1, 1, 2) stays within
+# 2.8e-6 of the step in its own order (the witness is
+# test_rwkv_channel_mix_order_alone_parts_the_mesh_free_steps; running
+# test_torch_within_pod_families.py prints the readings).  So "cm_order"
+# holds a mesh to the mesh-free step whose channel mix sums in the
+# mesh's order, and a case at ``LOW_LR`` holds it to the whole-sum step.
+LOW_LR = 5e-4
 
 # mesh -> cases: (name, arch, dtype, optimizer, exact threshold[, options])
 MESHES = {
@@ -120,7 +138,10 @@ MESHES = {
                 ("mixtral_ep", "mixtral_8x7b", "float32", "adamw", False,
                  ("masked", "route", "ep"))],
     (1, 2, 2): [("llama", "llama_7b", "float32", "adamw", False),
-                ("rwkv", "rwkv6_3b", "float32", "adamw", False),
+                ("rwkv", "rwkv6_3b", "float32", "adamw", False,
+                 ("cm_order",)),
+                ("rwkv_low", "rwkv6_3b", "float32", "adamw", False,
+                 ("low_lr",)),
                 ("mixtral", "mixtral_8x7b", "float32", "adamw", False,
                  ("masked", "route")),
                 ("llama4", "llama4_maverick_400b", "float32", "adamw", False,
@@ -190,10 +211,14 @@ def model_and_params(arch, dtype, options=()):
                                    reference_params(arch, dtype))
 
 
+def peak_lr_of(case) -> float:
+    return LOW_LR if "low_lr" in opts(case) else 5e-3
+
+
 def tcfg_of(optimizer, exact, ef_dtype="bfloat16", compress=True,
-            microbatches=2):
+            microbatches=2, peak_lr=5e-3):
     return ts.TrainConfig(
-        microbatches=microbatches, peak_lr=5e-3, warmup_steps=2,
+        microbatches=microbatches, peak_lr=peak_lr, warmup_steps=2,
         total_steps=50, optimizer=optimizer, ef_dtype=ef_dtype,
         grad_compression=gc.GradCompressionConfig(
             enabled=compress, density=0.3, exact_threshold=exact))
@@ -235,7 +260,8 @@ def initial_state(case, shape):
     api, params = model_and_params(arch, dtype, opts(case))
     # the f32 copies held to the logical step keep their error in f32
     tcfg = tcfg_of(opt, exact, "float32" if name.endswith("32")
-                   else "bfloat16", compress="dense" not in opts(case))
+                   else "bfloat16", compress="dense" not in opts(case),
+                   peak_lr=peak_lr_of(case))
     return api, tcfg, ts.init_train_state(params, tcfg,
                                           multi_pod=shape[0] > 1)
 
@@ -357,19 +383,53 @@ def _case(shape, name):
     return next(c for c in MESHES[shape] if c[0] == name)
 
 
+@contextlib.contextmanager
+def channel_mix_in_parts(M):
+    """rwkv's channel mix with its d_ff product in the M contiguous parts
+    of a mesh's "model" ranks (``cm_Wk``'s columns, ``cm_Wv``'s rows),
+    the parts' products summed in rank order in f32 as ``model_sum``
+    sums them: one process in the mesh's order of that sum."""
+    whole = rwkv_mod.rwkv_channel_mix
+
+    def in_parts(x, p, state=None, tp=None):
+        assert tp is None
+        dx = rwkv_mod._shift(x, state) - x
+        xk = x + dx * p["cm_mu_k"]
+        xr = x + dx * p["cm_mu_r"]
+        n = p["cm_Wk"].shape[-1] // M
+        parts = []
+        for m in range(M):
+            cut = slice(m * n, (m + 1) * n)
+            kk = torch.square(torch.relu(rwkv_mod._mm(
+                xk, p["cm_Wk"][:, cut]).to(torch.float32)))
+            parts.append(rwkv_mod._mm(kk.to(x.dtype), p["cm_Wv"][cut]))
+        vv = ordered_sum(torch.stack(parts)).to(x.dtype)
+        rr = torch.sigmoid(rwkv_mod._mm(xr, p["cm_Wr"]).to(torch.float32))
+        return (rr * vv.to(torch.float32)).to(x.dtype), x[:, -1:]
+
+    rwkv_mod.rwkv_channel_mix = in_parts
+    try:
+        yield
+    finally:
+        rwkv_mod.rwkv_channel_mix = whole
+
+
 def _plain(case, shape=(1, 1, 1)):
     """The mesh-free step on the batches of the case's mesh ``shape``:
     over the pods' microbatches in order (the microbatches times the
-    pods), which a mesh with dense pods averages alike."""
+    pods), which a mesh with dense pods averages alike; with "cm_order",
+    rwkv's channel mix summed in the mesh's "model" parts."""
     api, tcfg, state = initial_state(case, (1, 1, 1))
     tcfg = dataclasses.replace(tcfg, microbatches=tcfg.microbatches
                                * shape[0])
     step = ts.make_train_step(api, tcfg)
     losses, norms = [], []
-    for s in range(n_steps(case)):
-        state, m = step(state, case_batch(case, shape, s))
-        losses.append(float(m["loss"]))
-        norms.append(float(m.get("grad_norm", float("nan"))))
+    with (channel_mix_in_parts(shape[2]) if "cm_order" in opts(case)
+          else contextlib.nullcontext()):
+        for s in range(n_steps(case)):
+            state, m = step(state, case_batch(case, shape, s))
+            losses.append(float(m["loss"]))
+            norms.append(float(m.get("grad_norm", float("nan"))))
     return api, state, losses, norms
 
 
@@ -431,6 +491,33 @@ def _within_plain_step(got, case, shape, norms=False):
         if path.startswith("params/"):
             err = float((full - flat[path]).abs().max())
             assert err <= PARAM_TOL, (case[0], path, err)
+
+
+def _params_apart(a, b) -> float:
+    fa = dict(tree_util.flatten_with_paths(a["params"]))
+    return max(_max_err(w, dict(tree_util.flatten_with_paths(
+        b["params"]))[p]) for p, w in fa.items())
+
+
+def test_rwkv_channel_mix_order_alone_parts_the_mesh_free_steps():
+    """The witness for the rwkv cases' references on (1, 2, 2): in one
+    process, the step whose channel mix sums its d_ff product in the
+    mesh's two ordered parts parts from the whole-sum step by more than
+    PARAM_TOL after 3 steps at peak lr 5e-3, though their losses agree
+    within LOSS_TOL and their first two gradient norms within NORM_TOL,
+    and stays within PARAM_TOL of it at ``LOW_LR``; the mesh is held to
+    the first at 5e-3 ("cm_order") and to the second at ``LOW_LR``."""
+    shape = (1, 2, 2)
+    for lr, apart in (((), True), (("low_lr",), False)):
+        whole, parts = (_plain(("w", "rwkv6_3b", "float32", "adamw", False,
+                                lr + o), shape)
+                        for o in ((), ("cm_order",)))
+        np.testing.assert_allclose(parts[2], whole[2], atol=LOSS_TOL,
+                                   rtol=0)
+        np.testing.assert_allclose(parts[3][:2], whole[3][:2],
+                                   rtol=NORM_TOL, atol=0)
+        err = _params_apart(parts[1], whole[1])
+        assert (err > PARAM_TOL) == apart, (lr, err)
 
 
 @pytest.mark.parametrize("shape,name", MASKED_DATA)
