@@ -187,7 +187,20 @@ failure with a non-zero exit:
      output and every gradient block within 1e-5 of the largest |value|
      of the whole mixer's in the rank's process; reported: step seconds,
      state bytes a rank beside the mesh-free state's, peak memory a rank
-     and the collectives' host and device ms; kernel 1 must
+     and the collectives' host and device ms; (e) prefill and decode
+     inside a pod on the cut weights (``within_pod.make_pod_serve``:
+     each unit gathered over "data" only and run cut over "model", the
+     decode cache placed by ``cache_pspec``), by (a)'s (1, 1, 2) ranks
+     (qwen2.5-3b at ``--units``, f32), (c)'s mixtral ranks on d_ff and on
+     E and (d)'s families, each before its AdamW steps: 4 prompts of 128
+     tokens at ``cache_len`` 1024 and 8 greedy steps (jamba adds one
+     prompt at batch 1, the long-context layout), against the mesh-free
+     run in this process on the same weights: the first step's logits
+     within 1e-4 of the largest |logit|, the tokens equal up to a
+     near-tie, every parameter block and cache leaf at its placed shape;
+     reported: prefill ms and decode ms a step a rank beside the
+     mesh-free run's, peak memory a rank and the collectives of a
+     profiled decode step; kernel 1 must
      launch under both decode meshes (rank 0's counts join the
      ``kernels`` line as ``launches_within``).  ``--stop-after within``
      ends after phases 3 and 3w;
@@ -5643,6 +5656,217 @@ SP_LOGIT_TOL = 1e-4          # of the largest |logit|, f32
 SP_CASES = {"waves": dict(shape=(1, 2), cache_len=64, steps=16),
             "long": dict(shape=(2, 2), cache_len=4608, steps=32,
                          prompt=4096, expert="e1")}
+# part (e): prefill and decode inside a pod on the cut weights
+# (``within_pod.make_pod_serve``), before the AdamW steps of (a)'s (1, 1,
+# 2) ranks (qwen2.5-3b at --units, f32), (c)'s mixtral ranks and (d)'s
+# families: SERVE_ROWS prompts of SERVE_T tokens (a frontend's frames or
+# patches besides) at cache_len SERVE_CACHE_LEN, then SERVE_STEPS greedy
+# steps; jamba adds one prompt at batch 1 (the long-context layout: the
+# sequence over every axis, mamba's states on d_inner).  Each against the
+# mesh-free prefill and decode in this process, on the same weights.
+SERVE_ROWS, SERVE_T, SERVE_CACHE_LEN, SERVE_STEPS = 4, 128, 1024, 8
+SERVE_QWEN_SHAPE = (1, 1, 2)
+
+
+def serve_batches(torch, cfg, name: str, dev) -> list:
+    """Part (e)'s prompts of ``cfg``: [(case, batch)], "b4" SERVE_ROWS
+    rows of SERVE_T tokens (with seeded frames or patch embeddings for a
+    frontend), and for jamba "b1", one row (the long-context layout)."""
+    g = torch.Generator().manual_seed(23)
+    out = []
+    for case, rows in (("b4", SERVE_ROWS),) + (
+            (("b1", 1),) if name.startswith("jamba") else ()):
+        batch = {"tokens": torch.randint(2, cfg.vocab, (rows, SERVE_T),
+                                         generator=g).to(dev)}
+        if cfg.frontend is not None:
+            batch["frames" if cfg.enc_n_units else "mm_embeds"] = \
+                torch.randn((rows, cfg.frontend.n_tokens,
+                             cfg.frontend.embed_dim), generator=g).to(dev)
+        out.append((case, batch))
+    return out
+
+
+def serve_reference(torch, model, params, name: str, dev) -> dict:
+    """Part (e)'s mesh-free run of ``name`` in this process: each case's
+    prefill, then SERVE_STEPS greedy steps; -> per case the first step's
+    logits, every step's (for the near-tie rule) and the tokens (CPU),
+    prefill ms and decode ms a step."""
+    out = {}
+    with torch.no_grad():
+        for case, batch in serve_batches(torch, model.cfg, name, dev):
+            torch.cuda.synchronize(dev)
+            t0 = time.monotonic()
+            lg, cache = model.prefill(params, batch, SERVE_CACHE_LEN)
+            torch.cuda.synchronize(dev)
+            res = {"prefill_ms": (time.monotonic() - t0) * 1e3,
+                   "step_ms": [], "logits": [], "tokens": []}
+            tok = lg[:, -1].argmax(-1)[:, None]
+            for _ in range(SERVE_STEPS):
+                torch.cuda.synchronize(dev)
+                t0 = time.monotonic()
+                lg, cache = model.decode_step(params, tok, cache)
+                tok = lg[:, 0].argmax(-1)[:, None]
+                torch.cuda.synchronize(dev)
+                res["step_ms"].append((time.monotonic() - t0) * 1e3)
+                res["logits"].append(lg[:, 0].float().cpu())
+                res["tokens"].append(tok[:, 0].tolist())
+            res["first"] = res["logits"][0]
+            out[case] = res
+            del cache
+    return out
+
+
+def pod_serve_child(torch, name: str, cfg, params, mesh, spec, dev) -> dict:
+    """One rank's part (e) on ``params``, its blocks under
+    ``param_shardings`` (before any AdamW step): each case of
+    :func:`serve_batches` prefilled and decoded SERVE_STEPS greedy steps
+    through ``within_pod.make_pod_serve``, the last one profiled.
+    Every parameter block and every cache leaf is held to its placed
+    shape (``param_shardings``, ``cache_placement``).  The first step's
+    logits go to a file beside the rank's results; returned: tokens,
+    prefill ms, decode ms a step, peak memory, the collectives of the
+    profiled step, the cache leaves cut and every block not at its
+    placed shape."""
+    from repro_torch import tree as tree_util
+    from repro_torch.distributed.sharding import (cache_placement,
+                                                  local_shard,
+                                                  param_shardings)
+    from repro_torch.models import build as build_model
+    from repro_torch.models.transformer import init_decode_cache
+    from repro_torch.train import within_pod as wp
+    from torch.profiler import ProfilerActivity, profile
+    model = build_model(cfg)
+    index = {a: mesh.get_local_rank(a) for a in ("pod", "data", "model")}
+
+    def misplaced(tree, logical, specs, what):
+        flat, sp = (dict(tree_util.flatten_with_paths(x))
+                    for x in (logical, specs))
+        return [f"{what} {p} is {tuple(t.shape)}, placed "
+                f"{tuple(local_shard(flat[p], sp[p], mesh, index).shape)}"
+                for p, t in tree_util.flatten_with_paths(tree)
+                if t.shape != local_shard(flat[p], sp[p], mesh,
+                                          index).shape]
+
+    meta = model.init(device="meta")
+    out = {"name": f"serve_{name}", "cases": {},
+           "wrong_blocks": misplaced(params, meta, param_shardings(
+               meta, cfg, mesh), "parameter")}
+    firsts = {}
+    for case, batch in serve_batches(torch, cfg, name, dev):
+        B = batch["tokens"].shape[0]
+        prefill, step = wp.make_pod_serve(model, mesh, B, SERVE_CACHE_LEN)
+        free_all(torch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        lg, cache = prefill(params, batch)
+        torch.cuda.synchronize(dev)
+        res = {"prefill_ms": (time.monotonic() - t0) * 1e3, "step_ms": [],
+               "tokens": []}
+        logical = init_decode_cache(cfg, B, SERVE_CACHE_LEN,
+                                    device="meta")
+        out["wrong_blocks"] += misplaced(cache, logical, cache_placement(
+            logical, mesh, B), f"{case} cache")
+        res["cut_cache_leaves"] = sum(
+            t.numel() < l.numel() for t, l in zip(
+                tree_util.leaves(cache), tree_util.leaves(logical)))
+        tok = lg[:, -1].argmax(-1)[:, None]
+        for s in range(SERVE_STEPS):
+            last = s + 1 == SERVE_STEPS     # profiled, not timed
+            torch.cuda.synchronize(dev)
+            t0 = time.monotonic()
+            with (profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) if last
+                  else contextlib.nullcontext()) as prof:
+                lg, cache = step(params, tok, cache)
+                tok = lg[:, 0].argmax(-1)[:, None]
+                torch.cuda.synchronize(dev)
+            if not last:
+                res["step_ms"].append((time.monotonic() - t0) * 1e3)
+            res["tokens"].append(tok[:, 0].tolist())
+            if s == 0:
+                firsts[case] = lg[:, 0].float().cpu()
+        res["collectives"] = collectives_of(prof)
+        res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["cases"][case] = res
+        del cache, prefill, step
+    torch.save(firsts, spec["out"] + f".serve_{name}.pt")
+    free_all(torch)
+    return out
+
+
+def qwen_serve_child(torch, spec, dev) -> dict:
+    """Part (e)'s qwen2.5-3b ranks on SERVE_QWEN_SHAPE (the world of
+    two): an f32 copy at ``--units`` of the seeded weights (as the
+    decode references' copy), each rank's blocks cut from it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build as build_model
+    from repro_torch.train import within_pod as wp
+    mesh = make_production_mesh(shape=SERVE_QWEN_SHAPE, device="cuda")
+    model = build_model(dataclasses.replace(get_config("qwen2_5_3b"),
+                                            n_units=spec["units"]))
+    m32, b32 = f32_copy(torch, model, model.init(seed=spec["seed"],
+                                                 device=dev))
+    local = wp.pod_serve_params(b32, m32.cfg, mesh, device=dev)
+    del b32
+    free_all(torch)
+    return pod_serve_child(torch, "qwen", m32.cfg, local, mesh, spec, dev)
+
+
+def serve_gates(torch, name: str, ranks: list, firsts: list,
+                ref: dict) -> dict:
+    """Part (e)'s gates on one configuration: every rank's tokens equal
+    rank 0's, and its blocks at their placed shapes; each case's first
+    decode step's logits within SP_LOGIT_TOL of the largest |logit| of
+    the mesh-free run's and its greedy tokens equal up to a near-tie
+    (:func:`sp_gates`), on every rank."""
+    cases = list(ref)
+    for r, rank in enumerate(ranks):
+        check(not rank["wrong_blocks"], f"phase 3w (e) {name}: rank {r}: "
+              + "; ".join(rank["wrong_blocks"][:4]))
+        check(all(rank["cases"][c]["tokens"] == ranks[0]["cases"][c][
+            "tokens"] for c in cases), f"phase 3w (e) {name}: rank {r}'s "
+              "tokens differ from rank 0's")
+    want = {k: [ref[c][k] for c in cases]
+            for k in ("first", "tokens", "logits")}
+    gates = [sp_gates(torch, f"(e) {name}", [f[c] for c in cases],
+                      [rank["cases"][c]["tokens"] for c in cases], want)
+             for rank, f in zip(ranks, firsts)]
+    return {"first_logits_rel_err": max(g["first_logits_rel_err"]
+                                        for g in gates),
+            "near_ties": gates[0]["near_ties"]}
+
+
+def serve_report(name: str, shape, ranks: list, ref: dict,
+                 gates: dict) -> dict:
+    """Part (e)'s report of one configuration, and its log line."""
+    rep = dict(gates, shape=list(shape), cases={})
+    for c in ref:
+        got = [r["cases"][c] for r in ranks]
+        rep["cases"][c] = {
+            "prefill_ms": [g["prefill_ms"] for g in got],
+            "decode_ms_per_step": [sum(g["step_ms"][1:])
+                                   / max(len(g["step_ms"]) - 1, 1)
+                                   for g in got],
+            "mesh_free_prefill_ms": ref[c]["prefill_ms"],
+            "mesh_free_decode_ms_per_step": sum(ref[c]["step_ms"][1:])
+            / max(len(ref[c]["step_ms"]) - 1, 1),
+            "peak_gib": [g["peak_gib"] for g in got],
+            "collectives": [g["collectives"] for g in got],
+            "cut_cache_leaves": got[0]["cut_cache_leaves"]}
+    log(f"phase 3w (e) {name} on {tuple(shape)}: first-step logits within "
+        f"{gates['first_logits_rel_err']:.2e} of the largest, "
+        f"{len(gates['near_ties'])} near-ties; " + "; ".join(
+            f"{c}: prefill ms rank 0 {v['prefill_ms'][0]:.1f} (mesh-free "
+            f"{v['mesh_free_prefill_ms']:.1f}), decode ms a step "
+            f"{v['decode_ms_per_step'][0]:.1f} (mesh-free "
+            f"{v['mesh_free_decode_ms_per_step']:.1f}), peak GiB a rank "
+            f"{[round(x, 2) for x in v['peak_gib']]}, "
+            f"{v['cut_cache_leaves']} cache leaves cut, collectives of a "
+            f"profiled step {v['collectives'][0]}"
+            for c, v in rep["cases"].items()) + f" [{gpu_line()}]")
+    return rep
 
 
 def state_nbytes(tree) -> int:
@@ -5781,13 +6005,16 @@ def expert_nbytes(tree) -> int:
                if p.split("/")[-1] in EXPERT_LEAVES)
 
 
-def mesh_free_reference(torch, cfg, seed, dev, path, shape, steps) -> dict:
+def mesh_free_reference(torch, cfg, seed, dev, path, shape, steps,
+                        serve_name=None) -> dict:
     """A mesh-free step of ``cfg`` in this process, ``steps`` AdamW steps
     of the batches of a mesh of ``shape`` (part (c)'s mixtral: about 27
     GB of f32 state and gradients, freed before the ranks start): the
     final parameters written to ``path`` for the ranks' gates; returned:
     the losses, gradient norms, step seconds, the state's bytes (and its
-    expert bytes), parameters and peak memory."""
+    expert bytes), parameters and peak memory; with ``serve_name``, first
+    part (e)'s mesh-free run on the initial weights (``"serve"``,
+    :func:`serve_reference`)."""
     from repro_torch.core.gradient_compression import GradCompressionConfig
     from repro_torch.models import build as build_model
     from repro_torch.train import (TrainConfig, init_train_state,
@@ -5798,6 +6025,8 @@ def mesh_free_reference(torch, cfg, seed, dev, path, shape, steps) -> dict:
     free_all(torch)
     torch.cuda.reset_peak_memory_stats(dev)
     state = init_train_state(model.init(seed=seed, device=dev), tcfg)
+    served = (serve_reference(torch, model, state["params"], serve_name, dev)
+              if serve_name else None)
     step = make_train_step(model, tcfg)
     losses, norms, secs = [], [], []
     with torch.enable_grad():
@@ -5817,6 +6046,8 @@ def mesh_free_reference(torch, cfg, seed, dev, path, shape, steps) -> dict:
            "n_params": sum(t.numel() for t in tree_util.leaves(
                state["params"])),
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    if served is not None:
+        out["serve"] = served
     del state, step
     free_all(torch)
     return out
@@ -5824,8 +6055,9 @@ def mesh_free_reference(torch, cfg, seed, dev, path, shape, steps) -> dict:
 
 def within_moe_child(torch, name, ep, spec, dev) -> dict:
     """One rank of part (c): mixtral at full width, 1 unit, f32, on (1, 2,
-    2) as ``moe_config(ep)`` places it, ``MOE_STEPS`` AdamW steps of 8 x
-    64 tokens in 2 microbatches (masked targets), the last profiled; then
+    2) as ``moe_config(ep)`` places it, part (e)'s serving on its blocks
+    (:func:`pod_serve_child`), then ``MOE_STEPS`` AdamW steps of 8 x 64
+    tokens in 2 microbatches (masked targets), the last profiled; then
     its parameter blocks against the mesh-free step's, cut from the file
     the parent wrote (``spec["moe_ref"]``, mapped, not read whole).
     Returned: losses, gradient norms, step seconds, resident state and
@@ -5861,6 +6093,8 @@ def within_moe_child(torch, name, ep, spec, dev) -> dict:
             free_all(torch)
         dist.barrier()
     free_gib.append(torch.cuda.mem_get_info(dev)[0] / 2**30)
+    served = pod_serve_child(torch, name, cfg, local["params"], mesh, spec,
+                             dev)
     step = make_train_step(model, tcfg, mesh=mesh)
     torch.set_grad_enabled(True)
     losses, norms, secs = [], [], []
@@ -5888,7 +6122,8 @@ def within_moe_child(torch, name, ep, spec, dev) -> dict:
            "expert_shapes": {p: list(t.shape) for p, t in
                              tree_util.flatten_with_paths(local["params"])
                              if p.split("/")[-1] in EXPERT_LEAVES},
-           "collectives": collectives_of(prof), "card_free_gib": free_gib}
+           "collectives": collectives_of(prof), "card_free_gib": free_gib,
+           "serve": served}
     del step
     free_all(torch)
     ref = torch.load(spec["moe_ref"], map_location="cpu", mmap=True,
@@ -5962,15 +6197,17 @@ def family_config(name: str):
 def family_references(torch, seed, dev, tmp) -> dict:
     """Part (d)'s mesh-free steps in this process, one configuration at a
     time (:func:`mesh_free_reference`), their final parameters in files
-    under ``tmp``."""
+    under ``tmp``, each after part (e)'s mesh-free run."""
     return {name: mesh_free_reference(
         torch, family_config(name), seed, dev,
-        os.path.join(tmp, f"family_{name}.pt"), FAMILY_SHAPE, FAMILY_STEPS)
+        os.path.join(tmp, f"family_{name}.pt"), FAMILY_SHAPE, FAMILY_STEPS,
+        serve_name=name)
         for name in FAMILY_CASES}
 
 
 def within_family_child(torch, name, spec, dev) -> dict:
-    """One rank of part (d): ``family_config(name)`` on (1, 2, 2),
+    """One rank of part (d): ``family_config(name)`` on (1, 2, 2), part
+    (e)'s serving on its blocks (:func:`pod_serve_child`), then
     ``FAMILY_STEPS`` AdamW steps of 8 rows of 64 text tokens in 2
     microbatches (masked targets), the last profiled; then every block of
     its state against its placed shape and its parameter blocks against
@@ -5998,6 +6235,8 @@ def within_family_child(torch, name, spec, dev) -> dict:
     local = wp.shard_train_state(init_train_state(
         model.init(seed=spec["seed"], device=dev), tcfg), cfg, mesh)
     free_all(torch)
+    served = pod_serve_child(torch, name, cfg, local["params"], mesh, spec,
+                             dev)
     step = make_train_step(model, tcfg, mesh=mesh)
     torch.set_grad_enabled(True)
     losses, norms, secs = [], [], []
@@ -6021,7 +6260,7 @@ def within_family_child(torch, name, spec, dev) -> dict:
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
            "state_bytes": state_nbytes({k: v for k, v in local.items()
                                         if k != "step"}),
-           "collectives": collectives_of(prof)}
+           "collectives": collectives_of(prof), "serve": served}
     del step
     free_all(torch)
     index = {a: mesh.get_local_rank(a) for a in ("pod", "data", "model")}
@@ -6287,7 +6526,8 @@ def within_child(torch, spec, dev, experts) -> list:
     sequence-parallel decode case, in one world; in the world of four,
     first part (c)'s MoE steps (``spec["moe_ref"]``), while the card
     holds nothing of the other cases; in the world of two, first part
-    (d)'s full-width mamba mixer; in part (d)'s world of four
+    (d)'s full-width mamba mixer, then part (e)'s qwen2.5-3b serving on
+    (1, 1, 2); in part (d)'s world of four
     (``spec["family_refs"]``), its families alone."""
     if spec.get("family_refs"):
         return [within_family_child(torch, name, spec, dev)
@@ -6299,6 +6539,7 @@ def within_child(torch, spec, dev, experts) -> list:
     if spec["world"] == 2 and spec.get("mamba"):
         res.append(dict(within_mamba_child(torch, spec, dev),
                         name="mamba_mixer"))
+        res.append(qwen_serve_child(torch, spec, dev))
     for name, shape, f32 in WITHIN_TRAIN:
         if shape[0] * shape[1] * shape[2] == spec["world"]:
             res.append(within_train_child(torch, name, shape, f32, spec,
@@ -6380,9 +6621,10 @@ def within_phase(torch, api, model, base, reg, experts, reqs, args):
         "tensor parallelism on an f32 copy, (2, 2, 1) with compressed pods; "
         "(c) mixtral at full width on (1, 2, 2), experts cut on d_ff and on "
         "E; (d) rwkv6, internvl2, seamless and jamba on (1, 2, 2), a "
-        "full-width jamba mamba mixer on (1, 1, 2)) and (b) "
-        "sequence-parallel decode ((1, 2) and (2, 2)), ranks as gloo "
-        "processes on the card")
+        "full-width jamba mamba mixer on (1, 1, 2); (e) prefill and decode "
+        "on the cut weights before (a)'s (1, 1, 2), (c)'s and (d)'s steps) "
+        "and (b) sequence-parallel decode ((1, 2) and (2, 2)), ranks as "
+        "gloo processes on the card")
     t0 = time.monotonic()
     with tempfile.TemporaryDirectory(prefix="_artifacts_", dir=ROOT) as tmp:
         within, launches = within_path(torch, api, model, base, reg,
@@ -6419,6 +6661,8 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
     t0 = time.monotonic()
     family_refs = family_references(torch, seed, dev, tmp)
     out["family_mesh_free_s"] = time.monotonic() - t0
+    # part (e)'s mesh-free runs (tensors: kept here, not sent to ranks)
+    serve_refs = {name: ref.pop("serve") for name, ref in family_refs.items()}
     for name, ref in family_refs.items():
         log(f"phase 3w (d) mesh-free {name} ({ref['n_params']} "
             f"parameters, f32): losses {ref['losses']}; gradient norms "
@@ -6440,6 +6684,7 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
             "decode_ms_per_step": sum(refs[case]["step_ms"][1:])
             / max(len(refs[case]["step_ms"]) - 1, 1),
             "seconds": time.monotonic() - t0}
+    serve_refs["qwen"] = serve_reference(torch, m32, b32, "qwen", dev)
     del m32, b32
     free_all(torch)
     results = {2: wait_ranks(h2)}
@@ -6450,7 +6695,9 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
     t0 = time.monotonic()
     ref_path = os.path.join(tmp, "moe_mesh_free.pt")
     moe_ref = mesh_free_reference(torch, moe_config(False), seed, dev,
-                                  ref_path, MOE_SHAPE, MOE_STEPS)
+                                  ref_path, MOE_SHAPE, MOE_STEPS,
+                                  serve_name="mixtral")
+    serve_refs["mixtral"] = moe_ref.pop("serve")
     out["moe_mesh_free"] = dict(moe_ref, seconds=time.monotonic() - t0)
     log(f"phase 3w (c) mesh-free mixtral, 1 unit at full width, f32, "
         f"{moe_ref['n_params']} parameters: losses {moe_ref['losses']}; "
@@ -6641,6 +6888,22 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
         f"; peak GiB a rank {[round(r['peak_gib'], 2) for r in ranks]}; "
         f"collectives of a profiled cut pass {ranks[0]['collectives']} "
         f"[{gpu_line()}]")
+    # part (e): serving inside a pod before the AdamW steps, every world
+    serving = [("qwen", "qwen", SERVE_QWEN_SHAPE, "within2",
+                [next(r for r in rank if r.get("name") == "serve_qwen")
+                 for rank in results[2]])]
+    serving += [(name, "mixtral", MOE_SHAPE, "within4",
+                 [b[name]["serve"] for b in by4]) for name, _ in MOE_CASES]
+    serving += [(name, name, FAMILY_SHAPE, "within_family",
+                 [b[name]["serve"] for b in by_family])
+                for name in FAMILY_CASES]
+    for name, ref_name, shape, world, ranks in serving:
+        firsts = [torch.load(os.path.join(
+            tmp, f"{world}_rank{r}.json.out.serve_{name}.pt"))
+            for r in range(len(ranks))]
+        gates = serve_gates(torch, name, ranks, firsts, serve_refs[ref_name])
+        out[f"serve_{name}"] = serve_report(name, shape, ranks,
+                                            serve_refs[ref_name], gates)
     os.remove(ref_path)
     return out, launches
 

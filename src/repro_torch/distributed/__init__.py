@@ -2,9 +2,10 @@
 rules (:mod:`.sharding`) and collectives (:mod:`.collectives`), and the
 fault accounting shared by the serving tiers (:mod:`.fault`)."""
 
-from repro_torch.distributed.collectives import (RowLayout, ServeComm,
-                                                 batch_axes_of,
+from repro_torch.distributed.collectives import (MeshComm, RowLayout,
+                                                 ServeComm, batch_axes_of,
                                                  flash_combine,
+                                                 make_sp_cross_attn,
                                                  make_sp_decode_attn,
                                                  make_vp_embed_lookup,
                                                  shard_decode_cache)
@@ -12,7 +13,8 @@ from repro_torch.distributed.fault import (ElasticPlan, FailureInjector,
                                            SimulatedFailure,
                                            StragglerMonitor)
 from repro_torch.distributed.sharding import (assemble, batch_axes,
-                                              batch_shardings, cache_pspec,
+                                              batch_shardings,
+                                              cache_placement, cache_pspec,
                                               cache_shardings, decode_layout,
                                               heads_shardable, local_shard,
                                               param_pspec, param_shardings,
@@ -33,4 +35,5 @@ __all__ = ["ElasticPlan", "FailureInjector", "SimulatedFailure",
            "heads_shardable", "param_shardings", "train_state_shardings",
            "batch_shardings", "replicated", "decode_layout", "cache_pspec",
            "cache_shardings", "flash_combine", "make_sp_decode_attn",
-           "shard_decode_cache", "batch_axes_of", "make_vp_embed_lookup"]
+           "shard_decode_cache", "batch_axes_of", "make_vp_embed_lookup",
+           "MeshComm", "make_sp_cross_attn", "cache_placement"]

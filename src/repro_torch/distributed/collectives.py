@@ -32,9 +32,15 @@ The training and decode meshes' collectives follow
   (:func:`shard_decode_cache` cuts a prefilled one): the rank that owns
   ring slot ``cur mod S`` writes the new K/V, every rank attends over its
   slice, and the partials are combined.
+* :func:`make_sp_cross_attn`: the decode's cross-attention over the
+  rank's slice of the encoder positions, combined the same way.
 * :func:`make_vp_embed_lookup`: the vocab-parallel lookup as an autograd
   function (a masked lookup in the rank's rows, taken from the owner on
   every rank; the backward a scatter-add into the rank's rows).
+
+A mesh's collectives go through a communicator (:class:`MeshComm`, or
+``train.within_pod.ThreadComm`` for ranks that are threads of one
+process): ``gather(t, axes)``, ``total(t, axis)`` and ``all_to_all``.
 """
 
 from __future__ import annotations
@@ -44,8 +50,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import (batch_axes, cache_pspec,
-                                              decode_layout, local_shard,
+from repro_torch.distributed.sharding import (batch_axes, decode_layout,
+                                              local_shard,
                                               serve_mesh_axes,
                                               serve_row_shards,
                                               serve_stack_shardings)
@@ -221,15 +227,6 @@ class ServeComm:
 # ---------------------------------------------------------------------------
 
 
-def axes_index(mesh, axes: tuple) -> int:
-    """This rank's block over ``axes``, row-major in the mesh's order."""
-    sizes = mesh_axes(mesh)
-    i = 0
-    for a in axes:
-        i = i * sizes[a] + mesh.get_local_rank(a)
-    return i
-
-
 def gather_axes(t: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
     """[n, *t.shape]: ``t`` of every rank that differs from this one only
     along ``axes`` (n the product of their sizes), row-major in the
@@ -285,6 +282,39 @@ def all_reduce_ordered(t: torch.Tensor, group, n: int) -> torch.Tensor:
     return out[:t.numel()].reshape(t.shape)
 
 
+class MeshComm:
+    """The collectives of one rank of a ("pod", "data", "model") mesh:
+    its axis sizes, its coordinates, and exchanges along axes."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.sizes = mesh_axes(mesh)
+        self.coords = {a: mesh.get_local_rank(a) for a in self.sizes}
+
+    def gather(self, t: torch.Tensor, axes: tuple) -> torch.Tensor:
+        """[n, *t.shape]: ``t`` of the ranks differing along ``axes``."""
+        return gather_axes(t, self.mesh, axes)
+
+    def total(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of ``t`` over the ranks along ``axis``, f32, in rank
+        order (:func:`all_reduce_ordered`)."""
+        return all_reduce_ordered(t, self.mesh.get_group(axis),
+                                  self.sizes[axis])
+
+    def all_to_all(self, send: torch.Tensor, to, frm,
+                   axis: str) -> torch.Tensor:
+        """Row i of ``send`` to the i-th of the ranks ``to`` along ``axis``
+        (in rank order) -> what the ranks ``frm`` sent this rank, a row
+        each in rank order."""
+        n = self.sizes[axis]
+        recv = send.new_empty((len(frm),) + tuple(send.shape[1:]))
+        dist.all_to_all_single(recv, send.contiguous(),
+                               [int(r in frm) for r in range(n)],
+                               [int(r in to) for r in range(n)],
+                               group=self.mesh.get_group(axis))
+        return recv
+
+
 def combine_partials(o: torch.Tensor, m: torch.Tensor,
                      l: torch.Tensor) -> torch.Tensor:
     """Every shard's flash partials, stacked in rank order (o [n, B, H,
@@ -297,15 +327,15 @@ def combine_partials(o: torch.Tensor, m: torch.Tensor,
     return o_g / torch.clamp_min(l_g[..., None], 1e-30)
 
 
-def flash_combine(parts, mesh, axes: tuple) -> torch.Tensor:
+def flash_combine(parts, comm, axes: tuple) -> torch.Tensor:
     """Combine flash partials (o [B, H, D] unnormalised, m and l [B, H],
-    f32) across the ranks along ``axes``: one all-gather of the three,
-    then :func:`combine_partials` in rank order -> [B, H, D] f32, the
-    same bits on every rank."""
+    f32) across the ranks along ``axes``: one all-gather of the three
+    through ``comm`` (a :class:`MeshComm`), then :func:`combine_partials`
+    in rank order -> [B, H, D] f32, the same bits on every rank."""
     o, m, l = parts
     B, H, D = o.shape
     flat = torch.cat([o.reshape(-1), m.reshape(-1), l.reshape(-1)])
-    allp = gather_axes(flat, mesh, axes)
+    allp = comm.gather(flat, axes)
     n = allp.shape[0]
     return combine_partials(allp[:, :B * H * D].reshape(n, B, H, D),
                             allp[:, B * H * D:B * H * (D + 1)].reshape(
@@ -328,23 +358,35 @@ def _seq_shards(mesh, global_batch: int) -> tuple[tuple, int]:
     return seq_axes, n
 
 
-def make_sp_decode_attn(mesh, global_batch: int, cache_len: int):
+def _seq_index(comm, axes: tuple) -> int:
+    """This rank's block over ``axes``, row-major (``comm.coords``)."""
+    i = 0
+    for a in axes:
+        i = i * comm.sizes[a] + comm.coords[a]
+    return i
+
+
+def make_sp_decode_attn(mesh, global_batch: int, cache_len: int, comm=None):
     """Sequence-parallel decode attention for
     :func:`repro_torch.models.transformer.decode_step`'s ``decode_attn``.
 
     Each rank holds the slice of every attention ring that
     :func:`shard_decode_cache` cut for it (sequence over "model", or over
-    every axis when the batch does not divide).  The rank owning ring
-    slot ``cur mod S`` writes the new K/V and position into its slice, the
-    others rewrite what they hold, all on the device (no host read, so a
-    CUDA graph replays the step); each rank attends over its slice, and
-    the partials are combined.  A ring whose length (``cache_len``, or a
-    sliding window's) does not divide over the sequence shards is kept
-    whole on every rank and runs local attention, as in the reference."""
+    every axis when the batch does not divide), with every head.  The
+    rank owning ring slot ``cur mod S`` writes the new K/V and position
+    into its slice, the others rewrite what they hold, all on the device
+    (no host read, so a CUDA graph replays the step); each rank attends
+    over its slice, and the partials are combined.  A ring whose length
+    (``cache_len``, or a sliding window's) does not divide over the
+    sequence shards is kept whole on every rank and runs local attention,
+    as in the reference.  ``comm`` (a :class:`MeshComm`, or ranks that
+    are threads, ``train.within_pod.ThreadComm``) carries the combine;
+    by default the mesh's own."""
     from repro_torch.models.attention import (cache_write, decode_attention,
                                               decode_attention_partial)
+    comm = comm if comm is not None else MeshComm(mesh)
     seq_axes, n_seq = _seq_shards(mesh, global_batch)
-    me = axes_index(mesh, seq_axes)
+    me = _seq_index(comm, seq_axes)
 
     def sp_attn(q, k_new, v_new, st, cur, attn_cfg, start=None):
         S_total = (min(cache_len, attn_cfg.window) if attn_cfg.window
@@ -371,38 +413,68 @@ def make_sp_decode_attn(mesh, global_batch: int, cache_len: int):
             pos.dtype), old))
         parts = decode_attention_partial(q, ck, cv, pos, cur, attn_cfg,
                                          start=start)
-        return flash_combine(parts, mesh, seq_axes)[:, None].to(q.dtype)
+        return flash_combine(parts, comm, seq_axes)[:, None].to(q.dtype)
 
     return sp_attn
 
 
+def make_sp_cross_attn(mesh, global_batch: int, n_src: int, comm):
+    """Sequence-parallel decode cross-attention of an enc-dec decoder:
+    ``sp_cross(q, ck, cv, attn_cfg) -> [B, 1, Hq, D]`` in q's dtype.
+    Each rank holds its slice of every unit's cross-KV [B, n_src / n, Hkv,
+    D], the encoder positions cut as :func:`shard_decode_cache` cuts a
+    ring (an ``n_src`` that does not divide stays whole, and attends
+    locally); the query attends every position of the slice, with no
+    mask and no window (the prefill's non-causal attention), and the
+    partials are combined as the self-attention's.  ``comm`` carries the
+    combine (as in :func:`make_sp_decode_attn`)."""
+    import dataclasses
+    from repro_torch.models.attention import (decode_attention_partial,
+                                              finalize_partial)
+    seq_axes, n_seq = _seq_shards(mesh, global_batch)
+    cut = n_seq > 1 and n_src % n_seq == 0
+    L = n_src // n_seq if cut else n_src
+    lo = _seq_index(comm, seq_axes) * L if cut else 0
+
+    def sp_cross(q, ck, cv, attn_cfg):
+        if ck.shape[1] != L:
+            raise ValueError(f"a cross-KV slice of {ck.shape[1]} positions; "
+                             f"the layout holds {L} of {n_src}")
+        pos = torch.arange(lo, lo + L, dtype=torch.int32, device=q.device)
+        cur = torch.full((), n_src, dtype=torch.int32, device=q.device)
+        parts = decode_attention_partial(
+            q, ck, cv, pos, cur, dataclasses.replace(attn_cfg, window=None))
+        o = (flash_combine(parts, comm, seq_axes) if cut
+             else finalize_partial(*parts))
+        return o[:, None].to(q.dtype)
+
+    return sp_cross
+
+
 def shard_decode_cache(cache: dict, mesh, global_batch: int) -> dict:
     """This rank's part of a dense decode cache that the rank prefilled
-    for its batch rows, under
-    :func:`repro_torch.distributed.sharding.cache_pspec`: every attention
-    ring's K/V and ``pos`` keep the rank's sequence slice (a ring that
-    does not divide stays whole, and runs local attention).  Recurrent
-    states and the cross-KV are kept as they are (their sequence-parallel
-    decode is not ported); ``cur`` and ``start`` are kept."""
-    _, n_seq = _seq_shards(mesh, global_batch)
-    layers = {}
-    for name, layer in cache["layers"].items():
-        out = {}
-        for leaf, t in layer.items():
-            if leaf not in ("k", "v", "pos"):
-                out[leaf] = t
-                continue
-            shape = list(t.shape)
-            spec = list(cache_pspec(f"layers/{name}/{leaf}", tuple(shape),
-                                    mesh, global_batch))
-            seq_dim = 2 if leaf != "pos" else 1
-            if leaf != "pos":       # the rows are the rank's already
-                spec[1] = None
-            if t.shape[seq_dim] % n_seq:
-                spec[seq_dim] = None
-            out[leaf] = local_shard(t, tuple(spec), mesh)
-        layers[name] = out
-    return dict(cache, layers=layers)
+    for its batch rows, every leaf placed by
+    :func:`repro_torch.distributed.sharding.cache_pspec`
+    (:func:`repro_torch.distributed.sharding.cache_placement`): each
+    attention ring's K/V and ``pos`` and the encoder's cross-KV keep the
+    rank's sequence slice with every head; mamba's ``h`` and ``conv``
+    their d_inner slice over "model" when the batch does not divide (the
+    long-context layout), else they are kept whole; rwkv's ``S``, ``tm``
+    and ``cm`` are kept (the rows are the rank's already, so no batch dim
+    is cut again).  A dim that does not divide stays whole (a ring or
+    cross-KV so kept attends locally).  ``cur`` and ``start`` are
+    kept."""
+    from repro_torch import tree as tree_util
+    from repro_torch.distributed.sharding import cache_placement
+    specs = dict(tree_util.flatten_with_paths(
+        cache_placement(cache, mesh, global_batch)))
+    out = {}
+    for path, t in tree_util.flatten_with_paths(cache):
+        spec = list(specs[path])
+        if t.dim() > 2:             # [U, B, ...]: the rows are the rank's
+            spec[1] = None
+        out[path] = local_shard(t, tuple(spec), mesh)
+    return tree_util.unflatten_paths(out)
 
 
 # ---------------------------------------------------------------------------
@@ -417,17 +489,16 @@ class _VocabLookup(torch.autograd.Function):
     gradient into the rank's rows, for the ids it owns only."""
 
     @staticmethod
-    def forward(ctx, table, tokens, mesh, axis):
+    def forward(ctx, table, tokens, comm, axis):
         rows = table.shape[0]
-        lo = mesh.get_local_rank(axis) * rows
+        lo = comm.coords[axis] * rows
         ids = tokens.to(torch.int64) - lo
         mine = (ids >= 0) & (ids < rows)
         x = table[ids.clamp(0, rows - 1)]
         x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
-        n = mesh_axes(mesh)[axis]
-        allx = all_gather_dim0(x.reshape((1,) + tuple(x.shape)),
-                               mesh.get_group(axis), n)
+        n = comm.sizes[axis]
+        allx = comm.gather(x, (axis,))
         owner = torch.clamp(tokens.to(torch.int64) // rows, 0, n - 1)
         out = torch.gather(allx, 0, owner[None, ..., None].expand(
             (1,) + tuple(x.shape)))[0]
@@ -446,17 +517,22 @@ class _VocabLookup(torch.autograd.Function):
         return grad, None, None, None
 
 
-def make_vp_embed_lookup(mesh):
+def make_vp_embed_lookup(mesh, comm=None):
     """The vocab-parallel embedding lookup over "model": ``lookup(table,
     tokens)`` with ``table`` this rank's contiguous block of vocab rows
     (:func:`repro_torch.distributed.sharding.param_pspec` cuts ``embed``
     so when the vocab divides).  Differentiable (:class:`_VocabLookup`).
-    A mesh whose "model" axis is 1 looks up plainly."""
-    n_model = mesh_axes(mesh).get("model", 1)
+    A mesh whose "model" axis is 1 looks up plainly.  ``comm`` (as in
+    :func:`make_sp_decode_attn`) carries the exchange; by default the
+    mesh's own."""
+    n_model = (comm.sizes if comm is not None
+               else mesh_axes(mesh)).get("model", 1)
 
     def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         if n_model == 1:
             return table[tokens.to(torch.int64)]
-        return _VocabLookup.apply(table, tokens, mesh, "model")
+        return _VocabLookup.apply(
+            table, tokens, comm if comm is not None else MeshComm(mesh),
+            "model")
 
     return lookup

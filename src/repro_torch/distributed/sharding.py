@@ -26,7 +26,8 @@ where every output element is still computed by exactly one rank:
 The training rules (mesh axes ("pod", "data", "model")) follow the serve
 rules: ``param_pspec`` and the rules built on it (``param_shardings``,
 ``train_state_shardings``, ``batch_shardings``, ``decode_layout``,
-``cache_pspec``, ``cache_shardings``).  "pod" is pure data parallelism
+``cache_pspec``, ``cache_shardings``, and ``cache_placement``, the
+placements a serving rank holds).  "pod" is pure data parallelism
 (parameters replicated), "data" is FSDP (a non-contraction dim of each
 weight, and the batch), "model" is tensor, expert or sequence
 parallelism.  A placement entry may name a tuple of axes (the batch over
@@ -433,4 +434,27 @@ def cache_shardings(cache: PyTree, mesh, global_batch: int,
     """:func:`cache_pspec` for every leaf of a decode cache."""
     return tree_util.unflatten_paths({
         p: cache_pspec(p, tuple(leaf.shape), mesh, global_batch, seq_shard)
+        for p, leaf in tree_util.flatten_with_paths(cache)})
+
+
+def cache_placement(cache: PyTree, mesh, global_batch: int) -> PyTree:
+    """:func:`cache_shardings` with every dim that does not divide over
+    its axes kept whole: the port's convention for a ring or an encoder
+    length that does not divide over the sequence shards (it runs local
+    attention, as the reference's sequence-parallel decode falls back
+    to).  These are the placements a serving rank holds."""
+    sizes = mesh_axes(mesh)
+
+    def fit(spec, shape):
+        out = []
+        for d, entry in zip(shape, spec):
+            n = 1
+            for a in _axes_of(entry):
+                n *= sizes.get(a, 1)
+            out.append(entry if d % n == 0 else None)
+        return tuple(out)
+
+    return tree_util.unflatten_paths({
+        p: fit(cache_pspec(p, tuple(leaf.shape), mesh, global_batch),
+               tuple(leaf.shape))
         for p, leaf in tree_util.flatten_with_paths(cache)})

@@ -19,12 +19,15 @@ ask, so it counts what its own step does:
   (``torch.autograd.graph.saved_tensors_hooks`` on the meta device),
   plus each unit's input, which the checkpoint of every unit keeps (the
   step recomputes a unit in its backward); a prefill holds one unit's
-  saved set at most, and a decode or prefill cell gathers one unit's
-  weights whole ("gathered_unit").  "fits" compares the sum with 80 GB.
+  saved set at most.  Every cell counts the bytes a rank uses of one
+  unit while it runs ("gathered_unit": each leaf cut over "model" and
+  gathered over "data", as ``train.within_pod`` runs training and
+  serving alike).  "fits" compares the sum with 80 GB.
 * **FLOPs** from ``torch.utils.flop_counter.FlopCounterMode`` over one
   unit at local shapes (forward and backward for training, plus the
   recomputed forward of every unit but the decoder's last), times the
-  units, plus the head.  A cell of a
+  units, plus the head; a decode cell's one-token step at the rank's
+  shapes (its heads, its slice of each ring).  A cell of a
   family with recurrent blocks above 4096 tokens counts one unit at 2048
   and 4096 tokens and fits a * T + b * T**2 (the scans are linear, the
   global attention quadratic), since the scans' chunk loops are slow to
@@ -46,16 +49,24 @@ ask, so it counts what its own step does:
   forward and backward), mamba's ``in_proj`` regroup over "model"
   (``tp_regroup``: the resident block's bytes each pass), the
   vocab-parallel lookup, head and loss, the sequence-parallel combine
-  of decode, and the cross-pod planes at 2 bits a parameter.  A decode
-  or prefill cell gathers each unit's weights whole, as the port's
-  sequence-parallel decode runs them.
+  of decode, and the cross-pod planes at 2 bits a parameter.  A serving
+  cell gathers no leaf over "model" (``fsdp_gather_model`` is 0): a
+  decode step counts its tensor-parallel sums, the gather of a cut
+  attention's q, k and v heads around the sequence-parallel attention
+  (``tp_heads``) and of mamba's state slices where ``cache_pspec`` holds
+  them whole (``tp_state``); a prefill the all-to-all that sends each
+  rank every head of its sequence slice of the KV and cross-KV
+  (``kv_all_to_all``) and the same state gather; both the logits'
+  vocab slices gathered over "model" and their rows over the data axes
+  (``rows_gather``, across hosts).
 * **Roofline terms** at the H100's 989 TFLOP/s bf16 dense, 3.35 TB/s HBM
   and 450 GB/s each way over NVLink ("model" lies inside one 8-card
   host); the rate across hosts (the "data" and "pod" collectives) is a
   named argument with no default, and its term is null without it.  The
   HBM term counts each unit's weights once per pass, the optimizer's
   state read and written once, the activations written and read once and
-  the KV cache read once a decode step: an estimate.
+  the KV cache read once a decode step (a decode step reads the rank's
+  cut weights): an estimate.
 
 Nothing here is measured; every number is computed.  Results go to
 ``dryrun_out/<mesh>/<arch>__<shape>.json`` (git-ignored).
@@ -81,8 +92,8 @@ from repro_torch.distributed.sharding import (_axes_of, cache_shardings,
                                               param_shardings,
                                               train_state_shardings)
 from repro_torch.train.train_step import TrainConfig, init_train_state
-from repro_torch.train.within_pod import (AxisSizes, TensorParallel,
-                                          regrouped)
+from repro_torch.train.within_pod import (AxisSizes, PodServe,
+                                          TensorParallel, regrouped)
 
 # ---------------------------------------------------------------------------
 # Cell table (the reference's)
@@ -199,24 +210,57 @@ def _unit_tree(params, specs, stack, sizes, tp):
     return tree_util.unflatten_paths(out)
 
 
+class _MetaComm:
+    """Collectives that keep only the shapes: a gather repeats the
+    rank's part, an exchange returns what it sends, a sum is the rank's
+    part (the collectives' bytes are counted apart)."""
+
+    def __init__(self, sizes: dict):
+        self.sizes = dict(sizes)
+        self.coords = {a: 0 for a in sizes}
+
+    def gather(self, t, axes):
+        n = math.prod(self.sizes[a] for a in axes)
+        return t[None].expand((n,) + tuple(t.shape))
+
+    def all_to_all(self, send, to, frm, axis):
+        return send
+
+    def total(self, t, axis):
+        return t
+
+
 class _MetaRank:
-    """Model rank 0 of a tensor-parallel mesh as the model code asks a
-    training mesh's ``run`` (:class:`repro_torch.train.within_pod.PodRun`)
-    on the meta device: the unit's leaves as given (at the shapes the
-    unit uses, :func:`_unit_tree`), its tensor-parallel hooks
-    (:class:`TensorParallel`), and every sum over ranks the identity (the
-    collectives' bytes are counted apart)."""
+    """Rank 0 of a tensor-parallel mesh as the model code asks a
+    training or serving mesh's ``run``
+    (:class:`repro_torch.train.within_pod.PodRun`) on the meta device:
+    the unit's leaves as given (at the shapes the unit uses,
+    :func:`_unit_tree`), its tensor-parallel hooks
+    (:class:`TensorParallel`) and collectives that keep the shapes
+    (:class:`_MetaComm`).  ``serve`` (``(cfg, global_batch,
+    cache_len)``) makes it a serving rank's, with its placed decode cache
+    (:class:`PodServe`)."""
 
-    coords = {"model": 0}
-
-    def __init__(self):
+    def __init__(self, sizes: dict, serve=None):
+        self.sizes = dict(sizes)
+        self.comm = _MetaComm(sizes)
+        self.coords = self.comm.coords
+        self.n_model = self.sizes["model"]
         self.tp = TensorParallel(self)
+        self.serving = serve is not None
+        self.serve = PodServe(self, *serve) if self.serving else None
 
     def unit(self, stack, unit_params):
         return unit_params
 
     def model_sum(self, x):
         return x
+
+    def model_gather(self, x):
+        return self.comm.gather(x, ("model",))
+
+    def model_all_to_all(self, send, to, frm):
+        return send
 
     def data_total(self, t):
         return t
@@ -250,7 +294,7 @@ def _unit_cost(cfg, params, specs, sizes, tp, stack, pattern, rows, T,
         # working set a forward holds at once
         with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
             y, _ = tf._train_unit(x, unit, cfg, pattern, pos, enc,
-                                  run=_MetaRank() if tp else None)
+                                  run=_MetaRank(sizes) if tp else None)
         fwd = fc.get_total_flops()
         if train:
             torch.autograd.grad(y.float().sum(), [x] + leaves,
@@ -281,38 +325,33 @@ def _unit_cost_fit(cfg, params, specs, sizes, tp, stack, pattern, rows, T,
     return out
 
 
-def _decode_unit_cost(cfg, cache, cspecs, sizes, rows, pattern) -> dict:
-    """FLOPs of one unit's one-token step over the rank's cache slices
-    (weights whole, as the sequence-parallel decode runs them)."""
+def _decode_unit_cost(cfg, params, specs, sizes, tp, B, cache_len,
+                      rows) -> dict:
+    """FLOPs of one unit's one-token step at the rank's shapes: its rows,
+    the unit's leaves as it uses them (cut over "model" under tensor
+    parallelism), its placed slice of every ring, state and cross-KV,
+    the sequence-parallel attention over it (:class:`_MetaRank`)."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.models import transformer as tf
-    params = tf.init_params(cfg, device="meta")
-    unit = tf._unit(params["blocks"], 0)
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    flat = dict(tree_util.flatten_with_paths(cspecs))
+    run = _MetaRank(sizes, serve=(cfg, B, cache_len)) if tp else None
+    if run is not None:
+        cache = run.serve.new_cache(dt, "meta")
+        unit = _unit_tree(params, specs, "blocks", sizes, True)
+    else:
+        cache = tf.init_decode_cache(cfg, B, cache_len, device="meta")
+        unit = tf._unit(params["blocks"], 0)
     x = torch.zeros((rows, 1, cfg.d_model), dtype=dt, device="meta")
     cur = torch.zeros((), dtype=torch.int32, device="meta")
-    with FlopCounterMode(display=False) as fc:
-        for i, b in enumerate(pattern):
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        for i, b in enumerate(cfg.pattern):
             name = f"block{i}"
-            st = {}
-            for k, t in cache["layers"][name].items():
-                # the ring's slice; a recurrent state whole (its
-                # sequence-parallel decode keeps it so), the rank's rows
-                shape = (local_shape(tuple(t.shape), flat[
-                    f"layers/{name}/{k}"], sizes) if k in ("k", "v", "pos")
-                    else tuple(t.shape))
-                shape = shape[:1] + (rows,) + shape[2:] if t.dim() > 2 \
-                    else shape
-                st[k] = torch.zeros(shape[1:], dtype=t.dtype, device="meta")
-            cross = None
-            if "cross" in cache and b.kind == "attn":
-                ck = cache["cross"]["k"]
-                cross = tuple(torch.zeros((rows,) + tuple(ck.shape[2:]),
-                                          dtype=ck.dtype, device="meta")
-                              for _ in range(2))
-            x = tf._decode_block(x, unit[name], b, cfg, st, cur, {}, None,
-                                 None, cross=cross)
+            st = {k: t[0] for k, t in cache["layers"][name].items()}
+            cross = (tuple(cache["cross"][k][0] for k in ("k", "v"))
+                     if "cross" in cache and b.kind == "attn" else None)
+            x = tf._decode_block(
+                x, unit[name], b, cfg, st, cur, {}, None, None, cross=cross,
+                decode_attn=run.serve.decode_attn if run else None, run=run)
     return {"fwd": fc.get_total_flops()}
 
 
@@ -408,6 +447,84 @@ def _regroup_bytes(params, flat_specs, sizes, stack, n_units, again,
     return out
 
 
+_TOP = ("embed", "lm_head", "final_norm", "frontend_proj", "enc_final_norm")
+
+
+def _unit_bytes(params, flat_specs, sizes, tp, stacks) -> int:
+    """Bytes a rank uses of one unit while the units run
+    ("gathered_unit"): each leaf cut over "model" under tensor
+    parallelism and gathered over "data", the top-level leaves' share
+    spread over the units."""
+    total = 0
+    for stack, _, n_units, _ in stacks:
+        for path, leaf in tree_util.flatten_with_paths(params[stack]):
+            total += _nbytes(_used_shape(
+                tuple(leaf.shape)[1:], flat_specs[f"{stack}/{path}"][1:],
+                sizes, tp), leaf.dtype) * n_units
+    for k in _TOP:
+        if k in params:
+            total += _nbytes(_used_shape(tuple(params[k].shape),
+                                         flat_specs[k], sizes, tp),
+                             params[k].dtype)
+    return total // max(sum(n for _, _, n, _ in stacks), 1)
+
+
+def _serve_bytes(cfg, mesh, sizes, B, rows, cache_len, enc_len, act_dt,
+                 prefill: bool) -> dict:
+    """Bytes one rank receives over "model" for a serving step's
+    exchanges beyond the tensor-parallel sums (``train.within_pod.
+    PodServe``), each over the decoder's units: a decode step gathers a
+    head-cut attention's q heads (and k and v where the KV heads are cut)
+    of [rows, 1, H / M, D] and a cross-attention's q heads; a prefill
+    sends each rank every head of its sequence slice of each ring (of
+    ``min(cache_len, window)`` slots) and of the cross-KV (``enc_len``
+    positions), 2 (M - 1) slices of [rows, S / n_seq, Hkv / M, D] (a
+    length that does not divide: its heads gathered, S whole); both
+    gather mamba's ``h`` [rows, Din / M, N] f32 and conv ring [rows, K -
+    1, Din / M] over "model" where the batch divides (``cache_pspec``
+    holds them whole)."""
+    M = sizes["model"]
+    baxes, seq_axes = decode_layout(mesh, B)
+    n_seq = math.prod(sizes[a] for a in seq_axes)
+    out = {"tp_heads": 0, "tp_state": 0, "kv_all_to_all": 0}
+
+    def kv(S, a):                   # the prefill's exchange of one K/V
+        if not heads_shardable(cfg, mesh, a.n_kv):
+            return 0
+        per = S // n_seq if S % n_seq == 0 else S
+        return 2 * (M - 1) * rows * per * (a.n_kv // M) * a.head_dim \
+            * act_dt
+
+    for b in cfg.pattern:
+        if b.kind == "attn" and heads_shardable(cfg, mesh, b.attn.n_q):
+            a = b.attn
+            q = (M - 1) * rows * (a.n_q // M) * a.head_dim * act_dt
+            if prefill:
+                out["kv_all_to_all"] += kv(min(cache_len, a.window)
+                                           if a.window else cache_len, a)
+                if cfg.cross_attn:
+                    out["kv_all_to_all"] += kv(enc_len, a)
+            else:
+                out["tp_heads"] += q * (1 + int(cfg.cross_attn))
+                if heads_shardable(cfg, mesh, a.n_kv):
+                    out["tp_heads"] += 2 * q * a.n_kv // a.n_q
+        elif b.kind == "mamba" and baxes is not None:
+            din = b.mamba.expand * cfg.d_model // M
+            out["tp_state"] += (M - 1) * rows * din * (
+                b.mamba.d_state * 4 + (b.mamba.d_conv - 1) * act_dt)
+    return {k: v * cfg.n_units for k, v in out.items()}
+
+
+def _rows_gather_bytes(cfg, mesh, B, rows, act_dt) -> int:
+    """Bytes one rank receives to gather every row's last logits over the
+    data axes (the reference's replicated ``out_shardings``), when the
+    rows are cut."""
+    baxes, _ = decode_layout(mesh, B)
+    if baxes is None:
+        return 0
+    return (B // rows - 1) * rows * cfg.vocab * act_dt
+
+
 def dry_cell(arch: str, shape: str, multi_pod: bool = False,
              cross_host_bytes_s: Optional[float] = None) -> dict:
     """Every number of one cell, per rank (see the module's notes)."""
@@ -426,8 +543,9 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
     dp = sizes.get("pod", 1) * sizes["data"]
     mem: dict = {}
     colls = {"fsdp_gather": 0, "fsdp_gather_model": 0, "grad_data_sum": 0,
-             "tp_sum": 0, "tp_regroup": 0, "vocab": 0, "sp_combine": 0,
-             "pod_planes": 0}
+             "tp_sum": 0, "tp_regroup": 0, "tp_heads": 0, "tp_state": 0,
+             "kv_all_to_all": 0, "vocab": 0, "rows_gather": 0,
+             "sp_combine": 0, "pod_planes": 0}
     cross_host = nvlink = 0
     flops = 0
     notes = []
@@ -477,7 +595,7 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
         if mb_rows % data_ranks:
             notes.append(f"a microbatch of {mb_rows} rows does not divide "
                          f"over {data_ranks} data ranks: {rows} a rank")
-        unit_saved, x_bytes, used_total, reads = 0, 0, 0, 0
+        unit_saved, x_bytes, reads = 0, 0, 0
         for stack, pattern, n_units, enc in stacks:
             Tn = enc_len if stack == "enc_blocks" else dec_T
             c = _unit_cost_fit(cfg, params, pspecs, sizes, tp, stack,
@@ -500,7 +618,6 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
                                                * micro)
                 used = _nbytes(_used_shape(tuple(one.shape), spec[1:],
                                            sizes, tp), one.dtype)
-                used_total += used * n_units
                 # read in the forward, the backward and a recompute
                 reads += used * ((2 * n_units + again) if train
                                  else n_units)
@@ -514,9 +631,12 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
                 colls["tp_regroup"] += _regroup_bytes(
                     params, flat_specs, sizes, stack, n_units, again,
                     train) * micro
+        if tp and not train:
+            for k, v in _serve_bytes(cfg, mesh, sizes, B, rows, T, enc_len,
+                                     act_dt, True).items():
+                colls[k] += v
         flops += _head_flops(cfg, rows, text_T, v_local, train) * micro
-        for k in ("embed", "lm_head", "final_norm", "frontend_proj",
-                  "enc_final_norm"):
+        for k in _TOP:
             if k in params:
                 gb = _leaf_gather_bytes(params[k], flat_specs[k], sizes,
                                         not tp)
@@ -525,7 +645,6 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
                 used = _nbytes(_used_shape(tuple(params[k].shape),
                                            flat_specs[k], sizes, tp),
                                params[k].dtype)
-                used_total += used
                 reads += used * (2 if train else 1)
                 if train:
                     colls["grad_data_sum"] += _grad_sum_bytes(
@@ -533,15 +652,19 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
         if tp and v_local != cfg.vocab:
             # the lookup gathers the rows' embeddings; in training the
             # head's input gradient is summed, and the loss gathers the
-            # rows' maxima and sums their exps and target logits
+            # rows' maxima and sums their exps and target logits; a
+            # prefill gathers the last token's logits
             M = sizes["model"]
             xb = rows * T * cfg.d_model * act_dt
             yb = rows * text_T * 4
             colls["vocab"] += micro * ((M - 1) * xb + (
                 2 * (M - 1) * (xb + 2 * yb) // M + (M - 1) * yb
-                if train else 0))
-        mem["gathered_unit"] = used_total // max(
-            sum(n for _, _, n, _ in stacks), 1)
+                if train else (M - 1) * rows * v_local * act_dt))
+        if not train:
+            colls["rows_gather"] = _rows_gather_bytes(cfg, mesh, B, rows,
+                                                      act_dt)
+        mem["gathered_unit"] = _unit_bytes(params, flat_specs, sizes, tp,
+                                           stacks)
         mem["activations"] = (x_bytes + unit_saved
                               + rows * text_T * v_local * 4 * 2
                               if train else unit_saved)
@@ -559,26 +682,45 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
         baxes, seq_axes = decode_layout(mesh, B)
         rows = B // dp if baxes is not None else B
         cache = tf.init_decode_cache(cfg, B, T, device="meta")
-        cspecs = cache_shardings(cache, mesh, B)
         pb = state_bytes(params, pspecs, sizes)
-        kb = state_bytes(cache, cspecs, sizes)
+        kb = state_bytes(cache, cache_shardings(cache, mesh, B), sizes)
         mem.update(params=pb["rank"], kv_cache=kb["rank"],
                    logical_state=pb["logical"] + kb["logical"],
-                   state_blocks=pb["blocks"] + kb["blocks"])
-        # one unit's weights gathered whole while it runs
-        mem["gathered_unit"] = sum(
-            _nbytes(tuple(leaf.shape)[1:], leaf.dtype)
-            for stack, *_ in stacks
-            for leaf in tree_util.leaves(params[stack]))
-        c = _decode_unit_cost(cfg, cache, cspecs, sizes, rows, cfg.pattern)
-        flops = c["fwd"] * cfg.n_units + _head_flops(cfg, rows, 1,
-                                                     cfg.vocab, False)
-        for path, leaf in tree_util.flatten_with_paths(params):
-            gb = _leaf_gather_bytes(leaf, flat_specs[path], sizes, True)
-            colls["fsdp_gather"] += gb["data"]
-            colls["fsdp_gather_model"] += gb["model"]
+                   state_blocks=pb["blocks"] + kb["blocks"],
+                   gathered_unit=_unit_bytes(params, flat_specs, sizes, tp,
+                                             stacks))
+        c = _decode_unit_cost(cfg, params, pspecs, sizes, tp, B, T, rows)
+        flops = c["fwd"] * cfg.n_units + _head_flops(cfg, rows, 1, v_local,
+                                                     False)
+        # a step reads the decoder's units, the embedding, the final norm
+        # and the head, each leaf as the rank uses it
+        reads = 0
+        used = [(leaf[0], flat_specs[f"blocks/{p}"][1:], cfg.n_units)
+                for p, leaf in tree_util.flatten_with_paths(
+                    params["blocks"])]
+        used += [(params[k], flat_specs[k], 1)
+                 for k in ("embed", "lm_head", "final_norm") if k in params]
+        for leaf, spec, n in used:
+            colls["fsdp_gather"] += _leaf_gather_bytes(
+                leaf, spec, sizes, not tp)["data"] * n
+            reads += _nbytes(_used_shape(tuple(leaf.shape), spec, sizes,
+                                         tp), leaf.dtype) * n
+        if tp:
+            colls["tp_sum"] = _tp_sum_bytes(
+                cfg, mesh, sizes, "blocks", cfg.pattern, cfg.n_units, 0,
+                rows, 1, enc_len, False, act_dt)
+            colls["tp_regroup"] = _regroup_bytes(
+                params, flat_specs, sizes, "blocks", cfg.n_units, 0, False)
+            colls.update(_serve_bytes(cfg, mesh, sizes, B, rows, T, enc_len,
+                                      act_dt, False))
+            if v_local != cfg.vocab:
+                colls["vocab"] = (sizes["model"] - 1) * rows * (
+                    cfg.d_model + v_local) * act_dt
+        colls["rows_gather"] = _rows_gather_bytes(cfg, mesh, B, rows, act_dt)
         n_seq = math.prod(sizes[a] for a in seq_axes)
         n_attn = sum(b.kind == "attn" for b in cfg.pattern) * cfg.n_units
+        if cfg.cross_attn and enc_len % n_seq == 0:
+            n_attn *= 2       # the cross-attention's combine too
         a = next((b.attn for b in cfg.pattern if b.kind == "attn"), None)
         if a is not None and n_seq > 1:
             colls["sp_combine"] = (n_seq - 1) * rows * a.n_q * (
@@ -587,11 +729,12 @@ def dry_cell(arch: str, shape: str, multi_pod: bool = False,
             notes.append("the sequence is cut over every axis: the "
                          "combine crosses hosts")
         mem["activations"] = 0
-        hbm = pb["logical"] + mem["kv_cache"]
-    for k in ("fsdp_gather", "grad_data_sum", "pod_planes"):
+        hbm = reads + mem["kv_cache"]
+    for k in ("fsdp_gather", "grad_data_sum", "rows_gather", "pod_planes"):
         cross_host += colls[k]
-    nvlink = (colls["fsdp_gather_model"] + colls["tp_sum"]
-              + colls["tp_regroup"] + colls["vocab"])
+    nvlink = sum(colls[k] for k in ("fsdp_gather_model", "tp_sum",
+                                    "tp_regroup", "tp_heads", "tp_state",
+                                    "kv_all_to_all", "vocab"))
     if kind == "decode":
         seq_cross = any(x in decode_layout(mesh, B)[1] for x in ("data",
                                                                "pod"))

@@ -107,7 +107,8 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg, run=None):
     data rank's tokens (``run.data_total``; the one-hot carries no
     gradient) and p_e sums this rank's probabilities over them, so the
     data ranks' aux terms and their gradients add up to the logical
-    ones.  The router, its softmax and top-k and the aux run on every
+    ones; a serving rank's ``run`` (``run.serving``) takes no aux (0.0).
+    The router, its softmax and top-k and the aux run on every
     model rank alike; under tensor parallelism (``run.tp``) the experts
     are this rank's part, entered with the gate values (their gradients
     are partial) and summed over "model" with the shared expert's d_ff
@@ -123,14 +124,17 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg, run=None):
     E = mo.n_experts
     probs, gate_vals, _, onehot, pos_in_expert, C = moe_route(
         x, p["router"], mo)
-    # load-balancing aux loss (Switch): E * sum_e f_e * p_e
-    counts = torch.cat([onehot[:, :, 0, :].to(torch.float32).sum(
-        dim=(0, 1)), probs.new_full((1,), G * S)])
-    if run is not None:
-        counts = run.data_total(counts)
-    frac_tokens = counts[:E] / counts[E]
-    frac_probs = probs.sum(dim=(0, 1)) / counts[E]
-    aux = E * torch.sum(frac_tokens * frac_probs)
+    if run is not None and run.serving:
+        aux = 0.0        # a served forward reads no loss: no data sums
+    else:
+        # load-balancing aux loss (Switch): E * sum_e f_e * p_e
+        counts = torch.cat([onehot[:, :, 0, :].to(torch.float32).sum(
+            dim=(0, 1)), probs.new_full((1,), G * S)])
+        if run is not None:
+            counts = run.data_total(counts)
+        frac_tokens = counts[:E] / counts[E]
+        frac_probs = probs.sum(dim=(0, 1)) / counts[E]
+        aux = E * torch.sum(frac_tokens * frac_probs)
     tp = run.tp if run is not None else None
     n_local = p["wg_e"].shape[0]
     if n_local != E and tp is None:

@@ -55,9 +55,10 @@ class ModelApi:
     #                              aux)); run: a training mesh's PodRun
     forward: Callable         # (params, batch, run=) -> (logits, aux)
     prefill: Callable         # (params, batch, cache_len, delta=, eid=, start=,
-    #                            cache=, comm=, shard_rows=)
+    #                            cache=, comm=, shard_rows=, run=)
     decode_step: Callable     # (params, token, cache, delta=, eid=, comm=,
-    #                            decode_attn=)
+    #                            decode_attn=, run=); run: a serving rank's
+    #                            PodRun (train.within_pod.make_pod_serve)
     init_decode_cache: Callable   # (batch, cache_len, device=) -> cache
 
 
@@ -90,19 +91,26 @@ def build(cfg, remat_policy: str = "none") -> ModelApi:
         return loss, (logits, aux)
 
     def prefill_fn(params, batch, cache_len: int, delta=None, eid=None,
-                   start=None, cache=None, comm=None, shard_rows=False):
-        enc_out = (tf.encode(params, batch["frames"], cfg) if is_encdec
-                   else None)
+                   start=None, cache=None, comm=None, shard_rows=False,
+                   run=None):
+        if run is not None:
+            params = run.top(params)
+        enc_out = (tf.encode(params, batch["frames"], cfg, run=run)
+                   if is_encdec else None)
         mm = batch.get("mm_embeds") if is_vlm else None
         return tf.prefill(params, batch["tokens"], cfg, cache_len,
                           delta=delta, eid=eid, start=start, cache=cache,
                           comm=comm, shard_rows=shard_rows, mm_embeds=mm,
-                          enc_out=enc_out)
+                          enc_out=enc_out, run=run)
 
     def decode_fn(params, token, cache, delta=None, eid=None, comm=None,
-                  decode_attn=None):
+                  decode_attn=None, run=None):
+        if run is not None:     # a step reads no encoder and no frontend
+            params = run.top({k: params[k] for k in (
+                "embed", "lm_head", "final_norm", "blocks") if k in params})
         return tf.decode_step(params, token, cache, cfg, delta=delta,
-                              eid=eid, comm=comm, decode_attn=decode_attn)
+                              eid=eid, comm=comm, decode_attn=decode_attn,
+                              run=run)
 
     def init_cache(batch: int, cache_len: int, device="cuda"):
         return tf.init_decode_cache(cfg, batch, cache_len, device=device)

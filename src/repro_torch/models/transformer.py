@@ -38,6 +38,16 @@ gathers.  With a "model" axis the decode step (and a prefill asked for
 it) runs only this rank's rows (:class:`~repro_torch.distributed.
 collectives.RowLayout`) against a cache of those rows, and gathers the
 final hidden rows before the head.
+
+``prefill`` and ``decode_step`` also take ``run``, a serving rank of a
+("pod", "data", "model") mesh (:func:`repro_torch.train.within_pod.
+make_pod_serve`): each unit is gathered over "data" from the rank's
+blocks and runs cut over "model" with the training forward's
+tensor-parallel hooks, and the cache holds the rank's blocks as
+``cache_pspec`` places them (``run.serve``).  A decode step gathers a
+cut attention's q, k and v heads over "model", attends over the rank's
+sequence slice of the ring (and of the cross-KV) with every head and
+keeps its heads of the combined output for the cut ``wo``.
 """
 
 from __future__ import annotations
@@ -310,19 +320,29 @@ def _cross_kv(enc_out: torch.Tensor, cp: dict, tp=None):
     return _proj(enc_out, cp["wk"]), _proj(enc_out, cp["wv"])
 
 
-def _cross_attend(x, bp, b, cfg, ck, cv, tp=None):
+def _cross_attend(x, bp, b, cfg, ck, cv, tp=None, sp=None):
     """x + cross-attention over every source position of (ck, cv): no
     rope, no mask, no expert delta (the reference's cross branch).
     ``tp`` runs this rank's heads of a head-cut cross-attention between
-    Megatron's f and g."""
+    Megatron's f and g.  ``sp`` (a serving rank's decode,
+    :func:`repro_torch.distributed.collectives.make_sp_cross_attn`)
+    attends the rank's slice of the cross-KV with every head, the query's
+    heads gathered over "model" and this rank's kept."""
     hc = rms_norm(x, bp["cross_norm"], cfg.rms_eps)
     if tp is not None:
         hc = tp.enter(hc)
     qc = _proj(hc, bp["cross"]["wq"])
-    if tp is not None:
-        ck, cv = tp.local_kv(ck, cv, qc.shape[2], b.attn)
-    oc = flash_attention(qc, ck, cv, b.attn, causal=False,
-                         chunk_q=attn_mod.CHUNK_Q, chunk_k=attn_mod.CHUNK_K)
+    if sp is not None:
+        oc = sp(tp.all_heads(qc, b.attn.n_q) if tp is not None else qc,
+                ck, cv, b.attn)
+        if tp is not None:
+            oc = tp.own_heads(oc)
+    else:
+        if tp is not None:
+            ck, cv = tp.local_kv(ck, cv, qc.shape[2], b.attn)
+        oc = flash_attention(qc, ck, cv, b.attn, causal=False,
+                             chunk_q=attn_mod.CHUNK_Q,
+                             chunk_k=attn_mod.CHUNK_K)
     out = out_project(oc, bp["cross"])
     if tp is not None:
         out = tp.reduce(out)
@@ -361,8 +381,8 @@ def _apply_block(x, bp, b, cfg, positions, dp, eid, kv_start,
                  enc_out=None, run=None):
     """One block over a whole sequence from a zero state (training and
     prefill) -> (x, aux, this block's decode state: (k, v) of an
-    attention block, the final recurrent state of a mamba or rwkv
-    block).  ``run`` (a training mesh's
+    attention block, its KV heads as the rank holds them, the final
+    recurrent state of a mamba or rwkv block).  ``run`` (a training mesh's
     :class:`repro_torch.train.within_pod.PodRun`) brings its
     tensor-parallel hooks (``run.tp``,
     :class:`repro_torch.train.within_pod.TensorParallel`), which run an
@@ -384,9 +404,9 @@ def _apply_block(x, bp, b, cfg, positions, dp, eid, kv_start,
         h = heads.enter(h)
     q, k, v = qkv_project(h, bp["attn"], b.attn, positions, cfg.rms_eps,
                           dp=dp.get("attn"), eid=eid)
-    if heads is not None:
-        k, v = heads.local_kv(k, v, q.shape[2], b.attn)
-    o = flash_attention(q, k, v, b.attn, causal=b.attn.causal,
+    kq, vq = (heads.local_kv(k, v, q.shape[2], b.attn) if heads is not None
+              else (k, v))
+    o = flash_attention(q, kq, vq, b.attn, causal=b.attn.causal,
                         kv_start=kv_start, chunk_q=attn_mod.CHUNK_Q,
                         chunk_k=attn_mod.CHUNK_K)
     x = _attn_residual(x, o, bp, b, cfg, dp, eid, tp=heads)
@@ -400,7 +420,7 @@ def _apply_block(x, bp, b, cfg, positions, dp, eid, kv_start,
 
 
 def _decode_block(x, bp, b, cfg, st, cur, dp, eid, start, paged=None,
-                  cross=None, decode_attn=None):
+                  cross=None, decode_attn=None, run=None):
     """One-token step through one block, its state written in place.
 
     ``st`` holds the block's decode state for this unit (views of the
@@ -412,20 +432,34 @@ def _decode_block(x, bp, b, cfg, st, cur, dp, eid, start, paged=None,
     the shared position ``cur`` is used, written and attended by
     ``decode_attn`` when given (the sequence-parallel attention of
     :func:`repro_torch.distributed.collectives.make_sp_decode_attn`).
-    ``cross`` is this unit's cross (k, v) of an enc-dec decoder."""
+    ``cross`` is this unit's cross (k, v) of an enc-dec decoder.
+    ``run`` (a serving rank's, see the module's notes) runs the block cut
+    over "model": a head-cut attention gathers its q, k and v heads
+    around ``decode_attn`` and keeps its own heads of the output, a mamba
+    block steps the rank's d_inner slice of its placed state."""
+    tp = run.tp if run is not None else None
     if b.kind in _STATE_NAMES:
         names = _STATE_NAMES[b.kind]
         old = tuple(st[n] for n in names)
         if b.kind == "mamba":
-            x, _, new = _mamba_block(x, bp, b, cfg, old, 1)
+            if run is not None:
+                old = run.serve.mamba_state(
+                    *old, bp["mamba"]["in_proj"].shape[-1] // 2)
+            x, _, new = _mamba_block(x, bp, b, cfg, old, 1, run=run)
+            if run is not None:
+                new = run.serve.place_state("mamba", new)
         else:
             # a single-token step: the exact form (the matmul form gains
             # nothing at chunk 1), as in the reference
-            x, new = _rwkv_block(x, bp, b, cfg, old, 1, "einsum")
+            x, new = _rwkv_block(x, bp, b, cfg, old, 1, "einsum", tp=tp)
         for n, t in zip(names, new):
             st[n].copy_(t)
         return x
     h = _norm(x, bp, "pre_norm", cfg, dp, eid)
+    heads = tp if tp is not None and tp.heads_cut(bp["attn"], b.attn) \
+        else None
+    if heads is not None:
+        h = heads.enter(h)
     if paged is not None:
         tables, lens, active = paged
         positions = lens[:, None]                    # [B, 1] per row
@@ -433,6 +467,9 @@ def _decode_block(x, bp, b, cfg, st, cur, dp, eid, start, paged=None,
         positions = cur.reshape(1, 1)
     q, k, v = qkv_project(h, bp["attn"], b.attn, positions, cfg.rms_eps,
                           dp=dp.get("attn"), eid=eid)
+    if heads is not None:       # [rows, 1, H, D]: every head, then ours
+        q, k, v = (heads.all_heads(t, n) for t, n in (
+            (q, b.attn.n_q), (k, b.attn.n_kv), (v, b.attn.n_kv)))
     if paged is not None:
         paged_cache_write(st["k"], st["v"], tables, lens, active, k, v)
         o, m, l = paged_attention_partial(q, st["k"], st["v"], tables, lens,
@@ -444,10 +481,16 @@ def _decode_block(x, bp, b, cfg, st, cur, dp, eid, start, paged=None,
         cache_write(st["k"], st["v"], st["pos"], k, v, cur)
         o = decode_attention(q, st["k"], st["v"], st["pos"], cur, b.attn,
                              start=start).to(q.dtype)
-    x = _attn_residual(x, o, bp, b, cfg, dp, eid)
+    if heads is not None:
+        o = heads.own_heads(o)
+    x = _attn_residual(x, o, bp, b, cfg, dp, eid, tp=heads)
     if cross is not None:
-        x = _cross_attend(x, bp, b, cfg, *cross)
-    return _apply_ffn(x, bp, b, cfg, dp, eid)[0]
+        ctp = tp if tp is not None and tp.heads_cut(bp["cross"], b.attn) \
+            else None
+        x = _cross_attend(x, bp, b, cfg, *cross, tp=ctp,
+                          sp=run.serve.cross_attn if run is not None
+                          else None)
+    return _apply_ffn(x, bp, b, cfg, dp, eid, run=run)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -665,7 +708,7 @@ def _init_unit_states(cfg, b, batch: int, dtype, device) -> dict:
 
 
 def decode_step(params, token, cache, cfg, delta=None, eid=None,
-                comm=None, decode_attn=None):
+                comm=None, decode_attn=None, run=None):
     """token [B, 1] -> (logits [B, 1, V], cache).
 
     Dense ring: ``cache["cur"]`` is the position of this token, a 0-d
@@ -680,9 +723,12 @@ def decode_step(params, token, cache, cfg, delta=None, eid=None,
     (the reference's ``Runtime.decode_attn``) takes each attention
     block's dense-ring write and attention: ``decode_attn(q, k, v, st,
     cur, attn_cfg, start) -> o [B, 1, Hq, D]`` in q's dtype, ``st`` the
-    unit's {"k", "v", "pos"} views, written in place.
+    unit's {"k", "v", "pos"} views, written in place.  ``run`` (a serving
+    rank of a pod mesh, see the module's notes) runs its rows against
+    its blocks of the cache; the logits are every vocab entry's.
     """
-    x = embed_tokens(params, token, cfg, delta=delta, eid=eid, comm=comm)
+    x = embed_tokens(params, token, cfg, delta=delta, eid=eid, comm=comm,
+                     run=run)
     x = x.to(dtype_of(cfg))
     lay = comm.rows_for(x.shape[0], x.device) if comm is not None else None
     eid_all = eid
@@ -700,6 +746,8 @@ def decode_step(params, token, cache, cfg, delta=None, eid=None,
     dblocks = delta.get("blocks") if delta is not None else None
     for u in range(cfg.n_units):
         unit_params = _unit(params["blocks"], u)
+        if run is not None:
+            unit_params = run.unit("blocks", unit_params)
         unit_delta = slice_unit(dblocks, u) if dblocks is not None else {}
         for i, b in enumerate(cfg.pattern):
             name = f"block{i}"
@@ -708,10 +756,14 @@ def decode_step(params, token, cache, cfg, delta=None, eid=None,
                   if cross is not None and b.kind == "attn" else None)
             x = _decode_block(x, unit_params[name], b, cfg, st, cur,
                               unit_delta.get(name) or {}, eid, start,
-                              paged=pg, cross=ck, decode_attn=decode_attn)
+                              paged=pg, cross=ck, decode_attn=decode_attn,
+                              run=run)
     if lay is not None:
         x = comm.gather_rows(x, lay)
-    logits = logits_of(params, x, cfg, delta=delta, eid=eid_all, comm=comm)
+    logits = logits_of(params, x, cfg, delta=delta, eid=eid_all, comm=comm,
+                       run=run)
+    if run is not None:
+        logits = run.whole_vocab(logits)
     if paged:
         cache["lens"].add_(cache["active"].to(torch.int32))
     else:
@@ -740,7 +792,8 @@ def _ring_fill(full: torch.Tensor, S: int):
 def prefill(params, tokens, cfg, cache_len: int, delta=None,
             eid=None, start: Optional[torch.Tensor] = None,
             cache: Optional[dict] = None, comm=None,
-            shard_rows: bool = False, mm_embeds=None, enc_out=None):
+            shard_rows: bool = False, mm_embeds=None, enc_out=None,
+            run=None):
     """Run the whole prompt; returns (last-token logits [B, 1, V], cache).
 
     ``start`` ([B] int32, optional) marks each row's first real token:
@@ -757,10 +810,14 @@ def prefill(params, tokens, cfg, cache_len: int, delta=None,
     without it a fresh cache is made.  ``comm`` (a serving mesh) makes the
     embedding and head vocab-parallel; with ``shard_rows`` each rank runs
     only its rows and ``cache`` holds those, else every rank runs every
-    row.
+    row.  ``run`` (a serving rank of a pod mesh, see the module's notes)
+    runs the rank's rows, fills its blocks of the cache (the K/V of the
+    rank's heads sent to the ranks of each sequence slice, mamba's
+    d_inner slices gathered where ``cache_pspec`` holds them whole, the
+    cross-KV unit by unit) and gives every vocab entry's logits.
     """
     x = embed_tokens(params, tokens, cfg, delta=delta, eid=eid, comm=comm,
-                     mm_embeds=mm_embeds)
+                     mm_embeds=mm_embeds, run=run)
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device)[None, :]
     lay = (comm.rows_for(B, x.device)
@@ -773,26 +830,42 @@ def prefill(params, tokens, cfg, cache_len: int, delta=None,
         enc_out = lay.local(enc_out) if enc_out is not None else None
         B = lay.R
     dblocks = delta.get("blocks") if delta is not None else None
+    serve = run.serve if run is not None else None
     if cache is None:
-        cache = init_decode_cache(cfg, B, cache_len, dtype=dtype_of(cfg),
-                                  device=x.device)
+        cache = (serve.new_cache(dtype_of(cfg), x.device) if serve
+                 else init_decode_cache(cfg, B, cache_len,
+                                        dtype=dtype_of(cfg),
+                                        device=x.device))
     for u in range(cfg.n_units):
         unit_params = _unit(params["blocks"], u)
+        if run is not None:
+            unit_params = run.unit("blocks", unit_params)
         unit_delta = slice_unit(dblocks, u) if dblocks is not None else {}
         for i, b in enumerate(cfg.pattern):
             name = f"block{i}"
             x, _, st = _apply_block(x, unit_params[name], b, cfg, positions,
                                     unit_delta.get(name) or {}, eid, start,
-                                    enc_out=enc_out)
+                                    enc_out=enc_out, run=run)
             layer = cache["layers"][name]
             if b.kind == "attn":
-                S = layer["k"].shape[2]
-                layer["k"][u], layer["pos"][u] = _ring_fill(st[0], S)
-                layer["v"][u] = _ring_fill(st[1], S)[0]
+                a = b.attn
+                S = min(cache_len, a.window) if a.window else cache_len
+                (k, pos), v = _ring_fill(st[0], S), _ring_fill(st[1], S)[0]
+                if serve is not None:
+                    k, v = (serve.place_seq(t, a.n_kv) for t in (k, v))
+                    pos = serve.place_pos(pos)
+                layer["k"][u], layer["v"][u], layer["pos"][u] = k, v, pos
             else:
+                if serve is not None:
+                    st = serve.place_state(b.kind, st)
                 for n, t in zip(_STATE_NAMES[b.kind], st):
                     layer[n][u] = t
-    if enc_out is not None:
+        if serve is not None and enc_out is not None:
+            a = cfg.pattern[0].attn
+            for k, t in zip(("k", "v"), _cross_kv(
+                    enc_out, unit_params["block0"]["cross"])):
+                cache["cross"][k][u] = serve.place_seq(t, a.n_kv)
+    if serve is None and enc_out is not None:
         for k, t in cross_cache_from_encoder(params, enc_out, cfg).items():
             cache["cross"][k].copy_(t)
     cache["cur"].fill_(T)
@@ -806,5 +879,6 @@ def prefill(params, tokens, cfg, cache_len: int, delta=None,
     x = x[:, -1:]
     if lay is not None:
         x = comm.gather_rows(x, lay)
-    return logits_of(params, x, cfg, delta=delta, eid=eid_all,
-                     comm=comm), cache
+    logits = logits_of(params, x, cfg, delta=delta, eid=eid_all, comm=comm,
+                       run=run)
+    return (run.whole_vocab(logits) if run is not None else logits), cache

@@ -66,6 +66,20 @@ the collectives are written out:
   (:func:`repro_torch.core.gradient_compression.
   compressed_cross_pod_mean_sharded`).
 
+**Serving inside a pod** (:func:`make_pod_serve`) runs the reference's
+prefill and decode cells as it lowers them: the parameters placed by
+``param_shardings`` (:func:`pod_serve_params`), each unit gathered over
+"data" only and run with the tensor-parallel hooks above, the decode
+cache placed by ``cache_pspec`` (:class:`PodServe`): every head of the
+rank's sequence slice of each attention ring and of the cross-KV (one
+all-to-all over "model" after the prefill computed the rank's heads),
+mamba's states on the rank's d_inner slice (gathered over "model" where
+the batch divides and ``cache_pspec`` holds them whole), rwkv's by the
+batch.  A decode step gathers the rank's q, k and v heads over "model"
+(``[rows, 1, H, D]``), attends over its slice with every head, combines
+the partials over the sequence shards and keeps its heads of the output
+for the cut ``wo``.  No leaf is gathered over "model" here either.
+
 Every sum across ranks exchanges the parts (an all-gather, or an
 ``all_to_all`` for the gradients' data sum and the tensor-parallel sums)
 and adds them in rank order, so the result does not depend on a backend's reduction
@@ -84,18 +98,20 @@ import threading
 from typing import Any
 
 import torch
-import torch.distributed as dist
 
 from repro_torch import tree as tree_util
-from repro_torch.distributed.collectives import (all_gather_dim0,
+from repro_torch.distributed.collectives import (MeshComm, _seq_index,
                                                  all_reduce_ordered,
-                                                 gather_axes,
+                                                 make_sp_cross_attn,
+                                                 make_sp_decode_attn,
                                                  make_vp_embed_lookup,
                                                  ordered_sum,
                                                  reduce_scatter_ordered)
 from repro_torch.distributed.sharding import (_axes_of, assemble,
                                               batch_axes, batch_shardings,
+                                              cache_placement, decode_layout,
                                               local_shard, param_shardings,
+                                              shard_tree,
                                               train_state_shardings)
 from repro_torch.launch.mesh import TRAIN_AXES, mesh_axes
 
@@ -119,19 +135,6 @@ def _cut_axes(sizes: dict, spec) -> tuple:
 # ---------------------------------------------------------------------------
 # Collectives: a mesh's, or threads' in one process
 # ---------------------------------------------------------------------------
-
-
-class MeshComm:
-    """The gathers of one rank of a training mesh."""
-
-    def __init__(self, mesh):
-        self.mesh = mesh
-        self.sizes = mesh_axes(mesh)
-        self.coords = {a: mesh.get_local_rank(a) for a in self.sizes}
-
-    def gather(self, t: torch.Tensor, axes: tuple) -> torch.Tensor:
-        """[n, *t.shape]: ``t`` of the ranks differing along ``axes``."""
-        return gather_axes(t, self.mesh, axes)
 
 
 class _Hub:
@@ -165,10 +168,14 @@ class ThreadComm:
         self.hub.barrier.wait()
         return out
 
+    def total(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """:meth:`MeshComm.total`: the ranks' ``t`` summed in rank order,
+        f32."""
+        return ordered_sum(self.gather(t, (axis,)))
+
     def all_to_all(self, send: torch.Tensor, to, frm,
                    axis: str) -> torch.Tensor:
-        """:meth:`PodRun.model_all_to_all` between the ranks along
-        ``axis``."""
+        """:meth:`MeshComm.all_to_all` between the threads."""
         names = tuple(self.sizes)
         self.hub.slots[tuple(self.coords[a] for a in names)] = dict(
             zip(to, send))
@@ -234,8 +241,7 @@ def _gather_dim(t: torch.Tensor, dim: int, run: "PodRun",
     contiguous: a product then reads the leaf in the logical leaf's
     layout, as the one-process oracle's does (a strided operand may take
     another kernel that sums in another order)."""
-    n = run.sizes[axis]
-    out = all_gather_dim0(t.movedim(dim, 0), run.mesh.get_group(axis), n)
+    out = run.comm.gather(t.movedim(dim, 0), (axis,)).flatten(0, 1)
     return out.movedim(0, dim).contiguous()
 
 
@@ -396,48 +402,64 @@ class TensorParallel:
                            device=k.device) // G
         return k.index_select(2, idx), v.index_select(2, idx)
 
+    def all_heads(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """[B, T, h, D] of this rank's heads -> all ``n`` heads, gathered
+        over "model" in rank order (``wq``/``wk`` cut them contiguously);
+        heads held whole are returned as they are."""
+        if t.shape[2] == n:
+            return t
+        return self.run.model_gather(t).movedim(0, 2).flatten(2, 3)
+
+    def own_heads(self, o: torch.Tensor) -> torch.Tensor:
+        """This rank's heads of [B, T, H, D] (for the cut ``wo``)."""
+        h = o.shape[2] // self.run.n_model
+        return o[:, :, self.rank * h:(self.rank + 1) * h]
+
 
 class PodRun:
     """One rank's forward on a training mesh: what the model code asks of
     ``run`` (:func:`repro_torch.models.transformer.forward_train`).
     ``specs`` are the parameters' placements (:func:`param_shardings`
-    of the logical tree)."""
+    of the logical tree).  ``comm`` carries the collectives (the mesh's
+    own :class:`MeshComm` by default; :class:`ThreadComm` for ranks that
+    are threads, ``mesh`` then their :class:`AxisSizes`).  ``serve``
+    (``(global_batch, cache_len)``) makes it a serving rank's
+    (:func:`make_pod_serve`): ``run.serve`` holds the decode cache's
+    placement (:class:`PodServe`), no unit is recomputed and an MoE
+    takes no load-balancing sum."""
 
-    def __init__(self, cfg, mesh, specs: PyTree):
+    def __init__(self, cfg, mesh, specs: PyTree, comm=None, serve=None):
         self.cfg, self.mesh = cfg, mesh
-        self.sizes = mesh_axes(mesh)
-        self.coords = {a: mesh.get_local_rank(a) for a in self.sizes}
+        self.comm = comm if comm is not None else MeshComm(mesh)
+        self.sizes = dict(self.comm.sizes)
+        self.coords = dict(self.comm.coords)
         self.specs = dict(tree_util.flatten_with_paths(specs))
         self.n_data = self.sizes.get("data", 1)
         self.n_model = self.sizes.get("model", 1)
         self.tp = TensorParallel(self) if self.n_model > 1 else None
+        self.serving = serve is not None
         # whether a unit gathers leaves (then every unit but the last is
         # recomputed in the backward, so what it gathered is dropped
         # after its forward)
-        self.gathers = self.n_data > 1
+        self.gathers = self.n_data > 1 and not self.serving
         self.vocab_parallel = (self.tp is not None
                                and "model" in self.specs["embed"])
-        self._lookup = make_vp_embed_lookup(mesh)
+        self._lookup = make_vp_embed_lookup(mesh, self.comm)
+        self.serve = PodServe(self, cfg, *serve) if self.serving else None
 
     # ---- collectives over "model" and the gradient reduction ----
     def model_gather(self, x: torch.Tensor) -> torch.Tensor:
-        return gather_axes(x, self.mesh, ("model",))
+        return self.comm.gather(x, ("model",))
 
     def model_sum(self, x: torch.Tensor) -> torch.Tensor:
-        return all_reduce_ordered(x, self.mesh.get_group("model"),
-                                  self.n_model)
+        return self.comm.total(x, "model")
 
     def model_all_to_all(self, send: torch.Tensor, to,
                          frm) -> torch.Tensor:
         """Row i of ``send`` to the i-th of the model ranks ``to`` (in rank
         order) -> what the model ranks ``frm`` sent this rank, a row each
         in rank order."""
-        recv = send.new_empty((len(frm),) + tuple(send.shape[1:]))
-        dist.all_to_all_single(
-            recv, send, [int(r in frm) for r in range(self.n_model)],
-            [int(r in to) for r in range(self.n_model)],
-            group=self.mesh.get_group("model"))
-        return recv
+        return self.comm.all_to_all(send, to, frm, "model")
 
     def data_total(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the data ranks of this rank's pod in rank
@@ -446,7 +468,7 @@ class PodRun:
         no gradient."""
         if self.n_data == 1:
             return t
-        return ordered_sum(gather_axes(t.detach(), self.mesh, ("data",)))
+        return ordered_sum(self.comm.gather(t.detach(), ("data",)))
 
     def reduce_grad(self, g: torch.Tensor, cuts, partial: bool):
         """A used leaf's gradient -> this rank's block's: summed over
@@ -525,11 +547,127 @@ class PodRun:
     def head_input(self, x: torch.Tensor) -> torch.Tensor:
         return _Enter.apply(x, self) if self.vocab_parallel else x
 
+    def whole_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """Logits of every vocab entry: a vocab-parallel head's slices
+        [..., V / M] gathered over "model" in rank order."""
+        if not self.vocab_parallel:
+            return logits
+        return self.model_gather(logits).movedim(0, -2).flatten(-2)
+
     def cross_entropy(self, logits, targets):
         if self.vocab_parallel:
             return _VocabCE.apply(logits, targets, self)
         from repro_torch.models.model import cross_entropy
         return cross_entropy(logits, targets, total=self.data_total)
+
+
+class PodServe:
+    """A serving rank's decode cache (``run.serve``, read by
+    :func:`repro_torch.models.transformer.prefill` and ``decode_step``):
+    placed by :func:`repro_torch.distributed.sharding.cache_placement`
+    for ``global_batch`` rows (``cache_pspec``, a dim that does not
+    divide kept whole), and the exchanges that put each prefilled leaf
+    there.  The batch is cut over the data axes where it divides, else
+    every rank runs every row and the sequence is cut over every axis
+    (``decode_layout``)."""
+
+    def __init__(self, run: PodRun, cfg, global_batch: int,
+                 cache_len: int):
+        self.run, self.cfg = run, cfg
+        self.global_batch, self.cache_len = global_batch, cache_len
+        self.mesh = AxisSizes(run.sizes)
+        baxes, self.seq_axes = decode_layout(self.mesh, global_batch)
+        # the batch cut over the data axes; then cache_pspec holds
+        # mamba's states whole over "model", else on d_inner
+        self.rows_cut = baxes is not None
+        self.n_seq = 1
+        for a in self.seq_axes:
+            self.n_seq *= run.sizes[a]
+        self.seq_me = _seq_index(run.comm, self.seq_axes)
+        self.decode_attn = make_sp_decode_attn(self.mesh, global_batch,
+                                               cache_len, comm=run.comm)
+        self.cross_attn = (make_sp_cross_attn(
+            self.mesh, global_batch, cfg.frontend.n_tokens, run.comm)
+            if cfg.cross_attn else None)
+
+    def rows(self, tree: PyTree) -> PyTree:
+        """This rank's rows of a global batch (every row when the batch
+        does not divide)."""
+        if not self.rows_cut:
+            return tree
+        return local_rows(tree, self.mesh, self.run.coords)
+
+    def every_row(self, t: torch.Tensor) -> torch.Tensor:
+        """[rows, ...] of this rank -> [B, ...] of every rank's rows."""
+        if not self.rows_cut:
+            return t
+        return self.run.comm.gather(t, batch_axes(self.mesh)).flatten(0, 1)
+
+    def new_cache(self, dtype, device) -> dict:
+        """A decode cache of this rank's blocks: zeros, ``pos`` -1."""
+        from repro_torch.models.transformer import init_decode_cache
+        meta = init_decode_cache(self.cfg, self.global_batch, self.cache_len,
+                                 dtype=dtype, device="meta")
+        specs = cache_placement(meta, self.mesh, self.global_batch)
+        return tree_util.unflatten_paths({
+            p: torch.full(local_shard(t, s, self.mesh,
+                                      self.run.coords).shape,
+                          -1 if p.endswith("/pos") else 0, dtype=t.dtype,
+                          device=device)
+            for (p, t), s in zip(tree_util.flatten_with_paths(meta),
+                                 tree_util.leaves(specs))})
+
+    def _slice(self, t: torch.Tensor, dim: int, j: int) -> torch.Tensor:
+        L = t.shape[dim] // self.n_seq
+        return t.narrow(dim, j * L, L)
+
+    def place_seq(self, t: torch.Tensor, n_heads: int) -> torch.Tensor:
+        """A sequence [B, S, h, D] this rank computed for its heads (a
+        filled ring, or the cross-KV over the encoder positions) -> its
+        placed block: every head over the rank's sequence slice, by one
+        all-to-all over "model" when the heads are cut (model rank j
+        receives slice ``seq_me - m + j``: "model" is the layout's last
+        sequence axis); a length that does not divide stays whole, its
+        heads gathered."""
+        cut = t.shape[2] != n_heads
+        if t.shape[1] % self.n_seq:
+            return self.run.tp.all_heads(t, n_heads) if cut else t
+        if not cut:
+            return self._slice(t, 1, self.seq_me)
+        M, m = self.run.n_model, self.run.coords["model"]
+        send = torch.stack([self._slice(t, 1, self.seq_me - m + j)
+                            for j in range(M)])
+        recv = self.run.model_all_to_all(send, range(M), range(M))
+        return recv.movedim(0, 2).flatten(2, 3)
+
+    def place_pos(self, pos: torch.Tensor) -> torch.Tensor:
+        """A ring's slot positions [S] -> the rank's slice."""
+        if pos.shape[0] % self.n_seq:
+            return pos
+        return self._slice(pos, 0, self.seq_me)
+
+    def _mamba_cut(self) -> bool:
+        """Whether the rank runs a d_inner slice of mamba that
+        ``cache_pspec`` holds whole over "model" (the batch divides)."""
+        return self.run.tp is not None and self.rows_cut
+
+    def place_state(self, kind: str, st: tuple) -> tuple:
+        """A recurrent block's state the rank computed -> its placed
+        block.  Mamba's ``h`` [B, d, N] and conv ring [B, K - 1, d] of the
+        rank's d_inner slice are gathered over "model" where the batch
+        divides; rwkv's (its time mix runs whole on every rank) are kept."""
+        if kind != "mamba" or not self._mamba_cut():
+            return st
+        h, conv = (self.run.model_gather(t) for t in st)
+        return h.movedim(0, 1).flatten(1, 2), conv.movedim(0, 2).flatten(2, 3)
+
+    def mamba_state(self, h: torch.Tensor, conv: torch.Tensor,
+                    d_local: int) -> tuple:
+        """The rank's d_inner slice of a placed mamba state (views)."""
+        if not self._mamba_cut():
+            return h, conv
+        lo = self.run.coords["model"] * d_local
+        return h.narrow(1, lo, d_local), conv.narrow(2, lo, d_local)
 
 
 # ---------------------------------------------------------------------------
@@ -651,6 +789,58 @@ def make_within_pod_step(api, tcfg, mesh):
     return step
 
 
+def pod_serve_params(params: PyTree, cfg, mesh, index=None,
+                     device="cuda") -> PyTree:
+    """This rank's blocks of a mesh-free parameter tree (from ``init``
+    or :mod:`repro_torch.convert`) under :func:`param_shardings`: FSDP
+    over "data", tensor parallelism over "model", on ``device``.
+    ``index`` gives the rank's coordinates explicitly (a mesh of axis
+    sizes alone)."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    return tree_util.tree_map(
+        lambda t: t.to(dev),
+        shard_tree(params, param_shardings(params, cfg, mesh), mesh, index))
+
+
+def make_pod_serve(api, mesh, global_batch: int, cache_len: int,
+                   comm=None):
+    """-> (prefill, decode_step) of one rank of a ("pod", "data",
+    "model") mesh: the reference's prefill and decode cells as it lowers
+    them under ``param_shardings`` (``api.prefill(params, batch, rt,
+    cache_len)`` and ``api.decode_step(params, token, cache, rt)``, no
+    expert).
+
+    ``prefill(params, batch) -> (logits [B, 1, V], cache)`` and
+    ``decode_step(params, token, cache) -> (logits [B, 1, V], cache)``:
+    ``params`` are the rank's blocks (:func:`pod_serve_params`),
+    ``batch`` and ``token`` ([B, 1]) the global ones on every rank, which
+    runs its rows (:meth:`PodServe.rows`); each unit is gathered over
+    "data" and runs cut over "model" (no leaf is gathered over it), and
+    the cache is the rank's blocks (:class:`PodServe`), written in
+    place by the decode.  The logits are every row's, on every rank (the
+    reference's replicated ``out_shardings``).  ``comm`` as in
+    :class:`PodRun`."""
+    run = PodRun(api.cfg, mesh, logical_specs(api.cfg, mesh), comm=comm,
+                 serve=(global_batch, cache_len))
+    serve = run.serve
+
+    def prefill(params, batch):
+        with torch.no_grad():
+            lg, cache = api.prefill(params, serve.rows(batch), cache_len,
+                                    run=run)
+            return serve.every_row(lg), cache
+
+    def decode_step(params, token, cache):
+        with torch.no_grad():
+            lg, cache = api.decode_step(
+                params, serve.rows({"token": token})["token"], cache,
+                run=run, decode_attn=serve.decode_attn)
+            return serve.every_row(lg), cache
+
+    return prefill, decode_step
+
+
 # ---------------------------------------------------------------------------
 # The one-process oracles' pieces
 # ---------------------------------------------------------------------------
@@ -673,6 +863,7 @@ class _OneRank:
 
     tp = None
     gathers = False
+    serving = False
 
     def __init__(self):
         self.parts: list = []

@@ -6,17 +6,24 @@ experts cut on E, both tensor-parallel, with no whole-leaf gather over
 "model"), a decode cell (qwen3-32b ``decode_32k`` on (2, 32, 8)) and a
 ``long_500k`` cell (gemma2-9b, the sequence cut over every axis); and
 ``train_4k`` of the families beyond decoder-only attention (jamba,
-rwkv6, seamless, internvl2) tensor-parallel on (32, 8).  Each
-row carries per-rank bytes, FLOPs, collective bytes by kind, the
+rwkv6, seamless, internvl2) tensor-parallel on (32, 8); the serving
+cells (every ``decode_32k`` and ``long_500k``, and two ``prefill_32k``)
+with each unit cut over "model" as training cuts it, nothing gathered
+over "model", and jamba's ``decode_32k`` and ``long_500k`` fitting.
+Each row carries per-rank bytes, FLOPs, collective bytes by kind, the
 roofline terms at the H100's numbers and "fits"; the rank's blocks of
 every leaf, times the blocks, are the logical state's bytes; the cell
 table is the reference's."""
 
+import functools
 import json
 
 import pytest
 
 from repro_torch.launch import dryrun
+
+# one computation of a cell for the tests of this module
+cell = functools.lru_cache(maxsize=None)(dryrun.dry_cell)
 
 CELLS = [("qwen2_5_3b", "train_4k", False), ("qwen3_32b", "decode_32k", True),
          ("gemma2_9b", "long_500k", False),
@@ -37,9 +44,9 @@ def test_dry_cell_rows(arch, shape, multi_pod, tmp_path):
     assert terms["compute_s"] == res["flops"] / 989e12
     assert terms["cross_host_s"] is None
     colls = res["collective_bytes"]
+    assert colls["fsdp_gather_model"] == 0
     if res["kind"] == "train":
         assert res["tensor_parallel"] and colls["tp_sum"] > 0
-        assert colls["fsdp_gather_model"] == 0
         # a reduce-scatter receives (D - 1) / D of each cut leaf once, the
         # FSDP gathers as much twice (forward and recompute)
         assert 0 < colls["grad_data_sum"] < colls["fsdp_gather"]
@@ -70,7 +77,7 @@ def test_every_family_trains_tensor_parallel(arch):
     from repro_torch import tree as tree_util
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
-    res = dryrun.dry_cell(arch, "train_4k")
+    res = cell(arch, "train_4k")
     colls = res["collective_bytes"]
     assert res["tensor_parallel"] and colls["tp_sum"] > 0
     assert colls["fsdp_gather_model"] == 0
@@ -120,3 +127,59 @@ def test_cell_table_is_the_reference_s():
         if s != "long_500k" or a in ref["LONG_OK"]]
     assert len(dryrun.cell_list(include_paper_arch=True)) == len(
         dryrun.cell_list()) + 3
+
+
+JAMBA = "jamba_1_5_large_398b"
+SERVE_CELLS = ([c for c in dryrun.cell_list()
+                if c[1] in ("decode_32k", "long_500k")]
+               + [("rwkv6_3b", "prefill_32k"),
+                  ("mixtral_8x7b", "prefill_32k")])
+
+
+@pytest.mark.parametrize("arch,shape", SERVE_CELLS)
+def test_serving_cells_cut_every_unit_over_model(arch, shape):
+    """A serving cell on (32, 8) gathers no leaf over "model", sums over
+    it, and counts the unit a rank uses cut (``gathered_unit`` at most
+    the whole unit's share); a decode step's exchanges are counted
+    (``tp_heads`` where the heads are cut), a prefill's KV all-to-all."""
+    import math
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import heads_shardable
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.within_pod import AxisSizes
+    res = cell(arch, shape)
+    colls = res["collective_bytes"]
+    assert res["tensor_parallel"] and colls["fsdp_gather_model"] == 0
+    assert colls["tp_sum"] > 0 and res["flops"] > 0
+    cfg = get_config(arch)
+    whole = sum(math.prod(t.shape) * t.element_size()
+                for t in tree_util.leaves(init_params(cfg, device="meta")))
+    assert res["memory_bytes"]["gathered_unit"] < whole // (
+        cfg.n_units + cfg.enc_n_units)
+    cut = any(b.kind == "attn" and heads_shardable(
+        cfg, AxisSizes(dryrun.MESH_SINGLE), b.attn.n_q)
+        for b in cfg.pattern)
+    if res["kind"] == "decode":
+        assert (colls["tp_heads"] > 0) == cut
+        assert colls["kv_all_to_all"] == 0
+    else:
+        assert (colls["kv_all_to_all"] > 0) == cut
+        assert colls["tp_heads"] == 0
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_jamba_serving_cells_fit_with_the_training_unit(shape):
+    """jamba's decode cells on (32, 8) fit in 80 GB: a rank uses the unit
+    cut as ``train_4k`` uses it (11.07 GB, where the whole unit took 88.33
+    GB), and mamba's state is gathered over "model" only where the batch
+    divides (``decode_32k``; ``long_500k`` holds it on d_inner)."""
+    res = cell(JAMBA, shape)
+    mem = res["memory_bytes"]
+    assert res["fits"] and mem["total"] <= 80e9
+    assert mem["gathered_unit"] == cell(JAMBA, "train_4k")[
+        "memory_bytes"]["gathered_unit"]
+    assert 11e9 < mem["gathered_unit"] < 11.2e9
+    colls = res["collective_bytes"]
+    assert (colls["tp_state"] > 0) == (shape == "decode_32k")
+    assert colls["tp_regroup"] > 0

@@ -255,3 +255,14 @@ def test_training_mesh_modules_export_the_rules():
     assert all(hasattr(d, n) for n in d.__all__)
     assert {"make_within_pod_step", "within_pod_in_one_process",
             "shard_train_state", "PodRun"} <= set(dir(within_pod))
+
+
+def test_pod_serving_is_exported():
+    """Serving inside a pod: the entry points, the serving rank's cache
+    placement and the collectives it runs through."""
+    import repro_torch.distributed as d
+    from repro_torch.train import within_pod
+    assert {"MeshComm", "make_sp_cross_attn",
+            "cache_placement"} <= set(d.__all__)
+    assert {"make_pod_serve", "pod_serve_params", "PodServe",
+            "ThreadComm"} <= set(dir(within_pod))
