@@ -144,8 +144,10 @@ failure with a non-zero exit:
      after phases 3, 3d and 3m;
   3w. (run right after phase 3, while this process holds least of the
      card) training inside a pod and sequence-parallel decode
-     (``within_path``), ranks as gloo processes sharing the card, two
-     (beside this process's decode references) then four: (a) the within-pod step on qwen2.5-3b at 1 unit, 2 AdamW
+     (``within_path``), ranks as gloo processes sharing the card: after
+     (c)'s mesh-free step, (d)'s world of four beside this process's
+     other references, the world of two and (a)'s oracles, then the
+     world of four: (a) the within-pod step on qwen2.5-3b at 1 unit, 2 AdamW
      steps of 8 x 64 tokens in 2 microbatches with half of the targets
      of data rank 0's rows at -1, on (1, 2, 1) (FSDP) and (2, 2, 1)
      (FSDP and compressed pods), every rank's blocks and the losses
@@ -161,7 +163,7 @@ failure with a non-zero exit:
      run and the greedy tokens equal up to a near-tie; (c) the MoE
      family on "model": mixtral-8x7b at full width, 1 unit, f32, 2 AdamW
      steps of (a)'s batches, its mesh-free step first in this process
-     (freed before the ranks start), then the four ranks on (1, 2, 2)
+     (freed before any rank starts), then the four ranks on (1, 2, 2)
      with the experts cut on d_ff as published and on E
      (``expert_parallel=True``), every rank's losses within 1e-4 and
      every parameter block within 1e-4 of the mesh-free step's, each
@@ -173,8 +175,8 @@ failure with a non-zero exit:
      them, f32, 2 AdamW steps of (a)'s batches (a frontend's frames or
      patches besides the 64 text tokens) on (1, 2, 2), a world of four
      of its own beside (a)'s world of two and (b)'s decode references,
-     each rank held to the mesh-free step (run first in this process,
-     beside the world of two) at (c)'s tolerances,
+     each rank held to the mesh-free step (run in this process beside
+     it, its parameters read when written) at (c)'s tolerances,
      every block of its state at its placed shape and every leaf placed
      on "model" cut over it: rwkv6-3b at full width with 1 unit (its
      channel mix cut on d_ff), internvl2-1b at full width with 1 unit
@@ -6037,7 +6039,10 @@ def mesh_free_reference(torch, cfg, seed, dev, path, shape, steps,
             losses.append(float(met["loss"]))
             norms.append(float(met["grad_norm"]))
             secs.append(time.monotonic() - t0)
-    torch.save(tree_util.tree_map(lambda t: t.cpu(), state["params"]), path)
+    # written whole before its name appears: a rank may wait for it
+    torch.save(tree_util.tree_map(lambda t: t.cpu(), state["params"]),
+               path + ".part")
+    os.replace(path + ".part", path)
     out = {"path": path, "losses": losses, "grad_norms": norms,
            "step_s": secs,
            "state_bytes": state_nbytes({k: v for k, v in state.items()
@@ -6194,13 +6199,19 @@ def family_config(name: str):
     return cfg
 
 
+def family_ref_path(tmp, name: str) -> str:
+    """Where part (d)'s mesh-free step of ``name`` leaves its final
+    parameters."""
+    return os.path.join(tmp, f"family_{name}.pt")
+
+
 def family_references(torch, seed, dev, tmp) -> dict:
     """Part (d)'s mesh-free steps in this process, one configuration at a
     time (:func:`mesh_free_reference`), their final parameters in files
     under ``tmp``, each after part (e)'s mesh-free run."""
     return {name: mesh_free_reference(
         torch, family_config(name), seed, dev,
-        os.path.join(tmp, f"family_{name}.pt"), FAMILY_SHAPE, FAMILY_STEPS,
+        family_ref_path(tmp, name), FAMILY_SHAPE, FAMILY_STEPS,
         serve_name=name)
         for name in FAMILY_CASES}
 
@@ -6211,7 +6222,8 @@ def within_family_child(torch, name, spec, dev) -> dict:
     ``FAMILY_STEPS`` AdamW steps of 8 rows of 64 text tokens in 2
     microbatches (masked targets), the last profiled; then every block of
     its state against its placed shape and its parameter blocks against
-    the mesh-free step's (``spec["family_refs"]``).  Returned: losses,
+    the mesh-free step's (read from ``spec["family_refs"][name]`` once
+    the parent has written it).  Returned: losses,
     gradient norms, step seconds, resident state bytes, peak memory, the
     collectives of the profiled step, the largest parameter difference,
     every block not at its placed shape, and how many leaves are cut
@@ -6281,8 +6293,13 @@ def within_family_child(torch, name, spec, dev) -> dict:
             if got.shape[d] * FAMILY_SHAPE[2] != whole[path].shape[d]:
                 wrong.append(f"{path} is not cut over 'model'")
             cut += 1
-    ref = torch.load(spec["family_refs"][name]["path"], map_location="cpu",
-                     mmap=True, weights_only=True)
+    path = spec["family_refs"][name]
+    t0 = time.monotonic()
+    while not os.path.exists(path):     # the parent writes it beside us
+        check(time.monotonic() - t0 < 600, f"phase 3w (d) {name}: no "
+              "mesh-free parameters after 600 s")
+        time.sleep(0.5)
+    ref = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
     pspecs = dict(tree_util.flatten_with_paths(wp.logical_specs(cfg, mesh)))
     worst = 0.0
     for path, got in tree_util.flatten_with_paths(local["params"]):
@@ -6651,18 +6668,32 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
     spec = {"op": "within", "setup": setup, "seed": seed, "units": units}
     out: dict = {"gpu": gpu_line()}
     dev = base["embed"].device
-    # the world of two runs while this process takes the decode
-    # references (a few GB beside its ranks' 9); part (c)'s mesh-free
-    # step (50 GB) and the world of four then have the card alone
-    h2 = start_ranks(dict(spec, mamba=True), 2, "gloo", [0, 0], tmp,
-                     "within2", timeout=900)
-    # part (d)'s mesh-free steps, then its world of four (at most 8 GiB a
-    # rank), both beside the world of two and the decode references
+    # part (c)'s mesh-free step first, while no rank holds the card (50
+    # GB); its final parameters go to a file for the world of four
+    t0 = time.monotonic()
+    ref_path = os.path.join(tmp, "moe_mesh_free.pt")
+    moe_ref = mesh_free_reference(torch, moe_config(False), seed, dev,
+                                  ref_path, MOE_SHAPE, MOE_STEPS,
+                                  serve_name="mixtral")
+    # part (e)'s mesh-free runs (tensors: kept here, not sent to ranks)
+    serve_refs = {"mixtral": moe_ref.pop("serve")}
+    out["moe_mesh_free"] = dict(moe_ref, seconds=time.monotonic() - t0)
+    log(f"phase 3w (c) mesh-free mixtral, 1 unit at full width, f32, "
+        f"{moe_ref['n_params']} parameters: losses {moe_ref['losses']}; "
+        f"step s {[round(x, 3) for x in moe_ref['step_s']]}; state bytes "
+        f"{moe_ref['state_bytes']} (experts {moe_ref['expert_bytes']} of "
+        f"parameters); peak {moe_ref['peak_gib']:.2f} GiB [{gpu_line()}]")
+    # part (d)'s world of four (at most 8 GiB a rank) starts now; each
+    # rank reads its configurations' mesh-free parameters when this
+    # process has written them (``family_references``, beside it)
+    hf = start_ranks(dict(spec, family_refs={
+        name: family_ref_path(tmp, name) for name in FAMILY_CASES}), 4,
+        "gloo", [0] * 4, tmp, "within_family", timeout=900)
     t0 = time.monotonic()
     family_refs = family_references(torch, seed, dev, tmp)
     out["family_mesh_free_s"] = time.monotonic() - t0
-    # part (e)'s mesh-free runs (tensors: kept here, not sent to ranks)
-    serve_refs = {name: ref.pop("serve") for name, ref in family_refs.items()}
+    serve_refs.update((name, ref.pop("serve"))
+                      for name, ref in family_refs.items())
     for name, ref in family_refs.items():
         log(f"phase 3w (d) mesh-free {name} ({ref['n_params']} "
             f"parameters, f32): losses {ref['losses']}; gradient norms "
@@ -6670,8 +6701,10 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
             f"{[round(x, 3) for x in ref['step_s']]}; state bytes "
             f"{ref['state_bytes']}; peak {ref['peak_gib']:.2f} GiB "
             f"[{gpu_line()}]")
-    hf = start_ranks(dict(spec, family_refs=family_refs), 4, "gloo",
-                     [0] * 4, tmp, "within_family", timeout=900)
+    # the world of two (about 9 GiB a rank) beside it, while this process
+    # takes the decode references (a few GB)
+    h2 = start_ranks(dict(spec, mamba=True), 2, "gloo", [0, 0], tmp,
+                     "within2", timeout=900)
     # the mesh-free decode references on the f32 copy
     m32, b32 = f32_copy(torch, model, base)
     refs = {}
@@ -6689,21 +6722,26 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
     free_all(torch)
     results = {2: wait_ranks(h2)}
     out["world2_s"] = time.monotonic() - h2["t0"]
+    # part (a)'s one-process oracles: (1, 2, 1)'s (two ranks' states)
+    # beside the families' world once the world of two has freed its
+    # share of the card, (2, 2, 1)'s (four, old and new: about 40 GB)
+    # when that world is done too
+    oracles = {}
+
+    def oracle(name, shape):
+        t0 = time.monotonic()
+        oracles[name] = within_oracle(torch, seed, shape, dev)
+        out[f"oracle_{name}_s"] = time.monotonic() - t0
+
+    data_meshes = [(n, sh) for n, sh, _ in WITHIN_TRAIN if sh[2] == 1]
+    for name, shape in data_meshes:
+        if shape[0] == 1:
+            oracle(name, shape)
     by_family = [{r["name"]: r for r in rank} for rank in wait_ranks(hf)]
     out["family_world_s"] = time.monotonic() - hf["t0"]
-    # part (c)'s mesh-free step, while no rank holds the card
-    t0 = time.monotonic()
-    ref_path = os.path.join(tmp, "moe_mesh_free.pt")
-    moe_ref = mesh_free_reference(torch, moe_config(False), seed, dev,
-                                  ref_path, MOE_SHAPE, MOE_STEPS,
-                                  serve_name="mixtral")
-    serve_refs["mixtral"] = moe_ref.pop("serve")
-    out["moe_mesh_free"] = dict(moe_ref, seconds=time.monotonic() - t0)
-    log(f"phase 3w (c) mesh-free mixtral, 1 unit at full width, f32, "
-        f"{moe_ref['n_params']} parameters: losses {moe_ref['losses']}; "
-        f"step s {[round(x, 3) for x in moe_ref['step_s']]}; state bytes "
-        f"{moe_ref['state_bytes']} (experts {moe_ref['expert_bytes']} of "
-        f"parameters); peak {moe_ref['peak_gib']:.2f} GiB [{gpu_line()}]")
+    for name, shape in data_meshes:
+        if name not in oracles:
+            oracle(name, shape)
     out["parent_gib"] = {"card_free": torch.cuda.mem_get_info()[0] / 2**30,
                          "allocated": torch.cuda.memory_allocated() / 2**30,
                          "reserved": torch.cuda.memory_reserved() / 2**30}
@@ -6733,9 +6771,7 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
                    "mesh_free_state_bytes": ranks[0]["mesh_free_state_bytes"],
                    "collectives": [r["collectives"] for r in ranks]}
             if shape[2] == 1:
-                t1 = time.monotonic()
-                oracle = within_oracle(torch, seed, shape, dev)
-                out[f"oracle_{name}_s"] = time.monotonic() - t1
+                oracle = oracles[name]
                 for r, got in enumerate(ranks):
                     check(got["digest"] == oracle["digest"][r],
                           f"phase 3w train {shape}: rank {r}'s blocks "
@@ -6866,8 +6902,8 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
             f"{gates['max_param_diff']:.3e}; step s a rank "
             f"{[[round(x, 3) for x in r] for r in rep['step_s']]} (the "
             f"last profiled; mesh-free "
-            f"{[round(x, 3) for x in ref['step_s']]}; beside the world "
-            f"of two and this process's decode references); state bytes "
+            f"{[round(x, 3) for x in ref['step_s']]}; beside this "
+            f"process's references and the world of two); state bytes "
             f"a rank "
             f"{rep['state_bytes']} vs mesh-free "
             f"{rep['mesh_free_state_bytes']}; peak GiB a rank "
