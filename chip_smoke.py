@@ -146,8 +146,8 @@ failure with a non-zero exit:
      card) training inside a pod and sequence-parallel decode
      (``within_path``), ranks as gloo processes sharing the card: after
      (c)'s mesh-free step, (d)'s world of four beside this process's
-     other references, the world of two and (a)'s oracles, then the
-     world of four: (a) the within-pod step on qwen2.5-3b at 1 unit, 2 AdamW
+     other references and the world of two, then the world of four: (a)
+     the within-pod step on qwen2.5-3b at 1 unit, 2 AdamW
      steps of 8 x 64 tokens in 2 microbatches with half of the targets
      of data rank 0's rows at -1, on (1, 2, 1) (FSDP) and (2, 2, 1)
      (FSDP and compressed pods), every rank's blocks and the losses
@@ -6722,26 +6722,8 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
     free_all(torch)
     results = {2: wait_ranks(h2)}
     out["world2_s"] = time.monotonic() - h2["t0"]
-    # part (a)'s one-process oracles: (1, 2, 1)'s (two ranks' states)
-    # beside the families' world once the world of two has freed its
-    # share of the card, (2, 2, 1)'s (four, old and new: about 40 GB)
-    # when that world is done too
-    oracles = {}
-
-    def oracle(name, shape):
-        t0 = time.monotonic()
-        oracles[name] = within_oracle(torch, seed, shape, dev)
-        out[f"oracle_{name}_s"] = time.monotonic() - t0
-
-    data_meshes = [(n, sh) for n, sh, _ in WITHIN_TRAIN if sh[2] == 1]
-    for name, shape in data_meshes:
-        if shape[0] == 1:
-            oracle(name, shape)
     by_family = [{r["name"]: r for r in rank} for rank in wait_ranks(hf)]
     out["family_world_s"] = time.monotonic() - hf["t0"]
-    for name, shape in data_meshes:
-        if name not in oracles:
-            oracle(name, shape)
     out["parent_gib"] = {"card_free": torch.cuda.mem_get_info()[0] / 2**30,
                          "allocated": torch.cuda.memory_allocated() / 2**30,
                          "reserved": torch.cuda.memory_reserved() / 2**30}
@@ -6771,7 +6753,9 @@ def within_path(torch, api, model, base, reg, experts, reqs, seed, units,
                    "mesh_free_state_bytes": ranks[0]["mesh_free_state_bytes"],
                    "collectives": [r["collectives"] for r in ranks]}
             if shape[2] == 1:
-                oracle = oracles[name]
+                t1 = time.monotonic()
+                oracle = within_oracle(torch, seed, shape, dev)
+                out[f"oracle_{name}_s"] = time.monotonic() - t1
                 for r, got in enumerate(ranks):
                     check(got["digest"] == oracle["digest"][r],
                           f"phase 3w train {shape}: rank {r}'s blocks "
